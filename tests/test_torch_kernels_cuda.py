@@ -1,0 +1,85 @@
+"""The port's CUDA kernels against their plain versions, on a CUDA GPU.
+
+Marked ``cuda``: each test skips without a card (decided inside the test, so
+every pytest-xdist worker collects the same tests). On a GPU machine run
+``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
+Tolerances: K1 relative 1e-4 of max|A| and max|b| (float32 sums in another
+order), K2 absolute 1e-5 (the same per-voxel float32 formula).
+"""
+import pytest
+import torch
+
+from tracking_sdf_tpu.config import GridParams
+from tracking_sdf_tpu_torch.core.lie import se3_exp
+from tracking_sdf_tpu_torch.fusion import brick_merge as k2
+from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid
+from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+
+pytestmark = pytest.mark.cuda
+
+PARAMS = GridParams(m=64, width=2.0, height=2.0, depth=2.0,
+                    origin=(-1.0, -1.0, -1.0), delta=0.15, epsilon=0.02)
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU")
+    return torch.device("cuda")
+
+
+def test_gn_reduce_kernel_matches_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    m = PARAMS.m
+    idx = torch.arange(m, device=dev, dtype=torch.float32)
+    x = (idx[:, None, None] + 0.5) * PARAMS.width / m + PARAMS.origin[0]
+    y = (idx[None, :, None] + 0.5) * PARAMS.height / m + PARAMS.origin[1]
+    z = (idx[None, None, :] + 0.5) * PARAMS.depth / m + PARAMS.origin[2]
+    D = torch.sqrt(x * x + y * y + z * z) - 0.5
+    Dm = torch.where(torch.rand(D.shape, generator=gen, device=dev) < 0.1,
+                     torch.full_like(D, float("nan")), D).contiguous()
+    pts = torch.randn(5000, 3, generator=gen, device=dev) * 0.4
+    pts[::17] = float("nan")
+    pose = se3_exp(torch.tensor([0.01, -0.02, 0.03, 0.05, -0.02, 0.01], device=dev))
+    before = k1.launches
+    out = k1.gn_reduce(Dm, pose, pts, PARAMS)
+    ref = k1.gn_reduce_reference(Dm, pose, pts, PARAMS)
+    assert k1.launches == before + 1
+    assert out[27].item() == ref[27].item() > 100
+    for sl in (slice(0, 21), slice(21, 27)):
+        err = (out[sl] - ref[sl]).abs().max() / ref[sl].abs().max()
+        assert err.item() <= 1e-4
+
+
+def test_gn_reduce_rejects_bad_input(dev):
+    Dm = torch.zeros(PARAMS.m, PARAMS.m, PARAMS.m, device=dev)
+    pose = se3_exp(torch.zeros(6, device=dev))
+    with pytest.raises(ValueError):
+        k1.gn_reduce(Dm, pose, torch.zeros(10, 3, device=dev, dtype=torch.float64), PARAMS)
+    with pytest.raises(ValueError):
+        k1.gn_reduce(Dm[:, :, :32], pose, torch.zeros(10, 3, device=dev), PARAMS)
+
+
+@pytest.mark.parametrize("channels", [2, 6])
+def test_brick_merge_kernel_matches_plain(dev, channels):
+    gen = torch.Generator(device=dev).manual_seed(1)
+    m, bs, cap = 64, (8, 8, 8), 40
+    nb = (m // 8) ** 3
+    base = {k: torch.rand(m, m, m, generator=gen, device=dev) for k in FIELDS}
+    base["W"] = (torch.rand(m, m, m, generator=gen, device=dev) * 3.0)
+    bid = torch.randperm(nb, generator=gen, device=dev)[:300].sort().values.to(torch.int32)
+    cls = torch.where(torch.rand(300, generator=gen, device=dev) < 0.3, 2, 1).to(torch.int32)
+    full = torch.nonzero(cls == 2).reshape(-1)
+    slot = torch.full((300,), cap, dtype=torch.int32, device=dev)
+    slot[full[:cap]] = torch.arange(min(cap, full.numel()), dtype=torch.int32, device=dev)
+    upd = torch.rand(cap + 1, *bs, channels, generator=gen, device=dev)
+    upd[cap] = 0.0
+    gk = TSDFGrid(**{k: v.clone() for k, v in base.items()})
+    gr = TSDFGrid(**{k: v.clone() for k, v in base.items()})
+    before = k2.launches
+    k2.brick_merge(gk, upd, bid, cls, slot, bs=bs, delta=0.15, max_weight=2.0)
+    k2.brick_merge_reference(gr, upd, bid, cls, slot, bs=bs, delta=0.15, max_weight=2.0)
+    assert k2.launches == before + 1
+    for k in FIELDS:
+        torch.testing.assert_close(getattr(gk, k), getattr(gr, k), atol=1e-5, rtol=0)
+    assert (gk.W == 2.0).any()

@@ -1,0 +1,174 @@
+"""The port's frame loop vs the JAX package's, on the slice's configuration.
+
+The slice is the tum256 preset with fusion switched to the flat bricked
+layout and the in-place merge tail, shrunk to m=48 over a 2 m cube and a
+96x72 camera, with brick_cap=256 (the preset's 6144 would allocate 75 MB
+update tensors per frame on the CPU). JAX runs brick_merge="xla": its runner
+passes no interpret flag, and the xla tail is pinned equal to the Pallas one.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tracking_sdf_tpu.config import GridParams, preset
+from tracking_sdf_tpu.core.camera import PinholeCamera
+from tracking_sdf_tpu.data.synthetic import (
+    CuboidScene, SphereScene, look_at, render_scene_depth)
+from tracking_sdf_tpu.pipeline import Reconstruction as JReconstruction
+from tracking_sdf_tpu.pipeline import Trajectory as JTrajectory
+from tracking_sdf_tpu.pipeline import ate_rmse as jate_rmse
+from tracking_sdf_tpu.pipeline import read_trajectory as jread_trajectory
+from tracking_sdf_tpu_torch.core.lie import pose_from_numpy
+from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+from tracking_sdf_tpu_torch.pipeline.trajectory import (
+    Trajectory, TrajectoryWriter, ate_rmse, read_trajectory)
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PARAMS = GridParams(m=48, width=2.0, height=2.0, depth=2.0,
+                    origin=(-1.0, -1.0, -1.0), delta=0.15, epsilon=0.02)
+CAM = PinholeCamera(fx=60.0, fy=60.0, cx=47.5, cy=35.5, width=96, height=72)
+SPHERE = SphereScene(center=(0.15, 0.1, 0.0), radius=0.4)
+BOX = CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15))
+# per-frame pose agreement (m, rad) and final grid agreement where observed
+TOL_POSE, TOL_GRID = 1e-4, 1e-4
+
+
+class Scene:
+    def intersect(self, o, d):
+        ta, tb = SPHERE.intersect(o, d), BOX.intersect(o, d)
+        return jnp.where(jnp.isnan(ta), tb,
+                         jnp.where(jnp.isnan(tb), ta, jnp.minimum(ta, tb)))
+
+
+def _orbit(n):
+    poses = []
+    for i in range(n):
+        a = 0.12 * np.sin(2 * np.pi * i / n)
+        eye = (0.45 * np.sin(a), -1.45 * np.cos(a * 0.5), 0.25)
+        poses.append(look_at(eye, (0.0, 0.0, 0.0)))
+    return poses
+
+
+def slice_config(trajectory_path, brick_merge="pallas", pose_init="previous"):
+    cfg = preset("tum256")
+    return dataclasses.replace(
+        cfg, grid=PARAMS, trajectory_path=trajectory_path, pose_init=pose_init,
+        fusion=cfg.fusion._replace(mode="bricked", brick_merge=brick_merge,
+                                   brick_cap=256))
+
+
+@pytest.mark.parametrize("pose_init,wire", [("previous", False), ("velocity", True)],
+                         ids=["previous_float", "velocity_u16_u8"])
+def test_slice_matches_jax_runner(tmp_path, pose_init, wire):
+    """``wire``: feed TUM's uint16 depth (1/5000 m, 0 = hole) and uint8 color."""
+    poses = _orbit(5)
+    cfg_t = slice_config(str(tmp_path / "port.txt"), pose_init=pose_init)
+    cfg_j = slice_config(str(tmp_path / "jax.txt"), brick_merge="xla",
+                         pose_init=pose_init)
+    p0 = poses[0]
+    rj = JReconstruction(CAM, cfg_j, initial_pose=p0)
+    rt = Reconstruction(CAM, cfg_t, device="cpu",
+                        initial_pose=pose_from_numpy(p0.R, p0.t, device="cpu"))
+    rng = np.random.default_rng(0)
+    for i, p in enumerate(poses):
+        depth = np.array(render_scene_depth(Scene(), CAM, p))
+        depth[rng.random(depth.shape) < 0.01] = np.nan
+        rgb = np.broadcast_to(rng.uniform(size=3), depth.shape + (3,)).astype(np.float32)
+        if wire:
+            depth = np.where(np.isfinite(depth), np.round(depth * 5000.0), 0).astype(np.uint16)
+            rgb = np.round(rgb * 255.0).astype(np.uint8)
+        sj = rj.process_frame(depth, rgb=rgb, timestamp=10.0 + i)
+        st = rt.process_frame(depth, rgb=rgb, timestamp=10.0 + i)
+        assert (st.gn_iterations, st.rejected, st.num_valid) == (
+            sj.gn_iterations, sj.rejected, sj.num_valid), i
+        np.testing.assert_allclose(rt.pose.t.numpy(), np.asarray(rj.pose.t),
+                                   atol=TOL_POSE, err_msg=f"frame {i}")
+        np.testing.assert_allclose(rt.pose.R.numpy(), np.asarray(rj.pose.R),
+                                   atol=TOL_POSE, err_msg=f"frame {i}")
+        assert (rt.last_fuse_stats.n_full, rt.last_fuse_stats.n_free) == (
+            int(rj.last_fuse_stats.n_full), int(rj.last_fuse_stats.n_free))
+    rj.close()
+    rt.close()
+    assert sum(s.gn_iterations for s in rt.stats) > 4
+    assert not any(s.rejected for s in rt.stats)
+
+    traj_t = read_trajectory(str(tmp_path / "port.txt"))
+    traj_j = jread_trajectory(str(tmp_path / "jax.txt"))
+    assert len(traj_t) == len(traj_j) == 5
+    np.testing.assert_array_equal(traj_t.timestamps, traj_j.timestamps)
+    np.testing.assert_allclose(traj_t.translations, traj_j.translations, atol=TOL_POSE)
+    np.testing.assert_allclose(traj_t.quaternions, traj_j.quaternions, atol=TOL_POSE)
+
+    W_j = np.asarray(rj.grid.W)
+    np.testing.assert_allclose(rt.grid.W.numpy(), W_j, atol=TOL_GRID)
+    seen = W_j > 0
+    assert seen.mean() > 0.03
+    np.testing.assert_allclose(rt.grid.D.numpy()[seen], np.asarray(rj.grid.D)[seen],
+                               atol=TOL_GRID)
+    # color fused on frames 2 and 4 only (color_every=2)
+    np.testing.assert_allclose(rt.grid.Wc.numpy(), np.asarray(rj.grid.Wc), atol=TOL_GRID)
+
+
+def test_trajectory_metrics_match_jax(tmp_path):
+    rng = np.random.default_rng(4)
+    stamps = 10.0 + 0.1 * np.arange(12)
+    gt_t = rng.normal(size=(12, 3))
+    q = rng.normal(size=(12, 4))
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    est_t = gt_t @ np.linalg.qr(rng.normal(size=(3, 3)))[0].T + 0.5
+    est_t += rng.normal(scale=0.01, size=est_t.shape)
+    ours = ate_rmse(Trajectory(stamps + 0.003, est_t, q), Trajectory(stamps, gt_t, q))
+    theirs = jate_rmse(JTrajectory(stamps + 0.003, est_t, q), JTrajectory(stamps, gt_t, q))
+    assert ours[1] == theirs[1] == 12
+    assert abs(ours[0] - theirs[0]) < 1e-12 and 0.0 < ours[0] < 0.05
+    path = str(tmp_path / "t.txt")
+    p = pose_from_numpy(_orbit(3)[1].R, _orbit(3)[1].t, device="cpu")
+    with TrajectoryWriter(path) as w:
+        w.write(5.0, p)
+    back = read_trajectory(path)
+    np.testing.assert_allclose(back.translations[0], p.t.numpy(), atol=1e-6)
+
+
+def test_port_runs_without_jax(tmp_path):
+    """Two frames through the port on the CPU in a fresh interpreter, which
+    must never load jax (the test process itself has jax loaded)."""
+    script = textwrap.dedent(f"""
+        import dataclasses, sys
+        import torch
+        from tracking_sdf_tpu.config import GridParams, preset
+        from tracking_sdf_tpu_torch.core.camera import PinholeCamera
+        from tracking_sdf_tpu_torch.data.synthetic import SphereScene, look_at, render_scene_depth
+        from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+        torch.set_num_threads(2)
+        cfg = preset("tum256")
+        cfg = dataclasses.replace(
+            cfg, grid=GridParams(m=48, width=2.0, height=2.0, depth=2.0,
+                                 origin=(-1.0, -1.0, -1.0), delta=0.15, epsilon=0.02),
+            trajectory_path={str(tmp_path / "t.txt")!r},
+            fusion=cfg.fusion._replace(mode="bricked", brick_merge="pallas", brick_cap=256))
+        cam = PinholeCamera(fx=60.0, fy=60.0, cx=47.5, cy=35.5, width=96, height=72)
+        scene = SphereScene(center=(0.0, 0.0, 0.0), radius=0.4)
+        r = Reconstruction(cam, cfg, device="cpu",
+                           initial_pose=look_at((0.0, -1.5, 0.2), (0.0, 0.0, 0.0), device="cpu"))
+        for i, eye in enumerate([(0.0, -1.5, 0.2), (0.02, -1.5, 0.2)]):
+            r.process_frame(render_scene_depth(scene, cam, look_at(eye, (0.0, 0.0, 0.0), device="cpu")))
+        r.close()
+        assert not any(s.rejected for s in r.stats), r.stats
+        assert r.stats[1].gn_iterations > 0
+        assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        print("OK")
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", script], capture_output=True,
+                         text=True, env=env, cwd=str(tmp_path), timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("OK")

@@ -1,0 +1,22 @@
+"""tracking_sdf_tpu_torch — the PyTorch/CUDA port of tracking_sdf_tpu.
+
+The JAX package ``tracking_sdf_tpu`` is the reference; this package mirrors
+its module layout (``core``, ``grid``, ``tracking``, ``fusion``,
+``pipeline``, ``data``) so each function has a counterpart of the same name.
+It imports ``torch`` and never ``jax``. Configuration comes from
+``tracking_sdf_tpu.config``, which imports only the standard library, so the
+presets stay single-sourced.
+
+Covered so far: the single-device flat bricked frame loop
+(``FusionConfig(mode="bricked", brick_merge="pallas")``) with its two
+hand-written CUDA kernels (``tracking/gn_reduce.py``,
+``fusion/brick_merge.py``; sources in ``csrc/``). Every tensor is float32.
+Every constructor and entry point takes an explicit ``device``.
+"""
+import torch
+
+# Full float32 products on the card. TF32 keeps about three decimal digits;
+# the JAX package runs its pose algebra and normal equations at
+# Precision.HIGHEST (tracking_sdf_tpu/tracking/gauss_newton.py).
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False

@@ -1,0 +1,75 @@
+"""Analytic scenes and exact depth rendering (counterpart of
+tracking_sdf_tpu.data.synthetic): frames made on the device from a pose,
+with no dataset."""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from tracking_sdf_tpu_torch.core.camera import PinholeCamera, pixel_rays
+from tracking_sdf_tpu_torch.core.lie import Pose
+
+_NAN = float("nan")
+
+
+class SphereScene(NamedTuple):
+    center: Tuple[float, float, float] = (0.0, 0.0, 0.0)
+    radius: float = 0.5
+
+    def intersect(self, origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+        """Ray parameter t of the first hit (hit = origins + t * dirs); NaN
+        on a miss. From inside the sphere the far root is the hit."""
+        c = torch.tensor(self.center, dtype=origins.dtype, device=origins.device)
+        oc = origins - c
+        a = (dirs * dirs).sum(-1)
+        b = 2.0 * (dirs * oc).sum(-1)
+        cc = (oc * oc).sum(-1) - self.radius ** 2
+        disc = b * b - 4.0 * a * cc
+        hit = disc >= 0
+        sq = torch.sqrt(torch.where(hit, disc, torch.zeros_like(disc)))
+        t_near = (-b - sq) / (2.0 * a)
+        t_far = (-b + sq) / (2.0 * a)
+        t = torch.where(t_near > 0, t_near, t_far)
+        return torch.where(hit & (t > 0), t, torch.full_like(t, _NAN))
+
+
+class CuboidScene(NamedTuple):
+    min_corner: Tuple[float, float, float] = (-0.5, -0.5, -0.5)
+    max_corner: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+
+    def intersect(self, origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
+        """Slab-method ray-box intersection (NaN on a miss)."""
+        lo = torch.tensor(self.min_corner, dtype=origins.dtype, device=origins.device)
+        hi = torch.tensor(self.max_corner, dtype=origins.dtype, device=origins.device)
+        safe_d = torch.where(dirs == 0, torch.full_like(dirs, 1e-20), dirs)
+        t0 = (lo - origins) / safe_d
+        t1 = (hi - origins) / safe_d
+        tmin = torch.minimum(t0, t1).amax(-1)
+        tmax = torch.maximum(t0, t1).amin(-1)
+        hit = (tmax >= tmin) & (tmax > 0)
+        t = torch.where(tmin > 0, tmin, tmax)
+        return torch.where(hit, t, torch.full_like(t, _NAN))
+
+
+def render_scene_depth(scene, cam: PinholeCamera, pose: Pose) -> torch.Tensor:
+    """Exact (H, W) z-depth image of the scene from ``pose``; misses are NaN.
+    Rays have camera z = 1, so the ray parameter is the z-depth."""
+    dirs_cam, _ = pixel_rays(cam, device=pose.R.device)
+    dirs_world = torch.einsum("ij,hwj->hwi", pose.R, dirs_cam)
+    origins = pose.t.expand(dirs_world.shape)
+    return scene.intersect(origins, dirs_world)
+
+
+def look_at(eye, target, up=(0.0, 0.0, 1.0), *, device) -> Pose:
+    """Camera-to-world pose with the optical axis (+z, y down) toward ``target``."""
+    def vec(a):
+        return torch.as_tensor(a, dtype=torch.float32, device=device)
+
+    eye, target, up = vec(eye), vec(target), vec(up)
+    f = target - eye
+    f = f / torch.linalg.norm(f)
+    x = torch.linalg.cross(f, up)
+    x = x / torch.linalg.norm(x)
+    y = torch.linalg.cross(f, x)
+    return Pose(torch.stack([x, y, f], dim=-1), eye)

@@ -1,0 +1,410 @@
+"""Brick-compacted TSDF fusion over the flat (m, m, m) layout
+(counterpart of tracking_sdf_tpu.fusion.brick, ``merge="pallas"`` tail).
+
+Each brick is classified exactly and conservatively:
+  OUT   behind the camera, off the image, or provably occluded (d < -delta
+        at every voxel): no update.
+  FREE  inside the image and strictly in front of every candidate surface:
+        every voxel's update is exactly (w = 1, d = +delta), no pixel reads.
+  FULL  everything else: the dense path's per-voxel math on compacted bricks.
+The first ``cap`` FULL bricks (in id order) get update rows; the first
+``cap_act`` active bricks are merged by K2 (``brick_merge``). Bricks past a cap
+are dropped for the frame and reported in FuseStats, never silently.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tracking_sdf_tpu.config import FusionConfig, GridParams
+from tracking_sdf_tpu_torch.core.camera import PinholeCamera
+from tracking_sdf_tpu_torch.core.lie import Pose
+from tracking_sdf_tpu_torch.fusion.brick_merge import FREE, FULL, brick_merge
+from tracking_sdf_tpu_torch.fusion.fuse import (
+    pixel_finite, weighting, world_to_camera_components)
+from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
+
+_TILE = 8  # zeta mip base tile, pixels
+_INF = float("inf")
+
+
+@dataclasses.dataclass
+class FuseStats:
+    n_full: int  # bricks classified FULL
+    overflow: int  # FULL bricks dropped (cap too small)
+    n_free: int  # bricks classified FREE
+    overflow_active: int = 0  # active bricks dropped (cap_act too small)
+
+
+@dataclasses.dataclass
+class ZetaMip:
+    """Min-mip of zeta and max-mip of eta, each level flattened row-major and
+    concatenated, plus each level's row-below companion (cell (v+1, u); the
+    last row holds the neutral value). ``offsets``/``dims`` locate a level."""
+
+    zeta: torch.Tensor
+    zeta_down: torch.Tensor
+    eta: torch.Tensor
+    eta_down: torch.Tensor
+    offsets: List[int]
+    dims: List[Tuple[int, int]]
+
+
+def share_classify_margin(params: GridParams, cfg: FusionConfig) -> float:
+    """World-space margin that keeps the FREE/OCCLUDED proofs exact under
+    pixel-share semantics: the share group's world radius (point-to-plane;
+    point-to-point needs none)."""
+    if not getattr(cfg, "share_safe_classify", False):
+        return 0.0
+    if cfg.distance == "point_to_point":
+        return 0.0
+    sk = max(cfg.pixel_share, 1)
+    sj = max(getattr(cfg, "pixel_share_j", 1), 1)
+    if sk <= 1 and sj <= 1:
+        return 0.0
+    vs = params.voxel_size
+    dk = 0.5 * sk * vs[2]
+    dj = 0.5 * sj * vs[1]
+    return float((dk * dk + dj * dj) ** 0.5)
+
+
+def _mip_levels(img: torch.Tensor, largest: bool) -> List[torch.Tensor]:
+    """Min- or max-mip pyramid over _TILE tiles, padded with the neutral
+    element (padding only adds candidates, so queries stay conservative)."""
+    neutral = -_INF if largest else _INF
+
+    def red(x):
+        return x.amax(dim=(1, 3)) if largest else x.amin(dim=(1, 3))
+
+    h, w = img.shape
+    H, W = -(-h // _TILE) * _TILE, -(-w // _TILE) * _TILE
+    img = torch.nn.functional.pad(img, (0, W - w, 0, H - h), value=neutral)
+    lvl = red(img.reshape(H // _TILE, _TILE, W // _TILE, _TILE))
+    levels = [lvl]
+    while lvl.shape[0] > 1 or lvl.shape[1] > 1:
+        lvl = torch.nn.functional.pad(
+            lvl, (0, lvl.shape[1] % 2, 0, lvl.shape[0] % 2), value=neutral)
+        lvl = red(lvl.reshape(lvl.shape[0] // 2, 2, lvl.shape[1] // 2, 2))
+        levels.append(lvl)
+    return levels
+
+
+def _flatten_pair(levels: List[torch.Tensor], neutral: float):
+    downs = [torch.cat([l[1:], torch.full_like(l[:1], neutral)], dim=0)
+             for l in levels]
+    return (torch.cat([l.reshape(-1) for l in levels]),
+            torch.cat([d.reshape(-1) for d in downs]))
+
+
+def _zeta_mip(points_cam, normals_cam, cam, delta, distance="point_to_plane",
+              share_margin=0.0) -> ZetaMip:
+    """Conservative free-space (zeta, min-mip) and occluded-space (eta,
+    max-mip) depth bounds per pixel; invalid pixels get -inf for both."""
+    h, w = points_cam.shape[:2]
+    dev = points_cam.device
+    z_y = points_cam[..., 2]
+    n = normals_cam
+    fin = pixel_finite(points_cam, normals_cam)
+    neg_inf = torch.full_like(z_y, -_INF)
+    if distance == "point_to_point":
+        d_eff = delta + share_margin
+        zeta = torch.where(fin, z_y - d_eff, neg_inf)
+        eta = torch.where(fin, z_y + d_eff, neg_inf)
+    else:
+        v = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+        u = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+        rx = (u - cam.cx) / cam.fx
+        ry = (v - cam.cy) / cam.fy
+        rn = rx * n[..., 0] + ry * n[..., 1] + n[..., 2]
+        ok = fin & (rn < 0)
+        a = torch.clamp(-rn, min=1e-6)
+        e_minus = (torch.clamp(-n[..., 0], min=0.0) / cam.fx
+                   + torch.clamp(-n[..., 1], min=0.0) / cam.fy)
+        e_plus = (torch.clamp(n[..., 0], min=0.0) / cam.fx
+                  + torch.clamp(n[..., 1], min=0.0) / cam.fy)
+        if share_margin:
+            nrm2 = torch.sqrt(torch.where(fin[..., None], n * n,
+                                          torch.zeros_like(n)).sum(-1))
+            d_eff = delta + share_margin * nrm2
+        else:
+            d_eff = delta
+        zeta = torch.where(ok, (z_y * a - d_eff) / (a + e_minus), neg_inf)
+        eta = torch.where(
+            fin & (rn < 0) & (a > e_plus),
+            (z_y * a + d_eff) / torch.clamp(a - e_plus, min=1e-9),
+            torch.where(fin, torch.full_like(z_y, _INF), neg_inf))
+    zl = _mip_levels(zeta, largest=False)
+    el = _mip_levels(eta, largest=True)
+    dims = [tuple(l.shape) for l in zl]
+    offsets = np.concatenate([[0], np.cumsum([dh * dw for dh, dw in dims])])
+    zf, zfd = _flatten_pair(zl, _INF)
+    ef, efd = _flatten_pair(el, -_INF)
+    return ZetaMip(zf, zfd, ef, efd, [int(o) for o in offsets[:-1]], dims)
+
+
+def _query_zeta(mip: ZetaMip, u0, u1, v0, v1):
+    """Conservative (min zeta, max eta) over the pixel bbox [u0,u1]x[v0,v1].
+
+    At the level where 3 cells cover the bbox span, a window of 4 cells per
+    row starting at (cv0, cu0), clamped to [0, dim-4], is read for two
+    window-row pairs: rows min(cv0 + dv, dh - 1) for dv in (0, 2), each in
+    the level array and in its row-below companion. The 4 cells of a row are
+    the flat run f0..f0+3, f0 = offs + cv·dw + cu0, read from the flat array
+    padded to a multiple of 4 with the neutral value and wrapped at its end
+    (the cells the JAX package's overlapped-row table holds). Extra cells can
+    only turn FREE/OCCLUDED into FULL, never the reverse."""
+    dev = u0.device
+    L = len(mip.dims)
+    span = torch.maximum(u1 - u0, v1 - v0) / (3.0 * _TILE)
+    lvl = torch.ceil(torch.log2(torch.clamp(span, min=1.0))).to(torch.int64)
+    lvl = lvl.clamp(0, L - 1)
+    offs = torch.tensor(mip.offsets, dtype=torch.int64, device=dev)[lvl]
+    dh = torch.tensor([d[0] for d in mip.dims], dtype=torch.int64, device=dev)[lvl]
+    dw = torch.tensor([d[1] for d in mip.dims], dtype=torch.int64, device=dev)[lvl]
+    cell = (_TILE * 2 ** lvl).to(torch.float32)
+    cu0 = torch.minimum((u0 / cell).to(torch.int64).clamp(min=0),
+                        torch.clamp(dw - 4, min=0))
+    cv0 = torch.minimum((v0 / cell).to(torch.int64).clamp(min=0),
+                        torch.clamp(dh - 4, min=0))
+    total = mip.zeta.shape[0]
+    P = -(-total // 4) * 4
+    lane = torch.arange(4, device=dev)
+
+    def padded(x, neutral):
+        return torch.nn.functional.pad(x, (0, P - total), value=neutral)
+
+    z, zd = padded(mip.zeta, _INF), padded(mip.zeta_down, _INF)
+    e, ed = padded(mip.eta, -_INF), padded(mip.eta_down, -_INF)
+    zeta_min = torch.full(u0.shape, _INF, device=dev)
+    eta_max = torch.full(u0.shape, -_INF, device=dev)
+    for dv in (0, 2):
+        cv = torch.minimum(cv0 + dv, dh - 1)
+        idx = ((offs + cv * dw + cu0)[..., None] + lane) % P
+        zeta_min = torch.minimum(zeta_min, torch.minimum(z[idx], zd[idx]).amin(-1))
+        eta_max = torch.maximum(eta_max, torch.maximum(e[idx], ed[idx]).amax(-1))
+    return zeta_min, eta_max
+
+
+def _brick_corners_cam(params: GridParams, pose: Pose, bs):
+    """Camera coords (px, py, pz), each (nbi, nbj, nbk, 8), of every brick's
+    voxel-center hull corners. p = Rᵀ(c - t) is separable per world axis."""
+    m = params.m
+    Rt = pose.R.T
+    dev = Rt.device
+
+    def axis_lohi(b, extent, origin):
+        idx = torch.arange(m // b, dtype=torch.float32, device=dev) * b
+        lo = (extent / m) * (idx + 0.5) + origin
+        hi = (extent / m) * (idx + b - 0.5) + origin
+        return torch.stack([lo, hi], dim=-1)  # (nb, 2)
+
+    bi, bj, bk = bs
+    Ax = axis_lohi(bi, params.width, params.origin[0])[..., None] * Rt[:, 0]
+    Ay = axis_lohi(bj, params.height, params.origin[1])[..., None] * Rt[:, 1]
+    Az = axis_lohi(bk, params.depth, params.origin[2])[..., None] * Rt[:, 2]
+    base = -(Rt @ pose.t)
+    sel = torch.tensor([[a, b, c] for a in (0, 1) for b in (0, 1) for c in (0, 1)],
+                       device=dev)
+    cx = Ax[:, sel[:, 0], :]  # (nbi, 8, 3)
+    cy = Ay[:, sel[:, 1], :]
+    cz = Az[:, sel[:, 2], :]
+    c = (cx[:, None, None] + cy[None, :, None] + cz[None, None, :]) + base
+    return c[..., 0], c[..., 1], c[..., 2]
+
+
+def _class_from_corners(cx_, cy_, cz_, mip: ZetaMip, cam: PinholeCamera, hw):
+    """0 OUT, 1 FREE, 2 FULL from per-brick corner camera coords (..., 8)."""
+    h, w_img = hw
+    pz_min = cz_.amin(-1)
+    pz_max = cz_.amax(-1)
+    all_front = pz_min > 0
+    safe_z = torch.where(cz_ > 0, cz_, torch.ones_like(cz_))
+    u_c = (cam.fx * cx_ + cam.cx * cz_) / safe_z
+    v_c = (cam.fy * cy_ + cam.cy * cz_) / safe_z
+    u0, u1 = u_c.amin(-1), u_c.amax(-1)
+    v0, v1 = v_c.amin(-1), v_c.amax(-1)
+    inside = all_front & (u0 >= 0) & (u1 < w_img) & (v0 >= 0) & (v1 < h)
+    # left/top bound is <= -1: the per-voxel path truncates toward zero, so
+    # u in (-1, 0) is pixel 0 and valid
+    out = (pz_max <= 0) | (
+        all_front & ((u1 <= -1) | (u0 >= w_img) | (v1 <= -1) | (v0 >= h)))
+    zeta_min, eta_max = _query_zeta(
+        mip, u0.clamp(0, w_img - 1), u1.clamp(0, w_img - 1),
+        v0.clamp(0, h - 1), v1.clamp(0, h - 1))
+    free = inside & (pz_max < zeta_min)
+    occluded = all_front & (pz_min > eta_max)
+    cls = torch.where(free, FREE, FULL)
+    return torch.where(out | occluded, 0, cls).to(torch.int32)
+
+
+def classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
+                    distance="point_to_plane", share_margin=0.0) -> torch.Tensor:
+    """Brick classes (nbi, nbj, nbk) int32: 0 OUT, 1 FREE, 2 FULL."""
+    mip = _zeta_mip(points_cam, normals_cam, cam, params.delta, distance,
+                    share_margin)
+    cx_, cy_, cz_ = _brick_corners_cam(params, pose, bs)
+    return _class_from_corners(cx_, cy_, cz_, mip, cam, points_cam.shape[:2])
+
+
+def _compact_ids(flags: torch.Tensor, cap: int) -> Tuple[torch.Tensor, int]:
+    """(first ``cap`` indices of set flags in index order, number set).
+    The first-cap order decides which bricks drop on overflow."""
+    ids = torch.nonzero(flags.reshape(-1)).reshape(-1)
+    return ids[:cap], ids.shape[0]
+
+
+def _pixel_table(points_cam, normals_cam, rgb, fuse_color,
+                 distance="point_to_plane") -> torch.Tensor:
+    """(H*W, C) rows: [nx, ny, nz, s (, cos, cos·r, cos·g, cos·b)].
+
+    s is y·n (point-to-plane, d = -(s - p·n)) or z_y (point-to-point,
+    d = s - p_z). An invalid pixel gets the s that drives d to -inf, so the
+    d >= -delta mask rejects it."""
+    h, w_img = points_cam.shape[:2]
+    n_img, y_img = normals_cam, points_cam
+    finite = pixel_finite(points_cam, normals_cam)
+    zero = torch.zeros((), device=points_cam.device)
+    if distance == "point_to_point":
+        s_img = torch.where(finite, y_img[..., 2], zero - _INF)
+    else:
+        s_img = torch.where(
+            finite, torch.where(finite[..., None], y_img * n_img, zero).sum(-1),
+            zero + _INF)
+    channels = [torch.where(finite, n_img[..., c], zero) for c in range(3)]
+    channels.append(s_img)
+    if fuse_color:
+        norm_n = torch.sqrt(torch.where(finite[..., None], n_img * n_img, zero).sum(-1))
+        cos_img = torch.where(
+            norm_n > 0,
+            torch.abs(torch.where(finite, n_img[..., 2], zero))
+            / torch.where(norm_n > 0, norm_n, zero + 1.0), zero)
+        channels += [cos_img, cos_img * rgb[..., 0], cos_img * rgb[..., 1],
+                     cos_img * rgb[..., 2]]
+    return torch.stack(channels, dim=-1).reshape(h * w_img, -1)
+
+
+def _full_brick_updates(full_ids, pix, pose, params, cam, cfg, bs, hw,
+                        fuse_color) -> torch.Tensor:
+    """Per-voxel (w, w·d[, w·cos, w·cos·r, w·cos·g, w·cos·b]) of the FULL
+    bricks ``full_ids``: (n, bi, bj, bk, C). One pixel row per voxel, or per
+    share group (its center voxel's row) with pixel_share > 1."""
+    bi, bj, bk = bs
+    h, w_img = hw
+    m = params.m
+    nbj, nbk = m // bj, m // bk
+    dev = pix.device
+    n = full_ids.shape[0]
+    fb = full_ids.to(torch.int64)
+    ar = lambda k: torch.arange(k, device=dev)  # noqa: E731
+    I = (fb // (nbj * nbk))[:, None] * bi + ar(bi)  # (n, bi)
+    J = ((fb // nbk) % nbj)[:, None] * bj + ar(bj)
+    K = (fb % nbk)[:, None] * bk + ar(bk)
+    I, J, K = I[:, :, None, None], J[:, None, :, None], K[:, None, None, :]
+
+    ox, oy, oz = params.origin
+    X = (params.width / m) * (I.to(torch.float32) + 0.5) + ox
+    Y = (params.height / m) * (J.to(torch.float32) + 0.5) + oy
+    Z = (params.depth / m) * (K.to(torch.float32) + 0.5) + oz
+    px, py, pz = world_to_camera_components(pose, X, Y, Z)
+
+    in_front = pz > 0
+    safe_pz = torch.where(in_front, pz, torch.ones_like(pz))
+    u = (cam.fx * px + cam.cx * pz) / safe_pz
+    v = (cam.fy * py + cam.cy * pz) / safe_pz
+    iu = torch.trunc(u).to(torch.int64)  # truncation toward zero, not floor
+    iv = torch.trunc(v).to(torch.int64)
+    ins = (iu >= 0) & (iu < w_img) & (iv >= 0) & (iv < h)
+    flat_pix = iv.clamp(0, h - 1) * w_img + iu.clamp(0, w_img - 1)  # (n,bi,bj,bk)
+
+    sk = getattr(cfg, "pixel_share", 1)
+    sj = getattr(cfg, "pixel_share_j", 1)
+    if bk % sk:
+        sk = 1
+    if bj % sj:
+        sj = 1
+    if sk > 1 or sj > 1:
+        # groups of sj x sk voxels read their center voxel's pixel row
+        fp = flat_pix.reshape(n, bi, bj // sj, sj, bk // sk, sk)
+        fp = fp[:, :, :, sj // 2, :, sk // 2]
+        g = pix[fp]  # (n, bi, bj/sj, bk/sk, C)
+        g = g[:, :, :, None, :, None, :].expand(
+            n, bi, bj // sj, sj, bk // sk, sk, pix.shape[-1])
+        g = g.reshape(n, bi, bj, bk, -1)
+    else:
+        g = pix[flat_pix]
+    nx, ny, nz, s = g[..., 0], g[..., 1], g[..., 2], g[..., 3]
+
+    if cfg.distance == "point_to_plane":
+        d = -(s - (px * nx + py * ny + pz * nz))
+    elif cfg.distance == "point_to_point":
+        d = s - pz
+    else:
+        raise ValueError(f"unknown distance: {cfg.distance}")
+
+    fuse_mask = in_front & ins & (d >= -params.delta)
+    # sanitize before multiplying: 0 * (-inf) from an invalid pixel is NaN
+    zero = torch.zeros_like(d)
+    d = torch.where(fuse_mask, torch.clamp(d, max=params.delta), zero)
+    w_new = torch.where(
+        fuse_mask, weighting(cfg.weighting, d, params.epsilon, params.delta), zero)
+    upd = [w_new, w_new * d]
+    if fuse_color:
+        upd += [w_new * g[..., c] for c in (4, 5, 6, 7)]
+    return torch.stack(upd, dim=-1)
+
+
+def fuse_frame_bricked(
+    grid: TSDFGrid,
+    pose: Pose,
+    points_cam: torch.Tensor,  # (H, W, 3)
+    normals_cam: torch.Tensor,  # (H, W, 3)
+    rgb: Optional[torch.Tensor],  # (H, W, 3) in [0, 1] or None
+    *,
+    params: GridParams,
+    cam: PinholeCamera,
+    cfg: FusionConfig = FusionConfig(),
+    bs: Tuple[int, int, int] = (8, 8, 8),
+    cap: int = 1024,
+    cap_act: Optional[int] = None,
+) -> Tuple[TSDFGrid, FuseStats]:
+    """Brick-compacted fusion, updating ``grid`` in place through K2.
+    Geometry is exactly the dense path's; color is fused in FULL bricks only.
+    Returns (grid, FuseStats)."""
+    h, w_img = points_cam.shape[:2]
+    m = params.m
+    bi, bj, bk = bs
+    if tuple(grid.D.shape) != (m, m, m) or m % bi or m % bj or m % bk:
+        raise ValueError(f"grid {tuple(grid.D.shape)} not divisible by brick {bs}")
+    NB = (m // bi) * (m // bj) * (m // bk)
+    if cap_act is None:
+        cap_act = 4 * cap
+    fuse_color = cfg.fuse_color and rgb is not None
+    dev = grid.D.device
+
+    brick_class = classify_bricks(
+        params, pose, points_cam, normals_cam, cam, bs, cfg.distance,
+        share_margin=share_classify_margin(params, cfg)).reshape(-1)
+    full_ids, n_full = _compact_ids(brick_class == FULL, cap)
+    act_ids, n_active = _compact_ids(brick_class > 0, cap_act)
+
+    pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
+    upd = _full_brick_updates(full_ids, pix, pose, params, cam, cfg, bs,
+                              (h, w_img), fuse_color)
+    # row ``cap`` stays zero: FULL bricks past the FULL cap merge nothing
+    U = torch.zeros((cap + 1, bi, bj, bk, upd.shape[-1]), device=dev)
+    U[:full_ids.shape[0]] = upd
+    slot_map = torch.full((NB,), cap, dtype=torch.int32, device=dev)
+    slot_map[full_ids] = torch.arange(full_ids.shape[0], dtype=torch.int32,
+                                      device=dev)
+    cls_act = brick_class[act_ids]
+    slot_act = torch.where(cls_act == FULL, slot_map[act_ids], cap).to(torch.int32)
+    brick_merge(grid, U, act_ids.to(torch.int32), cls_act.contiguous(),
+                slot_act.contiguous(), bs=bs, delta=params.delta,
+                max_weight=cfg.max_weight)
+    stats = FuseStats(n_full=n_full, overflow=max(n_full - cap, 0),
+                      n_free=n_active - n_full,
+                      overflow_active=max(n_active - cap_act, 0))
+    return grid, stats

@@ -1,0 +1,119 @@
+"""TUM-format trajectories: writing, reading, association and ATE
+(counterpart of tracking_sdf_tpu.pipeline.trajectory).
+
+Lines are ``timestamp tx ty tz qx qy qz qw``. Metrics run in float64 numpy.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Tuple
+
+import numpy as np
+
+from tracking_sdf_tpu_torch.core.lie import Pose, quaternion_from_matrix
+
+
+@dataclasses.dataclass
+class Trajectory:
+    """Timestamped camera-to-world poses."""
+
+    timestamps: np.ndarray  # (N,)
+    translations: np.ndarray  # (N, 3)
+    quaternions: np.ndarray  # (N, 4) (qx, qy, qz, qw)
+
+    def __len__(self) -> int:
+        return len(self.timestamps)
+
+
+class TrajectoryWriter:
+    """Streaming TUM-format writer; the file opens on the first write."""
+
+    def __init__(self, path: str, append: bool = False):
+        self._path = path
+        self._append = append
+        self._f = None
+
+    def write(self, timestamp: float, pose: Pose) -> None:
+        if self._f is None:
+            self._f = open(self._path, "a" if self._append else "w")
+        t = pose.t.detach().cpu().numpy().astype(np.float64)
+        q = quaternion_from_matrix(pose.R).detach().cpu().numpy().astype(np.float64)
+        self._f.write(
+            f"{timestamp:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+            f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}\n")
+        self._f.flush()
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+
+def read_trajectory(path: str) -> Trajectory:
+    """Read a TUM trajectory/groundtruth file ('#' headers skipped)."""
+    ts, tr, qu = [], [], []
+    with open(path) as f:
+        for line in f:
+            line = line.strip()
+            if not line or line.startswith("#"):
+                continue
+            vals = [float(v) for v in line.split()]
+            if len(vals) != 8:
+                continue
+            ts.append(vals[0])
+            tr.append(vals[1:4])
+            qu.append(vals[4:8])
+    return Trajectory(np.asarray(ts), np.asarray(tr), np.asarray(qu))
+
+
+def associate(a_stamps: np.ndarray, b_stamps: np.ndarray,
+              max_dt: float = 0.02) -> List[Tuple[int, int]]:
+    """Greedy nearest-timestamp matching (the TUM associate.py rule)."""
+    pairs = []
+    used = set()
+    for i, ta in enumerate(a_stamps):
+        j = int(np.searchsorted(b_stamps, ta))
+        best, best_dt = None, max_dt
+        for jj in (j - 1, j, j + 1):
+            if 0 <= jj < len(b_stamps) and jj not in used:
+                dt = abs(b_stamps[jj] - ta)
+                if dt <= best_dt:
+                    best, best_dt = jj, dt
+        if best is not None:
+            pairs.append((i, best))
+            used.add(best)
+    return pairs
+
+
+def align_umeyama(src: np.ndarray, dst: np.ndarray, with_scale: bool = False):
+    """Least-squares similarity (s, R, t) with dst ≈ s * R @ src + t."""
+    mu_s, mu_d = src.mean(0), dst.mean(0)
+    xs, xd = src - mu_s, dst - mu_d
+    C = xd.T @ xs / len(src)
+    U, S, Vt = np.linalg.svd(C)
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    s = float(np.trace(np.diag(S) @ D) / ((xs ** 2).sum() / len(src))) \
+        if with_scale else 1.0
+    return s, R, mu_d - s * R @ mu_s
+
+
+def ate_rmse(estimated: Trajectory, groundtruth: Trajectory,
+             max_dt: float = 0.02, align: bool = True) -> Tuple[float, int]:
+    """Absolute trajectory error RMSE (m) after SE(3) alignment; (rmse, pairs)."""
+    pairs = associate(estimated.timestamps, groundtruth.timestamps, max_dt)
+    if len(pairs) < 2:
+        return float("nan"), len(pairs)
+    src = estimated.translations[[p[0] for p in pairs]]
+    dst = groundtruth.translations[[p[1] for p in pairs]]
+    if align:
+        s, R, t = align_umeyama(src, dst)
+        src = (s * (R @ src.T)).T + t
+    err = np.linalg.norm(src - dst, axis=1)
+    return float(np.sqrt((err ** 2).mean())), len(pairs)

@@ -1,0 +1,48 @@
+"""Coarse-to-fine Gauss-Newton tracking (counterpart of tracking_sdf_tpu.tracking.pyramid).
+
+Each level decimates the organized point image by ``cfg.pixel_stride * mult``
+and starts from the previous level's pose. Coarse levels are capped at
+``coarse_iterations`` with no ``min_iterations`` floor; the floor exists to
+make the finest level re-optimise past the coarse level's biased optimum.
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from tracking_sdf_tpu.config import GridParams, TrackingConfig
+from tracking_sdf_tpu_torch.core.lie import Pose
+from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
+from tracking_sdf_tpu_torch.grid.interp import masked_view
+from tracking_sdf_tpu_torch.tracking.gauss_newton import TrackResult, track_frame
+
+
+def track_frame_pyramid(
+    grid: TSDFGrid,
+    pose0: Pose,
+    points_img: torch.Tensor,  # (H, W, 3) organized camera-frame points
+    *,
+    params: GridParams,
+    cfg: TrackingConfig = TrackingConfig(),
+    levels: Sequence[int] = (4, 2, 1),
+    coarse_iterations: int = 10,
+    Dm: torch.Tensor = None,  # precomputed masked_view; else built once here
+) -> Tuple[TrackResult, Tuple[TrackResult, ...]]:
+    """Returns (finest-level result, per-level results)."""
+    if not levels or levels[-1] != 1:
+        raise ValueError("levels must be non-empty and end at 1 "
+                         "(finest = cfg.pixel_stride)")
+    if Dm is None:
+        Dm = masked_view(grid.D, grid.W)
+    pose = pose0
+    results = []
+    for mult in levels:
+        stride = cfg.pixel_stride * mult
+        pts = points_img[::stride, ::stride].reshape(-1, 3)
+        level_cfg = cfg if mult == 1 else cfg._replace(
+            max_iterations=coarse_iterations, min_iterations=0)
+        res = track_frame(None, pose, pts, params=params, cfg=level_cfg, Dm=Dm)
+        pose = res.pose
+        results.append(res)
+    return results[-1], tuple(results)
