@@ -16,12 +16,15 @@ from tracking_sdf_tpu.core.lie import pose_compose as jcompose
 from tracking_sdf_tpu.core.lie import se3_exp as jse3_exp
 from tracking_sdf_tpu.data.synthetic import (
     CuboidScene, SphereScene, grid_from_scene, look_at, render_scene_depth)
+from tracking_sdf_tpu.fusion.brickmajor import brick_grid_from_dense, brick_masked_view
 from tracking_sdf_tpu.grid.interp import masked_view as jmasked_view
 from tracking_sdf_tpu.tracking.gauss_newton import track_frame as jtrack
 from tracking_sdf_tpu.tracking.pallas_gn import (
     gather_corner_inputs, gn_reduce_pallas, gn_reduce_xla)
 from tracking_sdf_tpu.tracking.pyramid import track_frame_pyramid as jpyramid
 from tracking_sdf_tpu_torch.core.lie import pose_from_numpy
+from tracking_sdf_tpu_torch.fusion.brickmajor import brick_grid_from_numpy
+from tracking_sdf_tpu_torch.fusion.brickmajor import brick_masked_view as tview
 from tracking_sdf_tpu_torch.grid.grid import grid_from_numpy
 from tracking_sdf_tpu_torch.grid.interp import masked_view
 from tracking_sdf_tpu_torch.tracking import gn_reduce as tgn
@@ -102,6 +105,38 @@ def test_gn_reduce_reference_matches_pallas_and_xla():
     before = tgn.launches
     out2 = tgn.gn_reduce(masked_view(tg.D, tg.W), tp, torch.from_numpy(pts), PARAMS)
     assert torch.equal(out, out2) and tgn.launches == before
+
+
+@pytest.mark.parametrize("value_dtype", [jnp.bfloat16, jnp.float32],
+                         ids=["bfloat16", "float32"])
+def test_gn_reduce_reference_on_brick_view_matches_xla(value_dtype):
+    """The plain version on the brick-major view of (bf16) D rows against the
+    JAX package's gn_reduce_xla fed through the view branch of
+    gather_corner_inputs; tolerances of tests/test_pallas_gn.py."""
+    grid, pts_img = _grid_and_points()
+    pts = pts_img.reshape(-1, 3)
+    pose = jcompose(POSE, jse3_exp(jnp.asarray([0.02, -0.01, 0.015, 0.01, -0.02, 0.01])))
+    bs = (8, 8, 8)
+    jb = brick_grid_from_dense(grid, bs, value_dtype=value_dtype)
+    A_x, b_x = gn_reduce_xla(*gather_corner_inputs(
+        brick_masked_view(jb, PARAMS, bs), pose, jnp.asarray(pts), params=PARAMS))
+    tb = brick_grid_from_numpy(jb._asdict(), device="cpu")
+    tp = pose_from_numpy(pose.R, pose.t, device="cpu")
+    view = tview(tb, PARAMS, bs)
+    out = tgn.gn_reduce_reference(view, tp, torch.from_numpy(pts), PARAMS)
+    A, b, nvalid, _ = tgn.unpack(out)
+    np.testing.assert_allclose(A.numpy(), np.asarray(A_x), rtol=1e-5, atol=1e-4)
+    np.testing.assert_allclose(b.numpy(), np.asarray(b_x), rtol=1e-5, atol=1e-5)
+    assert int(nvalid) > 1000 and abs(float(A[0, 0])) > 1.0
+    # the view holds the dense masked view's values, so the dense form agrees
+    dense = tgn.gn_reduce_reference(
+        masked_view(*(torch.tensor(np.asarray(x, np.float32))
+                      for x in (jnp.asarray(grid.D, value_dtype), grid.W))),
+        tp, torch.from_numpy(pts), PARAMS)
+    torch.testing.assert_close(out, dense, rtol=1e-5, atol=1e-4)
+    before = (tgn.launches, tgn.launches_brick)
+    assert torch.equal(tgn.gn_reduce(view, tp, torch.from_numpy(pts), PARAMS), out)
+    assert (tgn.launches, tgn.launches_brick) == before
 
 
 def _perturbed():

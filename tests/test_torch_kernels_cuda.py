@@ -4,7 +4,9 @@ Marked ``cuda``: each test skips without a card (decided inside the test, so
 every pytest-xdist worker collects the same tests). On a GPU machine run
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 Tolerances: K1 relative 1e-4 of max|A| and max|b| (float32 sums in another
-order), K2 absolute 1e-5 (the same per-voxel float32 formula).
+order), K2's dense form absolute 1e-5 (the same per-voxel float32 formula),
+K2's row form bitwise on every stored non-NaN value with equal NaN masks (the
+kernel rounds each step as PyTorch's eager ops do).
 """
 import pytest
 import torch
@@ -12,6 +14,8 @@ import torch
 from tracking_sdf_tpu.config import GridParams
 from tracking_sdf_tpu_torch.core.lie import se3_exp
 from tracking_sdf_tpu_torch.fusion import brick_merge as k2
+from tracking_sdf_tpu_torch.fusion.brickmajor import (
+    brick_grid_from_dense, brick_masked_view, color_lane_widths)
 from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid
 from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
@@ -28,27 +32,51 @@ def dev():
     return torch.device("cuda")
 
 
-def test_gn_reduce_kernel_matches_plain(dev):
-    gen = torch.Generator(device=dev).manual_seed(0)
+def _sphere_view(dev, gen):
+    """A sphere SDF with 10% of the voxels unobserved (NaN), queries and a pose."""
     m = PARAMS.m
     idx = torch.arange(m, device=dev, dtype=torch.float32)
     x = (idx[:, None, None] + 0.5) * PARAMS.width / m + PARAMS.origin[0]
     y = (idx[None, :, None] + 0.5) * PARAMS.height / m + PARAMS.origin[1]
     z = (idx[None, None, :] + 0.5) * PARAMS.depth / m + PARAMS.origin[2]
     D = torch.sqrt(x * x + y * y + z * z) - 0.5
-    Dm = torch.where(torch.rand(D.shape, generator=gen, device=dev) < 0.1,
-                     torch.full_like(D, float("nan")), D).contiguous()
+    W = (torch.rand(D.shape, generator=gen, device=dev) >= 0.1).to(torch.float32)
     pts = torch.randn(5000, 3, generator=gen, device=dev) * 0.4
     pts[::17] = float("nan")
     pose = se3_exp(torch.tensor([0.01, -0.02, 0.03, 0.05, -0.02, 0.01], device=dev))
-    before = k1.launches
-    out = k1.gn_reduce(Dm, pose, pts, PARAMS)
-    ref = k1.gn_reduce_reference(Dm, pose, pts, PARAMS)
-    assert k1.launches == before + 1
+    return D, W, pts, pose
+
+
+def _check_gn(out, ref):
     assert out[27].item() == ref[27].item() > 100
     for sl in (slice(0, 21), slice(21, 27)):
         err = (out[sl] - ref[sl]).abs().max() / ref[sl].abs().max()
         assert err.item() <= 1e-4
+
+
+def test_gn_reduce_kernel_matches_plain(dev):
+    gen = torch.Generator(device=dev).manual_seed(0)
+    D, W, pts, pose = _sphere_view(dev, gen)
+    Dm = torch.where(W > 0, D, torch.full_like(D, float("nan"))).contiguous()
+    before = k1.launches
+    out = k1.gn_reduce(Dm, pose, pts, PARAMS)
+    ref = k1.gn_reduce_reference(Dm, pose, pts, PARAMS)
+    assert k1.launches == before + 1
+    _check_gn(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_gn_reduce_brick_kernel_matches_plain(dev, dtype):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    D, W, pts, pose = _sphere_view(dev, gen)
+    dense = TSDFGrid(D=D, W=W, R=D, G=D, B=D, Wc=W)
+    view = brick_masked_view(brick_grid_from_dense(dense, (8, 8, 8), dtype, dtype),
+                             PARAMS, (8, 8, 8))
+    before = (k1.launches, k1.launches_brick)
+    out = k1.gn_reduce(view, pose, pts, PARAMS)
+    ref = k1.gn_reduce_reference(view, pose, pts, PARAMS)
+    assert (k1.launches, k1.launches_brick) == (before[0], before[1] + 1)
+    _check_gn(out, ref)
 
 
 def test_gn_reduce_rejects_bad_input(dev):
@@ -83,3 +111,39 @@ def test_brick_merge_kernel_matches_plain(dev, channels):
     for k in FIELDS:
         torch.testing.assert_close(getattr(gk, k), getattr(gr, k), atol=1e-5, rtol=0)
     assert (gk.W == 2.0).any()
+
+
+@pytest.mark.parametrize("channels", [2, 6])
+@pytest.mark.parametrize("vdt,wdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.float32)])
+def test_brick_merge_rows_kernel_matches_plain(dev, channels, vdt, wdt):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    nb, bv, cap, n_free = 512, 512, 40, 30
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device=dev)
+
+    W = rand(nb, bv, lo=-20.0, hi=140.0).clamp(0.0, 128.0)  # unobserved and clamped
+    D = torch.where(W > 0, rand(nb, bv, lo=-0.15, hi=0.15), float("nan"))
+    lv, lw = color_lane_widths(bv, vdt, wdt)
+    color = [rand(nb, bv).to(vdt) for _ in range(3)] + [W.to(wdt)]
+    C = torch.cat([x.view(torch.int16) for x in color], dim=1)
+    assert C.shape[1] == 3 * lv + lw
+    ids = torch.randperm(nb, generator=gen, device=dev)[:cap + n_free].to(torch.int32)
+    ids[::7] = nb  # padding slots
+    upd = rand(channels, cap, bv, lo=0.0, hi=2.0)
+    upd[0][rand(cap, bv) < 0.2] = 0.0  # voxels with no update
+    kw = dict(cap=cap, delta=0.15, max_weight=128.0)
+    lk = [D.to(vdt), W.to(wdt), C.clone()]
+    lr = [x.clone() for x in lk]
+    before = k2.launches_rows
+    k2.brick_merge_rows(*lk, upd, ids, **kw)
+    k2.brick_merge_rows_reference(*lr, upd, ids, **kw)
+    assert k2.launches_rows == before + 1
+    for a, b in zip(lk, lr):
+        nan = torch.isnan(b) if b.is_floating_point() else torch.zeros_like(b, dtype=bool)
+        assert torch.equal(torch.isnan(a) if a.is_floating_point() else nan, nan)
+        assert torch.equal(a[~nan].view(torch.int16), b[~nan].view(torch.int16))
+    assert (lk[1].float() == 128.0).any()
+    assert torch.equal(lk[2], C) == (channels == 2)  # color on FULL slots only

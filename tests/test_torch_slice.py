@@ -1,10 +1,14 @@
-"""The port's frame loop vs the JAX package's, on the slice's configuration.
+"""The port's frame loop vs the JAX package's.
 
-The slice is the tum256 preset with fusion switched to the flat bricked
-layout and the in-place merge tail, shrunk to m=48 over a 2 m cube and a
-96x72 camera, with brick_cap=256 (the preset's 6144 would allocate 75 MB
-update tensors per frame on the CPU). JAX runs brick_merge="xla": its runner
-passes no interpret flag, and the xla tail is pinned equal to the Pallas one.
+Two configurations, each shrunk to a 2 m cube and a 96x72 camera:
+  * the presets' brick-major path: tum256 as it is at m=48, and tum512 as it
+    is at m=64 (hier_classify 4, pyramid (4, 2, 1)) with cap_mixed=8, both
+    with brick_cap and brick_cap_free at NB so that no brick drops;
+  * the flat bricked layout with the in-place merge tail (tum256 with
+    fusion mode "bricked"), at m=48 with brick_cap=256 (the preset's 6144
+    would allocate 75 MB update tensors per frame on the CPU). JAX runs
+    brick_merge="xla": its runner passes no interpret flag, and the xla tail
+    is pinned equal to the Pallas one.
 """
 import dataclasses
 import os
@@ -42,20 +46,103 @@ BOX = CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)
 TOL_POSE, TOL_GRID = 1e-4, 1e-4
 
 
+WALL = CuboidScene(min_corner=(-4.0, 0.8, -4.0), max_corner=(4.0, 1.2, 4.0))
+
+
 class Scene:
+    def __init__(self, parts=(SPHERE, BOX)):
+        self.parts = parts
+
     def intersect(self, o, d):
-        ta, tb = SPHERE.intersect(o, d), BOX.intersect(o, d)
-        return jnp.where(jnp.isnan(ta), tb,
-                         jnp.where(jnp.isnan(tb), ta, jnp.minimum(ta, tb)))
+        t = self.parts[0].intersect(o, d)
+        for s in self.parts[1:]:
+            tb = s.intersect(o, d)
+            t = jnp.where(jnp.isnan(t), tb, jnp.where(jnp.isnan(tb), t, jnp.minimum(t, tb)))
+        return t
 
 
-def _orbit(n):
+def _orbit(n, dist=1.45):
     poses = []
     for i in range(n):
         a = 0.12 * np.sin(2 * np.pi * i / n)
-        eye = (0.45 * np.sin(a), -1.45 * np.cos(a * 0.5), 0.25)
+        eye = (0.45 * np.sin(a), -dist * np.cos(a * 0.5), 0.25)
         poses.append(look_at(eye, (0.0, 0.0, 0.0)))
     return poses
+
+
+def preset_config(name, m, trajectory_path, **fusion):
+    """``name`` as it is, at m voxels over the 2 m cube, caps at NB."""
+    cfg = preset(name)
+    nb = (m // 8) ** 3
+    return dataclasses.replace(
+        cfg, grid=PARAMS._replace(m=m), trajectory_path=trajectory_path,
+        fusion=cfg.fusion._replace(brick_cap=nb, brick_cap_free=nb, **fusion))
+
+
+@pytest.mark.parametrize("name,m,fusion", [
+    ("tum256", 48, {}),
+    ("tum512", 64, {"cap_mixed": 8}),
+])
+def test_preset_matches_jax_runner(tmp_path, name, m, fusion):
+    """Per frame: equal GN iterations, rejection and valid counts, the pose to
+    1e-4, and equal FuseStats; then the trajectories and the grids."""
+    cfg_t = preset_config(name, m, str(tmp_path / "port.txt"), **fusion)
+    cfg_j = preset_config(name, m, str(tmp_path / "jax.txt"), **fusion)
+    assert cfg_t.fusion.mode == "brickmajor"
+    poses = _orbit(5, dist=2.45)  # far enough for whole FREE bricks
+    p0 = poses[0]
+    rj = JReconstruction(CAM, cfg_j, initial_pose=p0)
+    rt = Reconstruction(CAM, cfg_t, device="cpu",
+                        initial_pose=pose_from_numpy(p0.R, p0.t, device="cpu"))
+    assert rt._bgrid.D.dtype == torch.bfloat16 and rt._bgrid.W.dtype == torch.bfloat16
+    rng = np.random.default_rng(1)
+    n_free = 0
+    for i, p in enumerate(poses):
+        # the wall behind the objects gives whole FREE bricks; a block of
+        # holes (a speckle would leave no brick whose pixels are all valid)
+        depth = np.array(render_scene_depth(Scene((SPHERE, BOX, WALL)), CAM, p))
+        depth[30:40, 10 + 4 * i:25 + 4 * i] = np.nan
+        rgb = np.broadcast_to(rng.uniform(size=3), depth.shape + (3,)).astype(np.float32)
+        sj = rj.process_frame(depth, rgb=rgb, timestamp=10.0 + i)
+        st = rt.process_frame(depth, rgb=rgb, timestamp=10.0 + i)
+        assert (st.gn_iterations, st.rejected, st.num_valid) == (
+            sj.gn_iterations, sj.rejected, sj.num_valid), i
+        np.testing.assert_allclose(rt.pose.t.numpy(), np.asarray(rj.pose.t),
+                                   atol=TOL_POSE, err_msg=f"frame {i}")
+        np.testing.assert_allclose(rt.pose.R.numpy(), np.asarray(rj.pose.R),
+                                   atol=TOL_POSE, err_msg=f"frame {i}")
+        fj = rj.last_fuse_stats
+        assert dataclasses.astuple(rt.last_fuse_stats) == tuple(int(getattr(fj, k)) for k in (
+            "n_full", "overflow", "n_free", "overflow_active", "overflow_mixed")), i
+        n_free += rt.last_fuse_stats.n_free
+    rj.close()
+    rt.close()
+    assert sum(s.gn_iterations for s in rt.stats) > 4
+    assert not any(s.rejected for s in rt.stats)
+    assert rt.last_fuse_stats.n_full > 0 and n_free > 0
+    traj_t = read_trajectory(str(tmp_path / "port.txt"))
+    traj_j = jread_trajectory(str(tmp_path / "jax.txt"))
+    assert len(traj_t) == len(traj_j) == 5
+    np.testing.assert_allclose(traj_t.translations, traj_j.translations, atol=TOL_POSE)
+    # bf16 storage: the grids agree to a few bf16 quanta where observed
+    gt, gj = rt.grid, rj.grid
+    W_j = np.asarray(gj.W)
+    np.testing.assert_array_equal(gt.W.numpy() > 0, W_j > 0)
+    np.testing.assert_allclose(gt.W.numpy(), W_j, rtol=2 ** -7)
+    seen = W_j > 0
+    np.testing.assert_allclose(gt.D.numpy()[seen], np.asarray(gj.D)[seen],
+                               atol=2 * PARAMS.delta / 128)
+
+
+@pytest.mark.parametrize("fusion", [{"sat_skip": True}, {"mode": "packed"},
+                                    {"mode": "dense"}, {"mode": "bricked"}],
+                         ids=["sat_skip", "packed", "dense", "bricked_xla"])
+def test_unported_modes_raise(fusion):
+    cfg = preset("tum256")
+    cfg = dataclasses.replace(cfg, trajectory_path=None,
+                              fusion=cfg.fusion._replace(**fusion))
+    with pytest.raises(NotImplementedError):
+        Reconstruction(CAM, cfg, device="cpu")
 
 
 def slice_config(trajectory_path, brick_merge="pallas", pose_init="previous"):
@@ -153,17 +240,21 @@ def test_port_runs_without_jax(tmp_path):
         cfg = dataclasses.replace(
             cfg, grid=GridParams(m=48, width=2.0, height=2.0, depth=2.0,
                                  origin=(-1.0, -1.0, -1.0), delta=0.15, epsilon=0.02),
-            trajectory_path={str(tmp_path / "t.txt")!r},
-            fusion=cfg.fusion._replace(mode="bricked", brick_merge="pallas", brick_cap=256))
+            trajectory_path={str(tmp_path / "t.txt")!r})
         cam = PinholeCamera(fx=60.0, fy=60.0, cx=47.5, cy=35.5, width=96, height=72)
         scene = SphereScene(center=(0.0, 0.0, 0.0), radius=0.4)
-        r = Reconstruction(cam, cfg, device="cpu",
-                           initial_pose=look_at((0.0, -1.5, 0.2), (0.0, 0.0, 0.0), device="cpu"))
-        for i, eye in enumerate([(0.0, -1.5, 0.2), (0.02, -1.5, 0.2)]):
-            r.process_frame(render_scene_depth(scene, cam, look_at(eye, (0.0, 0.0, 0.0), device="cpu")))
-        r.close()
-        assert not any(s.rejected for s in r.stats), r.stats
-        assert r.stats[1].gn_iterations > 0
+        # the presets' brick-major path, then the flat bricked one
+        for fusion in (dict(brick_cap=216, brick_cap_free=216),
+                       dict(mode="bricked", brick_merge="pallas", brick_cap=256)):
+            c = dataclasses.replace(cfg, fusion=cfg.fusion._replace(**fusion))
+            r = Reconstruction(cam, c, device="cpu", initial_pose=look_at(
+                (0.0, -1.5, 0.2), (0.0, 0.0, 0.0), device="cpu"))
+            for i, eye in enumerate([(0.0, -1.5, 0.2), (0.02, -1.5, 0.2)]):
+                r.process_frame(render_scene_depth(
+                    scene, cam, look_at(eye, (0.0, 0.0, 0.0), device="cpu")))
+            r.close()
+            assert not any(s.rejected for s in r.stats), r.stats
+            assert r.stats[1].gn_iterations > 0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         print("OK")
     """)

@@ -1,5 +1,7 @@
 """Brick-compacted TSDF fusion over the flat (m, m, m) layout
-(counterpart of tracking_sdf_tpu.fusion.brick, ``merge="pallas"`` tail).
+(counterpart of tracking_sdf_tpu.fusion.brick, ``merge="pallas"`` tail), and
+the classification, compaction and per-voxel update pieces that the
+brick-major path (fusion.brickmajor) shares with it.
 
 Each brick is classified exactly and conservatively:
   OUT   behind the camera, off the image, or provably occluded (d < -delta
@@ -14,6 +16,7 @@ are dropped for the frame and reported in FuseStats, never silently.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -36,7 +39,12 @@ class FuseStats:
     n_full: int  # bricks classified FULL
     overflow: int  # FULL bricks dropped (cap too small)
     n_free: int  # bricks classified FREE
-    overflow_active: int = 0  # active bricks dropped (cap_act too small)
+    # flat path: active bricks dropped (cap_act too small); brick-major:
+    # FREE bricks dropped (cap_free too small)
+    overflow_active: int = 0
+    # hierarchical classification: mixed super-bricks beyond cap_mixed,
+    # whose child bricks are dropped for the frame
+    overflow_mixed: int = 0
 
 
 @dataclasses.dataclass
@@ -53,16 +61,29 @@ class ZetaMip:
     dims: List[Tuple[int, int]]
 
 
+@functools.lru_cache(maxsize=None)
+def _device_const(values: tuple, device: torch.device) -> torch.Tensor:
+    """A small int64 table on ``device``, copied there once: a copy from
+    the host waits for the device, so the per-frame path must not make one."""
+    return torch.tensor(values, dtype=torch.int64, device=device)
+
+
+def _corner_sel(device) -> torch.Tensor:
+    """(8, 3) 0/1 corner offsets in (i, j, k) loop order."""
+    return _device_const(tuple((a, b, c) for a in (0, 1) for b in (0, 1) for c in (0, 1)),
+                         torch.device(device))
+
+
 def share_classify_margin(params: GridParams, cfg: FusionConfig) -> float:
     """World-space margin that keeps the FREE/OCCLUDED proofs exact under
     pixel-share semantics: the share group's world radius (point-to-plane;
     point-to-point needs none)."""
-    if not getattr(cfg, "share_safe_classify", False):
+    if not cfg.share_safe_classify:
         return 0.0
     if cfg.distance == "point_to_point":
         return 0.0
     sk = max(cfg.pixel_share, 1)
-    sj = max(getattr(cfg, "pixel_share_j", 1), 1)
+    sj = max(cfg.pixel_share_j, 1)
     if sk <= 1 and sj <= 1:
         return 0.0
     vs = params.voxel_size
@@ -161,9 +182,9 @@ def _query_zeta(mip: ZetaMip, u0, u1, v0, v1):
     span = torch.maximum(u1 - u0, v1 - v0) / (3.0 * _TILE)
     lvl = torch.ceil(torch.log2(torch.clamp(span, min=1.0))).to(torch.int64)
     lvl = lvl.clamp(0, L - 1)
-    offs = torch.tensor(mip.offsets, dtype=torch.int64, device=dev)[lvl]
-    dh = torch.tensor([d[0] for d in mip.dims], dtype=torch.int64, device=dev)[lvl]
-    dw = torch.tensor([d[1] for d in mip.dims], dtype=torch.int64, device=dev)[lvl]
+    offs = _device_const(tuple(mip.offsets), dev)[lvl]
+    dh = _device_const(tuple(d[0] for d in mip.dims), dev)[lvl]
+    dw = _device_const(tuple(d[1] for d in mip.dims), dev)[lvl]
     cell = (_TILE * 2 ** lvl).to(torch.float32)
     cu0 = torch.minimum((u0 / cell).to(torch.int64).clamp(min=0),
                         torch.clamp(dw - 4, min=0))
@@ -206,8 +227,7 @@ def _brick_corners_cam(params: GridParams, pose: Pose, bs):
     Ay = axis_lohi(bj, params.height, params.origin[1])[..., None] * Rt[:, 1]
     Az = axis_lohi(bk, params.depth, params.origin[2])[..., None] * Rt[:, 2]
     base = -(Rt @ pose.t)
-    sel = torch.tensor([[a, b, c] for a in (0, 1) for b in (0, 1) for c in (0, 1)],
-                       device=dev)
+    sel = _corner_sel(dev)
     cx = Ax[:, sel[:, 0], :]  # (nbi, 8, 3)
     cy = Ay[:, sel[:, 1], :]
     cz = Az[:, sel[:, 2], :]
@@ -241,19 +261,138 @@ def _class_from_corners(cx_, cy_, cz_, mip: ZetaMip, cam: PinholeCamera, hw):
 
 
 def classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
-                    distance="point_to_plane", share_margin=0.0) -> torch.Tensor:
+                    distance="point_to_plane", share_margin=0.0,
+                    mip: Optional[ZetaMip] = None) -> torch.Tensor:
     """Brick classes (nbi, nbj, nbk) int32: 0 OUT, 1 FREE, 2 FULL."""
-    mip = _zeta_mip(points_cam, normals_cam, cam, params.delta, distance,
-                    share_margin)
+    if mip is None:
+        mip = _zeta_mip(points_cam, normals_cam, cam, params.delta, distance,
+                        share_margin)
     cx_, cy_, cz_ = _brick_corners_cam(params, pose, bs)
     return _class_from_corners(cx_, cy_, cz_, mip, cam, points_cam.shape[:2])
 
 
-def _compact_ids(flags: torch.Tensor, cap: int) -> Tuple[torch.Tensor, int]:
-    """(first ``cap`` indices of set flags in index order, number set).
-    The first-cap order decides which bricks drop on overflow."""
+def _first_ids(flags: torch.Tensor, cap: int) -> Tuple[torch.Tensor, int]:
+    """(first ``cap`` indices of set flags in index order, number set). Reads
+    the count on the host: the flat path's merge takes an exact list."""
     ids = torch.nonzero(flags.reshape(-1)).reshape(-1)
     return ids[:cap], ids.shape[0]
+
+
+def _compact_vals(flags: torch.Tensor, vals: torch.Tensor, cap: int,
+                  fill: int) -> torch.Tensor:
+    """Stable compaction: the values of the first ``cap`` set flags, in
+    order, padded with ``fill`` to length ``cap``. The keep-the-first-cap
+    order decides which bricks drop on overflow. No host sync: set flags
+    past the cap are scattered to a spare slot that is cut off."""
+    f = flags.reshape(-1)
+    pos = torch.cumsum(f, 0) - 1
+    tgt = torch.where(f & (pos < cap), pos, cap)
+    buf = torch.full((cap + 1,), fill, dtype=vals.dtype, device=vals.device)
+    return buf.scatter_(0, tgt, vals.reshape(-1))[:cap]
+
+
+def _compact_ids(flags: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
+    """First ``cap`` indices of set flags (sorted), ``fill``-padded."""
+    n = flags.numel()
+    return _compact_vals(flags, torch.arange(n, device=flags.device), cap, fill)
+
+
+def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
+                          distance, cap, cap_free, factor, cap_mixed,
+                          share_margin=0.0):
+    """Hierarchical classification and FULL/FREE compaction.
+
+    Super-bricks of ``factor``^3 bricks are classified first; only MIXED
+    (class-FULL) supers descend to per-brick proofs, over ``cap_mixed``
+    supers; a FREE super makes all its bricks FREE without descent. The
+    proofs are monotone, so the classes equal those of classify_bricks.
+
+    Returns (full_ids (cap,), fr_ids (cap_free,), n_full, n_free,
+    overflow_mixed, overflow_free), ids padded with NB and counts as 0-dim
+    tensors. full_ids come in (mixed-super rank, child) order, not globally
+    sorted; fr_ids hold the FREE bricks of mixed supers first, then the
+    children of FREE supers, ``cap_free // factor^3`` supers at most.
+    Mixed supers past cap_mixed are dropped with their bricks and reported."""
+    h, w_img = points_cam.shape[:2]
+    bi, bj, bk = bs
+    m = params.m
+    nbi, nbj, nbk = m // bi, m // bj, m // bk
+    NB = nbi * nbj * nbk
+    f = factor
+    vol = f * f * f
+    nsj, nsk = nbj // f, nbk // f
+    NS = (nbi // f) * nsj * nsk
+    dev = points_cam.device
+    mip = _zeta_mip(points_cam, normals_cam, cam, params.delta, distance,
+                    share_margin)
+
+    # ---- level 1: super-bricks
+    scls = classify_bricks(params, pose, points_cam, normals_cam, cam,
+                           (bi * f, bj * f, bk * f), distance, mip=mip).reshape(-1)
+    n_mixed = (scls == FULL).sum()
+    mixed_ids = _compact_ids(scls == FULL, cap_mixed, NS)
+    valid_s = mixed_ids < NS
+    ms = torch.where(valid_s, mixed_ids, 0)
+
+    # ---- level 2: bricks of the mixed supers, from per-axis corner tables
+    Rt = pose.R.T
+
+    def axis_tab(nb, b, extent, origin, col):
+        idx = torch.arange(nb, dtype=torch.float32, device=dev) * b
+        lo = (extent / m) * (idx + 0.5) + origin
+        hi = (extent / m) * (idx + b - 0.5) + origin
+        return torch.stack([lo, hi], dim=-1)[..., None] * Rt[:, col]  # (nb, 2, 3)
+
+    sel = _corner_sel(dev)
+    la = torch.arange(f, device=dev)
+
+    def children(sid):  # super ids (S,) -> per-axis brick indices, each (S, f)
+        return ((sid // (nsj * nsk))[:, None] * f + la,
+                ((sid // nsk) % nsj)[:, None] * f + la,
+                (sid % nsk)[:, None] * f + la)
+
+    def brick_ids(fi, fj, fk):  # (S, f) each -> global ids (S, f, f, f)
+        return (fi[:, :, None, None] * (nbj * nbk) + fj[:, None, :, None] * nbk
+                + fk[:, None, None, :])
+
+    fi, fj, fk = children(ms)
+    Axg = axis_tab(nbi, bi, params.width, params.origin[0], 0)[fi][:, :, sel[:, 0], :]
+    Ayg = axis_tab(nbj, bj, params.height, params.origin[1], 1)[fj][:, :, sel[:, 1], :]
+    Azg = axis_tab(nbk, bk, params.depth, params.origin[2], 2)[fk][:, :, sel[:, 2], :]
+    c = (Axg[:, :, None, None] + Ayg[:, None, :, None]
+         + Azg[:, None, None, :]) - Rt @ pose.t  # (S, f, f, f, 8, 3)
+    vs = valid_s[:, None, None, None]
+    fcls = torch.where(vs, _class_from_corners(c[..., 0], c[..., 1], c[..., 2],
+                                               mip, cam, (h, w_img)), 0).reshape(-1)
+    gflat = torch.where(vs, brick_ids(fi, fj, fk), NB).reshape(-1)
+
+    n_full = (fcls == FULL).sum()
+    full_ids = _compact_vals(fcls == FULL, gflat, cap, NB)
+
+    # ---- FREE ids: FREE bricks of mixed supers, then children of FREE supers
+    free_fine = fcls == FREE
+    n_free_mixed = free_fine.sum()
+    fr_ids = _compact_vals(free_fine, gflat, cap_free, NB)
+    cap_sfree = max(cap_free // vol, 1)
+    free_super = scls == FREE
+    n_sf = free_super.sum()
+    sf_ids = _compact_ids(free_super, cap_sfree, NS)
+    valid_sf = sf_ids < NS
+    sf_gid = torch.where(valid_sf[:, None],
+                         brick_ids(*children(torch.where(valid_sf, sf_ids, 0)))
+                         .reshape(cap_sfree, vol), NB).reshape(-1)
+    # appended right after the compacted mixed-super prefix
+    pos = n_free_mixed + torch.arange(cap_sfree * vol, device=dev)
+    keep = valid_sf[:, None].expand(cap_sfree, vol).reshape(-1) & (pos < cap_free)
+    fr_ids = torch.cat([fr_ids, fr_ids.new_full((1,), NB)]).scatter_(
+        0, torch.where(keep, pos, cap_free), sf_gid)[:cap_free]
+    n_free = n_free_mixed + vol * n_sf
+    overflow_free = (
+        torch.clamp(n_free_mixed + vol * torch.clamp(n_sf, max=cap_sfree) - cap_free,
+                    min=0)
+        + vol * torch.clamp(n_sf - cap_sfree, min=0))
+    overflow_mixed = torch.clamp(n_mixed - cap_mixed, min=0)
+    return full_ids, fr_ids, n_full, n_free, overflow_mixed, overflow_free
 
 
 def _pixel_table(points_cam, normals_cam, rgb, fuse_color,
@@ -287,17 +426,21 @@ def _pixel_table(points_cam, normals_cam, rgb, fuse_color,
 
 
 def _full_brick_updates(full_ids, pix, pose, params, cam, cfg, bs, hw,
-                        fuse_color) -> torch.Tensor:
-    """Per-voxel (w, w·d[, w·cos, w·cos·r, w·cos·g, w·cos·b]) of the FULL
-    bricks ``full_ids``: (n, bi, bj, bk, C). One pixel row per voxel, or per
-    share group (its center voxel's row) with pixel_share > 1."""
+                        fuse_color) -> List[torch.Tensor]:
+    """Per-voxel update sums of the FULL bricks ``full_ids`` (n,), where an
+    id >= NB is a padding slot whose sums are all zero: the channels
+    [w, w·d(, w·cos, w·cos·r, w·cos·g, w·cos·b)], each (n, bi, bj, bk). One
+    pixel row per voxel, or per share group (its center voxel's row) with
+    pixel_share > 1."""
     bi, bj, bk = bs
     h, w_img = hw
     m = params.m
     nbj, nbk = m // bj, m // bk
+    NB = (m // bi) * nbj * nbk
     dev = pix.device
     n = full_ids.shape[0]
-    fb = full_ids.to(torch.int64)
+    valid_brick = full_ids < NB
+    fb = torch.where(valid_brick, full_ids, 0).to(torch.int64)
     ar = lambda k: torch.arange(k, device=dev)  # noqa: E731
     I = (fb // (nbj * nbk))[:, None] * bi + ar(bi)  # (n, bi)
     J = ((fb // nbk) % nbj)[:, None] * bj + ar(bj)
@@ -319,8 +462,8 @@ def _full_brick_updates(full_ids, pix, pose, params, cam, cfg, bs, hw,
     ins = (iu >= 0) & (iu < w_img) & (iv >= 0) & (iv < h)
     flat_pix = iv.clamp(0, h - 1) * w_img + iu.clamp(0, w_img - 1)  # (n,bi,bj,bk)
 
-    sk = getattr(cfg, "pixel_share", 1)
-    sj = getattr(cfg, "pixel_share_j", 1)
+    sk = cfg.pixel_share
+    sj = cfg.pixel_share_j
     if bk % sk:
         sk = 1
     if bj % sj:
@@ -344,7 +487,8 @@ def _full_brick_updates(full_ids, pix, pose, params, cam, cfg, bs, hw,
     else:
         raise ValueError(f"unknown distance: {cfg.distance}")
 
-    fuse_mask = in_front & ins & (d >= -params.delta)
+    fuse_mask = (in_front & ins & valid_brick[:, None, None, None]
+                 & (d >= -params.delta))
     # sanitize before multiplying: 0 * (-inf) from an invalid pixel is NaN
     zero = torch.zeros_like(d)
     d = torch.where(fuse_mask, torch.clamp(d, max=params.delta), zero)
@@ -353,7 +497,7 @@ def _full_brick_updates(full_ids, pix, pose, params, cam, cfg, bs, hw,
     upd = [w_new, w_new * d]
     if fuse_color:
         upd += [w_new * g[..., c] for c in (4, 5, 6, 7)]
-    return torch.stack(upd, dim=-1)
+    return upd
 
 
 def fuse_frame_bricked(
@@ -387,12 +531,12 @@ def fuse_frame_bricked(
     brick_class = classify_bricks(
         params, pose, points_cam, normals_cam, cam, bs, cfg.distance,
         share_margin=share_classify_margin(params, cfg)).reshape(-1)
-    full_ids, n_full = _compact_ids(brick_class == FULL, cap)
-    act_ids, n_active = _compact_ids(brick_class > 0, cap_act)
+    full_ids, n_full = _first_ids(brick_class == FULL, cap)
+    act_ids, n_active = _first_ids(brick_class > 0, cap_act)
 
     pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
-    upd = _full_brick_updates(full_ids, pix, pose, params, cam, cfg, bs,
-                              (h, w_img), fuse_color)
+    upd = torch.stack(_full_brick_updates(full_ids, pix, pose, params, cam, cfg,
+                                          bs, (h, w_img), fuse_color), dim=-1)
     # row ``cap`` stays zero: FULL bricks past the FULL cap merge nothing
     U = torch.zeros((cap + 1, bi, bj, bk, upd.shape[-1]), device=dev)
     U[:full_ids.shape[0]] = upd

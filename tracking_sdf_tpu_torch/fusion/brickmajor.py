@@ -1,0 +1,253 @@
+"""Brick-major TSDF fusion: the grid stored as one row per brick
+(counterpart of tracking_sdf_tpu.fusion.brickmajor), the presets' main path.
+
+Each leaf is an (NB, BV) table: brick b = (ib, jb, kb) row-major over
+(m/bi, m/bj, m/bk), and within a row the brick's voxels (di, dj, dk)
+row-major over the brick shape. D holds NaN wherever W <= 0, so the D leaf is
+itself the masked view that tracking reads (``brick_masked_view``); the dense
+export restores the far value there. The four color leaves R, G, B, Wc live
+in one uint16-lane leaf ``C`` of shape (NB, 3·LV + LW): per row the blocks
+[R | G | B | Wc], each value bitcast to its 16-bit lanes (LV = BV·itemsize/2
+of the value dtype, LW likewise for the weight dtype). PyTorch has no uint16
+arithmetic, so the port holds those lanes as int16: the bits are the same.
+
+A frame classifies the bricks (flat or hierarchical), compacts the FULL and
+FREE ids under their caps, computes the FULL bricks' per-voxel update sums,
+and K2's row form (``brick_merge.brick_merge_rows``) merges FULL and FREE
+rows in one pass (the JAX package's ``free_fold``, which is bitwise equal to
+its unfolded merge). Values and weights may be stored as bfloat16; all
+arithmetic is float32, rounded to the storage dtype only at the store.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+
+from tracking_sdf_tpu.config import FusionConfig, GridParams
+from tracking_sdf_tpu_torch.core.camera import PinholeCamera
+from tracking_sdf_tpu_torch.core.lie import Pose
+from tracking_sdf_tpu_torch.fusion.brick import (
+    FREE, FULL, FuseStats, _compact_ids, _full_brick_updates, _pixel_table,
+    classify_bricks, classify_compact_hier, share_classify_margin)
+from tracking_sdf_tpu_torch.fusion.brick_merge import brick_merge_rows
+from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
+from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass
+class BrickGrid:
+    """Brick-major leaves: D, W (NB, BV) and the packed color lanes C
+    (NB, 3·LV + LW) int16. Fusion updates them in place."""
+
+    D: torch.Tensor
+    W: torch.Tensor
+    C: torch.Tensor
+
+
+def storage_dtype(name: str) -> torch.dtype:
+    """FusionConfig.storage_dtype / weight_dtype name -> torch dtype."""
+    if name not in _DTYPES:
+        raise NotImplementedError(f"storage dtype {name!r}: only {sorted(_DTYPES)}")
+    return _DTYPES[name]
+
+
+def _to_rows(leaf: torch.Tensor, bs: Tuple[int, int, int]) -> torch.Tensor:
+    mi, mj, mk = leaf.shape
+    bi, bj, bk = bs
+    return (leaf.reshape(mi // bi, bi, mj // bj, bj, mk // bk, bk)
+            .permute(0, 2, 4, 1, 3, 5).reshape(-1, bi * bj * bk))
+
+
+def _from_rows(rows: torch.Tensor, shape, bs: Tuple[int, int, int]) -> torch.Tensor:
+    mi, mj, mk = shape
+    bi, bj, bk = bs
+    return (rows.reshape(mi // bi, mj // bj, mk // bk, bi, bj, bk)
+            .permute(0, 3, 1, 4, 2, 5).reshape(mi, mj, mk))
+
+
+def _lanes(x: torch.Tensor) -> torch.Tensor:
+    """(..., w) 16/32-bit leaf -> (..., w·itemsize/2) int16 lanes, low half
+    of a 32-bit value first (the JAX package's uint16 bitcast order on a
+    little-endian host)."""
+    return x.contiguous().view(torch.int16)
+
+
+def _unlanes(u: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """Inverse of _lanes."""
+    return u.contiguous().view(dtype)
+
+
+def color_lane_widths(bv: int, value_dtype: torch.dtype,
+                      weight_dtype: torch.dtype) -> Tuple[int, int]:
+    """(LV, LW): 16-bit lanes per R/G/B block and per Wc block."""
+    return (bv * (value_dtype.itemsize // 2), bv * (weight_dtype.itemsize // 2))
+
+
+def pack_color(R, G, B, Wc) -> torch.Tensor:
+    """Four color leaves -> one packed lane leaf [R | G | B | Wc]."""
+    return torch.cat([_lanes(R), _lanes(G), _lanes(B), _lanes(Wc)], dim=-1)
+
+
+def unpack_color(C: torch.Tensor, value_dtype, weight_dtype, bv: int):
+    """Packed lanes -> (R, G, B, Wc) in their stored dtypes."""
+    lv, lw = color_lane_widths(bv, value_dtype, weight_dtype)
+    return (_unlanes(C[..., :lv], value_dtype),
+            _unlanes(C[..., lv:2 * lv], value_dtype),
+            _unlanes(C[..., 2 * lv:3 * lv], value_dtype),
+            _unlanes(C[..., 3 * lv:3 * lv + lw], weight_dtype))
+
+
+def unpack_color_grid(bgrid: BrickGrid):
+    """(R, G, B, Wc) rows of a BrickGrid: D's dtype is the value dtype, W's
+    the weight dtype."""
+    return unpack_color(bgrid.C, bgrid.D.dtype, bgrid.W.dtype, bgrid.D.shape[-1])
+
+
+def brick_grid_from_dense(grid: TSDFGrid, bs: Tuple[int, int, int],
+                          value_dtype=None, weight_dtype=None) -> BrickGrid:
+    """value_dtype applies to D, R, G, B and weight_dtype to W, Wc (default:
+    the dense leaves' dtype)."""
+    vdt = value_dtype or grid.D.dtype
+    wdt = weight_dtype or grid.W.dtype
+    D = _to_rows(grid.D, bs).to(vdt)
+    return BrickGrid(
+        D=torch.where(_to_rows(grid.W, bs) > 0, D, torch.full_like(D, float("nan"))),
+        W=_to_rows(grid.W, bs).to(wdt),
+        C=pack_color(*(_to_rows(x, bs).to(vdt) for x in (grid.R, grid.G, grid.B)),
+                     _to_rows(grid.Wc, bs).to(wdt)))
+
+
+def dense_from_brick_grid(bgrid: BrickGrid, params: GridParams,
+                          bs: Tuple[int, int, int]) -> TSDFGrid:
+    """The dense float32 grid (the export surface): materializes six
+    (m, m, m) leaves, with the far value where W <= 0."""
+    shape = (params.m,) * 3
+    far = params.width + params.height + params.depth
+    W = bgrid.W.to(torch.float32)
+    D = torch.where(W > 0, bgrid.D.to(torch.float32), torch.full_like(W, far))
+    R, G, B, Wc = unpack_color_grid(bgrid)
+    return TSDFGrid(*(_from_rows(x.to(torch.float32), shape, bs)
+                      for x in (D, W, R, G, B, Wc)))
+
+
+def empty_brick_grid(params: GridParams, bs: Tuple[int, int, int], *, device,
+                     value_dtype=torch.float32,
+                     weight_dtype=torch.float32) -> BrickGrid:
+    """Fresh grid in brick layout: D = NaN (nothing observed), W = 0, grey
+    color with Wc = 0."""
+    bi, bj, bk = bs
+    m = params.m
+    shp = ((m // bi) * (m // bj) * (m // bk), bi * bj * bk)
+
+    def full(v, dtype):
+        return torch.full(shp, v, dtype=dtype, device=device)
+
+    grey = full(0.4, value_dtype)
+    return BrickGrid(D=full(float("nan"), value_dtype), W=full(0.0, weight_dtype),
+                     C=pack_color(grey, grey, grey, full(0.0, weight_dtype)))
+
+
+def masked_dense_D(bgrid: BrickGrid, params: GridParams,
+                   bs: Tuple[int, int, int]) -> torch.Tensor:
+    """Dense (m, m, m) masked view (NaN where W <= 0): a layout transpose."""
+    return _from_rows(bgrid.D, (params.m,) * 3, bs)
+
+
+def brick_masked_view(bgrid: BrickGrid, params: GridParams,
+                      bs: Tuple[int, int, int]) -> BrickMaskedView:
+    """The masked view that tracking reads straight from the D rows (no copy)."""
+    return BrickMaskedView(bgrid.D, params.m, bs)
+
+
+def brick_grid_from_numpy(arrays: Mapping[str, object], *, device) -> BrickGrid:
+    """BrickGrid from the D, W and C leaves as array-likes (for example a JAX
+    BrickGrid's ``_asdict()``), bit for bit: float32 or bfloat16 D and W keep
+    their dtype, the uint16 C lanes become int16 lanes. The leaves are
+    copies."""
+    def leaf(x):
+        a = np.asarray(x)
+        if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
+            return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+        return torch.from_numpy(np.array(a, np.float32))
+
+    C = np.asarray(arrays["C"])
+    if C.dtype.itemsize != 2:
+        raise ValueError(f"C must hold 16-bit lanes, got {C.dtype}")
+    return BrickGrid(D=leaf(arrays["D"]).to(device), W=leaf(arrays["W"]).to(device),
+                     C=torch.from_numpy(C.view(np.int16).copy()).to(device))
+
+
+def brick_grid_to_numpy(bgrid: BrickGrid) -> Dict[str, np.ndarray]:
+    """D and W as float32 (exact for bfloat16 storage) and C as uint16 lanes."""
+    return {"D": bgrid.D.detach().float().cpu().numpy(),
+            "W": bgrid.W.detach().float().cpu().numpy(),
+            "C": bgrid.C.detach().cpu().numpy().view(np.uint16)}
+
+
+def fuse_frame_brickmajor(
+    bgrid: BrickGrid,
+    pose: Pose,
+    points_cam: torch.Tensor,  # (H, W, 3)
+    normals_cam: torch.Tensor,  # (H, W, 3)
+    rgb: Optional[torch.Tensor],  # (H, W, 3) in [0, 1] or None
+    *,
+    params: GridParams,
+    cam: PinholeCamera,
+    cfg: FusionConfig = FusionConfig(),
+    bs: Tuple[int, int, int] = (8, 8, 8),
+    cap: int = 6144,
+    cap_free: Optional[int] = None,
+) -> Tuple[BrickGrid, BrickMaskedView, FuseStats]:
+    """Fuse one frame into ``bgrid`` in place.
+
+    Returns (bgrid, view, stats): ``view`` is the masked view of the merged D
+    rows for the next frame's tracking. Geometry is exactly the dense path's
+    math; color is fused in FULL bricks only. FULL bricks past ``cap`` and
+    FREE bricks past ``cap_free`` (default ``cap``) are dropped for the
+    frame and reported, as are mixed super-bricks past ``cfg.cap_mixed``
+    with hierarchical classification. The stats are read in one host sync."""
+    m = params.m
+    bi, bj, bk = bs
+    if m % bi or m % bj or m % bk:
+        raise ValueError(f"grid m={m} not divisible by brick {bs}")
+    nb3 = (m // bi, m // bj, m // bk)
+    NB = nb3[0] * nb3[1] * nb3[2]
+    if tuple(bgrid.D.shape) != (NB, bi * bj * bk):
+        raise ValueError(f"brick grid {tuple(bgrid.D.shape)} != ({NB}, {bi * bj * bk})")
+    if cap_free is None:
+        cap_free = cap
+    fuse_color = cfg.fuse_color and rgb is not None
+    hw = points_cam.shape[:2]
+    share_m = share_classify_margin(params, cfg)
+
+    hier = cfg.hier_classify
+    if hier > 1 and all(n % hier == 0 for n in nb3):
+        full_ids, fr_ids, n_full, n_free, ovf_mixed, ovf_free = classify_compact_hier(
+            params, pose, points_cam, normals_cam, cam, bs, cfg.distance, cap,
+            cap_free, hier, cfg.cap_mixed, share_margin=share_m)
+    else:
+        cls = classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
+                              cfg.distance, share_margin=share_m).reshape(-1)
+        n_full, n_free = (cls == FULL).sum(), (cls == FREE).sum()
+        full_ids = _compact_ids(cls == FULL, cap, NB)
+        fr_ids = _compact_ids(cls == FREE, cap_free, NB)
+        ovf_free = torch.clamp(n_free - cap_free, min=0)
+        ovf_mixed = torch.zeros_like(n_free)
+
+    pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
+    upd = torch.stack(_full_brick_updates(full_ids, pix, pose, params, cam, cfg,
+                                          bs, hw, fuse_color), dim=0)
+    ids = torch.cat([full_ids, fr_ids]).to(torch.int32)
+    brick_merge_rows(bgrid.D, bgrid.W, bgrid.C, upd.reshape(upd.shape[0], cap, -1),
+                     ids, cap=cap, delta=params.delta, max_weight=cfg.max_weight)
+
+    n_full, n_free, ovf_free, ovf_mixed = torch.stack(
+        [n_full, n_free, ovf_free, ovf_mixed]).tolist()
+    stats = FuseStats(n_full=n_full, overflow=max(n_full - cap, 0), n_free=n_free,
+                      overflow_active=ovf_free, overflow_mixed=ovf_mixed)
+    return bgrid, brick_masked_view(bgrid, params, bs), stats

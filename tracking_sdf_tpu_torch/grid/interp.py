@@ -1,13 +1,16 @@
-"""Masked trilinear interpolation with analytic gradient over a dense view
+"""Masked trilinear interpolation with analytic gradient over a masked view
 (counterpart of tracking_sdf_tpu.grid.interp).
 
 ``masked_view`` folds the observation mask into D (W <= 0 -> NaN) so a
-query needs one gather; a corner is observed iff its value is finite.
-Coordinates are continuous voxel units (grid.world_to_voxel).
+query needs one gather; a corner is observed iff its value is finite. The
+view is either a dense (m, m, m) tensor or a ``BrickMaskedView`` of the
+brick-major D rows. Coordinates are continuous voxel units
+(grid.world_to_voxel).
 """
 from __future__ import annotations
 
-from typing import Tuple
+import dataclasses
+from typing import Tuple, Union
 
 import torch
 
@@ -44,6 +47,54 @@ def _gather_corners(vol: torch.Tensor, ci, cj, ck) -> torch.Tensor:
     (out-of-bounds lanes are masked by the caller via _in_bounds)."""
     m0, m1, m2 = vol.shape
     return vol[ci.clamp(0, m0 - 1), cj.clamp(0, m1 - 1), ck.clamp(0, m2 - 1)]
+
+
+@dataclasses.dataclass
+class BrickMaskedView:
+    """Masked SDF view (W <= 0 -> NaN) in brick-major storage order.
+
+    ``rows`` is the brick-major D leaf (fusion.brickmajor.BrickGrid.D, which
+    holds NaN wherever W <= 0), float32 or bfloat16. Brick (ib, jb, kb) is
+    row-major over (m/bi, m/bj, m/bk) and its voxels (di, dj, dk) row-major
+    over ``bs``; ``pitch`` is the element stride between consecutive bricks
+    (default bi·bj·bk, one brick per row)."""
+
+    rows: torch.Tensor
+    m: int
+    bs: Tuple[int, int, int]
+    pitch: int = 0
+
+    def __post_init__(self):
+        self.bs = tuple(self.bs)
+        if not self.pitch:
+            self.pitch = self.bs[0] * self.bs[1] * self.bs[2]
+
+    @property
+    def shape(self):
+        return (self.m, self.m, self.m)
+
+    @property
+    def dtype(self):
+        return self.rows.dtype
+
+    @property
+    def device(self):
+        return self.rows.device
+
+
+MaskedView = Union[torch.Tensor, BrickMaskedView]
+
+
+def _corner_fetch_brick(view: BrickMaskedView, ci, cj, ck) -> torch.Tensor:
+    """Corner values from a BrickMaskedView, each corner clipped to the grid
+    on its own: flat index F = brick·pitch + (di·bj + dj)·bk + dk."""
+    bi, bj, bk = view.bs
+    m = view.m
+    nbj, nbk = m // bj, m // bk
+    ci, cj, ck = ci.clamp(0, m - 1), cj.clamp(0, m - 1), ck.clamp(0, m - 1)
+    F = (((ci // bi) * nbj + cj // bj) * nbk + ck // bk) * view.pitch \
+        + ((ci % bi) * bj + cj % bj) * bk + ck % bk
+    return view.rows.reshape(-1)[F]
 
 
 def trilinear_from_corners(
@@ -84,14 +135,18 @@ def trilinear_from_corners(
 
 
 def trilinear_with_grad_nan(
-    Dm: torch.Tensor, coords: torch.Tensor,
+    Dm: MaskedView, coords: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Trilinear value + analytic gradient against a masked_view grid.
-    Returns (value, grad, valid)."""
+    """Trilinear value + analytic gradient against a masked view (dense or
+    brick-major). bfloat16 corners are upcast right after the gather, so all
+    the math runs in float32. Returns (value, grad, valid)."""
     base_f = torch.floor(coords)
     base = base_f.to(torch.int64)
     f = coords - base_f
     ci, cj, ck = _corner_indices(base)
     inb = _in_bounds(ci, cj, ck, Dm.shape)
-    d_raw = _gather_corners(Dm, ci, cj, ck)
-    return trilinear_from_corners(d_raw, inb, f)
+    if isinstance(Dm, BrickMaskedView):
+        d_raw = _corner_fetch_brick(Dm, ci, cj, ck)
+    else:
+        d_raw = _gather_corners(Dm, ci, cj, ck)
+    return trilinear_from_corners(d_raw.to(torch.float32), inb, f)

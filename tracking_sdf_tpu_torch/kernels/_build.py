@@ -3,8 +3,10 @@
 The library exposes plain C entry points that return ``cudaGetLastError()``;
 pointers and the CUDA stream are passed as ``c_void_p``. It is built at first
 use into ``build/torch_kernels/`` beside the package, under a file name that
-carries a hash of the sources and flags, so an edited source rebuilds.
-Nothing here runs at import time: the CPU tests import every module.
+carries a hash of the sources and flags, so an edited source rebuilds. Each
+source compiles to an object in its own nvcc process, all started together,
+and one more nvcc call links the objects. Nothing here runs at import time:
+the CPU tests import every module.
 """
 from __future__ import annotations
 
@@ -21,15 +23,20 @@ CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("gn_reduce.cu", "brick_merge.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # dm, m, pose, pts, n, ox, oy, oz, sx, sy, sz, partials, blocks, out, stream
-    "tsdf_gn_reduce": [_P, _I, _P, _P, _I] + [_F] * 6 + [_P, _I, _P, _P],
+    # dm, bf16, m, bi, bj, bk, pitch, pose, pts, n, ox, oy, oz, sx, sy, sz,
+    # partials, blocks, out, stream
+    "tsdf_gn_reduce": [_P] + [_I] * 6 + [_P, _P, _I] + [_F] * 6 + [_P, _I, _P, _P],
     # D, W, R, G, B, Wc, upd, channels, bid, cls, slot, n, m, bi, bj, bk,
     # delta, max_weight, stream
     "tsdf_brick_merge": [_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _F, _P],
+    # D, W, C, c_width, value_bf16, weight_bf16, upd, channels, ids, n_ids,
+    # cap, nb, bv, delta, max_weight, stream
+    "tsdf_brick_merge_rows": [_P] * 3 + [_I] * 3 + [_P, _I, _P] + [_I] * 4
+                             + [_F, _F, _P],
 }
 
 _lib = None
@@ -56,13 +63,27 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj),
+                               str(CSRC / name)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for name, obj in zip(SOURCES, objs)]
+    logs = [p.communicate()[0] for p in procs]
+    failed = [(name, p.returncode) for name, p in zip(SOURCES, procs) if p.returncode]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / name) for name in SOURCES)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        logs.append(link.stdout + link.stderr)
+        if link.returncode:
+            failed.append(("link", link.returncode))
+    so.with_suffix(".log").write_text("".join(logs))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed {failed}:\n" + "".join(logs))
     os.replace(tmp, so)
     return so
 

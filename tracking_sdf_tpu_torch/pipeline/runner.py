@@ -3,10 +3,13 @@
 Per frame: preprocess (separable bilateral filter, backprojection, normals),
 track from the second frame on (pyramid or flat Gauss-Newton; K1 in every
 iteration), gate failed tracks, append the pose to the TUM trajectory, and
-fuse into the flat (m, m, m) grid with brick compaction (K2 in every fused
-frame). Covers the single-device ``FusionConfig(mode="bricked",
-brick_merge="pallas")`` path only; rendering, meshing, checkpoints and
-chunked processing are not ported yet.
+fuse with brick compaction (K2 in every fused frame). Two single-device
+fusion layouts are ported:
+  * ``mode="brickmajor"`` (the tum256 and tum512 presets): the grid lives as
+    brick rows (fusion.brickmajor), and tracking reads the brick-major masked
+    view of the D rows; the dense grid is built only when ``grid`` is read.
+  * ``mode="bricked", brick_merge="pallas"``: the flat (m, m, m) grid.
+Rendering, meshing, checkpoints and chunked processing are not ported yet.
 """
 from __future__ import annotations
 
@@ -21,6 +24,9 @@ from tracking_sdf_tpu.config import PipelineConfig
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose, pose_compose, pose_inverse
 from tracking_sdf_tpu_torch.fusion.brick import FuseStats, fuse_frame_bricked
+from tracking_sdf_tpu_torch.fusion.brickmajor import (
+    brick_grid_from_dense, brick_masked_view, dense_from_brick_grid,
+    empty_brick_grid, fuse_frame_brickmajor, storage_dtype)
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, empty_grid
 from tracking_sdf_tpu_torch.pipeline.trajectory import TrajectoryWriter
 from tracking_sdf_tpu_torch.tracking.gauss_newton import track_frame
@@ -45,13 +51,16 @@ class FrameStats:
     num_valid: int
     mean_abs_residual: float
     rejected: bool = False  # tracking-failure gate fired; frame dropped
+    preprocess_ms: float = 0.0
 
 
 def _check_supported(config: PipelineConfig) -> None:
     f = config.fusion
     unsupported = [
-        (f.mode != "bricked", f"fusion.mode={f.mode!r}"),
-        (f.brick_merge != "pallas", f"fusion.brick_merge={f.brick_merge!r}"),
+        (f.mode not in ("brickmajor", "bricked"), f"fusion.mode={f.mode!r}"),
+        (f.mode == "bricked" and f.brick_merge != "pallas",
+         f"fusion.brick_merge={f.brick_merge!r} with mode='bricked'"),
+        (f.sat_skip, "fusion.sat_skip=True"),
         (config.tracking.jacobian != "analytic",
          f"tracking.jacobian={config.tracking.jacobian!r}"),
         (config.use_groundtruth, "use_groundtruth=True"),
@@ -61,9 +70,10 @@ def _check_supported(config: PipelineConfig) -> None:
     bad = [what for cond, what in unsupported if cond]
     if bad:
         raise NotImplementedError(
-            "the port runs the single-device mode='bricked', brick_merge='pallas' "
-            "path with the analytic Jacobian and the separable bilateral filter; "
-            "unsupported: " + ", ".join(bad))
+            "the port runs the single-device mode='brickmajor' path and the "
+            "mode='bricked', brick_merge='pallas' path, with the analytic "
+            "Jacobian and the separable bilateral filter; unsupported: "
+            + ", ".join(bad))
 
 
 def _sync(device: torch.device) -> None:
@@ -87,7 +97,20 @@ class Reconstruction:
         self.stats: List[FrameStats] = []
         self._writer = (TrajectoryWriter(config.trajectory_path)
                         if config.trajectory_path else None)
-        self.grid: TSDFGrid = empty_grid(config.grid, device=self.device)
+        f = config.fusion
+        self._bs = f.brick_shape
+        self._grid: Optional[TSDFGrid] = None  # flat layout
+        self._bgrid = None  # brick-major rows, with self._dm their masked view
+        self._dm = None
+        if f.mode == "brickmajor":
+            self._vdt = storage_dtype(f.storage_dtype)
+            self._wdt = storage_dtype(f.weight_dtype)
+            self._bgrid = empty_brick_grid(config.grid, self._bs, device=self.device,
+                                           value_dtype=self._vdt,
+                                           weight_dtype=self._wdt)
+            self._dm = brick_masked_view(self._bgrid, config.grid, self._bs)
+        else:
+            self._grid = empty_grid(config.grid, device=self.device)
         # adaptive FULL cap: the smallest of three levels that covers ~1.3x
         # the previous frame's FULL count (overflow escalates the next frame)
         cap_max = config.fusion.brick_cap
@@ -96,13 +119,43 @@ class Reconstruction:
         self._cap_idx = len(self._cap_levels) - 1
         self.last_fuse_stats: Optional[FuseStats] = None
 
+    @property
+    def grid(self) -> TSDFGrid:
+        """The dense (m, m, m) grid. In brick-major mode this materializes it
+        from the brick rows (six float32 leaves): for tests and export, not
+        for the per-frame path."""
+        if self._bgrid is not None:
+            return dense_from_brick_grid(self._bgrid, self.config.grid, self._bs)
+        return self._grid
+
+    @grid.setter
+    def grid(self, g: TSDFGrid) -> None:
+        if self._bgrid is not None:
+            self._bgrid = brick_grid_from_dense(g, self._bs, value_dtype=self._vdt,
+                                                weight_dtype=self._wdt)
+            self._dm = brick_masked_view(self._bgrid, self.config.grid, self._bs)
+        else:
+            self._grid = g
+
+    @property
+    def brick_grid(self):
+        """The brick-major rows (fusion.brickmajor.BrickGrid), None in the
+        flat layout. Fusion updates them in place."""
+        return self._bgrid
+
     def _fuse(self, points, normals, rgb) -> None:
         cfg = self.config
         cap = self._cap_levels[self._cap_idx]
-        _, stats = fuse_frame_bricked(
-            self.grid, self.pose, points, normals, rgb, params=cfg.grid,
-            cam=self.cam, cfg=cfg.fusion, bs=cfg.fusion.brick_shape, cap=cap,
-            cap_act=cfg.fusion.brick_cap_active or None)
+        if self._bgrid is not None:
+            _, self._dm, stats = fuse_frame_brickmajor(
+                self._bgrid, self.pose, points, normals, rgb, params=cfg.grid,
+                cam=self.cam, cfg=cfg.fusion, bs=self._bs, cap=cap,
+                cap_free=cfg.fusion.brick_cap_free or None)
+        else:
+            _, stats = fuse_frame_bricked(
+                self._grid, self.pose, points, normals, rgb, params=cfg.grid,
+                cam=self.cam, cfg=cfg.fusion, bs=self._bs, cap=cap,
+                cap_act=cfg.fusion.brick_cap_active or None)
         self.last_fuse_stats = stats
         need = stats.n_full * 1.3
         self._cap_idx = next((i for i, c in enumerate(self._cap_levels) if c >= need),
@@ -141,23 +194,27 @@ class Reconstruction:
         cfg = self.config
         self.frame_num += 1
         timestamp = float(timestamp) if timestamp is not None else float(self.frame_num)
+        t0 = time.perf_counter()
         points, normals = preprocess_frame(
             self._as_depth(depth), cam=self.cam, bilateral=cfg.bilateral_filter,
             bilateral_mode=cfg.bilateral_mode)
 
         gn_iters, nvalid, mean_res, rejected = 0, 0, 0.0, False
         _sync(self.device)
+        preprocess_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         if self.frame_num > 1:
             pose0 = self._predict_pose()
+            # brick-major: track against the view of the D rows (grid=None)
+            grid = self._grid
             if cfg.pyramid_levels:
                 res, _ = track_frame_pyramid(
-                    self.grid, pose0, points, params=cfg.grid, cfg=cfg.tracking,
-                    levels=cfg.pyramid_levels)
+                    grid, pose0, points, params=cfg.grid, cfg=cfg.tracking,
+                    levels=cfg.pyramid_levels, Dm=self._dm)
             else:
                 s = cfg.tracking.pixel_stride
-                res = track_frame(self.grid, pose0, points[::s, ::s].reshape(-1, 3),
-                                  params=cfg.grid, cfg=cfg.tracking)
+                res = track_frame(grid, pose0, points[::s, ::s].reshape(-1, 3),
+                                  params=cfg.grid, cfg=cfg.tracking, Dm=self._dm)
             gn_iters, nvalid, mean_res = (res.iterations, res.num_valid,
                                           res.mean_abs_residual)
             # failure gate: a diverged or starved track must not reach the
@@ -180,7 +237,7 @@ class Reconstruction:
         if not rejected:
             rgb_t = self._as_rgb(rgb)
             # color fuses on every color_every-th frame only
-            ce = getattr(cfg.fusion, "color_every", 1)
+            ce = cfg.fusion.color_every
             if ce > 1 and self.frame_num % ce:
                 rgb_t = None
             self._fuse(points, normals, rgb_t)
@@ -190,7 +247,8 @@ class Reconstruction:
         stat = FrameStats(index=self.frame_num, timestamp=timestamp,
                           track_ms=track_ms, fuse_ms=fuse_ms,
                           gn_iterations=gn_iters, num_valid=nvalid,
-                          mean_abs_residual=mean_res, rejected=rejected)
+                          mean_abs_residual=mean_res, rejected=rejected,
+                          preprocess_ms=preprocess_ms)
         self.stats.append(stat)
         return stat
 

@@ -17,7 +17,8 @@ import torch
 from tracking_sdf_tpu.config import GridParams, TrackingConfig
 from tracking_sdf_tpu_torch.core.lie import Pose, se3_exp
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, world_to_voxel
-from tracking_sdf_tpu_torch.grid.interp import masked_view, trilinear_with_grad_nan
+from tracking_sdf_tpu_torch.grid.interp import (
+    MaskedView, masked_view, trilinear_with_grad_nan)
 from tracking_sdf_tpu_torch.tracking.gn_reduce import gn_reduce, unpack
 
 
@@ -37,7 +38,7 @@ def _sanitize(points_cam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def pixel_residuals_analytic(
-    Dm: torch.Tensor,  # masked_view of the grid
+    Dm: MaskedView,  # masked view of the grid, dense or brick-major
     pose: Pose,
     points_cam: torch.Tensor,  # (N, 3), NaN holes allowed
     *,
@@ -92,9 +93,11 @@ def track_frame(
     *,
     params: GridParams,
     cfg: TrackingConfig = TrackingConfig(),
-    Dm: Optional[torch.Tensor] = None,  # precomputed masked_view
+    Dm: Optional[MaskedView] = None,  # precomputed masked view
 ) -> TrackResult:
-    """Estimate the camera pose for one frame by damped GN on sum phi^2."""
+    """Estimate the camera pose for one frame by damped GN on sum phi^2.
+    ``grid`` may be None when ``Dm`` is given (the brick-major loop never
+    builds the dense grid)."""
     if cfg.jacobian != "analytic":
         raise NotImplementedError(f"jacobian={cfg.jacobian!r}: only 'analytic' is ported")
     if Dm is None:

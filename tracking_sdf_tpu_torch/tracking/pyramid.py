@@ -7,19 +7,19 @@ make the finest level re-optimise past the coarse level's biased optimum.
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from tracking_sdf_tpu.config import GridParams, TrackingConfig
 from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
-from tracking_sdf_tpu_torch.grid.interp import masked_view
+from tracking_sdf_tpu_torch.grid.interp import MaskedView, masked_view
 from tracking_sdf_tpu_torch.tracking.gauss_newton import TrackResult, track_frame
 
 
 def track_frame_pyramid(
-    grid: TSDFGrid,
+    grid: Optional[TSDFGrid],
     pose0: Pose,
     points_img: torch.Tensor,  # (H, W, 3) organized camera-frame points
     *,
@@ -27,9 +27,11 @@ def track_frame_pyramid(
     cfg: TrackingConfig = TrackingConfig(),
     levels: Sequence[int] = (4, 2, 1),
     coarse_iterations: int = 10,
-    Dm: torch.Tensor = None,  # precomputed masked_view; else built once here
+    Dm: Optional[MaskedView] = None,  # precomputed masked view
 ) -> Tuple[TrackResult, Tuple[TrackResult, ...]]:
-    """Returns (finest-level result, per-level results)."""
+    """Returns (finest-level result, per-level results). Without ``Dm`` the
+    masked view is built once here from ``grid``; with it, ``grid`` may be
+    None (the brick-major loop never builds the dense grid)."""
     if not levels or levels[-1] != 1:
         raise ValueError("levels must be non-empty and end at 1 "
                          "(finest = cfg.pixel_stride)")
