@@ -7,12 +7,26 @@ Phases, each of which fails the run (non-zero exit) on a fault:
   1. header: GPU name and power limit, torch / CUDA / nvcc versions;
   2. build: compile the CUDA kernels from csrc/ (timed);
   3. kernels: each hand-written kernel form against its plain PyTorch version
-     on the card at the main paths' shapes, with errors and median CUDA-event
-     times:
+     on the card at the main paths' shapes, with errors and times: the
+     kernel's time, CUDA events around 100 back-to-back launches on inputs
+     prepared outside the window, over the count (bound by the host where a
+     launch takes longer to issue than to run); its device time, the
+     kernel's own time per call from torch.profiler over 100 calls; the
+     wrapper's time, the median CUDA-event time per call, validation and
+     allocation included:
        K1 gn_reduce, dense form, at 34,240 and 8,560 queries on a 256^3 grid
          fused from the first frame (flat layout);
        K1 gn_reduce, brick-major form, at the same queries on the bf16 D rows
          of a 256^3 brick grid fused from the first frame (tum256);
+       K1 gn_step, dense and brick-major bf16 forms, at 34,240, 8,560 and
+         2,160 queries (strides 3, 6, 12 read in place from the point
+         image): one step from the same state against the plain step
+         (relative twist error, equal done flags and valid counts), then a
+         whole level of max_iterations steps (equal step counts, pose within
+         1e-5 m); timed as full steps and as launches on a done state;
+       tracking with no host sync: one frame's track_frame_pyramid on the
+         tum256 view under torch.cuda.set_sync_debug_mode("error"), with the
+         preset's levels (2, 1) and with (4, 2, 1), read after;
        K2 brick_merge, dense form, at cap 6144 / cap_act 24,576, geometry and
          color, max_weight 128 with voxels at the clamp;
        K2 brick_merge_rows, row form, at cap 6144 / cap_free 2048 on bf16 rows
@@ -27,13 +41,15 @@ Phases, each of which fails the run (non-zero exit) on a fault:
          brick_merge "pallas"), 4 tracked frames;
        the tum256 preset as it is, 10 tracked frames;
        the tum512 preset as it is, 5 tracked frames.
-     The kernels of each path must have launched, no frame may be rejected,
-     and the final |t err| must stay under 46.9 mm (2 voxels at 256^3); for
-     the presets also within 0.5 voxel of the JAX package's own final |t err|
-     on the same scene and frames. The presets' bf16 leaves must be free of
-     NaN wherever W > 0, with weights in [0, 128].
-The last two lines are the kernels' JSON record and
-{"ok": true, "device": {...}}. Without a CUDA device it exits non-zero.
+     The kernels of each path (K1 gn_step and K2) must have launched, no
+     frame may be rejected, and the final |t err| must stay under 46.9 mm (2
+     voxels at 256^3); for the presets also within 0.5 voxel of the JAX
+     package's own final |t err| on the same scene and frames. The presets'
+     bf16 leaves must be free of NaN wherever W > 0, with weights in [0, 128].
+The last two lines are the kernels' JSON record (bound_ms from this run's
+inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
+at 67 TFLOP/s, whichever is longer) and {"ok": true, "device": {...}}.
+Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
@@ -50,6 +66,14 @@ import torch
 K_FRAMES = 10  # tracked frames of the trajectory after the bootstrap frame
 TRACKED = {"slice": 4, "tum256": 10, "tum512": 5}  # tracked frames per main path
 REL_TOL_GN = 1e-4  # K1: max |A - A_ref| / max |A_ref| (and b); sums differ in order
+# K1 step: max |twist - twist_ref| / max |twist_ref| after one step (sums in
+# another order, the solve in float64 against float32)
+REL_TOL_STEP = 1e-4
+POSE_TOL_LEVEL = 1e-5  # m and rad entries: a whole level, kernel vs plain steps
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
+K1_FLOP_PER_QUERY = 280  # a valid query: pose, 8 corners, gradient, J, JᵀJ
+TIMED_LAUNCHES = 100
 ABS_TOL_MERGE = 1e-5  # K2 dense form: same float32 formula per voxel
 T_ERR_MAX = 0.0469  # m: the absolute |t err| bound, 2 voxels at 256^3
 # Final |t err| (mm) of the JAX package on the same scene, trajectory and
@@ -88,6 +112,56 @@ def cuda_time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def events_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
+    """CUDA-event time of ``n`` back-to-back calls, over ``n``."""
+    for _ in range(warmup):
+        fn()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def kernel_device_ms(fn, keys, n: int = TIMED_LAUNCHES):
+    """Device time per call of ``fn`` in the kernels whose names hold one of
+    ``keys``, from torch.profiler over ``n`` calls; None when the profiler
+    sees fewer than ``n`` launches of them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages()
+          if e.device_type == DeviceType.CUDA and any(k in e.key for k in keys)]
+    if sum(e.count for e in ev) < n:
+        print(f"  the profiler saw {sum(e.count for e in ev)} launches of {keys}, "
+              f"not {n}: no device time")
+        return None
+    return sum(e.self_device_time_total for e in ev) / 1e3 / n
+
+
+def bound(nbytes: float, flops: float = 0.0):
+    """(bound_ms, bound_by): the longer of the bytes over the memory rate
+    and the float32 operations over the float32 rate."""
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def k1_bound(n: int, nvalid: int, elem_bytes: int, out_bytes: int):
+    """K1 at n queries: the points (12 B each), the 8 corners of each valid
+    query, the output; K1_FLOP_PER_QUERY for each valid query."""
+    return bound(n * 12 + nvalid * 8 * elem_bytes + out_bytes,
+                 nvalid * K1_FLOP_PER_QUERY)
 
 
 def union(*parts):
@@ -129,7 +203,7 @@ def make_poses(device):
 def path_config(name, trajectory_path):
     """The presets as they are, or the flat slice (tum256 with the flat
     bricked layout); only the trajectory path changes."""
-    from tracking_sdf_tpu.config import preset
+    from tracking_sdf_tpu_torch.config import preset
 
     cfg = dataclasses.replace(preset("tum256" if name == "slice" else name),
                               trajectory_path=trajectory_path)
@@ -144,6 +218,7 @@ def counters():
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     return {"gn_reduce": k1.launches, "gn_reduce_brick": k1.launches_brick,
+            "gn_step": k1.launches_step, "gn_step_brick": k1.launches_step_brick,
             "brick_merge": k2.launches, "brick_merge_rows": k2.launches_rows}
 
 
@@ -151,13 +226,14 @@ def reset_counters():
     from tracking_sdf_tpu_torch.fusion import brick_merge as k2
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
-    k1.launches = k1.launches_brick = 0
+    k1.launches = k1.launches_brick = k1.launches_step = k1.launches_step_brick = 0
     k2.launches = k2.launches_rows = 0
 
 
 def gn_compare(label, Dm, pose, pts1, p):
     """K1 on the card against its plain version at strides 3 and 6."""
-    from tracking_sdf_tpu_torch.tracking.gn_reduce import gn_reduce, gn_reduce_reference
+    from tracking_sdf_tpu_torch.tracking.gn_reduce import (
+        gn_reduce, gn_reduce_reference, gn_reducer)
 
     rec = {}
     for stride in (3, 6):
@@ -171,21 +247,118 @@ def gn_compare(label, Dm, pose, pts1, p):
             errs[part] = diff / max(out_r[sl].abs().max().item(), 1e-30)
         nv_k, nv_r = int(out_k[27].item()), int(out_r[27].item())
         max_abs = (out_k[:27] - out_r[:27]).abs().max().item()
-        ms = cuda_time_ms(lambda: gn_reduce(Dm, pose, q, p))
+        ms = events_ms(gn_reducer(Dm, pose, q, p))
+        device_ms = kernel_device_ms(gn_reducer(Dm, pose, q, p),
+                                     ("gn_partials_kernel", "gn_final_kernel"))
+        wrapper_ms = cuda_time_ms(lambda: gn_reduce(Dm, pose, q, p))
         plain_ms = cuda_time_ms(lambda: gn_reduce_reference(Dm, pose, q, p))
+        bms, by = k1_bound(q.shape[0], nv_k, Dm.dtype.itemsize, 29 * 4)
         print(f"{label} N={q.shape[0]}: rel err A {errs['A']:.3e} b {errs['b']:.3e}, "
               f"max abs err {max_abs:.3e}, num_valid {nv_k} (plain {nv_r}), tol rel "
-              f"{REL_TOL_GN:g}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{REL_TOL_GN:g}; kernel {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), "
+              f"device {device_ms} ms, wrapper {wrapper_ms:.4f} ms per call, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by})")
         check(nv_k == nv_r and nv_k > 1000, f"{label} num_valid {nv_k} != {nv_r}")
         check(errs["A"] <= REL_TOL_GN and errs["b"] <= REL_TOL_GN,
               f"{label} disagrees with its plain version at N={q.shape[0]}: {errs}")
-        rec[stride] = dict(max_abs_err=max_abs, ms=ms, plain_ms=plain_ms)
+        rec[stride] = dict(max_abs_err=max_abs, ms=ms, device_ms=device_ms,
+                           wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by)
     return rec[3]
+
+
+def step_compare(label, Dm, pose, pts1, p, tcfg):
+    """K1's step on the card against the plain step, at strides 3, 6 and 12
+    of the point image (read in place): one step from one state, then a
+    whole level of ``tcfg.max_iterations`` steps. Times full steps (a cfg
+    that never converges) and launches on a done state."""
+    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+
+    rec = {}
+    for stride in (3, 6, 12):
+        img = pts1[::stride, ::stride]
+        n = img.shape[0] * img.shape[1]
+        sk = k1.init_state(pose, tcfg.damping)
+        sr = sk.clone()
+        k1.gn_stepper(Dm, sk, img, p, tcfg)()
+        k1.gn_step_reference(Dm, sr, img, p, tcfg)
+        torch.cuda.synchronize()
+        tk, tr = sk[k1.S_TWIST:k1.S_TWIST + 6], sr[k1.S_TWIST:k1.S_TWIST + 6]
+        err = ((tk - tr).abs().max() / tr.abs().max().clamp(min=1e-30)).item()
+        max_abs = (sk[:k1.S_COUNT] - sr[:k1.S_COUNT]).abs().max().item()
+        ik, ir = sk.view(torch.int32), sr.view(torch.int32)
+        nv_k, nv_r = int(sk[k1.S_NVALID].item()), int(sr[k1.S_NVALID].item())
+        done = (int(ik[k1.S_DONE]), int(ir[k1.S_DONE]))
+        # a whole level
+        lk = k1.init_state(pose, tcfg.damping)
+        lr = lk.clone()
+        step = k1.gn_stepper(Dm, lk, img, p, tcfg)
+        for _ in range(tcfg.max_iterations):
+            step()
+            k1.gn_step_reference(Dm, lr, img, p, tcfg)
+        torch.cuda.synchronize()
+        iters = (int(lk.view(torch.int32)[k1.S_COUNT]), int(lr.view(torch.int32)[k1.S_COUNT]))
+        dpose = (lk[:k1.S_LAM] - lr[:k1.S_LAM]).abs().max().item()
+        # times: full steps, done launches, the wrapper, the plain step
+        never = tcfg._replace(max_iterations=1 << 30, min_iterations=0,
+                              max_twist_diff=-1.0)
+        full = k1.gn_stepper(Dm, k1.init_state(pose, tcfg.damping), img, p, never)
+        ms = events_ms(full)
+        device_ms = kernel_device_ms(full, ("gn_step_kernel",))
+        done_state = lk.clone()
+        done_state.view(torch.int32)[k1.S_DONE] = 1
+        frozen = k1.gn_stepper(Dm, done_state, img, p, tcfg)
+        ms_done = events_ms(frozen)
+        device_ms_done = kernel_device_ms(frozen, ("gn_step_kernel",))
+        sw, sp = k1.init_state(pose, tcfg.damping), k1.init_state(pose, tcfg.damping)
+        wrapper_ms = cuda_time_ms(lambda: k1.gn_step(Dm, sw, img, p, never))
+        plain_ms = cuda_time_ms(lambda: k1.gn_step_reference(Dm, sp, img, p, never))
+        bms, by = k1_bound(n, nv_k, Dm.dtype.itemsize, 2 * k1.N_STATE * 4)
+        print(f"{label} N={n}: one step rel twist err {err:.3e} (tol {REL_TOL_STEP:g}), "
+              f"max abs state err {max_abs:.3e}, done {done[0]} (plain {done[1]}), "
+              f"num_valid {nv_k} (plain {nv_r}); level of {tcfg.max_iterations} "
+              f"launches: {iters[0]} steps (plain {iters[1]}), max |pose diff| "
+              f"{dpose:.3e} (tol {POSE_TOL_LEVEL:g}); full step {ms:.4f} ms, done "
+              f"launch {ms_done:.4f} ms ({TIMED_LAUNCHES} back-to-back), device "
+              f"{device_ms} ms (full) and {device_ms_done} ms (done), wrapper "
+              f"{wrapper_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.6f} ms ({by})")
+        check(nv_k == nv_r and nv_k > 100, f"{label} num_valid {nv_k} != {nv_r}")
+        check(err <= REL_TOL_STEP and done[0] == done[1],
+              f"{label} step disagrees with the plain step at N={n}: {err}, {done}")
+        check(iters[0] == iters[1] and dpose <= POSE_TOL_LEVEL,
+              f"{label} level disagrees with plain steps at N={n}: {iters}, {dpose}")
+        rec[stride] = dict(max_abs_err=max_abs, ms=ms, ms_done=ms_done,
+                           device_ms=device_ms, device_ms_done=device_ms_done,
+                           wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
+                           bound_by=by)
+    return rec[3]
+
+
+def tracking_without_host_sync(Dm, pose, pts1, p, tcfg, levels):
+    """One frame's pyramid tracking on the card under
+    set_sync_debug_mode("error"): any host sync inside it raises."""
+    from tracking_sdf_tpu_torch.tracking.pyramid import track_frame_pyramid
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res, per_level = track_frame_pyramid(None, pose, pts1, params=p, cfg=tcfg,
+                                             levels=levels, Dm=Dm)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    st = [r.read() for r in per_level]
+    print(f"tracking levels {tuple(levels)} under set_sync_debug_mode('error'): no host "
+          f"sync; steps per level {[s.iterations for s in st]}, num_valid "
+          f"{st[-1].num_valid}")
+    check(all(s.iterations > 0 for s in st) and st[-1].num_valid > 1000,
+          f"tracking levels {tuple(levels)} ran no step")
 
 
 def kernel_gn(cam, scene, poses, rgb, dev):
     """K1's dense form on the flat grid and its brick-major form on the bf16
-    D rows, each fused from the first frame and queried with the second."""
+    D rows, each fused from the first frame and queried with the second:
+    the reduction, the step, and one frame's tracking with no host sync."""
     from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
     from tracking_sdf_tpu_torch.fusion.brick import fuse_frame_bricked
     from tracking_sdf_tpu_torch.fusion.brickmajor import (
@@ -204,9 +377,10 @@ def kernel_gn(cam, scene, poses, rgb, dev):
     fuse_frame_bricked(grid, poses[0], pts0, nrm0, rgb, params=p, cam=cam,
                        cfg=flat.fusion, bs=flat.fusion.brick_shape,
                        cap=flat.fusion.brick_cap)
-    dense = gn_compare("K1 gn_reduce (dense)", masked_view(grid.D, grid.W), poses[0],
-                       pts1, p)
-    del grid
+    Dm = masked_view(grid.D, grid.W)
+    dense = gn_compare("K1 gn_reduce (dense)", Dm, poses[0], pts1, p)
+    dense_step = step_compare("K1 gn_step (dense)", Dm, poses[0], pts1, p, flat.tracking)
+    del grid, Dm
     f = tum.fusion
     bg = empty_brick_grid(tum.grid, f.brick_shape, device=dev,
                           value_dtype=torch.bfloat16, weight_dtype=torch.bfloat16)
@@ -215,7 +389,11 @@ def kernel_gn(cam, scene, poses, rgb, dev):
                                        cap_free=f.brick_cap_free)
     check(view.rows.dtype == torch.bfloat16, "the tum256 view is not bf16")
     brick = gn_compare("K1 gn_reduce (brick-major bf16)", view, poses[0], pts1, tum.grid)
-    return dense, brick
+    brick_step = step_compare("K1 gn_step (brick-major bf16)", view, poses[0], pts1,
+                              tum.grid, tum.tracking)
+    for levels in (tum.pyramid_levels, (4, 2, 1)):
+        tracking_without_host_sync(view, poses[0], pts1, tum.grid, tum.tracking, levels)
+    return dense, brick, dense_step, brick_step
 
 
 def kernel_merge(dev):
@@ -253,14 +431,25 @@ def kernel_merge(dev):
         torch.cuda.synchronize()
         err = max((getattr(gk, k) - getattr(gr, k)).abs().max().item() for k in FIELDS)
         at_clamp = int((gk.W == 128.0).sum().item())
-        ms = cuda_time_ms(lambda: brick_merge(gk, *args, **kw))
+        ms = events_ms(lambda: brick_merge(gk, *args, **kw))
+        device_ms = kernel_device_ms(lambda: brick_merge(gk, *args, **kw),
+                                     ("brick_merge_kernel",))
+        wrapper_ms = cuda_time_ms(lambda: brick_merge(gk, *args, **kw))
         plain_ms = cuda_time_ms(lambda: brick_merge_reference(gr, *args, **kw))
+        # per voxel: a FULL brick in the cap reads C update channels and reads
+        # and writes D, W (and R, G, B, Wc); a FREE brick reads and writes D, W
+        n_full, n_free = min(cap, full_pos.numel()), int((cls == 1).sum())
+        bms, by = bound(512 * (n_full * (4 * C + 8 * (2 if C == 2 else 6)) + n_free * 16))
         print(f"K2 brick_merge (dense) C={C} cap={cap} cap_act={cap_act}: max abs err "
-              f"{err:.3e} (tol {ABS_TOL_MERGE:g}), "
-              f"{at_clamp} voxels at max_weight; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{err:.3e} (tol {ABS_TOL_MERGE:g}), {at_clamp} voxels at max_weight; "
+              f"kernel {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device "
+              f"{device_ms} ms, wrapper {wrapper_ms:.4f} ms per call, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}; {n_full} FULL, {n_free} "
+              f"FREE bricks)")
         check(err <= ABS_TOL_MERGE, f"K2 disagrees with its plain version (C={C}): {err}")
         check(at_clamp > 0, "K2 inputs reached no clamp")
-        rec[C] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        rec[C] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms,
+                      plain_ms=plain_ms, bound_ms=bms, bound_by=by)
     return rec[6]
 
 
@@ -305,17 +494,32 @@ def kernel_merge_rows(dev):
                   for a, b in zip(lk[:2], lr[:2]))
         at_clamp = int((lk[1] == 128.0).sum())
         touched = int((lk[2] != C).any(dim=1).sum())
-        ms = cuda_time_ms(lambda: brick_merge_rows(*lk, upd, ids, **kw))
+        ms = events_ms(lambda: brick_merge_rows(*lk, upd, ids, **kw))
+        device_ms = kernel_device_ms(lambda: brick_merge_rows(*lk, upd, ids, **kw),
+                                     ("brick_merge_rows_kernel",))
+        wrapper_ms = cuda_time_ms(lambda: brick_merge_rows(*lk, upd, ids, **kw))
         plain_ms = cuda_time_ms(lambda: brick_merge_rows_reference(*lr, upd, ids, **kw))
+        # per voxel of a listed brick: FULL reads its update channels (4 B
+        # each) and reads and writes bf16 D, W (8 B) and with color the four
+        # color lanes (16 B); FREE reads and writes D, W (8 B)
+        n_full, n_free = int((ids[:cap] < nb).sum()), int((ids[cap:] < nb).sum())
+        bms, by = bound(bv * (n_full * (4 * channels + 8 + (16 if channels == 6 else 0))
+                              + n_free * 8))
         print(f"K2 brick_merge_rows (bf16 rows) channels={channels} cap={cap} "
               f"cap_free={cap_free}: {differ} stored values differ (tol 0), NaN masks "
               f"equal {nan_ok}, max abs err {err:.3e}, {at_clamp} voxels at max_weight, "
-              f"{touched} color rows updated; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+              f"{touched} color rows updated; kernel {ms:.4f} ms ({TIMED_LAUNCHES} "
+              f"back-to-back), device {device_ms} ms, wrapper {wrapper_ms:.4f} ms per "
+              f"call, plain "
+              f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}; {n_full} FULL, {n_free} "
+              f"FREE bricks)")
         check(differ == 0 and nan_ok, f"K2 row form disagrees with its plain version "
               f"(channels={channels}): {differ} values, NaN masks equal {nan_ok}")
         check(at_clamp > 0, "K2 row inputs reached no clamp")
         check((touched > 0) == (channels == 6), "color rows updated on the wrong path")
-        rec[channels] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+        rec[channels] = dict(max_abs_err=err, ms=ms, device_ms=device_ms,
+                             wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
+                             bound_by=by)
     return rec[6]
 
 
@@ -327,7 +531,7 @@ def small_parity(dev):
     The scene is a sphere and a box: a lone sphere leaves rotations about its
     centre unobservable, so its tracked pose would be set by float rounding,
     which differs between hosts (the CPU's BLAS code path)."""
-    from tracking_sdf_tpu.config import GridParams
+    from tracking_sdf_tpu_torch.config import GridParams
     from tracking_sdf_tpu_torch.core.camera import PinholeCamera
     from tracking_sdf_tpu_torch.data.synthetic import (
         CuboidScene, SphereScene, look_at, render_scene_depth)
@@ -402,15 +606,16 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
     med = {k: statistics.median(getattr(s, k) for s in tracked)
            for k in ("preprocess_ms", "track_ms", "fuse_ms")}
     rec = dict(ms_per_frame=statistics.median(wall[1:]), t_err_mm=t_err * 1e3,
-               gn_iterations=sum(s.gn_iterations for s in tracked), launches=launches, **med)
+               gn_iterations=sum(s.gn_iterations for s in tracked), launches=launches,
+               tracked=len(tracked), fused=sum(not s.rejected for s in recon.stats), **med)
     print(f"main path {name} ({cfg.grid.m}^3, {cam.width}x{cam.height}, {len(tracked)} "
           f"tracked frames): median {rec['ms_per_frame']:.2f} ms/frame wall, preprocess "
           f"{med['preprocess_ms']:.2f} ms, track {med['track_ms']:.2f} ms, fuse "
           f"{med['fuse_ms']:.2f} ms; GN iterations {rec['gn_iterations']}; final |t err| "
           f"{rec['t_err_mm']:.2f} mm; peak device memory {peak_gb:.2f} GiB; "
           f"launches {launches}")
-    kernels = (("gn_reduce", "brick_merge") if name == "slice"
-               else ("gn_reduce_brick", "brick_merge_rows"))
+    kernels = (("gn_step", "brick_merge") if name == "slice"
+               else ("gn_step_brick", "brick_merge_rows"))
     check(all(launches[k] > 0 for k in kernels), f"{name}: a kernel never ran: {launches}")
     check(not any(s.rejected for s in recon.stats), f"{name}: a frame was rejected")
     check(t_err < T_ERR_MAX, f"{name}: |t err| {t_err:.4f} m >= {T_ERR_MAX} m")
@@ -486,7 +691,8 @@ def main() -> int:
     poses = make_poses(dev)
     rgb = torch.full((cam.height, cam.width, 3), 0.5, device=dev)
 
-    k1_dense, k1_brick = kernel_gn(cam, scene, poses, rgb, dev)
+    k1_dense, k1_brick, k1_step_dense, k1_step_brick = kernel_gn(cam, scene, poses, rgb,
+                                                                 dev)
     k2_dense = kernel_merge(dev)
     k2_rows = kernel_merge_rows(dev)
     small_parity(dev)
@@ -497,25 +703,28 @@ def main() -> int:
     paths = {name: run_path(name, cam, depths, poses, rgb, dev,
                             os.path.join(repo, "build", f"chip_smoke_{name}.txt"))
              for name in TRACKED}
-    presets = [paths["tum256"]["launches"], paths["tum512"]["launches"]]
 
     def src(f):
         return f"tracking_sdf_tpu_torch/csrc/{f}"
 
+    def entry(name, source, replaces, path_names, per, rec):
+        """One kernel's record; launches from the named main paths, per
+        tracked (K1) or fused (K2) frame of those paths."""
+        n = sum(paths[p]["launches"][name] for p in path_names)
+        frames = sum(paths[p][per] for p in path_names)
+        return dict(name=name, route="cuda", source=src(source), replaces=replaces,
+                    launches=n, launches_per_frame=n / frames, library_ms=None, **rec)
+
     gn_tpu = "tracking_sdf_tpu/tracking/pallas_gn.py:82"
     merge_tpu = "tracking_sdf_tpu/fusion/pallas_merge.py:94"
+    presets = ("tum256", "tum512")
     kernels = [
-        dict(name="gn_reduce", route="cuda", source=src("gn_reduce.cu"), replaces=gn_tpu,
-             launches=paths["slice"]["launches"]["gn_reduce"], **k1_dense),
-        dict(name="gn_reduce_brick", route="cuda", source=src("gn_reduce.cu"),
-             replaces=gn_tpu, launches=sum(l["gn_reduce_brick"] for l in presets),
-             **k1_brick),
-        dict(name="brick_merge", route="cuda", source=src("brick_merge.cu"),
-             replaces=merge_tpu, launches=paths["slice"]["launches"]["brick_merge"],
-             **k2_dense),
-        dict(name="brick_merge_rows", route="cuda", source=src("brick_merge.cu"),
-             replaces=merge_tpu, launches=sum(l["brick_merge_rows"] for l in presets),
-             **k2_rows),
+        entry("gn_reduce", "gn_reduce.cu", gn_tpu, ("slice",), "tracked", k1_dense),
+        entry("gn_reduce_brick", "gn_reduce.cu", gn_tpu, presets, "tracked", k1_brick),
+        entry("gn_step", "gn_reduce.cu", gn_tpu, ("slice",), "tracked", k1_step_dense),
+        entry("gn_step_brick", "gn_reduce.cu", gn_tpu, presets, "tracked", k1_step_brick),
+        entry("brick_merge", "brick_merge.cu", merge_tpu, ("slice",), "fused", k2_dense),
+        entry("brick_merge_rows", "brick_merge.cu", merge_tpu, presets, "fused", k2_rows),
     ]
     print(gpu)
     print(json.dumps({"kernels": kernels}))

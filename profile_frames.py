@@ -1,0 +1,187 @@
+#!/usr/bin/env python3
+"""Frame times and a device profile of the port's presets on one GPU.
+
+    python3 profile_frames.py [--presets tum256 tum512] [--label NAME] [--out DIR]
+
+For each preset, as it is, over chip_smoke.py's scene and trajectory at
+640x480 (frame 0 bootstraps; chip_smoke.TRACKED tracked frames follow):
+  1. a timed run: host clock around each Reconstruction.process_frame,
+     ending in torch.cuda.synchronize(); medians over the tracked frames of
+     ms/frame and of the FrameStats stage times;
+  2. a profiled run of the same frames in a fresh Reconstruction, under
+     torch.profiler (CPU and CUDA activities) from the second tracked frame
+     on: device time per frame (the CUDA events' self time) and the device
+     busy share, device time over the timed run's median ms/frame;
+  3. one frame's tracking alone: track_frame_pyramid on the last frame's
+     points from the pose before it, through the first read of its
+     iteration count, timed unprofiled (median of 5) and profiled once:
+     device time, busy share, device kernels and copies, host waits (CUDA
+     synchronize calls and device-to-host copies) and the largest device
+     operations.
+Prints one JSON line per preset and writes them all to OUT/profile_LABEL.json
+(OUT defaults to build/profile/ beside this script). It drives public entry
+points only (Reconstruction, preprocess_frame, brick_masked_view,
+track_frame_pyramid), so it also times an older checkout of the port that
+has a config module.
+Without a CUDA device it exits non-zero.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+import torch
+
+SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize")
+COPY_CALLS = ("cudaMemcpy", "cudaMemcpyAsync")
+
+
+def device_events(prof):
+    from torch.autograd import DeviceType
+
+    return [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+
+
+def host_calls(prof, names):
+    return sum(e.count for e in prof.key_averages() if e.key in names)
+
+
+def profile(fn):
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev = device_events(prof)
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    return dict(
+        device_ms=sum(e.self_device_time_total for e in dev) / 1e3,
+        device_ops=sum(e.count for e in dev),
+        syncs=host_calls(prof, SYNC_CALLS), copies=host_calls(prof, COPY_CALLS),
+        launches=host_calls(prof, ("cudaLaunchKernel", "cuLaunchKernel")),
+        top=[dict(name=e.key[:80], count=e.count, ms=e.self_device_time_total / 1e3)
+             for e in top])
+
+
+def run_preset(name, label, gpu):
+    import chip_smoke as cs
+    from tracking_sdf_tpu_torch.core.camera import ros_default_camera
+    from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
+    from tracking_sdf_tpu_torch.fusion.brickmajor import brick_masked_view
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+    from tracking_sdf_tpu_torch.tracking.pyramid import track_frame_pyramid
+
+    dev = "cuda"
+    cam = ros_default_camera()
+    poses = cs.make_poses(dev)
+    scene = cs.make_scene()
+    rgb = torch.full((cam.height, cam.width, 3), 0.5, device=dev)
+    cfg = cs.path_config(name, None)
+    n = cs.TRACKED[name] + 1
+    depths = [render_scene_depth(scene, cam, p) for p in poses[:n]]
+
+    # 1. timed run
+    recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
+    wall = []
+    for k in range(n):
+        if k == n - 1:  # the state that 3. tracks against
+            pose_before = recon.pose
+            view = brick_masked_view(recon.brick_grid, cfg.grid, cfg.fusion.brick_shape)
+            view_rows = view.rows.clone()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recon.process_frame(depths[k], rgb=rgb, timestamp=float(k))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    tracked = recon.stats[1:]
+    rec = dict(label=label, preset=name, gpu=gpu, tracked_frames=len(tracked),
+               ms_per_frame=statistics.median(wall[1:]),
+               gn_iterations=[s.gn_iterations for s in tracked],
+               rejected=sum(s.rejected for s in recon.stats),
+               t_err_mm=(recon.pose.t - poses[n - 1].t).norm().item() * 1e3)
+    for key in ("preprocess_ms", "track_ms", "fuse_ms"):
+        rec[key] = statistics.median(getattr(s, key) for s in tracked)
+    del recon
+
+    # 2. profiled run, frames 2.. (the second tracked frame on)
+    recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
+    for k in range(2):
+        recon.process_frame(depths[k], rgb=rgb, timestamp=float(k))
+    prof = profile(lambda: [recon.process_frame(depths[k], rgb=rgb, timestamp=float(k))
+                            for k in range(2, n)])
+    frames = n - 2
+    rec.update(frame_device_ms=prof["device_ms"] / frames,
+               frame_device_ops=prof["device_ops"] / frames,
+               frame_host_syncs=prof["syncs"] / frames,
+               frame_busy=prof["device_ms"] / frames / rec["ms_per_frame"])
+    del recon
+
+    # 3. one frame's tracking alone, against the rows before the last frame
+    view.rows.copy_(view_rows)
+    pts, _ = preprocess_frame(depths[n - 1], cam=cam, bilateral=cfg.bilateral_filter,
+                              bilateral_mode=cfg.bilateral_mode)
+
+    def track():
+        res, _ = track_frame_pyramid(None, pose_before, pts, params=cfg.grid,
+                                     cfg=cfg.tracking, levels=cfg.pyramid_levels, Dm=view)
+        return int(res.iterations)
+
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        track()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    tp = profile(track)
+    host_ms = statistics.median(times[1:])
+    rec.update(track_alone_ms=host_ms, track_device_ms=tp["device_ms"],
+               track_busy=tp["device_ms"] / host_ms, track_device_ops=tp["device_ops"],
+               track_host_syncs=tp["syncs"], track_copies=tp["copies"],
+               track_launch_calls=tp["launches"], track_top=tp["top"])
+    print(f"{label} {name}: {rec['ms_per_frame']:.2f} ms/frame (preprocess "
+          f"{rec['preprocess_ms']:.2f}, track {rec['track_ms']:.2f}, fuse "
+          f"{rec['fuse_ms']:.2f}), GN iterations {rec['gn_iterations']}, |t err| "
+          f"{rec['t_err_mm']:.2f} mm; frame device {rec['frame_device_ms']:.3f} ms in "
+          f"{rec['frame_device_ops']:.0f} ops, busy {rec['frame_busy']:.1%}; tracking "
+          f"alone {host_ms:.2f} ms, device {tp['device_ms']:.3f} ms in "
+          f"{tp['device_ops']} ops, busy {rec['track_busy']:.1%}, host syncs "
+          f"{tp['syncs']}, copies {tp['copies']}")
+    for t in tp["top"]:
+        print(f"    {t['ms']:8.3f} ms {t['count']:5d}x {t['name']}")
+    return rec
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--presets", nargs="+", default=["tum256", "tum512"])
+    ap.add_argument("--label", default="port")
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_frames: needs a CUDA GPU", file=sys.stderr)
+        return 2
+    import chip_smoke as cs
+
+    gpu = cs.gpu_line()
+    print(f"gpu: {gpu}")
+    recs = [run_preset(name, args.label, gpu) for name in args.presets]
+    out = args.out or os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                                   "profile")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"profile_{args.label}.json"), "w") as f:
+        json.dump(recs, f, indent=1)
+    for r in recs:
+        print(json.dumps({k: v for k, v in r.items() if k != "track_top"}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,9 +1,11 @@
-"""Port vs JAX package: the GN reduction (K1's plain version) and tracking.
+"""Port vs JAX package: the GN reduction (K1's plain version), the GN step
+(K1 step's plain version) and tracking.
 
 The same grid, pose and points (numpy) go to both sides. The reduction is
 held to the JAX suite's own tolerances for A and b (tests/test_pallas_gn.py:
-rtol 1e-5 / atol 1e-4 for A, atol 1e-5 for b). Tracking must run the same
-number of iterations and land on the same pose to 1e-5 m / 1e-5 rad.
+rtol 1e-5 / atol 1e-4 for A, atol 1e-5 for b). Tracking, and the plain step
+iterated under its done flag, must run the same number of iterations and
+land on the same pose to 1e-5 m / 1e-5 rad.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -188,3 +190,91 @@ def test_track_frame_with_no_valid_points_takes_no_step():
     rt = track_frame(tg, tp, pts, params=PARAMS, cfg=TrackingConfig())
     assert rt.num_valid == 0 and rt.iterations == 1
     assert torch.allclose(rt.pose.t, tp.t) and torch.allclose(rt.pose.R, tp.R)
+
+
+def _brick_views(value_dtype=jnp.bfloat16):
+    """The JAX package's and the port's brick-major views of one grid."""
+    grid, pts_img = _grid_and_points()
+    bs = (8, 8, 8)
+    jb = brick_grid_from_dense(grid, bs, value_dtype=value_dtype)
+    tb = brick_grid_from_numpy(jb._asdict(), device="cpu")
+    return brick_masked_view(jb, PARAMS, bs), tview(tb, PARAMS, bs), pts_img
+
+
+@pytest.mark.parametrize("cfg", [
+    TrackingConfig(min_iterations=5),
+    TrackingConfig(convergence="signed"),
+    TrackingConfig(pose_update="reference"),
+    TrackingConfig(damping=1.0, damping_decay=0.8),
+], ids=["min_iterations", "signed", "reference_update", "damping_decay"])
+def test_gn_step_reference_under_done_mask_matches_jax(cfg):
+    """cfg.max_iterations plain steps, never stopping early (the done flag
+    freezes the state, as on the card), against the JAX while_loop on the
+    bf16 brick view."""
+    jview, view, pts_img = _brick_views()
+    pts = pts_img[::2, ::2].reshape(-1, 3)
+    pose0 = _perturbed()
+    rj = jtrack(None, pose0, jnp.asarray(pts), params=PARAMS, cfg=cfg, Dm=jview)
+    state = tgn.init_state(pose_from_numpy(pose0.R, pose0.t, device="cpu"), cfg.damping)
+    flat = torch.from_numpy(np.ascontiguousarray(pts))
+    for _ in range(cfg.max_iterations):
+        tgn.gn_step_reference(view, state, flat, PARAMS, cfg)
+    ints = state.view(torch.int32)
+    assert int(ints[tgn.S_COUNT]) == int(rj.iterations) > 1
+    assert int(ints[tgn.S_DONE]) == int(int(rj.iterations) < cfg.max_iterations)
+    assert int(ints[tgn.S_TICKET]) == 0
+    assert int(state[tgn.S_NVALID]) == int(rj.num_valid)
+    np.testing.assert_allclose(state[tgn.S_TWIST:tgn.S_TWIST + 6].numpy(),
+                               np.asarray(rj.final_twist), rtol=0, atol=1e-5)
+    t_err, r_err = _pose_err(tgn.state_pose(state), rj.pose)
+    assert t_err < TOL_T and r_err < TOL_R, (t_err, r_err)
+    lam = cfg.damping * cfg.damping_decay ** int(rj.iterations)
+    assert abs(float(state[tgn.S_LAM]) - lam) <= 1e-6 * max(lam, 1.0)
+
+
+def test_gn_step_reference_with_no_valid_query_is_done_at_once():
+    """All-NaN queries: the zero system's step is zero, done is set by the
+    first step, and later steps leave the state as it is."""
+    jview, view, _ = _brick_views()
+    cfg = TrackingConfig()
+    pts = np.full((300, 3), np.nan, np.float32)
+    rj = jtrack(None, POSE, jnp.asarray(pts), params=PARAMS, cfg=cfg, Dm=jview)
+    pose = pose_from_numpy(POSE.R, POSE.t, device="cpu")
+    state = tgn.init_state(pose, cfg.damping)
+    tgn.gn_step_reference(view, state, torch.from_numpy(pts), PARAMS, cfg)
+    after_one = state.clone()
+    ints = state.view(torch.int32)
+    assert int(ints[tgn.S_COUNT]) == int(rj.iterations) == 1
+    assert int(ints[tgn.S_DONE]) == 1 and int(state[tgn.S_NVALID]) == 0
+    assert torch.equal(state[tgn.S_TWIST:tgn.S_TWIST + 6], torch.zeros(6))
+    t_err, r_err = _pose_err(tgn.state_pose(state), rj.pose)
+    assert t_err < TOL_T and r_err < TOL_R
+    assert torch.equal(tgn.state_pose(state).t, pose.t)
+    for _ in range(3):
+        tgn.gn_step_reference(view, state, torch.from_numpy(pts), PARAMS, cfg)
+    assert torch.equal(state, after_one)
+
+
+def test_track_frame_on_strided_view_matches_flat_points():
+    """The organized-image view that the pyramid passes reads the same
+    queries as their flat copy, and the CPU step launches no kernel."""
+    _, view, pts_img = _brick_views(jnp.float32)
+    img = torch.from_numpy(pts_img)
+    pose0 = pose_from_numpy(_perturbed().R, _perturbed().t, device="cpu")
+    before = (tgn.launches_step, tgn.launches_step_brick)
+    a = track_frame(None, pose0, img[::2, ::2], params=PARAMS, Dm=view).read()
+    b = track_frame(None, pose0, img[::2, ::2].reshape(-1, 3), params=PARAMS,
+                    Dm=view).read()
+    assert (tgn.launches_step, tgn.launches_step_brick) == before
+    assert a.iterations == b.iterations > 1 and a.num_valid == b.num_valid
+    assert torch.equal(a.pose.R, b.pose.R) and torch.equal(a.pose.t, b.pose.t)
+
+
+@pytest.mark.parametrize("field,value", [("convergence", "max"),
+                                         ("pose_update", "left")])
+def test_gn_step_rejects_unknown_modes(field, value):
+    _, view, _ = _brick_views(jnp.float32)
+    cfg = TrackingConfig()._replace(**{field: value})
+    state = tgn.init_state(pose_from_numpy(POSE.R, POSE.t, device="cpu"), cfg.damping)
+    with pytest.raises(ValueError):
+        tgn.gn_step(view, state, torch.zeros(4, 3), PARAMS, cfg)

@@ -4,14 +4,16 @@ Marked ``cuda``: each test skips without a card (decided inside the test, so
 every pytest-xdist worker collects the same tests). On a GPU machine run
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 Tolerances: K1 relative 1e-4 of max|A| and max|b| (float32 sums in another
-order), K2's dense form absolute 1e-5 (the same per-voxel float32 formula),
+order), K1's step relative 1e-4 of max|twist| with equal valid counts, step
+counts and done flags (the kernel solves in float64, the plain step in
+float32), K2's dense form absolute 1e-5 (the same per-voxel float32 formula),
 K2's row form bitwise on every stored non-NaN value with equal NaN masks (the
 kernel rounds each step as PyTorch's eager ops do).
 """
 import pytest
 import torch
 
-from tracking_sdf_tpu.config import GridParams
+from tracking_sdf_tpu_torch.config import GridParams, TrackingConfig
 from tracking_sdf_tpu_torch.core.lie import se3_exp
 from tracking_sdf_tpu_torch.fusion import brick_merge as k2
 from tracking_sdf_tpu_torch.fusion.brickmajor import (
@@ -86,6 +88,70 @@ def test_gn_reduce_rejects_bad_input(dev):
         k1.gn_reduce(Dm, pose, torch.zeros(10, 3, device=dev, dtype=torch.float64), PARAMS)
     with pytest.raises(ValueError):
         k1.gn_reduce(Dm[:, :, :32], pose, torch.zeros(10, 3, device=dev), PARAMS)
+
+
+def _step_view(dev, form):
+    """The sphere joined by a box: a lone sphere leaves rotations about its
+    centre unobservable, and the twist of such a system is set by rounding."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    D, W, pts, pose = _sphere_view(dev, gen)
+    m = PARAMS.m
+    c = (torch.arange(m, device=dev, dtype=torch.float32) + 0.5) * PARAMS.width / m - 1.0
+    q = torch.stack(torch.meshgrid(c - 0.45, c + 0.3, c - 0.1, indexing="ij"), -1).abs()
+    q = q - torch.tensor([0.2, 0.35, 0.15], device=dev)
+    box = q.clamp(min=0).norm(dim=-1) + q.max(dim=-1).values.clamp(max=0)
+    D = torch.minimum(D, box)
+    if form == "dense":
+        return torch.where(W > 0, D, torch.full_like(D, float("nan"))).contiguous(), pts, pose
+    dtype = torch.bfloat16 if form == "brick_bf16" else torch.float32
+    dense = TSDFGrid(D=D, W=W, R=D, G=D, B=D, Wc=W)
+    view = brick_masked_view(brick_grid_from_dense(dense, (8, 8, 8), dtype, dtype),
+                             PARAMS, (8, 8, 8))
+    return view, pts, pose
+
+
+@pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
+def test_gn_step_kernel_matches_plain(dev, form):
+    """Three steps, each from the state the kernel left, kernel and plain,
+    through an (h, w, 3) strided view of the points."""
+    view, pts, pose = _step_view(dev, form)
+    img = pts.reshape(50, 100, 3)[::2, ::1]
+    cfg = TrackingConfig(max_iterations=3)
+    sk = k1.init_state(pose, cfg.damping)
+    sr = torch.empty_like(sk)
+    step = k1.gn_stepper(view, sk, img, PARAMS, cfg)
+    counts = (k1.launches_step, k1.launches_step_brick)
+    for i in range(3):
+        sr.copy_(sk)
+        step()
+        k1.gn_step_reference(view, sr, img, PARAMS, cfg)
+        torch.cuda.synchronize()
+        ik, ir = sk.view(torch.int32), sr.view(torch.int32)
+        assert torch.equal(ik[k1.S_COUNT:], ir[k1.S_COUNT:])
+        assert sk[k1.S_NVALID].item() == sr[k1.S_NVALID].item() > 100
+        tk, tr = sk[k1.S_TWIST:k1.S_TWIST + 6], sr[k1.S_TWIST:k1.S_TWIST + 6]
+        err = ((tk - tr).abs().max() / tr.abs().max()).item()
+        assert err <= 1e-4, (i, tk.tolist(), tr.tolist())
+        assert (sk[:k1.S_LAM] - sr[:k1.S_LAM]).abs().max().item() <= 1e-5
+    brick = form != "dense"
+    assert (k1.launches_step, k1.launches_step_brick) == (
+        counts[0] + 3 * (not brick), counts[1] + 3 * brick)
+    frozen = sk.clone()
+    step()  # the count has reached max_iterations: the launch changes nothing
+    torch.cuda.synchronize()
+    assert torch.equal(sk, frozen)
+
+
+def test_gn_step_rejects_bad_input(dev):
+    view, pts, pose = _step_view(dev, "dense")
+    state = k1.init_state(pose, 0.1)
+    cfg = TrackingConfig()
+    with pytest.raises(ValueError):
+        k1.gn_step(view, state, pts.double(), PARAMS, cfg)
+    with pytest.raises(ValueError):
+        k1.gn_step(view, state[:20], pts, PARAMS, cfg)
+    with pytest.raises(ValueError):
+        k1.gn_step(view, state, pts.t(), PARAMS, cfg)
 
 
 @pytest.mark.parametrize("channels", [2, 6])

@@ -227,11 +227,12 @@ def test_trajectory_metrics_match_jax(tmp_path):
 
 def test_port_runs_without_jax(tmp_path):
     """Two frames through the port on the CPU in a fresh interpreter, which
-    must never load jax (the test process itself has jax loaded)."""
+    must never load jax nor any module of the JAX package (the test process
+    itself has both loaded)."""
     script = textwrap.dedent(f"""
         import dataclasses, sys
         import torch
-        from tracking_sdf_tpu.config import GridParams, preset
+        from tracking_sdf_tpu_torch.config import GridParams, preset
         from tracking_sdf_tpu_torch.core.camera import PinholeCamera
         from tracking_sdf_tpu_torch.data.synthetic import SphereScene, look_at, render_scene_depth
         from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
@@ -256,6 +257,9 @@ def test_port_runs_without_jax(tmp_path):
             assert not any(s.rejected for s in r.stats), r.stats
             assert r.stats[1].gn_iterations > 0
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        jax_pkg = sorted(m for m in sys.modules
+                         if m == "tracking_sdf_tpu" or m.startswith("tracking_sdf_tpu."))
+        assert not jax_pkg, jax_pkg
         print("OK")
     """)
     env = dict(os.environ, PYTHONPATH=REPO)

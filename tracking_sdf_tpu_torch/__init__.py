@@ -3,15 +3,16 @@
 The JAX package ``tracking_sdf_tpu`` is the reference; this package mirrors
 its module layout (``core``, ``grid``, ``tracking``, ``fusion``,
 ``pipeline``, ``data``) so each function has a counterpart of the same name.
-It imports ``torch`` and never ``jax``. Configuration comes from
-``tracking_sdf_tpu.config``, which imports only the standard library, so the
-presets stay single-sourced.
+It imports ``torch``, never ``jax`` and nothing of the JAX package: its
+configuration is its own ``config`` module, field for field equal to the JAX
+package's (pinned by ``tests/test_torch_config.py``).
 
-Covered so far: the single-device flat bricked frame loop
-(``FusionConfig(mode="bricked", brick_merge="pallas")``) with its two
+Covered so far: the single-device brick-major frame loop that the ``tum256``
+and ``tum512`` presets run, and the flat bricked loop
+(``FusionConfig(mode="bricked", brick_merge="pallas")``), with their
 hand-written CUDA kernels (``tracking/gn_reduce.py``,
-``fusion/brick_merge.py``; sources in ``csrc/``). Every tensor is float32.
-Every constructor and entry point takes an explicit ``device``.
+``fusion/brick_merge.py``; sources in ``csrc/``). Every constructor and entry
+point takes an explicit ``device``.
 """
 import torch
 

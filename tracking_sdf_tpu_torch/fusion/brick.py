@@ -22,7 +22,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from tracking_sdf_tpu.config import FusionConfig, GridParams
+from tracking_sdf_tpu_torch.config import FusionConfig, GridParams
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.fusion.brick_merge import FREE, FULL, brick_merge

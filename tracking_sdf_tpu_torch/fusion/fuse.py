@@ -10,7 +10,7 @@ from typing import Optional
 
 import torch
 
-from tracking_sdf_tpu.config import FusionConfig, GridParams
+from tracking_sdf_tpu_torch.config import FusionConfig, GridParams
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, voxel_centers_world

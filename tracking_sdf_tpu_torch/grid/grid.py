@@ -11,7 +11,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from tracking_sdf_tpu.config import GridParams
+from tracking_sdf_tpu_torch.config import GridParams
 
 FIELDS = ("D", "W", "R", "G", "B", "Wc")
 

@@ -1,8 +1,9 @@
 """End-to-end frame loop (counterpart of tracking_sdf_tpu.pipeline.runner).
 
 Per frame: preprocess (separable bilateral filter, backprojection, normals),
-track from the second frame on (pyramid or flat Gauss-Newton; K1 in every
-iteration), gate failed tracks, append the pose to the TUM trajectory, and
+track from the second frame on (pyramid or flat Gauss-Newton; one K1 step
+launch per iteration, the state on the device), read the tracking state
+once (its stats and the failure gate's inputs), gate failed tracks, append the pose to the TUM trajectory, and
 fuse with brick compaction (K2 in every fused frame). Two single-device
 fusion layouts are ported:
   * ``mode="brickmajor"`` (the tum256 and tum512 presets): the grid lives as
@@ -20,7 +21,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from tracking_sdf_tpu.config import PipelineConfig
+from tracking_sdf_tpu_torch.config import PipelineConfig
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose, pose_compose, pose_inverse
 from tracking_sdf_tpu_torch.fusion.brick import FuseStats, fuse_frame_bricked
@@ -213,16 +214,18 @@ class Reconstruction:
                     levels=cfg.pyramid_levels, Dm=self._dm)
             else:
                 s = cfg.tracking.pixel_stride
-                res = track_frame(grid, pose0, points[::s, ::s].reshape(-1, 3),
+                res = track_frame(grid, pose0, points[::s, ::s],
                                   params=cfg.grid, cfg=cfg.tracking, Dm=self._dm)
-            gn_iters, nvalid, mean_res = (res.iterations, res.num_valid,
-                                          res.mean_abs_residual)
+            # the frame's one read of the tracking state: its stats and the
+            # failure gate's inputs
+            st = res.read()
+            gn_iters, nvalid, mean_res = st.iterations, st.num_valid, st.mean_abs_residual
             # failure gate: a diverged or starved track must not reach the
             # grid — keep the previous pose and drop the frame
             rejected = (nvalid < cfg.min_valid_pixels
                         or (cfg.max_mean_residual > 0
                             and mean_res > cfg.max_mean_residual)
-                        or not bool(torch.isfinite(res.pose.t).all()))
+                        or not bool(torch.isfinite(st.pose.t).all()))
             if not rejected:
                 self._pose_prev = self.pose
                 self.pose = res.pose

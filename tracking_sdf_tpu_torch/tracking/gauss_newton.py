@@ -3,32 +3,71 @@
 
 The twist perturbs the camera-to-world pose on the left in the world frame,
 so dphi/dv = g (world-frame SDF gradient) and dphi/dw = a x g with a = R p.
-Each iteration's normal equations come from K1 (``gn_reduce``); the 6x6
-solve, the damping and the pose update stay in PyTorch. The loop runs on the
-host and reads the convergence flag once per iteration.
+Each iteration is one ``gn_step`` on a state buffer on the view's device
+(tracking.gn_reduce): on the card one kernel launch forms the normal
+equations, solves the damped 6x6 system, tests convergence and updates the
+pose, and a done flag freezes the state once converged, as the JAX
+package's ``lax.while_loop`` stops. A level issues ``cfg.max_iterations``
+steps and reads nothing back; on the CPU the loop stops at the done flag.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from tracking_sdf_tpu.config import GridParams, TrackingConfig
-from tracking_sdf_tpu_torch.core.lie import Pose, se3_exp
+from tracking_sdf_tpu_torch.config import GridParams, TrackingConfig
+from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, world_to_voxel
 from tracking_sdf_tpu_torch.grid.interp import (
     MaskedView, masked_view, trilinear_with_grad_nan)
-from tracking_sdf_tpu_torch.tracking.gn_reduce import gn_reduce, unpack
+from tracking_sdf_tpu_torch.tracking.gn_reduce import (
+    S_COUNT, S_DONE, S_NVALID, S_SUMABS, S_TWIST, gn_stepper, init_state,
+    state_pose)
 
 
-@dataclasses.dataclass
-class TrackResult:
-    pose: Pose
+class TrackStats(NamedTuple):
+    """A level's result read back to the host."""
+    pose: Pose  # on the CPU
     iterations: int  # GN iterations executed
-    final_twist: torch.Tensor  # (6,) last solved twist step
+    final_twist: torch.Tensor  # (6,) last solved twist step, on the CPU
     num_valid: int  # valid queries in the last iteration
     mean_abs_residual: float  # mean |phi| over valid queries, last iteration
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackResult:
+    """One level's Gauss-Newton result, held in its state buffer on the
+    view's device. ``pose`` is a view of the buffer and reads nothing;
+    ``read()`` copies the buffer to the host once, and each of the other
+    properties reads it again (one wait on the device each)."""
+    state: torch.Tensor
+
+    @property
+    def pose(self) -> Pose:
+        return state_pose(self.state)
+
+    def read(self) -> TrackStats:
+        h = self.state.detach().cpu()
+        ints = h.view(torch.int32)
+        nvalid = int(h[S_NVALID])
+        return TrackStats(pose=state_pose(h), iterations=int(ints[S_COUNT]),
+                          final_twist=h[S_TWIST:S_TWIST + 6],
+                          num_valid=nvalid,
+                          mean_abs_residual=float(h[S_SUMABS]) / max(nvalid, 1))
+
+    @property
+    def iterations(self) -> int:
+        return self.read().iterations
+
+    @property
+    def num_valid(self) -> int:
+        return self.read().num_valid
+
+    @property
+    def mean_abs_residual(self) -> float:
+        return self.read().mean_abs_residual
 
 
 def _sanitize(points_cam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -65,31 +104,10 @@ def normal_equations(phi: torch.Tensor, J: torch.Tensor, mask: torch.Tensor):
     return Jm.T @ Jm, Jm.T @ rm
 
 
-def _apply_update(pose: Pose, twist: torch.Tensor, mode: str) -> Pose:
-    e = se3_exp(twist)
-    Ret = e.R.T
-    if mode == "se3":
-        # exact left-inverse composition: T <- exp(twist)^-1 ∘ T
-        return Pose(Ret @ pose.R, Ret @ (pose.t - e.t))
-    if mode == "reference":
-        # the reference's quirk: t is not rotated
-        return Pose(Ret @ pose.R, pose.t - Ret @ e.t)
-    raise ValueError(f"unknown pose_update: {mode}")
-
-
-def _converged(twist: torch.Tensor, cfg: TrackingConfig) -> torch.Tensor:
-    if cfg.convergence == "norm":
-        return twist.abs().max() < cfg.max_twist_diff
-    if cfg.convergence == "signed":
-        # the reference's quirk: a signed comparison
-        return (twist < cfg.max_twist_diff).all()
-    raise ValueError(f"unknown convergence mode: {cfg.convergence}")
-
-
 def track_frame(
     grid: Optional[TSDFGrid],
     pose0: Pose,
-    points_cam: torch.Tensor,  # (N, 3) strided camera-frame points
+    points_cam: torch.Tensor,  # (N, 3) or (h, w, 3) strided camera-frame points
     *,
     params: GridParams,
     cfg: TrackingConfig = TrackingConfig(),
@@ -97,34 +115,18 @@ def track_frame(
 ) -> TrackResult:
     """Estimate the camera pose for one frame by damped GN on sum phi^2.
     ``grid`` may be None when ``Dm`` is given (the brick-major loop never
-    builds the dense grid)."""
+    builds the dense grid). On the card this issues ``cfg.max_iterations``
+    kernel launches and waits on nothing."""
     if cfg.jacobian != "analytic":
         raise NotImplementedError(f"jacobian={cfg.jacobian!r}: only 'analytic' is ported")
     if Dm is None:
         Dm = masked_view(grid.D, grid.W)
-    points_cam = points_cam.contiguous()
-    eye = torch.eye(6, device=Dm.device)
-    pose, lam, i, done = pose0, cfg.damping, 0, False
-    twist = torch.zeros(6, device=Dm.device)
-    out = None
-    while i < cfg.max_iterations and not done:
-        out = gn_reduce(Dm, pose, points_cam, params)
-        A, b, _, _ = unpack(out)
-        # Marquardt damping plus a tiny floor that keeps a degenerate system
-        # solvable; a non-finite solve (singular system) takes no step
-        A = A + lam * torch.diag(torch.diag(A)) + 1e-12 * eye
-        twist = torch.linalg.solve_ex(A, b)[0]
-        twist = torch.where(torch.isfinite(twist).all(), twist,
-                            torch.zeros_like(twist))
-        done = bool(_converged(twist, cfg)) and i + 1 >= cfg.min_iterations
-        # the reference updates the pose on the converging iteration too
-        pose = _apply_update(pose, twist, cfg.pose_update)
-        lam *= cfg.damping_decay
-        i += 1
-    nvalid, mean_res = 0, 0.0
-    if out is not None:
-        nv, sum_abs = out[27:29].tolist()
-        nvalid = int(nv)
-        mean_res = sum_abs / max(nvalid, 1)
-    return TrackResult(pose=pose, iterations=i, final_twist=twist,
-                       num_valid=nvalid, mean_abs_residual=mean_res)
+    state = init_state(pose0, cfg.damping)
+    step = gn_stepper(Dm, state, points_cam, params, cfg)
+    ints = state.view(torch.int32)
+    on_cpu = Dm.device.type == "cpu"
+    for _ in range(cfg.max_iterations):
+        step()
+        if on_cpu and bool(ints[S_DONE]):  # reading the flag is free here
+            break
+    return TrackResult(state)

@@ -1,31 +1,56 @@
-"""K1: one Gauss-Newton iteration's normal equations (A = JᵀJ, b = Jᵀr).
+"""K1: the Gauss-Newton normal equations (A = JᵀJ, b = Jᵀr) and the whole
+Gauss-Newton step built on them.
 
-Counterpart of tracking_sdf_tpu/tracking/pallas_gn.py. The CUDA kernel
-(``csrc/gn_reduce.cu``) replaces the Pallas ``_gn_kernel`` together with its
-XLA front half ``gather_corner_inputs``: each GPU thread gathers its own
-corners from the masked view. Two forms: the dense float32 (m, m, m) view
-(the flat bricked loop) and the brick-major ``BrickMaskedView`` of float32 or
-bfloat16 D rows (the presets' main path). The source note there says what
-bounds it on the card and what the design does about it.
+Counterpart of tracking_sdf_tpu/tracking/pallas_gn.py (the reduction) and of
+the ``lax.while_loop`` body of tracking_sdf_tpu/tracking/gauss_newton.py
+(the step). The CUDA kernels (``csrc/gn_reduce.cu``) replace the Pallas
+``_gn_kernel`` together with its XLA front half ``gather_corner_inputs``:
+each GPU thread gathers its own corners from the masked view. Views: the
+dense float32 (m, m, m) view (the flat bricked loop) and the brick-major
+``BrickMaskedView`` of float32 or bfloat16 D rows (the presets' main path).
+The source note there says what bounds the kernels on the card and what the
+design does about it.
 
-Both versions return 29 float32 values (``unpack`` turns them back into
-A (6, 6), b (6,), the valid count and Σ|r| over valid queries).
+``gn_reduce`` / ``gn_reduce_reference`` return 29 float32 values (``unpack``
+turns them back into A (6, 6), b (6,), the valid count and Σ|r| over valid
+queries).
+
+``gn_step`` / ``gn_step_reference`` run one damped Gauss-Newton iteration on
+a state buffer that lives on the view's device (layout below): the normal
+equations at the state's pose, the 6x6 solve, the convergence test and the
+pose update, all frozen once the state is done or has run
+``cfg.max_iterations`` steps. On the card the whole step is one kernel
+launch and nothing is read back, so a level issues a fixed number of steps
+and the host never waits inside a frame's tracking.
 """
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
 
-from tracking_sdf_tpu.config import GridParams
-from tracking_sdf_tpu_torch.core.lie import Pose
+from tracking_sdf_tpu_torch.config import GridParams, TrackingConfig
+from tracking_sdf_tpu_torch.core.lie import Pose, se3_exp
 from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView, MaskedView
 from tracking_sdf_tpu_torch.kernels import _build
 
 THREADS = 256  # queries per block; must match kThreads in gn_reduce.cu
 N_OUT = 29
 
-# kernel launches made by gn_reduce on CUDA tensors, per form of the view
-launches = 0  # dense (m, m, m)
-launches_brick = 0  # brick-major rows
+# The Gauss-Newton state of one level: (N_STATE,) float32. R row-major (9),
+# t (3), the damping λ, the last twist (6), the valid count and Σ|r| of the
+# last step; the last three slots hold int32 bits (read them through
+# ``state.view(torch.int32)``): the steps run, the done flag and the
+# kernel's block ticket (0 between launches). Must match gn_reduce.cu.
+S_R, S_T, S_LAM, S_TWIST, S_NVALID, S_SUMABS = 0, 9, 12, 13, 19, 20
+S_COUNT, S_DONE, S_TICKET = 21, 22, 23
+N_STATE = 24
+
+# kernel launches made on CUDA tensors, per entry point and form of the view
+launches = 0  # gn_reduce, dense (m, m, m)
+launches_brick = 0  # gn_reduce, brick-major rows
+launches_step = 0  # gn_step, dense
+launches_step_brick = 0  # gn_step, brick-major rows
 
 
 def _triu(device):
@@ -56,35 +81,40 @@ def gn_reduce_reference(Dm: MaskedView, pose: Pose, points: torch.Tensor,
     return torch.cat([A[iu[0], iu[1]], b, nvalid[None], sum_abs[None]])
 
 
-def gn_reduce(Dm: MaskedView, pose: Pose, points: torch.Tensor,
-              params: GridParams) -> torch.Tensor:
-    """Normal equations of the queries ``points`` (N, 3) (camera frame, NaN
-    holes allowed) at ``pose`` against the masked view ``Dm``: a dense
-    float32 (m, m, m) tensor or a BrickMaskedView of float32/bfloat16 rows.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    global launches, launches_brick
-    if Dm.device.type == "cpu":
-        return gn_reduce_reference(Dm, pose, points, params)
-    if Dm.device.type != "cuda":
-        raise ValueError(f"gn_reduce: unsupported device {Dm.device}")
+def _view_args(Dm: MaskedView, params: GridParams, what: str):
+    """Validate a CUDA view; (data, bf16, m, bi, bj, bk, pitch) for the kernel."""
     m = params.m
-    brick = isinstance(Dm, BrickMaskedView)
-    if brick:
+    if isinstance(Dm, BrickMaskedView):
         data, (bi, bj, bk), pitch = Dm.rows, Dm.bs, Dm.pitch
         if (Dm.m != m or m % bi or m % bj or m % bk or pitch < bi * bj * bk
                 or data.numel() != (m // bi) * (m // bj) * (m // bk) * pitch):
-            raise ValueError(f"gn_reduce: view rows {tuple(data.shape)} do not "
+            raise ValueError(f"{what}: view rows {tuple(data.shape)} do not "
                              f"hold an m={m} grid of {Dm.bs} bricks at pitch {pitch}")
         dtypes = (torch.float32, torch.bfloat16)
     else:
         data, (bi, bj, bk), pitch = Dm, (0, 0, 0), 0
         if tuple(Dm.shape) != (m, m, m):
-            raise ValueError(f"gn_reduce: Dm shape {tuple(Dm.shape)} != {(m, m, m)}")
+            raise ValueError(f"{what}: Dm shape {tuple(Dm.shape)} != {(m, m, m)}")
         dtypes = (torch.float32,)
     if data.dtype not in dtypes or not data.is_contiguous():
-        raise ValueError(f"gn_reduce: the view must be contiguous {dtypes}, "
+        raise ValueError(f"{what}: the view must be contiguous {dtypes}, "
                          f"got {data.dtype}")
+    return data, int(data.dtype == torch.bfloat16), m, bi, bj, bk, pitch
+
+
+def _grid_scale(params: GridParams):
+    """origin (3) and voxels per meter (3), the kernels' world->voxel map."""
+    return (*params.origin, params.m / params.width, params.m / params.height,
+            params.m / params.depth)
+
+
+def gn_reducer(Dm: MaskedView, pose: Pose, points: torch.Tensor,
+               params: GridParams) -> Callable[[], torch.Tensor]:
+    """Validate CUDA inputs and allocate once; returns a function that
+    launches the kernel on them and returns its (29,) output buffer (the
+    pose is copied into a device buffer here, once)."""
+    view = _view_args(Dm, params, "gn_reduce")
+    data = view[0]
     for name, x, shape in (("points", points, None),
                            ("pose.R", pose.R, (3, 3)), ("pose.t", pose.t, (3,))):
         if x.device != data.device or x.dtype != torch.float32:
@@ -102,14 +132,166 @@ def gn_reduce(Dm: MaskedView, pose: Pose, points: torch.Tensor,
     partials = torch.empty(blocks * N_OUT, dtype=torch.float32, device=data.device)
     out = torch.empty(N_OUT, dtype=torch.float32, device=data.device)
     lib = _build.library()
-    rc = lib.tsdf_gn_reduce(
-        data.data_ptr(), int(data.dtype == torch.bfloat16), m, bi, bj, bk, pitch,
-        pose_buf.data_ptr(), points.data_ptr(), n,
-        *params.origin, m / params.width, m / params.height, m / params.depth,
-        partials.data_ptr(), blocks, out.data_ptr(), _build.stream_ptr(data.device))
-    _build.check(rc, "gn_reduce")
-    if brick:
-        launches_brick += 1
+    args = (data.data_ptr(), *view[1:], pose_buf.data_ptr(), points.data_ptr(), n,
+            *_grid_scale(params), partials.data_ptr(), blocks, out.data_ptr())
+    brick = isinstance(Dm, BrickMaskedView)
+
+    def launch() -> torch.Tensor:
+        global launches, launches_brick
+        _build.check(lib.tsdf_gn_reduce(*args, _build.stream_ptr(data.device)),
+                     "gn_reduce")
+        if brick:
+            launches_brick += 1
+        else:
+            launches += 1
+        return out
+
+    # the kernel reads and writes these through the pointers in ``args``
+    launch.buffers = (data, points, pose_buf, partials, out)
+    return launch
+
+
+def gn_reduce(Dm: MaskedView, pose: Pose, points: torch.Tensor,
+              params: GridParams) -> torch.Tensor:
+    """Normal equations of the queries ``points`` (N, 3) (camera frame, NaN
+    holes allowed) at ``pose`` against the masked view ``Dm``: a dense
+    float32 (m, m, m) tensor or a BrickMaskedView of float32/bfloat16 rows.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if Dm.device.type == "cpu":
+        return gn_reduce_reference(Dm, pose, points, params)
+    if Dm.device.type != "cuda":
+        raise ValueError(f"gn_reduce: unsupported device {Dm.device}")
+    return gn_reducer(Dm, pose, points, params)()
+
+
+# --- the Gauss-Newton step -------------------------------------------------
+
+def init_state(pose: Pose, damping: float) -> torch.Tensor:
+    """A fresh level state on the pose's device: the pose, λ = ``damping``,
+    no steps run. Device ops only: nothing is copied from the host."""
+    state = torch.zeros(N_STATE, dtype=torch.float32, device=pose.t.device)
+    state[S_R:S_T].copy_(pose.R.reshape(9))
+    state[S_T:S_LAM].copy_(pose.t)
+    state[S_LAM].fill_(damping)
+    return state
+
+
+def state_pose(state: torch.Tensor) -> Pose:
+    """The state's pose as views of the buffer."""
+    return Pose(state[S_R:S_T].view(3, 3), state[S_T:S_LAM])
+
+
+def apply_update(pose: Pose, twist: torch.Tensor, mode: str) -> Pose:
+    e = se3_exp(twist)
+    Ret = e.R.T
+    if mode == "se3":
+        # exact left-inverse composition: T <- exp(twist)^-1 ∘ T
+        return Pose(Ret @ pose.R, Ret @ (pose.t - e.t))
+    if mode == "reference":
+        # the reference's quirk: t is not rotated
+        return Pose(Ret @ pose.R, pose.t - Ret @ e.t)
+    raise ValueError(f"unknown pose_update: {mode}")
+
+
+def converged(twist: torch.Tensor, cfg: TrackingConfig) -> torch.Tensor:
+    if cfg.convergence == "norm":
+        return twist.abs().max() < cfg.max_twist_diff
+    if cfg.convergence == "signed":
+        # the reference's quirk: a signed comparison
+        return (twist < cfg.max_twist_diff).all()
+    raise ValueError(f"unknown convergence mode: {cfg.convergence}")
+
+
+def gn_step_reference(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
+                      params: GridParams, cfg: TrackingConfig) -> None:
+    """Plain PyTorch version of ``gn_step``; updates ``state`` in place.
+    ``points``: (N, 3) or an (h, w, 3) view of camera-frame points."""
+    ints = state.view(torch.int32)
+    active = (ints[S_DONE] == 0) & (ints[S_COUNT] < cfg.max_iterations)
+    pose = state_pose(state)
+    A, b, nvalid, sum_abs = unpack(gn_reduce_reference(
+        Dm, pose, points.reshape(-1, 3), params))
+    lam = state[S_LAM]
+    # Marquardt damping plus a tiny floor that keeps a degenerate system
+    # solvable; a non-finite solve (singular system) takes no step
+    A = A + lam * torch.diag(torch.diag(A)) + 1e-12 * torch.eye(6, device=A.device)
+    twist = torch.linalg.solve_ex(A, b)[0]
+    twist = torch.where(torch.isfinite(twist).all(), twist, torch.zeros_like(twist))
+    count = ints[S_COUNT]
+    done = converged(twist, cfg) & (count + 1 >= cfg.min_iterations)
+    # the reference updates the pose on the converging iteration too
+    new = apply_update(pose, twist, cfg.pose_update)
+    f_new = torch.cat([new.R.reshape(9), new.t, (lam * cfg.damping_decay)[None],
+                       twist, nvalid[None], sum_abs[None]])
+    i_new = torch.stack([count + 1, done.to(torch.int32), torch.zeros_like(count)])
+    state[:S_COUNT] = torch.where(active, f_new, state[:S_COUNT])
+    ints[S_COUNT:] = torch.where(active, i_new, ints[S_COUNT:])
+
+
+def gn_stepper(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
+               params: GridParams, cfg: TrackingConfig) -> Callable[[], None]:
+    """Validate one level's inputs and allocate its scratch once; returns a
+    function that runs one step on ``state`` per call.
+
+    ``points``: (N, 3) or (h, w, 3) float32 camera-frame points, NaN holes
+    allowed, with unit stride along the last axis; the kernel reads a
+    strided view such as ``points_img[::s, ::s]`` in place (query q is
+    element (q // w, q % w)). CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if cfg.convergence not in ("norm", "signed"):
+        raise ValueError(f"unknown convergence mode: {cfg.convergence}")
+    if cfg.pose_update not in ("se3", "reference"):
+        raise ValueError(f"unknown pose_update: {cfg.pose_update}")
+    if Dm.device.type == "cpu":
+        flat = points.reshape(-1, 3)
+        return lambda: gn_step_reference(Dm, state, flat, params, cfg)
+    if Dm.device.type != "cuda":
+        raise ValueError(f"gn_step: unsupported device {Dm.device}")
+    view = _view_args(Dm, params, "gn_step")
+    dev = view[0].device
+    if (state.dtype != torch.float32 or tuple(state.shape) != (N_STATE,)
+            or state.device != dev or not state.is_contiguous()):
+        raise ValueError(f"gn_step: state must be contiguous float32 ({N_STATE},) "
+                         f"on {dev}")
+    if (points.dtype != torch.float32 or points.device != dev
+            or points.dim() not in (2, 3) or points.shape[-1] != 3
+            or points.stride(-1) != 1):
+        raise ValueError(f"gn_step: points must be float32 (N, 3) or (h, w, 3) on "
+                         f"{dev} with unit stride along the last axis, got "
+                         f"{tuple(points.shape)} {points.dtype} {points.device}")
+    if points.dim() == 2:
+        h, w, sh, sw = points.shape[0], 1, points.stride(0), 0
     else:
-        launches += 1
-    return out
+        h, w, sh, sw = (*points.shape[:2], *points.stride()[:2])
+    n = h * w
+    blocks = max(-(-n // THREADS), 1)
+    partials = torch.empty(blocks * N_OUT, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    args = (view[0].data_ptr(), *view[1:], points.data_ptr(), n, w, sh, sw, *_grid_scale(params),
+            partials.data_ptr(), blocks, state.data_ptr(), cfg.max_iterations,
+            cfg.min_iterations, int(cfg.convergence == "signed"),
+            int(cfg.pose_update == "reference"), cfg.max_twist_diff,
+            cfg.damping_decay)
+    brick = isinstance(Dm, BrickMaskedView)
+
+    def step() -> None:
+        global launches_step, launches_step_brick
+        _build.check(lib.tsdf_gn_step(*args, _build.stream_ptr(dev)), "gn_step")
+        if brick:
+            launches_step_brick += 1
+        else:
+            launches_step += 1
+
+    # the kernel reads and writes these through the pointers in ``args``
+    step.buffers = (partials, points, state, view[0])
+    return step
+
+
+def gn_step(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
+            params: GridParams, cfg: TrackingConfig) -> None:
+    """One Gauss-Newton step on ``state`` in place (a no-op once the state
+    is done or has run ``cfg.max_iterations`` steps). A loop over steps
+    should build ``gn_stepper`` once instead: this validates and allocates
+    on every call."""
+    gn_stepper(Dm, state, points, params, cfg)()

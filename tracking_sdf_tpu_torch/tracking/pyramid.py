@@ -1,7 +1,9 @@
 """Coarse-to-fine Gauss-Newton tracking (counterpart of tracking_sdf_tpu.tracking.pyramid).
 
 Each level decimates the organized point image by ``cfg.pixel_stride * mult``
-and starts from the previous level's pose. Coarse levels are capped at
+(a strided view, which the kernel reads in place) and starts from the
+previous level's pose, a view of that level's state on the device: on the
+card nothing is read back between levels. Coarse levels are capped at
 ``coarse_iterations`` with no ``min_iterations`` floor; the floor exists to
 make the finest level re-optimise past the coarse level's biased optimum.
 """
@@ -11,7 +13,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from tracking_sdf_tpu.config import GridParams, TrackingConfig
+from tracking_sdf_tpu_torch.config import GridParams, TrackingConfig
 from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
 from tracking_sdf_tpu_torch.grid.interp import MaskedView, masked_view
@@ -41,7 +43,7 @@ def track_frame_pyramid(
     results = []
     for mult in levels:
         stride = cfg.pixel_stride * mult
-        pts = points_img[::stride, ::stride].reshape(-1, 3)
+        pts = points_img[::stride, ::stride]
         level_cfg = cfg if mult == 1 else cfg._replace(
             max_iterations=coarse_iterations, min_iterations=0)
         res = track_frame(None, pose, pts, params=params, cfg=level_cfg, Dm=Dm)
