@@ -31,7 +31,16 @@ Phases, each of which fails the run (non-zero exit) on a fault:
          color, max_weight 128 with voxels at the clamp;
        K2 brick_merge_rows, row form, at cap 6144 / cap_free 2048 on bf16 rows
          and the packed color leaf, geometry and color, voxels at the clamp
-         (bitwise on every stored non-NaN value, equal NaN masks);
+         (bitwise on every stored non-NaN value, equal NaN masks); off the
+         presets' path, which brick_fuse_rows took over;
+       K2 brick_fuse_rows, the fused FULL-update + merge form, on the real
+         FULL / FREE lists of the second frame against the grid fused from
+         the first, at tum256 and tum512 (the presets' caps, bf16 rows),
+         geometry and color: bitwise as above; beside its times, the bound
+         from these inputs (D, W and C rows read and written once, the
+         distinct group-centre pixel rows, the lists) and the device time of
+         the unfused chain it replaces (_full_brick_updates, the stack and
+         brick_merge_rows) on the same inputs, from the profiler;
   4. small parity: the port's frame loop on the card against the same loop on
      the CPU (plain versions) on a 48^3 grid, flat and brick-major;
   5. main paths, each with every kernel launch count set to 0 just before it
@@ -41,8 +50,10 @@ Phases, each of which fails the run (non-zero exit) on a fault:
          brick_merge "pallas"), 4 tracked frames;
        the tum256 preset as it is, 10 tracked frames;
        the tum512 preset as it is, 5 tracked frames.
-     The kernels of each path (K1 gn_step and K2) must have launched, no
-     frame may be rejected, and the final |t err| must stay under 46.9 mm (2
+     The kernels of each path must have launched (K1 gn_step and K2
+     brick_merge on the slice; gn_step_brick and brick_fuse_rows, once per
+     fused frame, on the presets, which must launch brick_merge_rows 0
+     times), no frame may be rejected, and the final |t err| must stay under 46.9 mm (2
      voxels at 256^3); for the presets also within 0.5 voxel of the JAX
      package's own final |t err| on the same scene and frames. The presets'
      bf16 leaves must be free of NaN wherever W > 0, with weights in [0, 128].
@@ -128,10 +139,28 @@ def events_ms(fn, n: int = TIMED_LAUNCHES, warmup: int = 3) -> float:
     return a.elapsed_time(b) / n
 
 
+def all_device_ms(fn, n: int = 20):
+    """(device ms, device ops) per call of ``fn``: every device operation's
+    self time from torch.profiler over ``n`` calls, summed."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in ev) / 1e3 / n,
+            sum(e.count for e in ev) / n)
+
+
 def kernel_device_ms(fn, keys, n: int = TIMED_LAUNCHES):
     """Device time per call of ``fn`` in the kernels whose names hold one of
-    ``keys``, from torch.profiler over ``n`` calls; None when the profiler
-    sees fewer than ``n`` launches of them."""
+    ``keys`` (each launched once a call), from torch.profiler over ``n``
+    calls: each kernel's mean over the launches the profiler saw, summed.
+    None when it saw none."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -143,11 +172,12 @@ def kernel_device_ms(fn, keys, n: int = TIMED_LAUNCHES):
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages()
           if e.device_type == DeviceType.CUDA and any(k in e.key for k in keys)]
-    if sum(e.count for e in ev) < n:
-        print(f"  the profiler saw {sum(e.count for e in ev)} launches of {keys}, "
-              f"not {n}: no device time")
+    seen = sum(e.count for e in ev)
+    if seen < n * len(ev) or not ev:
+        print(f"  the profiler saw {seen} launches of {keys} over {n} calls")
+    if not ev:
         return None
-    return sum(e.self_device_time_total for e in ev) / 1e3 / n
+    return sum(e.self_device_time_total / e.count for e in ev) / 1e3
 
 
 def bound(nbytes: float, flops: float = 0.0):
@@ -214,20 +244,23 @@ def path_config(name, trajectory_path):
 
 
 def counters():
+    from tracking_sdf_tpu_torch.fusion import brick_fuse as k2f
     from tracking_sdf_tpu_torch.fusion import brick_merge as k2
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     return {"gn_reduce": k1.launches, "gn_reduce_brick": k1.launches_brick,
             "gn_step": k1.launches_step, "gn_step_brick": k1.launches_step_brick,
-            "brick_merge": k2.launches, "brick_merge_rows": k2.launches_rows}
+            "brick_merge": k2.launches, "brick_merge_rows": k2.launches_rows,
+            "brick_fuse_rows": k2f.launches}
 
 
 def reset_counters():
+    from tracking_sdf_tpu_torch.fusion import brick_fuse as k2f
     from tracking_sdf_tpu_torch.fusion import brick_merge as k2
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     k1.launches = k1.launches_brick = k1.launches_step = k1.launches_step_brick = 0
-    k2.launches = k2.launches_rows = 0
+    k2.launches = k2.launches_rows = k2f.launches = 0
 
 
 def gn_compare(label, Dm, pose, pts1, p):
@@ -523,6 +556,103 @@ def kernel_merge_rows(dev):
     return rec[6]
 
 
+def fuse_rows_compare(name, cam, scene, poses, rgb, dev):
+    """K2's fused form on one preset's real lists: the second frame's FULL
+    and FREE bricks against the bf16 rows fused from the first frame, at the
+    preset's caps, geometry and color. Returns {color: record}."""
+    from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
+    from tracking_sdf_tpu_torch.fusion.brick import _full_brick_updates, _pixel_table
+    from tracking_sdf_tpu_torch.fusion.brick_fuse import (
+        brick_fuse_rows, brick_fuse_rows_reference, group_centre_pixels)
+    from tracking_sdf_tpu_torch.fusion.brick_merge import brick_merge_rows
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        classify_compact_rows, empty_brick_grid, fuse_frame_brickmajor)
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+
+    cfg = path_config(name, None)
+    f, p = cfg.fusion, cfg.grid
+    bs, cap, cap_free = f.brick_shape, f.brick_cap, f.brick_cap_free
+    frames = [preprocess_frame(render_scene_depth(scene, cam, poses[k]), cam=cam,
+                               bilateral=cfg.bilateral_filter,
+                               bilateral_mode=cfg.bilateral_mode) for k in (0, 1)]
+    bg = empty_brick_grid(p, bs, device=dev, value_dtype=torch.bfloat16,
+                          weight_dtype=torch.bfloat16)
+    fuse_frame_brickmajor(bg, poses[0], *frames[0], rgb, params=p, cam=cam, cfg=f, bs=bs,
+                          cap=cap, cap_free=cap_free)
+    pts, nrm = frames[1]
+    pose = poses[1]
+    hw = tuple(pts.shape[:2])
+    ids, counts = classify_compact_rows(p, pose, pts, nrm, cam=cam, cfg=f, bs=bs, cap=cap,
+                                        cap_free=cap_free)
+    NB, BV = bg.D.shape
+    n_full, n_free = int((ids[:cap] < NB).sum()), int((ids[cap:] < NB).sum())
+    full_rows = ids[:cap][ids[:cap] < NB]
+    n_pix = int(torch.unique(group_centre_pixels(full_rows, pose, params=p, cam=cam, cfg=f,
+                                                 bs=bs, hw=hw)).numel())
+    rec = {}
+    for color in (False, True):
+        pix = _pixel_table(pts, nrm, rgb if color else None, color, f.distance)
+        kw = dict(cap=cap, hw=hw, params=p, cam=cam, cfg=f, bs=bs)
+        lk = [x.clone() for x in (bg.D, bg.W, bg.C)]
+        lr = [x.clone() for x in lk]
+        brick_fuse_rows(*lk, ids, pix, pose, **kw)
+        brick_fuse_rows_reference(*lr, ids, pix, pose, **kw)
+        torch.cuda.synchronize()
+        nan_ok = all(torch.equal(torch.isnan(a), torch.isnan(b)) for a, b in zip(lk[:2], lr[:2]))
+        differ = sum(int((a[~torch.isnan(b)].view(torch.int16)
+                          != b[~torch.isnan(b)].view(torch.int16)).sum())
+                     for a, b in zip(lk[:2], lr[:2]))
+        differ += int((lk[2] != lr[2]).sum())
+        err = max(float(torch.nan_to_num(a.float() - b.float()).abs().max())
+                  for a, b in zip(lk[:2], lr[:2]))
+        touched = int((lk[2] != bg.C).any(dim=1).sum())
+        fused = int((lk[1] != bg.W).any(dim=1).sum())
+
+        def kernel():
+            brick_fuse_rows(*lk, ids, pix, pose, **kw)
+
+        def chain():
+            upd = torch.stack(_full_brick_updates(ids[:cap], pix, pose, p, cam, f, bs, hw,
+                                                  color), dim=0)
+            brick_merge_rows(*lr, upd.reshape(upd.shape[0], cap, -1), ids, cap=cap,
+                             delta=p.delta, max_weight=f.max_weight)
+
+        ms = events_ms(kernel)
+        device_ms = kernel_device_ms(kernel, ("brick_fuse_rows_kernel",))
+        wrapper_ms = cuda_time_ms(kernel)
+        plain_ms = cuda_time_ms(lambda: brick_fuse_rows_reference(*lr, ids, pix, pose, **kw))
+        chain_ms, chain_ops = all_device_ms(chain)
+        chain_events_ms = cuda_time_ms(chain)
+        # bytes: bf16 D and W rows read and written (4 B a voxel each way),
+        # with color the C row read and written (16 B a voxel), the distinct
+        # group-centre pixel rows, the lists and the pose
+        row = BV * 8
+        bms, by = bound(n_full * (row + (BV * 16 if color else 0)) + n_free * row
+                        + n_pix * pix.shape[1] * 4 + ids.numel() * 4 + 48)
+        label = f"K2 brick_fuse_rows ({name}, {'color' if color else 'geometry'})"
+        print(f"{label} cap={cap} cap_free={cap_free}: {differ} stored values differ "
+              f"(tol 0), NaN masks equal {nan_ok}, max abs err {err:.3e}, {fused} rows "
+              f"fused, {touched} color rows updated; kernel {ms:.4f} ms "
+              f"({TIMED_LAUNCHES} back-to-back), device {device_ms} ms, wrapper "
+              f"{wrapper_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
+              f"({by}; {n_full} FULL, {n_free} FREE bricks, {n_pix} centre pixels); the "
+              f"unfused chain it replaces: device {chain_ms:.4f} ms in {chain_ops:.0f} "
+              f"device ops, {chain_events_ms:.4f} ms per call")
+        check(differ == 0 and nan_ok, f"{label} disagrees with its plain version: "
+              f"{differ} values, NaN masks equal {nan_ok}")
+        check(fused > 1000 and (touched > 0) == color, f"{label}: {fused} rows fused, "
+              f"{touched} color rows updated")
+        rec[color] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms,
+                          plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                          chain_device_ms=chain_ms, chain_device_ops=chain_ops,
+                          chain_ms=chain_events_ms, n_full=n_full, n_free=n_free,
+                          centre_pixels=n_pix)
+        del lk, lr
+    del bg
+    torch.cuda.empty_cache()
+    return rec
+
+
 def small_parity(dev):
     """The port's loop on the card vs on the CPU (plain versions), 48^3: the
     flat bricked slice, and the tum256 preset's brick-major path with its caps
@@ -615,9 +745,14 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
           f"{rec['t_err_mm']:.2f} mm; peak device memory {peak_gb:.2f} GiB; "
           f"launches {launches}")
     kernels = (("gn_step", "brick_merge") if name == "slice"
-               else ("gn_step_brick", "brick_merge_rows"))
+               else ("gn_step_brick", "brick_fuse_rows"))
     check(all(launches[k] > 0 for k in kernels), f"{name}: a kernel never ran: {launches}")
     check(not any(s.rejected for s in recon.stats), f"{name}: a frame was rejected")
+    if name != "slice":
+        check(launches["brick_fuse_rows"] == rec["fused"]
+              and launches["brick_merge_rows"] == 0,
+              f"{name}: brick_fuse_rows must launch once per fused frame and "
+              f"brick_merge_rows never: {launches}")
     check(t_err < T_ERR_MAX, f"{name}: |t err| {t_err:.4f} m >= {T_ERR_MAX} m")
     if name in JAX_T_ERR_MM:
         ref = JAX_T_ERR_MM[name]
@@ -695,6 +830,8 @@ def main() -> int:
                                                                  dev)
     k2_dense = kernel_merge(dev)
     k2_rows = kernel_merge_rows(dev)
+    k2_fuse = {name: fuse_rows_compare(name, cam, scene, poses, rgb, dev)
+               for name in ("tum256", "tum512")}
     small_parity(dev)
 
     depths = [render_scene_depth(scene, cam, p) for p in poses]
@@ -725,6 +862,10 @@ def main() -> int:
         entry("gn_step_brick", "gn_reduce.cu", gn_tpu, presets, "tracked", k1_step_brick),
         entry("brick_merge", "brick_merge.cu", merge_tpu, ("slice",), "fused", k2_dense),
         entry("brick_merge_rows", "brick_merge.cu", merge_tpu, presets, "fused", k2_rows),
+        entry("brick_fuse_rows", "brick_fuse.cu", merge_tpu, presets, "fused",
+              dict(k2_fuse["tum256"][True], tum256_geometry=k2_fuse["tum256"][False],
+                   tum512_color=k2_fuse["tum512"][True],
+                   tum512_geometry=k2_fuse["tum512"][False])),
     ]
     print(gpu)
     print(json.dumps({"kernels": kernels}))

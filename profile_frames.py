@@ -17,12 +17,19 @@ For each preset, as it is, over chip_smoke.py's scene and trajectory at
      iteration count, timed unprofiled (median of 5) and profiled once:
      device time, busy share, device kernels and copies, host waits (CUDA
      synchronize calls and device-to-host copies) and the largest device
-     operations.
+     operations;
+  4. one frame's fusion alone: fuse_frame_brickmajor on the last frame's
+     points and pose, at the cap the runner used, from a copy of the brick
+     rows saved before that frame (restored before every call, outside the
+     timed window), timed unprofiled (median of 5) and profiled once, with
+     the same records as 3. and the peak device memory of one call.
+Peak device memory is also read over the timed run of 1.
 Prints one JSON line per preset and writes them all to OUT/profile_LABEL.json
 (OUT defaults to build/profile/ beside this script). It drives public entry
-points only (Reconstruction, preprocess_frame, brick_masked_view,
-track_frame_pyramid), so it also times an older checkout of the port that
-has a config module.
+points (Reconstruction, preprocess_frame, brick_masked_view,
+track_frame_pyramid, fuse_frame_brickmajor) and two attributes of the
+runner (its cap levels and index), so it also times an older checkout of the
+port that has a config module.
 Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
@@ -73,7 +80,8 @@ def run_preset(name, label, gpu):
     import chip_smoke as cs
     from tracking_sdf_tpu_torch.core.camera import ros_default_camera
     from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
-    from tracking_sdf_tpu_torch.fusion.brickmajor import brick_masked_view
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        brick_masked_view, fuse_frame_brickmajor)
     from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
     from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
     from tracking_sdf_tpu_torch.tracking.pyramid import track_frame_pyramid
@@ -90,19 +98,26 @@ def run_preset(name, label, gpu):
     # 1. timed run
     recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
     wall = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for k in range(n):
-        if k == n - 1:  # the state that 3. tracks against
+        if k == n - 1:  # the state that 3. tracks against and 4. fuses into
             pose_before = recon.pose
             view = brick_masked_view(recon.brick_grid, cfg.grid, cfg.fusion.brick_shape)
             view_rows = view.rows.clone()
+            bg = recon.brick_grid
+            rows_before = [x.clone() for x in (bg.D, bg.W, bg.C)]
+            cap = recon._cap_levels[recon._cap_idx]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         recon.process_frame(depths[k], rgb=rgb, timestamp=float(k))
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    pose_fused = recon.pose
     tracked = recon.stats[1:]
     rec = dict(label=label, preset=name, gpu=gpu, tracked_frames=len(tracked),
-               ms_per_frame=statistics.median(wall[1:]),
+               ms_per_frame=statistics.median(wall[1:]), peak_mib=peak_mib,
                gn_iterations=[s.gn_iterations for s in tracked],
                rejected=sum(s.rejected for s in recon.stats),
                t_err_mm=(recon.pose.t - poses[n - 1].t).norm().item() * 1e3)
@@ -125,7 +140,7 @@ def run_preset(name, label, gpu):
 
     # 3. one frame's tracking alone, against the rows before the last frame
     view.rows.copy_(view_rows)
-    pts, _ = preprocess_frame(depths[n - 1], cam=cam, bilateral=cfg.bilateral_filter,
+    pts, nrm = preprocess_frame(depths[n - 1], cam=cam, bilateral=cfg.bilateral_filter,
                               bilateral_mode=cfg.bilateral_mode)
 
     def track():
@@ -156,6 +171,48 @@ def run_preset(name, label, gpu):
           f"{tp['syncs']}, copies {tp['copies']}")
     for t in tp["top"]:
         print(f"    {t['ms']:8.3f} ms {t['count']:5d}x {t['name']}")
+
+    # 4. one frame's fusion alone, into the rows saved before the last frame
+    f = cfg.fusion
+    ce = f.color_every
+    rgb_last = rgb if ce <= 1 or n % ce == 0 else None  # the runner's cadence
+
+    def restore():
+        for dst, src in zip((bg.D, bg.W, bg.C), rows_before):
+            dst.copy_(src)
+        torch.cuda.synchronize()
+
+    def fuse():
+        fuse_frame_brickmajor(bg, pose_fused, pts, nrm, rgb_last, params=cfg.grid, cam=cam,
+                              cfg=f, bs=f.brick_shape, cap=cap,
+                              cap_free=f.brick_cap_free or None)
+
+    times = []
+    for _ in range(6):
+        restore()
+        t0 = time.perf_counter()
+        fuse()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    restore()
+    torch.cuda.reset_peak_memory_stats()
+    fuse()
+    torch.cuda.synchronize()
+    fuse_peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    restore()
+    fp = profile(fuse)
+    host_ms = statistics.median(times[1:])
+    rec.update(fuse_alone_ms=host_ms, fuse_device_ms=fp["device_ms"],
+               fuse_busy=fp["device_ms"] / host_ms, fuse_device_ops=fp["device_ops"],
+               fuse_host_syncs=fp["syncs"], fuse_copies=fp["copies"],
+               fuse_launch_calls=fp["launches"], fuse_peak_mib=fuse_peak_mib,
+               fuse_cap=cap, fuse_color=rgb_last is not None, fuse_top=fp["top"])
+    print(f"{label} {name}: fusion alone (cap {cap}, color {rgb_last is not None}) "
+          f"{host_ms:.2f} ms, device {fp['device_ms']:.3f} ms in {fp['device_ops']} ops, "
+          f"host syncs {fp['syncs']}, copies {fp['copies']}, peak {fuse_peak_mib:.0f} MiB "
+          f"(the timed run's peak {peak_mib:.0f} MiB)")
+    for t in fp["top"]:
+        print(f"    {t['ms']:8.3f} ms {t['count']:5d}x {t['name']}")
     return rec
 
 
@@ -179,7 +236,7 @@ def main() -> int:
     with open(os.path.join(out, f"profile_{args.label}.json"), "w") as f:
         json.dump(recs, f, indent=1)
     for r in recs:
-        print(json.dumps({k: v for k, v in r.items() if k != "track_top"}))
+        print(json.dumps({k: v for k, v in r.items() if k not in ("track_top", "fuse_top")}))
     return 0
 
 

@@ -25,6 +25,7 @@ from tracking_sdf_tpu.fusion.brick import classify_compact_hier as jhier
 from tracking_sdf_tpu.grid.grid import empty_grid as jempty_grid
 from tracking_sdf_tpu.tracking import estimate_normals
 from tracking_sdf_tpu_torch.core.lie import pose_from_numpy
+from tracking_sdf_tpu_torch.fusion import brick_fuse as tfuse
 from tracking_sdf_tpu_torch.fusion import brick_merge as tmerge
 from tracking_sdf_tpu_torch.fusion import brickmajor as tbm
 from tracking_sdf_tpu_torch.fusion.brick import classify_compact_hier
@@ -173,12 +174,13 @@ def _fuse_both(cfg, frames, cap, cap_free, vdt, wdt, params=PARAMS, cam=CAM):
             jb, pose, jnp.asarray(pts), jnp.asarray(nrm),
             None if rgb_in is None else jnp.asarray(rgb_in), params=params, cam=cam,
             cfg=cfg, bs=BS, cap=cap, cap_free=cap_free, emit_dm="view")
-        before = tmerge.launches_rows
+        before = (tmerge.launches_rows, tfuse.launches)
         tb, tview, st = tbm.fuse_frame_brickmajor(
             tb, pose_from_numpy(pose.R, pose.t, device="cpu"), torch.from_numpy(pts),
             torch.from_numpy(nrm), None if rgb_in is None else torch.from_numpy(rgb_in),
             params=params, cam=cam, cfg=cfg, bs=BS, cap=cap, cap_free=cap_free)
-        assert tmerge.launches_rows == before  # CPU tensors: the plain version
+        # CPU tensors: the plain version
+        assert (tmerge.launches_rows, tfuse.launches) == before
         assert tview.rows is tb.D
         got = dataclasses.astuple(st)
         want = tuple(int(getattr(sj, k)) for k in
@@ -195,12 +197,19 @@ def test_fuse_brickmajor_matches_jax(storage, distance):
     frames = [(p, _frame(p, i)) for i, p in enumerate(POSES)]
     for jb, tb, st in _fuse_both(cfg, frames, 220, 220, storage, storage):
         assert st.n_full > 0 and st.n_free > 0 and st.overflow == 0
+    _assert_leaves_match(jb, tb, storage, fused_color=True)
+
+
+def _assert_leaves_match(jb, tb, storage, fused_color):
+    """The six leaves: float32 storage within ATOL; bfloat16 storage at least
+    99% bitwise equal and every value within 1 ulp. NaN masks equal."""
     jl = dict(zip(("R", "G", "B", "Wc"), jbm.unpack_color_grid(jb)))
     tl = dict(zip(("R", "G", "B", "Wc"), tbm.unpack_color_grid(tb)))
     jl.update(D=jb.D, W=jb.W)
     tl.update(D=tb.D, W=tb.W)
     assert (np.asarray(jb.W, np.float32) > 0).mean() > 0.05
-    assert (np.asarray(jl["Wc"], np.float32) > 0).sum() > 100
+    n_color = (np.asarray(jl["Wc"], np.float32) > 0).sum()
+    assert n_color > 100 if fused_color else n_color == 0
     for name in ("D", "W", "R", "G", "B", "Wc"):
         j = np.asarray(jl[name])
         t = tl[name]
@@ -215,6 +224,24 @@ def test_fuse_brickmajor_matches_jax(storage, distance):
             print(f"{name}: {100 * share:.3f}% of {dist.size} stored bf16 values "
                   f"bitwise equal, max {dist.max()} ulp")
             assert share >= 0.99 and dist.max() <= 1, (name, share, dist.max())
+
+
+@pytest.mark.parametrize("option", [
+    dict(weighting="linear"), dict(weighting="constant"),
+    dict(weighting="narrow_exponential"), dict(fuse_color=False),
+    dict(pixel_share=1, pixel_share_j=1)],
+    ids=["linear", "constant", "narrow_exponential", "color_off", "share_1"])
+def test_fuse_brickmajor_options_match_jax(option):
+    """The preset's bf16 rows at m = 64 under the other weightings, with
+    color off (a 4-channel pixel table) and with one pixel row per voxel."""
+    params = PARAMS._replace(m=64)
+    nb = (64 // 8) ** 3
+    cfg = _preset_fusion(**option)
+    frames = [(p, _frame(p, i)) for i, p in enumerate(POSES)]
+    for jb, tb, st in _fuse_both(cfg, frames, nb, nb, "bfloat16", "bfloat16",
+                                 params=params):
+        assert st.n_full > 0 and st.n_free > 0 and st.overflow == 0
+    _assert_leaves_match(jb, tb, "bfloat16", fused_color=cfg.fuse_color)
 
 
 @pytest.mark.parametrize("hier,cap_mixed", [(0, 2048), (2, 2)], ids=["flat", "hier"])

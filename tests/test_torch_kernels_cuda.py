@@ -7,17 +7,25 @@ Tolerances: K1 relative 1e-4 of max|A| and max|b| (float32 sums in another
 order), K1's step relative 1e-4 of max|twist| with equal valid counts, step
 counts and done flags (the kernel solves in float64, the plain step in
 float32), K2's dense form absolute 1e-5 (the same per-voxel float32 formula),
-K2's row form bitwise on every stored non-NaN value with equal NaN masks (the
-kernel rounds each step as PyTorch's eager ops do).
+K2's row form and its fused form (brick_fuse_rows) bitwise on every stored
+non-NaN value with equal NaN masks (the kernels round each step as PyTorch's
+eager ops do).
 """
 import pytest
 import torch
 
-from tracking_sdf_tpu_torch.config import GridParams, TrackingConfig
+from tracking_sdf_tpu_torch.config import FusionConfig, GridParams, TrackingConfig
+from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import se3_exp
+from tracking_sdf_tpu_torch.data.synthetic import (
+    CuboidScene, SphereScene, look_at, render_scene_depth)
+from tracking_sdf_tpu_torch.fusion import brick_fuse
 from tracking_sdf_tpu_torch.fusion import brick_merge as k2
+from tracking_sdf_tpu_torch.fusion.brick import _pixel_table
 from tracking_sdf_tpu_torch.fusion.brickmajor import (
-    brick_grid_from_dense, brick_masked_view, color_lane_widths)
+    brick_grid_from_dense, brick_masked_view, classify_compact_rows, color_lane_widths,
+    pack_color)
+from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid
 from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
@@ -213,3 +221,71 @@ def test_brick_merge_rows_kernel_matches_plain(dev, channels, vdt, wdt):
         assert torch.equal(a[~nan].view(torch.int16), b[~nan].view(torch.int16))
     assert (lk[1].float() == 128.0).any()
     assert torch.equal(lk[2], C) == (channels == 2)  # color on FULL slots only
+
+
+def _scene_frame(dev, distance, color):
+    """A sphere, a box and a wall seen at 96x72: the pixel table, the pose
+    and the frame's FULL then FREE lists (cap 96 / 64, padded slots in both)."""
+    parts = (SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
+             CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)),
+             CuboidScene(min_corner=(-4.0, 0.8, -4.0), max_corner=(4.0, 1.2, 4.0)))
+
+    class Scene:
+        def intersect(self, o, d):
+            t = parts[0].intersect(o, d)
+            for p in parts[1:]:
+                tb = p.intersect(o, d)
+                t = torch.where(torch.isnan(t), tb,
+                                torch.where(torch.isnan(tb), t, torch.minimum(t, tb)))
+            return t
+
+    cam = PinholeCamera(fx=80.0, fy=80.0, cx=47.5, cy=35.5, width=96, height=72)
+    cfg = FusionConfig(mode="brickmajor", pixel_share=4, pixel_share_j=4,
+                       distance=distance, max_weight=128.0)
+    pose = look_at((0.3, -2.4, 0.15), (0.0, 0.0, 0.0), device=dev)
+    pts, nrm = preprocess_frame(render_scene_depth(Scene(), cam, pose), cam=cam,
+                                bilateral=False)
+    rgb = torch.rand(72, 96, 3, generator=torch.Generator(device=dev).manual_seed(5),
+                     device=dev)
+    nb = (PARAMS.m // 8) ** 3
+    ids, counts = classify_compact_rows(PARAMS, pose, pts, nrm, cam=cam, cfg=cfg,
+                                        bs=(8, 8, 8), cap=nb, cap_free=nb)
+    full, free = ids[:96].clone(), ids[nb:nb + 64].clone()
+    full[[3, 40]] = nb
+    free[-5:] = nb
+    pix = _pixel_table(pts, nrm, rgb if color else None, color, distance)
+    return cam, cfg, pose, pix, torch.cat([full, free]).contiguous()
+
+
+@pytest.mark.parametrize("vdt,wdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)])
+@pytest.mark.parametrize("color", [True, False])
+@pytest.mark.parametrize("weighting", ["exponential", "linear"])
+@pytest.mark.parametrize("distance", ["point_to_point", "point_to_plane"])
+def test_brick_fuse_rows_kernel_matches_plain(dev, distance, weighting, color, vdt, wdt):
+    cam, cfg, pose, pix, ids = _scene_frame(dev, distance, color)
+    cfg = cfg._replace(weighting=weighting)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    nb, bv = (PARAMS.m // 8) ** 3, 512
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device=dev)
+
+    W = rand(nb, bv, lo=-20.0, hi=140.0).clamp(0.0, 128.0)  # unobserved and clamped
+    D = torch.where(W > 0, rand(nb, bv, lo=-0.15, hi=0.15), float("nan"))
+    C = pack_color(*(rand(nb, bv).to(vdt) for _ in range(3)),
+                   rand(nb, bv, lo=0.0, hi=140.0).clamp(max=128.0).to(wdt))
+    lk = [D.to(vdt), W.to(wdt), C.clone()]
+    lr = [x.clone() for x in lk]
+    kw = dict(cap=96, hw=(72, 96), params=PARAMS, cam=cam, cfg=cfg, bs=(8, 8, 8))
+    before = brick_fuse.launches
+    brick_fuse.brick_fuse_rows(*lk, ids, pix, pose, **kw)
+    brick_fuse.brick_fuse_rows_reference(*lr, ids, pix, pose, **kw)
+    assert brick_fuse.launches == before + 1
+    for a, b in zip(lk, lr):
+        nan = torch.isnan(b) if b.is_floating_point() else torch.zeros_like(b, dtype=bool)
+        assert torch.equal(torch.isnan(a) if a.is_floating_point() else nan, nan)
+        bits = torch.int16 if a.element_size() == 2 else torch.int32
+        assert torch.equal(a[~nan].view(bits), b[~nan].view(bits))
+    assert (lk[1].float() == 128.0).any()
+    assert torch.equal(lk[2], C) != color  # color on FULL slots only

@@ -11,12 +11,13 @@ in one uint16-lane leaf ``C`` of shape (NB, 3·LV + LW): per row the blocks
 of the value dtype, LW likewise for the weight dtype). PyTorch has no uint16
 arithmetic, so the port holds those lanes as int16: the bits are the same.
 
-A frame classifies the bricks (flat or hierarchical), compacts the FULL and
-FREE ids under their caps, computes the FULL bricks' per-voxel update sums,
-and K2's row form (``brick_merge.brick_merge_rows``) merges FULL and FREE
-rows in one pass (the JAX package's ``free_fold``, which is bitwise equal to
-its unfolded merge). Values and weights may be stored as bfloat16; all
-arithmetic is float32, rounded to the storage dtype only at the store.
+A frame classifies the bricks (flat or hierarchical) and compacts the FULL
+and FREE ids under their caps (``classify_compact_rows``); then one launch
+of ``brick_fuse.brick_fuse_rows`` computes the FULL bricks' per-voxel update
+sums and merges them and the FREE rows in one pass (the JAX package's
+``free_fold``, which is bitwise equal to its unfolded merge). Values and
+weights may be stored as bfloat16; all arithmetic is float32, rounded to the
+storage dtype only at the store.
 """
 from __future__ import annotations
 
@@ -30,9 +31,9 @@ from tracking_sdf_tpu_torch.config import FusionConfig, GridParams
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.fusion.brick import (
-    FREE, FULL, FuseStats, _compact_ids, _full_brick_updates, _pixel_table,
-    classify_bricks, classify_compact_hier, share_classify_margin)
-from tracking_sdf_tpu_torch.fusion.brick_merge import brick_merge_rows
+    FREE, FULL, FuseStats, _compact_ids, _pixel_table, classify_bricks,
+    classify_compact_hier, share_classify_margin)
+from tracking_sdf_tpu_torch.fusion.brick_fuse import brick_fuse_rows
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
 from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView
 
@@ -189,6 +190,39 @@ def brick_grid_to_numpy(bgrid: BrickGrid) -> Dict[str, np.ndarray]:
             "C": bgrid.C.detach().cpu().numpy().view(np.uint16)}
 
 
+def classify_compact_rows(params: GridParams, pose: Pose, points_cam: torch.Tensor,
+                          normals_cam: torch.Tensor, *, cam: PinholeCamera,
+                          cfg: FusionConfig, bs: Tuple[int, int, int], cap: int,
+                          cap_free: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A frame's FULL and FREE brick lists, classified flat or hierarchically
+    (``cfg.hier_classify``), without a host sync.
+
+    Returns (ids, counts): ids (cap + cap_free,) int32, the first ``cap``
+    FULL ids then the first ``cap_free`` FREE ids, each padded with NB;
+    counts (4,) int64 on the device: n_full, n_free, FREE bricks dropped,
+    mixed super-bricks dropped."""
+    m = params.m
+    bi, bj, bk = bs
+    nb3 = (m // bi, m // bj, m // bk)
+    NB = nb3[0] * nb3[1] * nb3[2]
+    share_m = share_classify_margin(params, cfg)
+    hier = cfg.hier_classify
+    if hier > 1 and all(n % hier == 0 for n in nb3):
+        full_ids, fr_ids, n_full, n_free, ovf_mixed, ovf_free = classify_compact_hier(
+            params, pose, points_cam, normals_cam, cam, bs, cfg.distance, cap,
+            cap_free, hier, cfg.cap_mixed, share_margin=share_m)
+    else:
+        cls = classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
+                              cfg.distance, share_margin=share_m).reshape(-1)
+        n_full, n_free = (cls == FULL).sum(), (cls == FREE).sum()
+        full_ids = _compact_ids(cls == FULL, cap, NB)
+        fr_ids = _compact_ids(cls == FREE, cap_free, NB)
+        ovf_free = torch.clamp(n_free - cap_free, min=0)
+        ovf_mixed = torch.zeros_like(n_free)
+    ids = torch.cat([full_ids, fr_ids]).to(torch.int32)
+    return ids, torch.stack([n_full, n_free, ovf_free, ovf_mixed])
+
+
 def fuse_frame_brickmajor(
     bgrid: BrickGrid,
     pose: Pose,
@@ -215,39 +249,20 @@ def fuse_frame_brickmajor(
     bi, bj, bk = bs
     if m % bi or m % bj or m % bk:
         raise ValueError(f"grid m={m} not divisible by brick {bs}")
-    nb3 = (m // bi, m // bj, m // bk)
-    NB = nb3[0] * nb3[1] * nb3[2]
+    NB = (m // bi) * (m // bj) * (m // bk)
     if tuple(bgrid.D.shape) != (NB, bi * bj * bk):
         raise ValueError(f"brick grid {tuple(bgrid.D.shape)} != ({NB}, {bi * bj * bk})")
     if cap_free is None:
         cap_free = cap
     fuse_color = cfg.fuse_color and rgb is not None
-    hw = points_cam.shape[:2]
-    share_m = share_classify_margin(params, cfg)
-
-    hier = cfg.hier_classify
-    if hier > 1 and all(n % hier == 0 for n in nb3):
-        full_ids, fr_ids, n_full, n_free, ovf_mixed, ovf_free = classify_compact_hier(
-            params, pose, points_cam, normals_cam, cam, bs, cfg.distance, cap,
-            cap_free, hier, cfg.cap_mixed, share_margin=share_m)
-    else:
-        cls = classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
-                              cfg.distance, share_margin=share_m).reshape(-1)
-        n_full, n_free = (cls == FULL).sum(), (cls == FREE).sum()
-        full_ids = _compact_ids(cls == FULL, cap, NB)
-        fr_ids = _compact_ids(cls == FREE, cap_free, NB)
-        ovf_free = torch.clamp(n_free - cap_free, min=0)
-        ovf_mixed = torch.zeros_like(n_free)
-
+    ids, counts = classify_compact_rows(params, pose, points_cam, normals_cam, cam=cam,
+                                        cfg=cfg, bs=bs, cap=cap, cap_free=cap_free)
     pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
-    upd = torch.stack(_full_brick_updates(full_ids, pix, pose, params, cam, cfg,
-                                          bs, hw, fuse_color), dim=0)
-    ids = torch.cat([full_ids, fr_ids]).to(torch.int32)
-    brick_merge_rows(bgrid.D, bgrid.W, bgrid.C, upd.reshape(upd.shape[0], cap, -1),
-                     ids, cap=cap, delta=params.delta, max_weight=cfg.max_weight)
+    brick_fuse_rows(bgrid.D, bgrid.W, bgrid.C, ids, pix, pose, cap=cap,
+                    hw=tuple(points_cam.shape[:2]), params=params, cam=cam, cfg=cfg,
+                    bs=bs)
 
-    n_full, n_free, ovf_free, ovf_mixed = torch.stack(
-        [n_full, n_free, ovf_free, ovf_mixed]).tolist()
+    n_full, n_free, ovf_free, ovf_mixed = counts.tolist()
     stats = FuseStats(n_full=n_full, overflow=max(n_full - cap, 0), n_free=n_free,
                       overflow_active=ovf_free, overflow_mixed=ovf_mixed)
     return bgrid, brick_masked_view(bgrid, params, bs), stats
