@@ -57,6 +57,24 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      voxels at 256^3); for the presets also within 0.5 voxel of the JAX
      package's own final |t err| on the same scene and frames. The presets'
      bf16 leaves must be free of NaN wherever W > 0, with weights in [0, 128].
+  6. chunked main paths: the TUM uint16 depth decode on the card against the
+     host decode (bitwise); then tum256 and tum512 through
+     Reconstruction.process_chunk over the same frames (frame 0 by
+     process_frame, the tracked frames in the chunks of CHUNKS: multiples of
+     color_every, and chunks that start off the cadence), counts set to 0
+     just before each and read just after, with a failed phase calibration
+     an error. Every frame is a CUDA-graph replay, and process_chunk runs the
+     replays under set_sync_debug_mode("error"), so a host sync between them
+     fails the run. Held to the per-frame run: GN iterations, rejection
+     flags, valid counts, mean residuals, FuseStats, the pose after each
+     chunk, the trajectory file and the final rows, all bitwise where the
+     per-frame run dropped no FULL brick; launches counted per replay
+     (gn_step_brick 30 / 40 per tracked frame, brick_fuse_rows once per
+     fused frame, brick_merge_rows never) and by torch.profiler over the
+     profiled chunk. Printed: wall ms/frame over the timed chunk (its
+     replays and its one read) beside the per-frame run's, device ms, ops
+     and busy share per frame under replay (the profiled chunk), capture ms
+     per variant, calibration ms and peak device memory.
 The last two lines are the kernels' JSON record (bound_ms from this run's
 inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
 at 67 TFLOP/s, whichever is longer) and {"ok": true, "device": {...}}.
@@ -85,6 +103,15 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 K1_FLOP_PER_QUERY = 280  # a valid query: pose, 8 corners, gradient, J, JᵀJ
 TIMED_LAUNCHES = 100
+# The chunked presets: the per-frame run's tracked frames in chunks (size,
+# role). tum256 (color every 2nd frame): absolute frames 2-3, 4-7, 8 and
+# 9-11, the last starting off the cadence; tum512 (every 3rd): 2-4, off the
+# cadence, then 5 and 6. The timed and profiled chunks replay graphs that
+# earlier chunks captured.
+CHUNKS = {"tum256": ((2, "calibrated"), (4, "timed"), (1, "calibrated"), (3, "profiled")),
+          "tum512": ((3, "calibrated"), (1, "timed"), (1, "profiled"))}
+COARSE_ITERATIONS = 10  # GN launches of a coarse pyramid level (track_frame_pyramid)
+KERNEL_NAMES = ("gn_step_kernel", "brick_fuse_rows_kernel", "brick_merge_rows_kernel")
 ABS_TOL_MERGE = 1e-5  # K2 dense form: same float32 formula per voxel
 T_ERR_MAX = 0.0469  # m: the absolute |t err| bound, 2 voxels at 256^3
 # Final |t err| (mm) of the JAX package on the same scene, trajectory and
@@ -712,8 +739,9 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
     recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     reset_counters()
-    wall = []
+    wall, poses_out, fuse = [], [], []
     for k in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -721,6 +749,8 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
         torch.cuda.synchronize()
         wall.append((time.perf_counter() - t0) * 1e3)
         fs = recon.last_fuse_stats
+        poses_out.append((recon.pose.R.clone(), recon.pose.t.clone()))
+        fuse.append(None if st.rejected else fs)
         print(f"{name} frame {k:2d}: {wall[-1]:8.2f} ms (preprocess {st.preprocess_ms:6.2f}, "
               f"track {st.track_ms:7.2f}, fuse {st.fuse_ms:7.2f}), GN {st.gn_iterations:2d}, "
               f"valid {st.num_valid}, n_full {fs.n_full}, n_free {fs.n_free}, overflow "
@@ -728,7 +758,7 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
               f"{fs.overflow_mixed}, rejected {st.rejected}")
     launches = counters()
     recon.close()
-    peak_gb = torch.cuda.max_memory_allocated() / 2 ** 30
+    peak_gb = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
 
     tracked = recon.stats[1:]
     t_err = (recon.pose.t - poses[n - 1].t).norm().item()
@@ -737,12 +767,19 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
            for k in ("preprocess_ms", "track_ms", "fuse_ms")}
     rec = dict(ms_per_frame=statistics.median(wall[1:]), t_err_mm=t_err * 1e3,
                gn_iterations=sum(s.gn_iterations for s in tracked), launches=launches,
-               tracked=len(tracked), fused=sum(not s.rejected for s in recon.stats), **med)
+               tracked=len(tracked), fused=sum(not s.rejected for s in recon.stats),
+               peak_gib=peak_gb, **med)
+    # what the chunk phase is held against: per frame, and the final rows
+    per_frame = dict(stats=recon.stats, poses=poses_out, fuse=fuse, traj_path=traj_path,
+                     ms_per_frame=rec["ms_per_frame"])
+    if recon.brick_grid is not None:
+        per_frame["rows"] = [x.clone() for x in (recon.brick_grid.D, recon.brick_grid.W,
+                                                 recon.brick_grid.C)]
     print(f"main path {name} ({cfg.grid.m}^3, {cam.width}x{cam.height}, {len(tracked)} "
           f"tracked frames): median {rec['ms_per_frame']:.2f} ms/frame wall, preprocess "
           f"{med['preprocess_ms']:.2f} ms, track {med['track_ms']:.2f} ms, fuse "
           f"{med['fuse_ms']:.2f} ms; GN iterations {rec['gn_iterations']}; final |t err| "
-          f"{rec['t_err_mm']:.2f} mm; peak device memory {peak_gb:.2f} GiB; "
+          f"{rec['t_err_mm']:.2f} mm; peak device memory of the path {peak_gb:.2f} GiB; "
           f"launches {launches}")
     kernels = (("gn_step", "brick_merge") if name == "slice"
                else ("gn_step_brick", "brick_fuse_rows"))
@@ -786,6 +823,162 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
         n_lines = sum(1 for _ in f)
     check(n_lines == n, f"{name}: trajectory has {n_lines} lines, not {n}")
     del recon
+    torch.cuda.empty_cache()
+    return rec, per_frame
+
+
+def profiled_kernels(fn):
+    """Run ``fn`` under torch.profiler: (its result, device ms, device ops,
+    launches per kernel name of KERNEL_NAMES) over the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    seen = {k: sum(e.count for e in ev if k in e.key) for k in KERNEL_NAMES}
+    return (out, sum(e.self_device_time_total for e in ev) / 1e3,
+            sum(e.count for e in ev), seen)
+
+
+def tum_decode_on_card(depth, dev):
+    """The chunk's device decode of TUM uint16 depth against numpy's host
+    decode of the per-frame path, bit for bit, on one rendered frame."""
+    import numpy as np
+
+    from tracking_sdf_tpu_torch.pipeline.chunk import decode_tum_depth
+
+    d = depth.cpu().numpy()
+    raw = np.where(np.isfinite(d), np.round(d * 5000.0), 0).astype(np.uint16)
+    host = raw.astype(np.float32) / 5000.0
+    host[raw == 0] = np.nan
+    card = decode_tum_depth(torch.from_numpy(raw.view(np.int16)).to(dev),
+                            torch.full((), 5000.0, device=dev)).cpu().numpy()
+    differ = int((card.view(np.int32) != host.view(np.int32)).sum())
+    print(f"TUM uint16 decode on the card vs the host decode: {differ} of {host.size} "
+          f"values differ (tol 0)")
+    check(differ == 0, "the card's uint16 depth decode differs from the host's")
+
+
+def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
+    """Drive one preset through Reconstruction.process_chunk over the
+    per-frame run's frames (frame 0 by process_frame, then the chunks of
+    CHUNKS[name]), with the launch counts set to 0 just before and read just
+    after, and hold it to the per-frame run ``ref``. Chunk roles: a
+    "calibrated" chunk measures the phase calibration, the "timed" one runs
+    without it (its track_ms is then the wall time of its replays and its
+    one read, over its frames) and the "profiled" one runs under
+    torch.profiler (its kernels counted there); the graphs of both are
+    captured by then. A failed calibration is an error here."""
+    import warnings
+
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    cfg = path_config(name, traj_path)
+    sizes = [size for size, _ in CHUNKS[name]]
+    n = TRACKED[name] + 1
+    check(sum(sizes) == n - 1, f"{name}: chunks {sizes} do not cover {n - 1} frames")
+    per_step = ((len(cfg.pyramid_levels) - 1) * COARSE_ITERATIONS
+                + cfg.tracking.max_iterations)
+    recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counters()
+    recon.process_frame(depths[0], rgb=rgb, timestamp=0.0)
+    k, stats, fuse, prof, timed = 1, [], [], None, None
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message="chunk phase calibration failed",
+                                category=RuntimeWarning)
+        for ci, (size, role) in enumerate(CHUNKS[name]):
+            recon.chunk_phase_metrics = role == "calibrated"
+            args = (torch.stack(depths[k:k + size]), rgb[None].expand(size, -1, -1, -1))
+            kw = dict(timestamps=[float(j) for j in range(k, k + size)])
+            t0 = time.perf_counter()
+            if role == "profiled":
+                st, dev_ms, dev_ops, seen = profiled_kernels(
+                    lambda: recon.process_chunk(*args, **kw))
+                prof = dict(frames=size, device_ms=dev_ms / size, device_ops=dev_ops / size,
+                            kernels=seen)
+            else:
+                st = recon.process_chunk(*args, **kw)
+            call_ms = (time.perf_counter() - t0) * 1e3
+            if role == "timed":
+                timed = dict(frames=size, ms_per_frame=st[0].track_ms)
+            stats += st
+            fuse += recon.chunk_fuse_stats
+            same_pose = (torch.equal(recon.pose.R, ref["poses"][k + size - 1][0])
+                         and torch.equal(recon.pose.t, ref["poses"][k + size - 1][1]))
+            print(f"{name} chunk {ci} (frames {k}-{k + size - 1}, colors "
+                  f"{[(recon.frame_num - size + 1 + j) % cfg.fusion.color_every == 0 for j in range(size)]}, "
+                  f"phase metrics {recon.chunk_phase_metrics}): process_chunk {call_ms:.2f} ms; "
+                  f"GN {[s.gn_iterations for s in st]}, rejected {[s.rejected for s in st]}, "
+                  f"track/fuse/preprocess ms {[(round(s.track_ms, 3), round(s.fuse_ms, 3), round(s.preprocess_ms, 3)) for s in st]}; "
+                  f"pose bitwise equal to the per-frame run's {same_pose}")
+            ref_fuse_ok = not any(f is not None and f.overflow for f in ref["fuse"][:k + size])
+            check(same_pose or not ref_fuse_ok,
+                  f"{name}: pose after chunk {ci} differs from the per-frame run")
+            k += size
+    launches = counters()
+    recon.close()
+    peak_gib = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    steps = recon._chunk_steps
+    capture = {f"color={key[3]}": round(ms, 1) for key, ms in steps.capture_ms.items()}
+
+    # parity with the per-frame run
+    full_drop = any(f is not None and f.overflow for f in ref["fuse"])
+    ref_stats = ref["stats"][1:]
+    check([(s.gn_iterations, s.rejected) for s in stats]
+          == [(s.gn_iterations, s.rejected) for s in ref_stats],
+          f"{name}: GN iterations or rejection flags differ from the per-frame run")
+    check([(s.num_valid, s.mean_abs_residual) for s in stats]
+          == [(s.num_valid, s.mean_abs_residual) for s in ref_stats] or full_drop,
+          f"{name}: valid counts or mean residuals differ from the per-frame run")
+    check(fuse == ref["fuse"][1:] or full_drop,
+          f"{name}: FuseStats differ from the per-frame run: {fuse} vs {ref['fuse'][1:]}")
+    bg = recon.brick_grid
+    rows_differ = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
+                      for a, b in zip((bg.D, bg.W, bg.C), ref["rows"]))
+    check(rows_differ == 0 or full_drop, f"{name}: {rows_differ} row values differ from "
+          "the per-frame run, which dropped no FULL brick")
+    with open(traj_path) as f, open(ref["traj_path"]) as g:
+        same_traj = f.read() == g.read()
+    check(same_traj or full_drop, f"{name}: the trajectory differs from the per-frame run")
+    # launches: counted per replay, and by the profiler over one chunk
+    tracked = n - 1
+    fused = 1 + sum(not s.rejected for s in stats)
+    check(launches["gn_step_brick"] == per_step * tracked
+          and launches["brick_fuse_rows"] == fused and launches["brick_merge_rows"] == 0,
+          f"{name} chunked: expected gn_step_brick {per_step} per tracked frame, "
+          f"brick_fuse_rows once per fused frame and brick_merge_rows never: {launches}")
+    seen = prof["kernels"]
+    check(seen["gn_step_kernel"] == per_step * prof["frames"]
+          and seen["brick_fuse_rows_kernel"] == prof["frames"]
+          and seen["brick_merge_rows_kernel"] == 0,
+          f"{name}: the profiler counted {seen} over a chunk of {prof['frames']} frames")
+    t_err = (recon.pose.t - poses[n - 1].t).norm().item()
+    check(t_err < T_ERR_MAX, f"{name} chunked: |t err| {t_err:.4f} m >= {T_ERR_MAX} m")
+    busy = prof["device_ms"] / timed["ms_per_frame"]
+    rec = dict(ms_per_frame=timed["ms_per_frame"], timed_frames=timed["frames"],
+               per_frame_ms=ref["ms_per_frame"], device_ms=prof["device_ms"],
+               device_ops=prof["device_ops"], busy=busy, profiled_frames=prof["frames"],
+               profiler_kernels=seen, capture_ms=capture,
+               calibration_ms=[round(x, 1) for x in steps.calibration_ms],
+               peak_gib=peak_gib, launches=launches, tracked=tracked, fused=fused,
+               t_err_mm=t_err * 1e3, rows_differ=rows_differ, full_drop=full_drop)
+    print(f"main path {name} chunked (chunks {sizes}): {rec['ms_per_frame']:.3f} ms/frame "
+          f"wall over a chunk of {timed['frames']} (replays and the one read) against "
+          f"{ref['ms_per_frame']:.2f} ms/frame per frame; under replay device "
+          f"{prof['device_ms']:.3f} ms/frame in {prof['device_ops']:.0f} ops, busy "
+          f"{busy:.1%}; no host sync between replays (set_sync_debug_mode('error')); "
+          f"capture ms per variant {capture}; calibration ms {rec['calibration_ms']}; peak "
+          f"device memory of the path {peak_gib:.2f} GiB; profiler kernels over {prof['frames']} "
+          f"frames {seen}; launches {launches}; final |t err| {t_err * 1e3:.2f} mm; rows "
+          f"differing from the per-frame run {rows_differ} (FULL drops in it: {full_drop}); "
+          f"trajectory equal {same_traj}")
+    del recon, steps, bg
     torch.cuda.empty_cache()
     return rec
 
@@ -837,9 +1030,16 @@ def main() -> int:
     depths = [render_scene_depth(scene, cam, p) for p in poses]
     torch.cuda.synchronize()
     os.makedirs(os.path.join(repo, "build"), exist_ok=True)
-    paths = {name: run_path(name, cam, depths, poses, rgb, dev,
-                            os.path.join(repo, "build", f"chip_smoke_{name}.txt"))
-             for name in TRACKED}
+    runs = {name: run_path(name, cam, depths, poses, rgb, dev,
+                           os.path.join(repo, "build", f"chip_smoke_{name}.txt"))
+            for name in TRACKED}
+    paths = {name: rec for name, (rec, _) in runs.items()}
+    tum_decode_on_card(depths[1], dev)
+    for name in CHUNKS:
+        paths[f"{name}_chunk"] = run_chunk_path(
+            name, cam, depths, poses, rgb, dev,
+            os.path.join(repo, "build", f"chip_smoke_{name}_chunk.txt"), runs[name][1])
+        del runs[name]
 
     def src(f):
         return f"tracking_sdf_tpu_torch/csrc/{f}"
@@ -854,7 +1054,7 @@ def main() -> int:
 
     gn_tpu = "tracking_sdf_tpu/tracking/pallas_gn.py:82"
     merge_tpu = "tracking_sdf_tpu/fusion/pallas_merge.py:94"
-    presets = ("tum256", "tum512")
+    presets = ("tum256", "tum512", "tum256_chunk", "tum512_chunk")
     kernels = [
         entry("gn_reduce", "gn_reduce.cu", gn_tpu, ("slice",), "tracked", k1_dense),
         entry("gn_reduce_brick", "gn_reduce.cu", gn_tpu, presets, "tracked", k1_brick),

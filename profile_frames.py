@@ -22,7 +22,13 @@ For each preset, as it is, over chip_smoke.py's scene and trajectory at
      points and pose, at the cap the runner used, from a copy of the brick
      rows saved before that frame (restored before every call, outside the
      timed window), timed unprofiled (median of 5) and profiled once, with
-     the same records as 3. and the peak device memory of one call.
+     the same records as 3. and the peak device memory of one call;
+  5. the chunked path (where the checkout has Reconstruction.process_chunk)
+     over the same frames: frames 1-2 as a first chunk (capture and phase
+     calibration), the rest as one chunk of CUDA-graph replays, timed on the
+     host clock (its wall time over its frames) and, in a second run,
+     profiled: device time, ops and host syncs per frame, the busy share,
+     capture and calibration ms, peak device memory above the run's start.
 Peak device memory is also read over the timed run of 1.
 Prints one JSON line per preset and writes them all to OUT/profile_LABEL.json
 (OUT defaults to build/profile/ beside this script). It drives public entry
@@ -213,6 +219,68 @@ def run_preset(name, label, gpu):
           f"(the timed run's peak {peak_mib:.0f} MiB)")
     for t in fp["top"]:
         print(f"    {t['ms']:8.3f} ms {t['count']:5d}x {t['name']}")
+    del bg, rows_before
+    torch.cuda.empty_cache()
+    if hasattr(Reconstruction, "process_chunk"):
+        rec.update(chunked(cfg, cam, depths, poses, rgb, dev, name, label))
+    return rec
+
+
+def chunked(cfg, cam, depths, poses, rgb, dev, name, label):
+    """5. The chunked path over the same frames, twice in fresh
+    Reconstructions: frame 0 by process_frame, frames 1-2 as a first chunk
+    (captures both color variants, with the phase calibration), the rest as
+    one chunk of replays. In the first run that chunk runs without the
+    calibration: its track_ms is its wall time (the replays and the one
+    read) over its frames. In the second it runs under torch.profiler:
+    device time, ops and host syncs per frame over the replayed chunk."""
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    n = len(depths)
+
+    def run(profiled):
+        recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        recon.process_frame(depths[0], rgb=rgb, timestamp=0.0)
+        stats = recon.process_chunk(torch.stack(depths[1:3]), rgb[None].expand(2, -1, -1, -1))
+        recon.chunk_phase_metrics = False
+        last = lambda: recon.process_chunk(  # noqa: E731
+            torch.stack(depths[3:n]), rgb[None].expand(n - 3, -1, -1, -1))
+        prof = profile(last) if profiled else None
+        stats += last() if not profiled else recon.stats[-(n - 3):]
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        steps = recon._chunk_steps
+        out = dict(stats=stats, prof=prof, peak_mib=peak, t_err_mm=(
+            recon.pose.t - poses[n - 1].t).norm().item() * 1e3,
+            capture_ms=list(steps.capture_ms.values()), calibration_ms=steps.calibration_ms)
+        recon.close()
+        return out
+
+    timed, profiled = run(False), run(True)
+    frames = n - 3
+    wall = timed["stats"][-1].track_ms
+    prof = profiled["prof"]
+    rec = dict(chunk_ms_per_frame=wall, chunk_frames=frames,
+               chunk_device_ms=prof["device_ms"] / frames,
+               chunk_device_ops=prof["device_ops"] / frames,
+               chunk_host_syncs=prof["syncs"] / frames,
+               chunk_busy=prof["device_ms"] / frames / wall,
+               chunk_capture_ms=timed["capture_ms"], chunk_calibration_ms=timed["calibration_ms"],
+               chunk_peak_mib=timed["peak_mib"], chunk_t_err_mm=timed["t_err_mm"],
+               chunk_gn_iterations=[s.gn_iterations for s in timed["stats"]],
+               chunk_top=prof["top"])
+    print(f"{label} {name}: chunked, {frames} frames replayed: {wall:.3f} ms/frame wall, "
+          f"device {rec['chunk_device_ms']:.3f} ms/frame in {rec['chunk_device_ops']:.0f} ops, "
+          f"busy {rec['chunk_busy']:.1%}, host syncs {prof['syncs']} over the chunk call; "
+          f"capture ms {[round(x, 1) for x in rec['chunk_capture_ms']]}, calibration ms "
+          f"{[round(x, 1) for x in rec['chunk_calibration_ms']]}, peak {timed['peak_mib']:.0f} "
+          f"MiB, GN iterations {rec['chunk_gn_iterations']}, |t err| "
+          f"{timed['t_err_mm']:.2f} mm")
+    for t in prof["top"]:
+        print(f"    {t['ms']:8.3f} ms {t['count']:5d}x {t['name']}")
     return rec
 
 
@@ -236,7 +304,8 @@ def main() -> int:
     with open(os.path.join(out, f"profile_{args.label}.json"), "w") as f:
         json.dump(recs, f, indent=1)
     for r in recs:
-        print(json.dumps({k: v for k, v in r.items() if k not in ("track_top", "fuse_top")}))
+        print(json.dumps({k: v for k, v in r.items()
+                          if k not in ("track_top", "fuse_top", "chunk_top")}))
     return 0
 
 

@@ -289,3 +289,64 @@ def test_brick_fuse_rows_kernel_matches_plain(dev, distance, weighting, color, v
         assert torch.equal(a[~nan].view(bits), b[~nan].view(bits))
     assert (lk[1].float() == 128.0).any()
     assert torch.equal(lk[2], C) != color  # color on FULL slots only
+
+
+@pytest.mark.parametrize("pose_init", ["previous", "velocity"])
+def test_chunk_replays_match_per_frame_loop(dev, pose_init):
+    """process_chunk on the card (CUDA-graph replays; numpy uint16 depth and
+    uint8 color staged in pinned host memory and decoded on the card) equals
+    the per-frame loop on the same frames bit for bit, with frame 3 all NaN
+    (rejected), and adds each replay's launches to the counters."""
+    import dataclasses
+
+    import numpy as np
+
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    cam = PinholeCamera(fx=60.0, fy=60.0, cx=47.5, cy=35.5, width=96, height=72)
+    nb = (PARAMS.m // 8) ** 3
+    cfg = preset("tum256")
+    cfg = dataclasses.replace(cfg, grid=PARAMS, trajectory_path=None, pose_init=pose_init,
+                              fusion=cfg.fusion._replace(brick_cap=4 * nb, brick_cap_free=nb))
+    scene = _Union(SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
+                   CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)))
+    eyes = [(0.02 * i, -1.5, 0.2 + 0.01 * i) for i in range(6)]
+    depths, rgbs = [], []
+    for i, e in enumerate(eyes):
+        d = render_scene_depth(scene, cam, look_at(e, (0, 0, 0), device="cpu")).numpy()
+        if i == 3:
+            d[:] = np.nan
+        depths.append(np.where(np.isfinite(d), np.round(d * 5000.0), 0).astype(np.uint16))
+        rgbs.append(np.full((72, 96, 3), 40 * i, np.uint8))
+    p0 = look_at(eyes[0], (0, 0, 0), device=dev)
+    seq = Reconstruction(cam, cfg, initial_pose=p0, device=dev)
+    for i in range(6):
+        seq.process_frame(depths[i], rgbs[i], timestamp=float(i))
+    chk = Reconstruction(cam, cfg, initial_pose=p0, device=dev)
+    chk.chunk_phase_metrics = False
+    chk.process_frame(depths[0], rgbs[0], timestamp=0.0)
+    before = (k1.launches_step_brick, brick_fuse.launches)
+    stats = chk.process_chunk(np.stack(depths[1:]), np.stack(rgbs[1:]))
+    assert (k1.launches_step_brick - before[0], brick_fuse.launches - before[1]) == (
+        5 * (10 + cfg.tracking.max_iterations), 5)
+    assert [(s.rejected, s.gn_iterations, s.num_valid, s.mean_abs_residual) for s in stats] == [
+        (s.rejected, s.gn_iterations, s.num_valid, s.mean_abs_residual)
+        for s in seq.stats[1:]]
+    assert stats[2].rejected and sum(s.rejected for s in stats) == 1
+    assert torch.equal(chk.pose.R, seq.pose.R) and torch.equal(chk.pose.t, seq.pose.t)
+    for k in ("D", "W", "C"):
+        a, b = getattr(chk.brick_grid, k), getattr(seq.brick_grid, k)
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), k
+
+
+class _Union:
+    def __init__(self, *parts):
+        self.parts = parts
+
+    def intersect(self, o, d):
+        t = self.parts[0].intersect(o, d)
+        for s in self.parts[1:]:
+            tb = s.intersect(o, d)
+            t = torch.where(torch.isnan(t), tb, torch.where(torch.isnan(tb), t, torch.minimum(t, tb)))
+        return t

@@ -79,13 +79,17 @@ def preset_config(name, m, trajectory_path, **fusion):
         fusion=cfg.fusion._replace(brick_cap=nb, brick_cap_free=nb, **fusion))
 
 
-@pytest.mark.parametrize("name,m,fusion", [
-    ("tum256", 48, {}),
-    ("tum512", 64, {"cap_mixed": 8}),
-])
-def test_preset_matches_jax_runner(tmp_path, name, m, fusion):
-    """Per frame: equal GN iterations, rejection and valid counts, the pose to
-    1e-4, and equal FuseStats; then the trajectories and the grids."""
+PRESETS = [("tum256", 48, {}), ("tum512", 64, {"cap_mixed": 8})]
+_PRESET_RUNS = {}
+
+
+def preset_run(tmp_path, name, m, fusion):
+    """Both runners over the preset loop's five frames, once per preset for
+    the tests of this module that read it: the runners (closed) and, per
+    frame, both FrameStats, poses and FuseStats."""
+    key = (name, m)
+    if key in _PRESET_RUNS:
+        return _PRESET_RUNS[key]
     cfg_t = preset_config(name, m, str(tmp_path / "port.txt"), **fusion)
     cfg_j = preset_config(name, m, str(tmp_path / "jax.txt"), **fusion)
     assert cfg_t.fusion.mode == "brickmajor"
@@ -94,9 +98,8 @@ def test_preset_matches_jax_runner(tmp_path, name, m, fusion):
     rj = JReconstruction(CAM, cfg_j, initial_pose=p0)
     rt = Reconstruction(CAM, cfg_t, device="cpu",
                         initial_pose=pose_from_numpy(p0.R, p0.t, device="cpu"))
-    assert rt._bgrid.D.dtype == torch.bfloat16 and rt._bgrid.W.dtype == torch.bfloat16
     rng = np.random.default_rng(1)
-    n_free = 0
+    frames = []
     for i, p in enumerate(poses):
         # the wall behind the objects gives whole FREE bricks; a block of
         # holes (a speckle would leave no brick whose pixels are all valid)
@@ -105,18 +108,35 @@ def test_preset_matches_jax_runner(tmp_path, name, m, fusion):
         rgb = np.broadcast_to(rng.uniform(size=3), depth.shape + (3,)).astype(np.float32)
         sj = rj.process_frame(depth, rgb=rgb, timestamp=10.0 + i)
         st = rt.process_frame(depth, rgb=rgb, timestamp=10.0 + i)
-        assert (st.gn_iterations, st.rejected, st.num_valid) == (
-            sj.gn_iterations, sj.rejected, sj.num_valid), i
-        np.testing.assert_allclose(rt.pose.t.numpy(), np.asarray(rj.pose.t),
-                                   atol=TOL_POSE, err_msg=f"frame {i}")
-        np.testing.assert_allclose(rt.pose.R.numpy(), np.asarray(rj.pose.R),
-                                   atol=TOL_POSE, err_msg=f"frame {i}")
-        fj = rj.last_fuse_stats
-        assert dataclasses.astuple(rt.last_fuse_stats) == tuple(int(getattr(fj, k)) for k in (
-            "n_full", "overflow", "n_free", "overflow_active", "overflow_mixed")), i
-        n_free += rt.last_fuse_stats.n_free
+        frames.append(dict(sj=sj, st=st, pose_j=(np.asarray(rj.pose.R), np.asarray(rj.pose.t)),
+                           pose_t=(rt.pose.R.numpy(), rt.pose.t.numpy()),
+                           fuse_j=rj.last_fuse_stats, fuse_t=rt.last_fuse_stats))
     rj.close()
     rt.close()
+    _PRESET_RUNS[key] = dict(rj=rj, rt=rt, frames=frames, tmp_path=tmp_path)
+    return _PRESET_RUNS[key]
+
+
+@pytest.mark.parametrize("name,m,fusion", PRESETS)
+def test_preset_matches_jax_runner(tmp_path, name, m, fusion):
+    """Per frame: equal GN iterations, rejection and valid counts, the pose to
+    1e-4, and equal FuseStats; then the trajectories and the grids."""
+    run = preset_run(tmp_path, name, m, fusion)
+    rj, rt, tmp_path = run["rj"], run["rt"], run["tmp_path"]
+    assert rt._bgrid.D.dtype == torch.bfloat16 and rt._bgrid.W.dtype == torch.bfloat16
+    n_free = 0
+    for i, f in enumerate(run["frames"]):
+        st, sj = f["st"], f["sj"]
+        assert (st.gn_iterations, st.rejected, st.num_valid) == (
+            sj.gn_iterations, sj.rejected, sj.num_valid), i
+        np.testing.assert_allclose(f["pose_t"][1], f["pose_j"][1],
+                                   atol=TOL_POSE, err_msg=f"frame {i}")
+        np.testing.assert_allclose(f["pose_t"][0], f["pose_j"][0],
+                                   atol=TOL_POSE, err_msg=f"frame {i}")
+        fj = f["fuse_j"]
+        assert dataclasses.astuple(f["fuse_t"]) == tuple(int(getattr(fj, k)) for k in (
+            "n_full", "overflow", "n_free", "overflow_active", "overflow_mixed")), i
+        n_free += f["fuse_t"].n_free
     assert sum(s.gn_iterations for s in rt.stats) > 4
     assert not any(s.rejected for s in rt.stats)
     assert rt.last_fuse_stats.n_full > 0 and n_free > 0
@@ -132,6 +152,21 @@ def test_preset_matches_jax_runner(tmp_path, name, m, fusion):
     seen = W_j > 0
     np.testing.assert_allclose(gt.D.numpy()[seen], np.asarray(gj.D)[seen],
                                atol=2 * PARAMS.delta / 128)
+
+
+@pytest.mark.parametrize("name,m,fusion", PRESETS)
+def test_preset_mean_residual_matches_jax(tmp_path, name, m, fusion):
+    """FrameStats.mean_abs_residual per frame: a float32 value, Σ|r| over
+    max(num_valid, 1) divided in float32 as the JAX package does on the
+    device, equal to the JAX package's to 1e-4 relative (the sums run in
+    another order, at poses 1e-5 apart)."""
+    run = preset_run(tmp_path, name, m, fusion)
+    for i, f in enumerate(run["frames"]):
+        ours, theirs = f["st"].mean_abs_residual, f["sj"].mean_abs_residual
+        assert float(np.float32(ours)) == ours, i
+        assert float(np.float32(theirs)) == theirs, i
+        np.testing.assert_allclose(ours, theirs, rtol=1e-4, atol=1e-9, err_msg=f"frame {i}")
+    assert all(f["st"].mean_abs_residual > 0 for f in run["frames"][1:])
 
 
 @pytest.mark.parametrize("fusion", [{"sat_skip": True}, {"mode": "packed"},

@@ -8,11 +8,12 @@ configuration is its own ``config`` module, field for field equal to the JAX
 package's (pinned by ``tests/test_torch_config.py``).
 
 Covered so far: the single-device brick-major frame loop that the ``tum256``
-and ``tum512`` presets run, and the flat bricked loop
-(``FusionConfig(mode="bricked", brick_merge="pallas")``), with their
-hand-written CUDA kernels (``tracking/gn_reduce.py``,
-``fusion/brick_merge.py``; sources in ``csrc/``). Every constructor and entry
-point takes an explicit ``device``.
+and ``tum512`` presets run, per frame and chunked (``process_chunk``,
+``run(chunk=N)``: CUDA-graph replays of one captured frame step), and the
+flat bricked loop (``FusionConfig(mode="bricked", brick_merge="pallas")``),
+with their hand-written CUDA kernels (``tracking/gn_reduce.py``,
+``fusion/brick_merge.py``, ``fusion/brick_fuse.py``; sources in ``csrc/``).
+Every constructor and entry point takes an explicit ``device``.
 """
 import torch
 

@@ -223,7 +223,7 @@ def classify_compact_rows(params: GridParams, pose: Pose, points_cam: torch.Tens
     return ids, torch.stack([n_full, n_free, ovf_free, ovf_mixed])
 
 
-def fuse_frame_brickmajor(
+def fuse_frame_brickmajor_core(
     bgrid: BrickGrid,
     pose: Pose,
     points_cam: torch.Tensor,  # (H, W, 3)
@@ -236,15 +236,18 @@ def fuse_frame_brickmajor(
     bs: Tuple[int, int, int] = (8, 8, 8),
     cap: int = 6144,
     cap_free: Optional[int] = None,
-) -> Tuple[BrickGrid, BrickMaskedView, FuseStats]:
-    """Fuse one frame into ``bgrid`` in place.
+) -> torch.Tensor:
+    """Fuse one frame into ``bgrid`` in place and read nothing back: the one
+    place that owns the sequence classify_compact_rows -> _pixel_table ->
+    brick_fuse_rows, for the per-frame path and the chunked one.
 
-    Returns (bgrid, view, stats): ``view`` is the masked view of the merged D
-    rows for the next frame's tracking. Geometry is exactly the dense path's
-    math; color is fused in FULL bricks only. FULL bricks past ``cap`` and
-    FREE bricks past ``cap_free`` (default ``cap``) are dropped for the
-    frame and reported, as are mixed super-bricks past ``cfg.cap_mixed``
-    with hierarchical classification. The stats are read in one host sync."""
+    Geometry is exactly the dense path's math; color is fused in FULL bricks
+    only. FULL bricks past ``cap`` and FREE bricks past ``cap_free`` (default
+    ``cap``) are dropped for the frame, as are mixed super-bricks past
+    ``cfg.cap_mixed`` with hierarchical classification. Returns the counts
+    of classify_compact_rows, (4,) int64 on the device: n_full, n_free, FREE
+    bricks dropped, mixed super-bricks dropped (``fuse_stats`` reads them).
+    An all-NaN frame leaves the rows bitwise unchanged."""
     m = params.m
     bi, bj, bk = bs
     if m % bi or m % bj or m % bk:
@@ -261,8 +264,37 @@ def fuse_frame_brickmajor(
     brick_fuse_rows(bgrid.D, bgrid.W, bgrid.C, ids, pix, pose, cap=cap,
                     hw=tuple(points_cam.shape[:2]), params=params, cam=cam, cfg=cfg,
                     bs=bs)
+    return counts
 
-    n_full, n_free, ovf_free, ovf_mixed = counts.tolist()
-    stats = FuseStats(n_full=n_full, overflow=max(n_full - cap, 0), n_free=n_free,
-                      overflow_active=ovf_free, overflow_mixed=ovf_mixed)
-    return bgrid, brick_masked_view(bgrid, params, bs), stats
+
+def fuse_stats(counts, cap: int) -> FuseStats:
+    """FuseStats of a frame from its four counts (host integers)."""
+    n_full, n_free, ovf_free, ovf_mixed = (int(c) for c in counts)
+    return FuseStats(n_full=n_full, overflow=max(n_full - cap, 0), n_free=n_free,
+                     overflow_active=ovf_free, overflow_mixed=ovf_mixed)
+
+
+def fuse_frame_brickmajor(
+    bgrid: BrickGrid,
+    pose: Pose,
+    points_cam: torch.Tensor,  # (H, W, 3)
+    normals_cam: torch.Tensor,  # (H, W, 3)
+    rgb: Optional[torch.Tensor],  # (H, W, 3) in [0, 1] or None
+    *,
+    params: GridParams,
+    cam: PinholeCamera,
+    cfg: FusionConfig = FusionConfig(),
+    bs: Tuple[int, int, int] = (8, 8, 8),
+    cap: int = 6144,
+    cap_free: Optional[int] = None,
+) -> Tuple[BrickGrid, BrickMaskedView, FuseStats]:
+    """Fuse one frame into ``bgrid`` in place (``fuse_frame_brickmajor_core``)
+    and read its stats in one host sync.
+
+    Returns (bgrid, view, stats): ``view`` is the masked view of the merged D
+    rows for the next frame's tracking; the dropped bricks are reported in
+    ``stats``."""
+    counts = fuse_frame_brickmajor_core(bgrid, pose, points_cam, normals_cam, rgb,
+                                        params=params, cam=cam, cfg=cfg, bs=bs, cap=cap,
+                                        cap_free=cap_free)
+    return bgrid, brick_masked_view(bgrid, params, bs), fuse_stats(counts.tolist(), cap)

@@ -10,12 +10,16 @@ fusion layouts are ported:
     brick rows (fusion.brickmajor), and tracking reads the brick-major masked
     view of the D rows; the dense grid is built only when ``grid`` is read.
   * ``mode="bricked", brick_merge="pallas"``: the flat (m, m, m) grid.
-Rendering, meshing, checkpoints and chunked processing are not ported yet.
+``process_chunk`` and ``run(chunk=N)`` process many brick-major frames per
+host round trip (pipeline.chunk: CUDA-graph replays of one captured frame
+step on the card). Rendering, meshing and checkpoints are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
 import time
+import warnings
 from typing import List, Optional
 
 import numpy as np
@@ -23,14 +27,15 @@ import torch
 
 from tracking_sdf_tpu_torch.config import PipelineConfig
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
-from tracking_sdf_tpu_torch.core.lie import Pose, pose_compose, pose_inverse
+from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.fusion.brick import FuseStats, fuse_frame_bricked
 from tracking_sdf_tpu_torch.fusion.brickmajor import (
-    brick_grid_from_dense, brick_masked_view, dense_from_brick_grid,
-    empty_brick_grid, fuse_frame_brickmajor, storage_dtype)
+    BrickGrid, brick_grid_from_dense, brick_masked_view, dense_from_brick_grid,
+    empty_brick_grid, fuse_frame_brickmajor_core, fuse_stats, storage_dtype)
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, empty_grid
+from tracking_sdf_tpu_torch.pipeline import chunk as chunked
 from tracking_sdf_tpu_torch.pipeline.trajectory import TrajectoryWriter
-from tracking_sdf_tpu_torch.tracking.gauss_newton import track_frame
+from tracking_sdf_tpu_torch.tracking.gauss_newton import TrackResult, track_frame
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 from tracking_sdf_tpu_torch.tracking.pyramid import track_frame_pyramid
 
@@ -119,6 +124,13 @@ class Reconstruction:
                                    cap_max})
         self._cap_idx = len(self._cap_levels) - 1
         self.last_fuse_stats: Optional[FuseStats] = None
+        # chunked processing: the captured steps (dropped with the grid),
+        # the phase calibration per chunk shape, and the last chunk's
+        # FuseStats per frame (None on a rejected frame)
+        self._chunk_steps: Optional[chunked.ChunkSteps] = None
+        self._chunk_calib = {}
+        self.chunk_phase_metrics = True
+        self.chunk_fuse_stats: List[Optional[FuseStats]] = []
 
     @property
     def grid(self) -> TSDFGrid:
@@ -135,6 +147,7 @@ class Reconstruction:
             self._bgrid = brick_grid_from_dense(g, self._bs, value_dtype=self._vdt,
                                                 weight_dtype=self._wdt)
             self._dm = brick_masked_view(self._bgrid, self.config.grid, self._bs)
+            self._chunk_steps = None  # its graphs hold the old rows' addresses
         else:
             self._grid = g
 
@@ -144,14 +157,22 @@ class Reconstruction:
         flat layout. Fusion updates them in place."""
         return self._bgrid
 
+    def _fuse_core(self, pose: Pose, points, normals, rgb, cap: int,
+                   bgrid: Optional[BrickGrid] = None) -> torch.Tensor:
+        """Brick-major fusion into ``bgrid`` (default the live rows) with no
+        host read; returns the device counts (fusion.brickmajor)."""
+        f = self.config.fusion
+        return fuse_frame_brickmajor_core(
+            self._bgrid if bgrid is None else bgrid, pose, points, normals, rgb,
+            params=self.config.grid, cam=self.cam, cfg=f, bs=self._bs, cap=cap,
+            cap_free=f.brick_cap_free or None)
+
     def _fuse(self, points, normals, rgb) -> None:
         cfg = self.config
         cap = self._cap_levels[self._cap_idx]
         if self._bgrid is not None:
-            _, self._dm, stats = fuse_frame_brickmajor(
-                self._bgrid, self.pose, points, normals, rgb, params=cfg.grid,
-                cam=self.cam, cfg=cfg.fusion, bs=self._bs, cap=cap,
-                cap_free=cfg.fusion.brick_cap_free or None)
+            counts = self._fuse_core(self.pose, points, normals, rgb, cap)
+            stats = fuse_stats(counts.tolist(), cap)  # the frame's one FuseStats read
         else:
             _, stats = fuse_frame_bricked(
                 self._grid, self.pose, points, normals, rgb, params=cfg.grid,
@@ -166,9 +187,21 @@ class Reconstruction:
         """Initial pose of the GN descent: the previous pose, or the
         constant-velocity prediction T_{n-1} ∘ (T_{n-2}^-1 ∘ T_{n-1})."""
         if self.config.pose_init == "velocity" and self._pose_prev is not None:
-            return pose_compose(self.pose, pose_compose(pose_inverse(self._pose_prev),
-                                                        self.pose))
+            return chunked.velocity_guess(self.pose, self._pose_prev)
         return self.pose
+
+    def _track(self, pose0: Pose, points: torch.Tensor) -> TrackResult:
+        """Tracking of one frame's (H, W, 3) points from ``pose0``, issued
+        with no host read (brick-major: against the view of the D rows)."""
+        cfg = self.config
+        if cfg.pyramid_levels:
+            res, _ = track_frame_pyramid(
+                self._grid, pose0, points, params=cfg.grid, cfg=cfg.tracking,
+                levels=cfg.pyramid_levels, Dm=self._dm)
+            return res
+        s = cfg.tracking.pixel_stride
+        return track_frame(self._grid, pose0, points[::s, ::s], params=cfg.grid,
+                           cfg=cfg.tracking, Dm=self._dm)
 
     def _as_depth(self, depth) -> torch.Tensor:
         if not torch.is_tensor(depth):
@@ -205,17 +238,7 @@ class Reconstruction:
         preprocess_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
         if self.frame_num > 1:
-            pose0 = self._predict_pose()
-            # brick-major: track against the view of the D rows (grid=None)
-            grid = self._grid
-            if cfg.pyramid_levels:
-                res, _ = track_frame_pyramid(
-                    grid, pose0, points, params=cfg.grid, cfg=cfg.tracking,
-                    levels=cfg.pyramid_levels, Dm=self._dm)
-            else:
-                s = cfg.tracking.pixel_stride
-                res = track_frame(grid, pose0, points[::s, ::s],
-                                  params=cfg.grid, cfg=cfg.tracking, Dm=self._dm)
+            res = self._track(self._predict_pose(), points)
             # the frame's one read of the tracking state: its stats and the
             # failure gate's inputs
             st = res.read()
@@ -255,7 +278,207 @@ class Reconstruction:
         self.stats.append(stat)
         return stat
 
+    # --- chunked processing ------------------------------------------------
+
+    def _stage(self, frames, rgb: bool) -> torch.Tensor:
+        """A chunk's (N, ...) frames as the tensor its steps copy from: left
+        on the device if they are there, else in host memory, pinned when
+        the device is a GPU (asynchronous copies). TUM uint16 depth stays
+        16-bit (as int16 bits) and uint8 color stays 8-bit: both are decoded
+        on the device."""
+        if torch.is_tensor(frames):
+            x = frames.view(torch.int16) if frames.dtype == torch.uint16 else frames
+        else:
+            a = np.asarray(frames)
+            x = torch.from_numpy(np.ascontiguousarray(
+                a.view(np.int16) if a.dtype == np.uint16 else a))
+        if x.dtype not in (torch.int16, torch.uint8):
+            x = x.to(torch.float32)
+        if (x.dtype == torch.uint8) != rgb and x.dtype != torch.float32:
+            raise ValueError(f"process_chunk: {'colors' if rgb else 'depth'} of "
+                             f"dtype {x.dtype}")
+        if x.device.type != self.device.type:
+            x = x.cpu()
+            if self.device.type == "cuda":
+                x = x.pin_memory()
+        return x
+
+    def process_chunk(self, depths, rgbs=None, timestamps=None) -> List[FrameStats]:
+        """Process N frames with one host read: ``depths`` (N, H, W) float32
+        meters with NaN holes, or TUM uint16 (1/5000 m, 0 = hole); ``rgbs``
+        (N, H, W, 3) in [0, 1] or uint8; ``timestamps`` N floats (default the
+        frame indices). Needs the brick-major mode and one process_frame
+        call first (frame 0 bootstraps the grid); the analytic Jacobian and
+        tracked (not groundtruth) poses are the only modes the port builds.
+
+        Each frame preprocesses, tracks from the carried pose (the
+        constant-velocity guess with pose_init="velocity"), gates a failed
+        track on the device (the pose is kept and the frame fuses nothing)
+        and fuses at the largest cap: the per-frame loop adapts its cap to
+        the previous frame's FULL count, which a chunk cannot read, so it
+        holds the maximum. With the same cap, and no FULL brick dropped, the
+        poses and rows equal the per-frame loop's bit for bit. Color fuses
+        on the absolute frames ``frame_num % color_every == 0``.
+
+        On the card every frame is one replay of a CUDA graph of the frame
+        step (pipeline.chunk), and the replays run under
+        ``torch.cuda.set_sync_debug_mode("error")``: a capture or replay
+        that fails raises. ``chunk_phase_metrics`` (default True) measures
+        per chunk shape a preprocess-only and a fuse-only loop over the
+        chunk's frames: FrameStats then carry that preprocess_ms, that
+        fuse_ms on every fused frame (0 on a rejected one) and the rest of
+        the chunk's wall time as track_ms, split by GN iterations; without
+        it track_ms is the chunk's wall time over N. A calibration that
+        fails warns (RuntimeWarning) and leaves that fallback."""
+        cfg = self.config
+        if self._bgrid is None or self.frame_num < 1:
+            raise ValueError(
+                "process_chunk needs mode='brickmajor' and one process_frame call "
+                "first (frame 0 bootstraps the grid)")
+        depths = self._stage(depths, rgb=False)
+        n = depths.shape[0]
+        has_color = cfg.fusion.fuse_color and rgbs is not None
+        rgbs = self._stage(rgbs, rgb=True) if has_color else None
+        if timestamps is None:
+            timestamps = [float(self.frame_num + 1 + i) for i in range(n)]
+        cap = self._cap_levels[-1]
+        ce = cfg.fusion.color_every
+        colors = chunked.color_cadence(self.frame_num + 1, n, has_color, ce)
+        if self._chunk_steps is None:
+            self._chunk_steps = chunked.ChunkSteps(self)
+        steps = self._chunk_steps
+        prepared = steps.prepare(depths, rgbs, colors, cap)
+
+        t0 = time.perf_counter()
+        out = steps.replay(prepared, depths, rgbs, colors, self.pose, self._pose_prev)
+        wall_ms = (time.perf_counter() - t0) * 1e3 / n
+
+        rej = out[:, chunked.REC_REJ] > 0
+        iters = out[:, chunked.REC_ITERS].to(torch.int64)
+        counts = out[:, chunked.REC_COUNTS:].to(torch.int64).tolist()
+        self.pose = Pose(steps.R.clone(), steps.t.clone())
+        self._pose_prev = (None if bool(rej[-1])
+                           else Pose(steps.prev_R.clone(), steps.prev_t.clone()))
+        self.chunk_fuse_stats = [None if rj else fuse_stats(c, cap)
+                                 for rj, c in zip(rej.tolist(), counts)]
+        fused = [s for s in self.chunk_fuse_stats if s is not None]
+        if fused:
+            self.last_fuse_stats = fused[-1]
+
+        prep_i, fuse_i = np.zeros(n), np.zeros(n)
+        track_i = np.full(n, wall_ms)
+        if self.chunk_phase_metrics:
+            key = (n, has_color, depths.dtype == torch.int16, cap,
+                   (self.frame_num + 1) % ce if has_color and ce > 1 else 0)
+            try:
+                if key not in self._chunk_calib:
+                    self._chunk_calib[key] = steps.calibrate(depths, rgbs, colors, cap)
+                prep_ms, fuse_cal = self._chunk_calib[key]
+            except Exception as e:  # the frames are done; only their split is lost
+                warnings.warn(f"chunk phase calibration failed ({type(e).__name__}: {e});"
+                              " the FrameStats carry wall/n in track_ms", RuntimeWarning,
+                              stacklevel=2)
+            else:
+                prep_i[:] = prep_ms
+                fuse_i = np.where(rej.numpy(), 0.0, fuse_cal)
+                pool = max(wall_ms * n - prep_ms * n - float(fuse_i.sum()), 0.0)
+                w_it = np.maximum(iters.numpy().astype(np.float64), 1.0)
+                track_i = pool * w_it / w_it.sum()
+
+        stats_out: List[FrameStats] = []
+        for i in range(n):
+            self.frame_num += 1
+            ts = float(timestamps[i])
+            rec = out[i]
+            if self._writer is not None and not rej[i]:
+                self._writer.write(ts, Pose(rec[chunked.REC_R:chunked.REC_T].reshape(3, 3),
+                                            rec[chunked.REC_T:chunked.REC_ITERS]))
+            stat = FrameStats(index=self.frame_num, timestamp=ts,
+                              track_ms=float(track_i[i]), fuse_ms=float(fuse_i[i]),
+                              gn_iterations=int(iters[i]),
+                              num_valid=int(rec[chunked.REC_NVALID]),
+                              mean_abs_residual=float(rec[chunked.REC_MRES]),
+                              rejected=bool(rej[i]), preprocess_ms=float(prep_i[i]))
+            self.stats.append(stat)
+            stats_out.append(stat)
+        overflow = sum(max(c[0] - cap, 0) + c[2] + c[3] for c in counts)
+        if overflow:
+            warnings.warn(
+                f"process_chunk: {overflow} brick-cap overflow drops across the chunk "
+                f"(cap {cap} = the preset max; peak n_full {max(c[0] for c in counts)}: "
+                f"raise FusionConfig.brick_cap to cover it)", RuntimeWarning, stacklevel=2)
+        return stats_out
+
+    def run(self, dataset, max_frames: Optional[int] = None, mesh_every: int = 0,
+            mesh_path: Optional[str] = None, progress: bool = False,
+            checkpoint_every: int = 0, checkpoint_path: Optional[str] = None,
+            metrics_log: Optional[str] = None, skip_frames: int = 0,
+            chunk: int = 0) -> List[FrameStats]:
+        """Consume any iterable of frame-likes (``depth``, ``rgb``,
+        ``timestamp``; data.tum.TUMFrame). ``skip_frames`` skips that many
+        frames first, ``max_frames`` stops at that frame index;
+        ``metrics_log`` appends one JSON line of FrameStats per frame.
+        ``chunk`` > 1 hands that many frames at a time to process_chunk
+        (frame 0 and an odd tail run per frame; the flat layout, which has
+        no chunked path, warns and runs per frame). Meshing and checkpoints
+        are not ported: setting them raises NotImplementedError."""
+        if mesh_every or mesh_path or checkpoint_every or checkpoint_path:
+            raise NotImplementedError("the port has no meshing or checkpoints yet")
+        if chunk > 1 and self._bgrid is None:
+            warnings.warn("chunked processing needs mode='brickmajor'; running per frame",
+                          RuntimeWarning, stacklevel=2)
+            chunk = 0
+        log = open(metrics_log, "a") if metrics_log else None
+        pend = []  # frames held for the next chunk
+
+        def emit(stat: FrameStats) -> None:
+            if progress:
+                print(f"frame {stat.index}: track {stat.track_ms:.1f} ms "
+                      f"({stat.gn_iterations} GN iters, {stat.num_valid} px), "
+                      f"fuse {stat.fuse_ms:.1f} ms", flush=True)
+            if log is not None:
+                log.write(json.dumps(dataclasses.asdict(stat)) + "\n")
+                log.flush()
+
+        def flush(final: bool = False) -> None:
+            if final and len(pend) < chunk:  # the odd tail runs per frame
+                for f in pend:
+                    emit(self.process_frame(f.depth, f.rgb, timestamp=f.timestamp))
+            elif pend:
+                rgbs = None
+                if self.config.fusion.fuse_color and all(f.rgb is not None for f in pend):
+                    rgbs = _stack([f.rgb for f in pend])
+                for stat in self.process_chunk(_stack([f.depth for f in pend]), rgbs,
+                                               timestamps=[f.timestamp for f in pend]):
+                    emit(stat)
+            pend.clear()
+
+        try:
+            for i, frame in enumerate(dataset):
+                if i < skip_frames:
+                    continue
+                if max_frames is not None and i >= max_frames:
+                    break
+                if chunk > 1 and self.frame_num >= 1:
+                    pend.append(frame)
+                    if len(pend) == chunk:
+                        flush()
+                    continue
+                emit(self.process_frame(frame.depth, frame.rgb, timestamp=frame.timestamp))
+            flush(final=True)
+        finally:
+            if log is not None:
+                log.close()
+        return self.stats
+
     def close(self) -> None:
         if self._writer is not None:
             self._writer.close()
             self._writer = None
+
+
+def _stack(frames):
+    """Frames (tensors or array-likes) as one (N, ...) stack."""
+    if all(torch.is_tensor(f) for f in frames):
+        return torch.stack(list(frames))
+    return np.stack([np.asarray(f) for f in frames])

@@ -1,4 +1,4 @@
-"""TUM-format trajectories: writing, reading, association and ATE
+"""TUM-format trajectories: writing, reading, association, ATE and RPE
 (counterpart of tracking_sdf_tpu.pipeline.trajectory).
 
 Lines are ``timestamp tx ty tz qx qy qz qw``. Metrics run in float64 numpy.
@@ -23,6 +23,22 @@ class Trajectory:
 
     def __len__(self) -> int:
         return len(self.timestamps)
+
+    def rotation_matrices(self) -> np.ndarray:
+        """(N, 3, 3) float64: metrics must not add float32 rotation noise
+        (arccos near 1 amplifies it to ~1e-3 rad)."""
+        q = np.asarray(self.quaternions, dtype=np.float64)
+        x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+        n = (q ** 2).sum(-1)
+        s = np.where(n > 0, 2.0 / np.where(n > 0, n, 1.0), 0.0)
+        xx, yy, zz = x * x * s, y * y * s, z * z * s
+        xy, xz, yz = x * y * s, x * z * s, y * z * s
+        wx, wy, wz = w * x * s, w * y * s, w * z * s
+        return np.stack([
+            np.stack([1.0 - (yy + zz), xy - wz, xz + wy], -1),
+            np.stack([xy + wz, 1.0 - (xx + zz), yz - wx], -1),
+            np.stack([xz - wy, yz + wx, 1.0 - (xx + yy)], -1),
+        ], axis=-2)
 
 
 class TrajectoryWriter:
@@ -117,3 +133,28 @@ def ate_rmse(estimated: Trajectory, groundtruth: Trajectory,
         src = (s * (R @ src.T)).T + t
     err = np.linalg.norm(src - dst, axis=1)
     return float(np.sqrt((err ** 2).mean())), len(pairs)
+
+
+def rpe_rmse(estimated: Trajectory, groundtruth: Trajectory, delta: int = 1,
+             max_dt: float = 0.02) -> Tuple[float, float]:
+    """Relative pose error over ``delta``-frame intervals: (translational
+    RMSE in m, rotational RMSE in rad); NaN with fewer than delta + 1 pairs."""
+    pairs = associate(estimated.timestamps, groundtruth.timestamps, max_dt)
+    if len(pairs) < delta + 1:
+        return float("nan"), float("nan")
+    Re, Rg = estimated.rotation_matrices(), groundtruth.rotation_matrices()
+    te, tg = estimated.translations, groundtruth.translations
+
+    def rel(R, t, i0, i1):
+        return R[i0].T @ R[i1], R[i0].T @ (t[i1] - t[i0])
+
+    t_errs, r_errs = [], []
+    for k in range(len(pairs) - delta):
+        (i0, j0), (i1, j1) = pairs[k], pairs[k + delta]
+        Rei, tei = rel(Re, te, i0, i1)
+        Rgi, tgi = rel(Rg, tg, j0, j1)
+        Rd, td = Rei.T @ Rgi, Rei.T @ (tgi - tei)
+        t_errs.append(np.linalg.norm(td))
+        r_errs.append(np.arccos(np.clip((np.trace(Rd) - 1) / 2, -1.0, 1.0)))
+    return (float(np.sqrt(np.mean(np.square(t_errs)))),
+            float(np.sqrt(np.mean(np.square(r_errs)))))

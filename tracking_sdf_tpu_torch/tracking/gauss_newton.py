@@ -36,26 +36,47 @@ class TrackStats(NamedTuple):
     mean_abs_residual: float  # mean |phi| over valid queries, last iteration
 
 
+class DeviceTrackStats(NamedTuple):
+    """A level's stats as 0-dim tensors on the state's device: what the
+    failure gate needs, with no host read."""
+    pose: Pose  # views of the state buffer
+    iterations: torch.Tensor  # int32
+    num_valid: torch.Tensor  # float32, an exact count
+    mean_abs_residual: torch.Tensor  # float32
+
+
+def _mean_abs_residual(state: torch.Tensor) -> torch.Tensor:
+    """Σ|r| / max(num_valid, 1) in float32, as the JAX package computes it
+    on the device (tracking_sdf_tpu/tracking/gauss_newton.py)."""
+    return state[S_SUMABS] / state[S_NVALID].clamp(min=1.0)
+
+
 @dataclasses.dataclass(frozen=True)
 class TrackResult:
     """One level's Gauss-Newton result, held in its state buffer on the
-    view's device. ``pose`` is a view of the buffer and reads nothing;
-    ``read()`` copies the buffer to the host once, and each of the other
-    properties reads it again (one wait on the device each)."""
+    view's device. ``pose`` and ``device_stats()`` are views or device ops
+    and read nothing; ``read()`` copies the buffer to the host once, and
+    each of the other properties reads it again (one wait on the device
+    each)."""
     state: torch.Tensor
 
     @property
     def pose(self) -> Pose:
         return state_pose(self.state)
 
+    def device_stats(self) -> DeviceTrackStats:
+        return DeviceTrackStats(pose=self.pose,
+                                iterations=self.state.view(torch.int32)[S_COUNT],
+                                num_valid=self.state[S_NVALID],
+                                mean_abs_residual=_mean_abs_residual(self.state))
+
     def read(self) -> TrackStats:
         h = self.state.detach().cpu()
         ints = h.view(torch.int32)
-        nvalid = int(h[S_NVALID])
         return TrackStats(pose=state_pose(h), iterations=int(ints[S_COUNT]),
                           final_twist=h[S_TWIST:S_TWIST + 6],
-                          num_valid=nvalid,
-                          mean_abs_residual=float(h[S_SUMABS]) / max(nvalid, 1))
+                          num_valid=int(h[S_NVALID]),
+                          mean_abs_residual=float(_mean_abs_residual(h)))
 
     @property
     def iterations(self) -> int:
