@@ -49,7 +49,9 @@ Phases, each of which fails the run (non-zero exit) on a fault:
        the flat bricked slice (tum256 with fusion mode "bricked",
          brick_merge "pallas"), 4 tracked frames;
        the tum256 preset as it is, 10 tracked frames;
-       the tum512 preset as it is, 5 tracked frames.
+       the tum512 preset as it is, 5 tracked frames; then, as a measurement,
+         the same frames with brick_cap_free = NB (no FREE brick dropped)
+         beside it.
      The kernels of each path must have launched (K1 gn_step and K2
      brick_merge on the slice; gn_step_brick and brick_fuse_rows, once per
      fused frame, on the presets, which must launch brick_merge_rows 0
@@ -75,6 +77,33 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      replays and its one read) beside the per-frame run's, device ms, ops
      and busy share per frame under replay (the profiled chunk), capture ms
      per variant, calibration ms and peak device memory.
+  7. dataset path, all through tracking_sdf_tpu_torch.cli.main on files under
+     a temporary directory in build/: one probe for zlib.h (without it the
+     phase prints "native loader: zlib.h absent on this machine" and feeds
+     the CLI from the plain PNG decoder instead of --native-loader); the
+     native loader built from native/loader.cpp (timed) and its one-shot
+     decoders and raw stream held bitwise against the plain decoder on the
+     first frames; the 120-frame tabletop sequence generated at 640x480 on
+     the card (seed 0, default noise and dropout; seconds and
+     min_valid_frac printed); the loader alone over the 120 frames (ms a
+     frame) and the host-side staging of one chunk of raw frames (stack,
+     pin, copies to the card); then, with the launch counts set to 0 just
+     before each and read just after, ``--preset tum256 --dataset D
+     --native-loader --chunk 8 --eval --json`` and the same with tum512:
+     frames 120, ate_pairs 120, no rejected frame, ATE under 46.9 mm and within half a voxel (11.72 /
+     5.86 mm) of JAX_ATE_MM, gn_step_brick 30 / 40 launches per tracked
+     frame, brick_fuse_rows once per fused frame, brick_merge_rows never;
+     tum256 per frame (its ATE beside the chunked one); tum256 --realtime 30
+     (yielded + dropped == 120, both printed); tum256 stopped at frame 60
+     with a checkpoint and resumed from it (final rows and trajectory
+     bitwise equal to the uninterrupted chunked run); tum512 with
+     --brick-cap-free 262144 (no FREE brick dropped) beside the preset's
+     8,192: ATE, final |t err|, dropped bricks and ms a frame of both.
+     Printed for every run: frames per second end to end (the wall clock
+     around run(), decode, staging and first uses included) and the steady
+     ms a frame on the same clock: the median time between the ends of two
+     chunks over the chunk's frames (or between two frames, per frame),
+     loading, stacking, staging, the replays and the read included.
 The last two lines are the kernels' JSON record (bound_ms from this run's
 inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
 at 67 TFLOP/s, whichever is longer) and {"ok": true, "device": {...}}.
@@ -119,6 +148,14 @@ T_ERR_MAX = 0.0469  # m: the absolute |t err| bound, 2 voxels at 256^3
 # with JAX on the CPU (jax 0.9.0). A preset on the card must land within half
 # a voxel of it.
 JAX_T_ERR_MM = {"tum256": 35.7974, "tum512": 21.4949}
+# ATE RMSE (mm) of the JAX package's CLI (--native-loader, per frame, JAX on the
+# CPU, jax 0.9.0, unmodified presets at full size) over the 120 frames that
+# tracking_sdf_tpu_torch.data.make_sequence writes with its defaults (tabletop,
+# seed 0, 640x480), rendered on the CPU. A preset on the card must land within
+# half a voxel of it.
+JAX_ATE_MM = {"tum256": 9.8514, "tum512": 5.8813}
+DATASET_FRAMES = 120
+DATASET_CHUNK = 8
 
 
 class SmokeFailure(RuntimeError):
@@ -768,7 +805,7 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
     rec = dict(ms_per_frame=statistics.median(wall[1:]), t_err_mm=t_err * 1e3,
                gn_iterations=sum(s.gn_iterations for s in tracked), launches=launches,
                tracked=len(tracked), fused=sum(not s.rejected for s in recon.stats),
-               peak_gib=peak_gb, **med)
+               peak_gib=peak_gb, overflow_drops=recon.overflow_drops, **med)
     # what the chunk phase is held against: per frame, and the final rows
     per_frame = dict(stats=recon.stats, poses=poses_out, fuse=fuse, traj_path=traj_path,
                      ms_per_frame=rec["ms_per_frame"])
@@ -825,6 +862,38 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
     del recon
     torch.cuda.empty_cache()
     return rec, per_frame
+
+
+def free_cap_cost(cam, depths, poses, rgb, dev, ref):
+    """A measurement, no check beyond the common bound: tum512 over the
+    same frames with brick_cap_free = NB (no FREE brick dropped) beside the
+    preset's run ``ref``, which drops FREE bricks on every frame of this
+    scene: final |t err|, bricks dropped and ms a frame of both."""
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    cfg = path_config("tum512", None)
+    nb = (cfg.grid.m // 8) ** 3
+    cfg = dataclasses.replace(cfg, fusion=cfg.fusion._replace(brick_cap_free=nb))
+    n = TRACKED["tum512"] + 1
+    recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
+    wall = []
+    for k in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recon.process_frame(depths[k], rgb=rgb, timestamp=float(k))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    t_err = (recon.pose.t - poses[n - 1].t).norm().item()
+    print(f"tum512 with brick_cap_free {nb} (no FREE drop) beside the preset's "
+          f"{path_config('tum512', None).fusion.brick_cap_free}, {n - 1} tracked frames: final "
+          f"|t err| {t_err * 1e3:.3f} vs {ref['t_err_mm']:.3f} mm, bricks dropped "
+          f"{recon.overflow_drops} vs {ref['overflow_drops']}, GN iterations "
+          f"{sum(s.gn_iterations for s in recon.stats)} vs {ref['gn_iterations']}, median "
+          f"{statistics.median(wall[1:]):.2f} vs {ref['ms_per_frame']:.2f} ms/frame")
+    check(t_err < T_ERR_MAX and not any(s.rejected for s in recon.stats),
+          f"tum512 with every FREE brick: |t err| {t_err:.4f} m")
+    del recon
+    torch.cuda.empty_cache()
 
 
 def profiled_kernels(fn):
@@ -983,6 +1052,308 @@ def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
     return rec
 
 
+# --- phase 7: the dataset path ------------------------------------------------
+
+def zlib_header_present() -> bool:
+    """One probe: does the C++ compiler find zlib.h?"""
+    try:
+        return subprocess.run(["g++", "-E", "-x", "c++", "-"], input="#include <zlib.h>\n",
+                              capture_output=True, text=True).returncode == 0
+    except OSError:
+        return False
+
+
+def native_loader_check(root, n=4):
+    """Build the native loader (forced: a library from another machine may
+    sit beside the source) and hold its one-shot decoders and its raw stream
+    bitwise against the plain decoder on the first ``n`` frames."""
+    import numpy as np
+
+    from tracking_sdf_tpu_torch.data import native, tum
+
+    t0 = time.perf_counter()
+    native.load_library(force_build=True)
+    print(f"native loader: built from native/loader.cpp in {time.perf_counter() - t0:.1f} s")
+    ds = tum.TUMDataset(root)
+    raw = list(ds.stream(raw=True, indices=range(n)))
+    check(len(raw) == n, f"native loader: the raw stream gave {len(raw)} of {n} frames")
+    differ = 0
+    for i, fr in enumerate(raw):
+        dpath, cpath = ds.frame_paths(i)
+        d16, c8 = tum.decode_depth_png(dpath), tum.decode_rgb_png(cpath)
+        want_d = d16.astype(np.float32) / 5000.0
+        want_d[d16 == 0] = np.nan
+        want_c = c8.astype(np.float32) / 255.0
+        differ += int((native.decode_depth(dpath).view(np.int32) != want_d.view(np.int32)).sum())
+        differ += int((native.decode_rgb(cpath) != want_c).sum())
+        differ += int((fr.depth != d16).sum()) + int((fr.rgb != c8).sum())
+        check(fr.depth.dtype == np.uint16 and fr.rgb.dtype == np.uint8,
+              "native loader: the raw stream is not uint16 / uint8")
+    print(f"native loader vs the plain decoder on {n} frames (decode_depth, decode_rgb, "
+          f"raw stream): {differ} values differ (tol 0)")
+    check(differ == 0, "the native loader disagrees with the plain decoder")
+
+
+def loader_ms_per_frame(root, native_ok):
+    """The loader alone over the sequence: ms a frame with nothing consuming."""
+    from tracking_sdf_tpu_torch.data.tum import TUMDataset
+
+    ds = TUMDataset(root)
+    t0 = time.perf_counter()
+    n = sum(1 for _ in (ds.stream(raw=True) if native_ok else ds))
+    ms = (time.perf_counter() - t0) * 1e3 / n
+    print(f"loader alone ({'native raw stream' if native_ok else 'plain decoder'}): "
+          f"{ms:.3f} ms/frame over {n} frames")
+    return ms
+
+
+def staging_ms_per_chunk(root, dev):
+    """Host-side staging of one chunk of DATASET_CHUNK raw frames, as run()
+    and process_chunk do it: stacking the frames, pinning the stacks, and
+    the copies of the frames to the card (ms per chunk, medians of 5)."""
+    from tracking_sdf_tpu_torch.core.camera import tum_fr1_camera
+    from tracking_sdf_tpu_torch.data.tum import TUMDataset
+    from tracking_sdf_tpu_torch.pipeline import runner
+
+    frames = list(TUMDataset(root).stream(raw=True, indices=range(DATASET_CHUNK)))
+    recon = runner.Reconstruction(tum_fr1_camera(), path_config("tum256", None), device=dev)
+    on_card = (torch.empty((480, 640), dtype=torch.int16, device=dev),
+               torch.empty((480, 640, 3), dtype=torch.uint8, device=dev))
+    stack, pin, copy = [], [], []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        d, c = runner._stack([f.depth for f in frames]), runner._stack([f.rgb for f in frames])
+        t1 = time.perf_counter()
+        d, c = recon._stage(d, rgb=False), recon._stage(c, rgb=True)
+        t2 = time.perf_counter()
+        for k in range(DATASET_CHUNK):
+            on_card[0].copy_(d[k], non_blocking=True)
+            on_card[1].copy_(c[k], non_blocking=True)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        stack.append((t1 - t0) * 1e3)
+        pin.append((t2 - t1) * 1e3)
+        copy.append((t3 - t2) * 1e3)
+    rec = {k: statistics.median(v) for k, v in (("stack", stack), ("pin", pin), ("copy", copy))}
+    print(f"staging a chunk of {DATASET_CHUNK} raw frames (uint16 depth, uint8 color, "
+          f"{(d.numel() * 2 + c.numel()) / 2 ** 20:.1f} MiB): stack {rec['stack']:.3f} ms, pin "
+          f"{rec['pin']:.3f} ms, copies to the card {rec['copy']:.3f} ms per chunk")
+    return rec
+
+
+def final_t_err_mm(trajectory, groundtruth):
+    """|t| distance (mm) of the last trajectory line from the groundtruth
+    line of the same stamp (no alignment)."""
+    import numpy as np
+
+    est, gt = np.loadtxt(trajectory, ndmin=2), np.loadtxt(groundtruth, ndmin=2)
+    k = int(np.argmin(np.abs(gt[:, 0] - est[-1, 0])))
+    return float(np.linalg.norm(est[-1, 1:4] - gt[k, 1:4]) * 1e3)
+
+
+def steady_ms_per_frame(emit_times, chunk):
+    """Median host-clock ms a frame between the ends of consecutive chunks
+    (``chunk`` frames each, after frame 0), or between frames when
+    ``chunk`` is 0. run() stamps every frame's stats as it emits them; a
+    chunk's frames are emitted together when it ends."""
+    step = max(chunk, 1)
+    ends = emit_times[step::step] if chunk else emit_times
+    gaps = [(b - a) * 1e3 / step for a, b in zip(ends, ends[1:])]
+    return statistics.median(gaps) if gaps else float("nan")
+
+
+def cli_run(label, argv, work, chunk=0):
+    """One call of the port's CLI: (summary, its Reconstruction, launches,
+    rejected frames). The launch counts are set to 0 just before the call
+    and read just after. ``chunk``: the --chunk it was given, for the
+    steady ms a frame added to the summary."""
+    import contextlib
+    import io
+    import warnings
+
+    from tracking_sdf_tpu_torch import cli
+    from tracking_sdf_tpu_torch.pipeline import runner
+
+    made = []
+    base = runner.Reconstruction
+
+    class Recording(base):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            made.append(self)
+
+    log = os.path.join(work, f"{label}.jsonl")
+    if os.path.exists(log):
+        os.remove(log)
+    out = io.StringIO()
+    runner.Reconstruction = Recording
+    try:
+        with warnings.catch_warnings():
+            # tum512 reports its FREE-cap drops per chunk; they are counted below
+            warnings.filterwarnings("ignore", message="process_chunk: .* overflow drops",
+                                    category=RuntimeWarning)
+            reset_counters()
+            with contextlib.redirect_stdout(out):
+                rc = cli.main(argv + ["--json", "--eval", "--metrics-log", log])
+            torch.cuda.synchronize()
+            launches = counters()
+    finally:
+        runner.Reconstruction = base
+    check(rc == 0, f"{label}: the CLI exited with {rc}")
+    summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    with open(log) as f:
+        rows = [json.loads(x) for x in f]
+    rejected = sum(r["rejected"] for r in rows)
+    summary["steady_ms"] = steady_ms_per_frame(made[-1].emit_times, chunk)
+    fps = summary["run_frames"] / summary["run_s"]
+    ate = summary.get("ate_rmse_m")
+    print(f"cli {label}: frames {summary['frames']:.0f}, ate_pairs "
+          f"{summary.get('ate_pairs', 0):.0f}, rejected {rejected}, ATE "
+          f"{'n/a' if ate is None else format(ate * 1e3, '.4f')} mm, RPE "
+          f"{summary.get('rpe_trans_m', 0) * 1e3:.4f} mm / "
+          f"{summary.get('rpe_rot_rad', 0):.6f} rad, dropped bricks "
+          f"{summary['overflow_drops']:.0f}; end to end {fps:.1f} frames/s over "
+          f"{summary['run_s']:.2f} s (first uses included), steady "
+          f"{summary['steady_ms']:.3f} ms/frame; launches {launches}")
+    return summary, made[-1], launches, rejected
+
+
+def dataset_phase(dev, repo, chunk_ms):
+    """Phase 7. ``chunk_ms``: this run's phase-6 ms/frame per preset, printed
+    beside the CLI's. Returns the two chunked runs' records for the kernels'
+    line."""
+    import shutil
+    import tempfile
+
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.data.make_sequence import generate
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_dataset_", dir=os.path.join(repo, "build"))
+    try:
+        root = os.path.join(work, "seq")
+        t0 = time.perf_counter()
+        stats = generate(root, n_frames=DATASET_FRAMES, device=dev)
+        print(f"dataset: {DATASET_FRAMES} tabletop frames at 640x480 generated on the card "
+              f"in {time.perf_counter() - t0:.1f} s, min_valid_frac "
+              f"{stats['min_valid_frac']:.4f}")
+        check(stats["min_valid_frac"] > 0.9, "dataset: frames with little valid depth")
+        native_ok = zlib_header_present()
+        if native_ok:
+            native_loader_check(root)
+        else:
+            print("native loader: zlib.h absent on this machine")
+        loader_ms = loader_ms_per_frame(root, native_ok)
+        if native_ok:
+            staging_ms_per_chunk(root, dev)
+        loader = ["--native-loader"] if native_ok else []
+        gt_file = os.path.join(root, "groundtruth.txt")
+
+        def argv(name, traj, *extra):
+            return ["--preset", name, "--dataset", root, "--trajectory",
+                    os.path.join(work, traj)] + list(extra)
+
+        chunked = loader + ["--chunk", str(DATASET_CHUNK)]
+        records, rows256 = {}, None
+        for name in ("tum256", "tum512"):
+            cfg = preset(name)
+            s, recon, launches, rejected = cli_run(
+                f"{name} chunked", argv(name, f"{name}.txt", *chunked), work, DATASET_CHUNK)
+            per_step = ((len(cfg.pyramid_levels) - 1) * COARSE_ITERATIONS
+                        + cfg.tracking.max_iterations)
+            voxel_mm = cfg.grid.width / cfg.grid.m * 1e3
+            ate_mm = s["ate_rmse_m"] * 1e3
+            t_err = final_t_err_mm(os.path.join(work, f"{name}.txt"), gt_file)
+            tracked, fused = DATASET_FRAMES - 1, DATASET_FRAMES - rejected
+            print(f"  {name}: ATE {ate_mm:.4f} mm vs the JAX package's {JAX_ATE_MM[name]} mm "
+                  f"(bound +-{0.5 * voxel_mm:.2f} mm, half a voxel), final |t err| "
+                  f"{t_err:.2f} mm; steady {s['steady_ms']:.3f} ms/frame from disk "
+                  f"(loader alone {loader_ms:.3f}) against {chunk_ms[name]:.3f} ms/frame of "
+                  f"phase 6's timed chunk on frames already on the card")
+            check(s["frames"] == DATASET_FRAMES and s["ate_pairs"] == DATASET_FRAMES
+                  and rejected == 0, f"{name} dataset: frames {s['frames']}, ate_pairs "
+                  f"{s['ate_pairs']}, rejected {rejected}")
+            check(s["ate_rmse_m"] < T_ERR_MAX, f"{name} dataset: ATE {ate_mm:.2f} mm")
+            check(abs(ate_mm - JAX_ATE_MM[name]) <= 0.5 * voxel_mm,
+                  f"{name} dataset: ATE {ate_mm:.2f} mm is not within half a voxel of the "
+                  f"JAX package's {JAX_ATE_MM[name]} mm")
+            check(launches["gn_step_brick"] == per_step * tracked
+                  and launches["brick_fuse_rows"] == fused
+                  and launches["brick_merge_rows"] == 0,
+                  f"{name} dataset: expected gn_step_brick {per_step} per tracked frame, "
+                  f"brick_fuse_rows once per fused frame, brick_merge_rows never: {launches}")
+            records[f"{name}_dataset"] = dict(
+                launches=launches, tracked=tracked, fused=fused, ate_mm=ate_mm,
+                t_err_mm=t_err, fps=s["run_frames"] / s["run_s"],
+                steady_ms=s["steady_ms"],
+                overflow_drops=s["overflow_drops"])
+            if name == "tum256":
+                bg = recon.brick_grid
+                rows256 = [x.clone() for x in (bg.D, bg.W, bg.C)]
+            del recon
+            torch.cuda.empty_cache()
+
+        # tum256 per frame, and paced at the sensor's 30 Hz
+        s, recon, _, rejected = cli_run("tum256 per frame", argv("tum256", "pf.txt", *loader),
+                                        work)
+        print(f"  tum256 per frame: ATE {s['ate_rmse_m'] * 1e3:.4f} mm beside the chunked "
+              f"{records['tum256_dataset']['ate_mm']:.4f} mm")
+        check(s["frames"] == DATASET_FRAMES and rejected == 0 and s["ate_rmse_m"] < T_ERR_MAX,
+              f"tum256 per frame over the dataset: {s}")
+        del recon
+        s, recon, _, _ = cli_run("tum256 --realtime 30",
+                                 argv("tum256", "rt.txt", "--realtime", "30"), work)
+        print(f"  tum256 --realtime 30: realtime_yielded {s['realtime_yielded']:.0f}, "
+              f"realtime_dropped {s['realtime_dropped']:.0f}")
+        check(s["realtime_yielded"] + s["realtime_dropped"] == DATASET_FRAMES,
+              f"realtime: yielded + dropped != {DATASET_FRAMES}: {s}")
+        del recon
+
+        # stop at frame 60 with a checkpoint, resume, compare with the whole run
+        ck = ["--checkpoint", os.path.join(work, "ck"), "--checkpoint-every", "60"]
+        t0 = time.perf_counter()
+        s, recon, _, _ = cli_run("tum256 to frame 60",
+                                 argv("tum256", "ck.txt", *chunked, *ck, "--frames", "60"), work,
+                                 DATASET_CHUNK)
+        check(s["frames"] == 60, f"checkpoint: the first part ran {s['frames']} frames")
+        del recon
+        s, recon, _, _ = cli_run("tum256 resumed", argv("tum256", "ck.txt", *chunked, *ck), work,
+                                 DATASET_CHUNK)
+        bg = recon.brick_grid
+        rows_differ = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
+                          for a, b in zip((bg.D, bg.W, bg.C), rows256))
+        with open(os.path.join(work, "ck.txt")) as f, open(os.path.join(work, "tum256.txt")) as g:
+            same_traj = f.read() == g.read()
+        size = os.path.getsize(os.path.join(work, "ck", "state.npz")) / 2 ** 20
+        print(f"  tum256 checkpoint at frame 60 ({size:.0f} MiB) and resume: {s['frames']:.0f} "
+              f"frames after it, rows differing from the uninterrupted run {rows_differ}, "
+              f"trajectory equal {same_traj}; both parts {time.perf_counter() - t0:.1f} s")
+        check(s["frames"] == 60 and s["ate_pairs"] == DATASET_FRAMES and rows_differ == 0
+              and same_traj, "checkpoint: the resumed run differs from the uninterrupted one")
+        del recon, bg, rows256
+        torch.cuda.empty_cache()
+
+        # what tum512's FREE-cap drops cost: every brick (no drop) beside the preset's cap
+        nb = (preset("tum512").grid.m // 8) ** 3
+        s, recon, _, rejected = cli_run(
+            "tum512 --brick-cap-free NB",
+            argv("tum512", "free.txt", *chunked, "--brick-cap-free", str(nb)), work,
+            DATASET_CHUNK)
+        ref = records["tum512_dataset"]
+        t_err = final_t_err_mm(os.path.join(work, "free.txt"), gt_file)
+        print(f"  tum512 FREE cap {nb} (no FREE drop) vs the preset's "
+              f"{preset('tum512').fusion.brick_cap_free}: ATE {s['ate_rmse_m'] * 1e3:.4f} vs "
+              f"{ref['ate_mm']:.4f} mm, final |t err| {t_err:.2f} vs {ref['t_err_mm']:.2f} mm, "
+              f"dropped bricks {s['overflow_drops']:.0f} vs {ref['overflow_drops']:.0f}, "
+              f"steady {s['steady_ms']:.3f} vs {ref['steady_ms']:.3f} ms/frame")
+        check(s["frames"] == DATASET_FRAMES and rejected == 0 and s["ate_rmse_m"] < T_ERR_MAX,
+              f"tum512 with every FREE brick: {s}")
+        del recon
+        torch.cuda.empty_cache()
+        return records
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs "
@@ -1034,12 +1405,15 @@ def main() -> int:
                            os.path.join(repo, "build", f"chip_smoke_{name}.txt"))
             for name in TRACKED}
     paths = {name: rec for name, (rec, _) in runs.items()}
+    free_cap_cost(cam, depths, poses, rgb, dev, paths["tum512"])
     tum_decode_on_card(depths[1], dev)
     for name in CHUNKS:
         paths[f"{name}_chunk"] = run_chunk_path(
             name, cam, depths, poses, rgb, dev,
             os.path.join(repo, "build", f"chip_smoke_{name}_chunk.txt"), runs[name][1])
         del runs[name]
+    paths.update(dataset_phase(dev, repo, {name: paths[f"{name}_chunk"]["ms_per_frame"]
+                                           for name in CHUNKS}))
 
     def src(f):
         return f"tracking_sdf_tpu_torch/csrc/{f}"
@@ -1054,7 +1428,8 @@ def main() -> int:
 
     gn_tpu = "tracking_sdf_tpu/tracking/pallas_gn.py:82"
     merge_tpu = "tracking_sdf_tpu/fusion/pallas_merge.py:94"
-    presets = ("tum256", "tum512", "tum256_chunk", "tum512_chunk")
+    presets = ("tum256", "tum512", "tum256_chunk", "tum512_chunk", "tum256_dataset",
+               "tum512_dataset")
     kernels = [
         entry("gn_reduce", "gn_reduce.cu", gn_tpu, ("slice",), "tracked", k1_dense),
         entry("gn_reduce_brick", "gn_reduce.cu", gn_tpu, presets, "tracked", k1_brick),

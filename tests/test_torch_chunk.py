@@ -180,6 +180,44 @@ def test_uint16_chunk_decodes_as_the_host():
     assert float((chk.pose.t - flt.pose.t).norm()) < 2e-3
 
 
+@pytest.mark.parametrize("container", ["numpy", "torch"])
+def test_wire_formats_decode_alike_per_frame_and_chunked(container):
+    """TUM uint16 depth and uint8 color as numpy arrays or as torch tensors
+    (torch.uint16 / torch.uint8): process_frame gives, bit for bit, what it
+    gives on the host's float32 decode of the same frames (raw / 5000 with
+    NaN at 0, raw / 255), and process_chunk on the same container equals
+    it. color_every is 1, so every frame fuses its colors."""
+    depths, rgbs = make_frames(4)
+    rng = np.random.default_rng(2)
+    raw_d = [np.where(np.isfinite(d), np.round(d * 5000.0), 0).astype(np.uint16) for d in depths]
+    raw_c = [rng.integers(0, 256, size=d.shape + (3,), dtype=np.uint8) for d in depths]
+    host_d = []
+    for r in raw_d:
+        d = r.astype(np.float32) / 5000.0
+        d[r == 0] = np.nan
+        host_d.append(d)
+    host_c = [c.astype(np.float32) / 255.0 for c in raw_c]
+    cfg = chunk_config("tum256", 48, color_every=1)
+    ref, _ = per_frame(cfg, host_d, host_c)
+    assert not any(s.rejected for s in ref.stats) and ref.stats[-1].num_valid > 100
+    if container == "torch":
+        raw_d = [torch.from_numpy(r) for r in raw_d]
+        raw_c = [torch.from_numpy(c) for c in raw_c]
+        assert raw_d[0].dtype == torch.uint16 and raw_c[0].dtype == torch.uint8
+        stack = torch.stack
+    else:
+        stack = np.stack
+    seq, _ = per_frame(cfg, raw_d, raw_c)
+    assert [frame_tuple(s) for s in seq.stats] == [frame_tuple(s) for s in ref.stats]
+    assert_bitwise(ref, seq)
+    chk = new_recon(cfg)
+    chk.process_frame(raw_d[0], raw_c[0], timestamp=0.0)
+    chk.process_chunk(stack(raw_d[1:]), stack(raw_c[1:]))
+    assert [frame_tuple(s) for s in chk.stats] == [frame_tuple(s) for s in ref.stats]
+    assert_bitwise(ref, chk)
+    assert int((ref.brick_grid.C != new_recon(cfg).brick_grid.C).sum()) > 0
+
+
 def test_color_every_chunk_off_cadence():
     """tum256 (color_every 2) with uint8 color: two frames per frame, then a
     chunk that starts off the cadence (absolute frames 3-5: color on 4 only)
@@ -232,9 +270,12 @@ def test_run_chunk_odd_tail(tmp_path):
 
 
 @pytest.mark.parametrize("option", [dict(mesh_every=5), dict(mesh_path="m.ply"),
-                                    dict(checkpoint_every=5),
-                                    dict(checkpoint_path="c.npz")])
+                                    dict(mesh_every=5, mesh_path="m.ply"),
+                                    dict(mesh_path="m.ply", checkpoint_every=5,
+                                         checkpoint_path="c")])
 def test_run_unported_options_raise(option):
+    """Meshing is not ported: its options raise (checkpoints are ported,
+    tests/test_torch_checkpoint.py)."""
     r = new_recon(chunk_config("tum256", 48))
     with pytest.raises(NotImplementedError):
         r.run([], **option)

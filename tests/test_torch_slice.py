@@ -261,9 +261,11 @@ def test_trajectory_metrics_match_jax(tmp_path):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Two frames through the port on the CPU in a fresh interpreter, which
-    must never load jax nor any module of the JAX package (the test process
-    itself has both loaded)."""
+    """Two frames through the port on the CPU in a fresh interpreter, then a
+    sequence written by its generator and replayed through its CLI (native
+    loader, chunked, checkpointed, evaluated): the interpreter must never
+    load jax, any module of the JAX package, or PIL (the test process itself
+    has them loaded)."""
     script = textwrap.dedent(f"""
         import dataclasses, sys
         import torch
@@ -291,7 +293,22 @@ def test_port_runs_without_jax(tmp_path):
             r.close()
             assert not any(s.rejected for s in r.stats), r.stats
             assert r.stats[1].gn_iterations > 0
+        from tracking_sdf_tpu_torch import cli, config
+        from tracking_sdf_tpu_torch.data import make_sequence
+        seq = {str(tmp_path / "seq")!r}
+        assert make_sequence.main(["--out", seq, "--frames", "4", "--width", "160",
+                                   "--height", "120", "--cpu"]) == 0
+        config.preset = lambda name: dataclasses.replace(
+            cfg, grid=GridParams(m=48), fusion=cfg.fusion._replace(
+                brick_cap=216, brick_cap_free=216))
+        assert cli.main(["--dataset", seq, "--camera", "129.325,129.125,79.65,63.825,160,120",
+                         "--native-loader", "--chunk", "2", "--eval", "--json", "--cpu",
+                         "--checkpoint", {str(tmp_path / "ck")!r}, "--checkpoint-every", "3",
+                         "--profile", {str(tmp_path / "prof")!r},
+                         "--trajectory", {str(tmp_path / "cli.txt")!r}]) == 0
+        assert len(open({str(tmp_path / "cli.txt")!r}).readlines()) >= 1
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
+        assert "PIL" not in sys.modules
         jax_pkg = sorted(m for m in sys.modules
                          if m == "tracking_sdf_tpu" or m.startswith("tracking_sdf_tpu."))
         assert not jax_pkg, jax_pkg

@@ -14,8 +14,14 @@ _NAN = float("nan")
 
 
 class SphereScene(NamedTuple):
+    """Sphere of ``radius`` at ``center``; its color is a blue gradient along x."""
+
     center: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     radius: float = 0.5
+
+    def color(self, x: torch.Tensor) -> torch.Tensor:
+        b = torch.clamp(x[..., 0] - float(self.center[0]) + 0.5, 0.0, 1.0)
+        return torch.stack([torch.full_like(b, 0.2), torch.full_like(b, 0.3), b], dim=-1)
 
     def intersect(self, origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
         """Ray parameter t of the first hit (hit = origins + t * dirs); NaN
@@ -37,6 +43,10 @@ class SphereScene(NamedTuple):
 class CuboidScene(NamedTuple):
     min_corner: Tuple[float, float, float] = (-0.5, -0.5, -0.5)
     max_corner: Tuple[float, float, float] = (0.5, 0.5, 0.5)
+
+    def color(self, x: torch.Tensor) -> torch.Tensor:
+        ones = torch.ones_like(x[..., 0])
+        return torch.stack([ones, 0.3 * ones, 0.2 * ones], dim=-1)
 
     def intersect(self, origins: torch.Tensor, dirs: torch.Tensor) -> torch.Tensor:
         """Slab-method ray-box intersection (NaN on a miss)."""

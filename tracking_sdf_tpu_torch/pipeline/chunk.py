@@ -95,8 +95,7 @@ class ChunkSteps:
         self.prev_R, self.prev_t = torch.zeros(3, 3, **f32), torch.zeros(3, **f32)
         self.have_prev = torch.zeros((), dtype=torch.bool, device=dev)
         self.rec = torch.zeros(REC, **f32)
-        self._scale_depth = torch.full((), 5000.0, **f32)
-        self._scale_rgb = torch.full((), 255.0, **f32)
+        self._scale_depth, self._scale_rgb = recon._scale_depth, recon._scale_rgb
         self._inputs: Dict[tuple, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
         self._steps: Dict[tuple, Callable[[], None]] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.cuda else None

@@ -12,7 +12,10 @@ fusion layouts are ported:
   * ``mode="bricked", brick_merge="pallas"``: the flat (m, m, m) grid.
 ``process_chunk`` and ``run(chunk=N)`` process many brick-major frames per
 host round trip (pipeline.chunk: CUDA-graph replays of one captured frame
-step on the card). Rendering, meshing and checkpoints are not ported yet.
+step on the card). ``use_groundtruth`` is the fusion-only oracle mode (poses
+from the dataset's groundtruth). Checkpoints (pipeline.checkpoint) save and
+restore the grid, the pose and the frame counter. Rendering and meshing are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -20,14 +23,14 @@ import dataclasses
 import json
 import time
 import warnings
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from tracking_sdf_tpu_torch.config import PipelineConfig
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
-from tracking_sdf_tpu_torch.core.lie import Pose
+from tracking_sdf_tpu_torch.core.lie import Pose, matrix_from_quaternion
 from tracking_sdf_tpu_torch.fusion.brick import FuseStats, fuse_frame_bricked
 from tracking_sdf_tpu_torch.fusion.brickmajor import (
     BrickGrid, brick_grid_from_dense, brick_masked_view, dense_from_brick_grid,
@@ -69,7 +72,6 @@ def _check_supported(config: PipelineConfig) -> None:
         (f.sat_skip, "fusion.sat_skip=True"),
         (config.tracking.jacobian != "analytic",
          f"tracking.jacobian={config.tracking.jacobian!r}"),
-        (config.use_groundtruth, "use_groundtruth=True"),
         (config.bilateral_filter and config.bilateral_mode != "separable",
          f"bilateral_mode={config.bilateral_mode!r}"),
     ]
@@ -124,6 +126,8 @@ class Reconstruction:
                                    cap_max})
         self._cap_idx = len(self._cap_levels) - 1
         self.last_fuse_stats: Optional[FuseStats] = None
+        self.overflow_drops = 0  # bricks dropped at a cap, summed over the frames
+        self.emit_times: List[float] = []  # run(): host clock after each frame's stats
         # chunked processing: the captured steps (dropped with the grid),
         # the phase calibration per chunk shape, and the last chunk's
         # FuseStats per frame (None on a rejected frame)
@@ -131,6 +135,9 @@ class Reconstruction:
         self._chunk_calib = {}
         self.chunk_phase_metrics = True
         self.chunk_fuse_stats: List[Optional[FuseStats]] = []
+        # TUM wire formats are decoded on the device by true division
+        self._scale_depth = torch.full((), 5000.0, device=self.device)
+        self._scale_rgb = torch.full((), 255.0, device=self.device)
 
     @property
     def grid(self) -> TSDFGrid:
@@ -179,6 +186,7 @@ class Reconstruction:
                 cam=self.cam, cfg=cfg.fusion, bs=self._bs, cap=cap,
                 cap_act=cfg.fusion.brick_cap_active or None)
         self.last_fuse_stats = stats
+        self.overflow_drops += stats.overflow + stats.overflow_active + stats.overflow_mixed
         need = stats.n_full * 1.3
         self._cap_idx = next((i for i, c in enumerate(self._cap_levels) if c >= need),
                              len(self._cap_levels) - 1)
@@ -204,27 +212,38 @@ class Reconstruction:
                            cfg=cfg.tracking, Dm=self._dm)
 
     def _as_depth(self, depth) -> torch.Tensor:
+        """A depth image on the device as float32 meters with NaN holes. TUM
+        uint16 (5000 per meter, 0 = hole), a numpy array or a tensor, crosses
+        as 16-bit words and is decoded there as the chunk step decodes it."""
         if not torch.is_tensor(depth):
-            depth = np.asarray(depth)
-            if depth.dtype == np.uint16:  # TUM PNG encoding: 5000 per meter, 0 = hole
-                d = depth.astype(np.float32) / 5000.0
-                d[depth == 0] = np.nan
-                depth = d
-        return torch.as_tensor(depth, dtype=torch.float32, device=self.device)
+            a = np.asarray(depth)
+            depth = torch.from_numpy(np.ascontiguousarray(
+                a.view(np.int16) if a.dtype == np.uint16 else a))
+        elif depth.dtype == torch.uint16:
+            depth = depth.view(torch.int16)
+        depth = depth.to(self.device)
+        if depth.dtype == torch.int16:
+            return chunked.decode_tum_depth(depth, self._scale_depth)
+        return depth.to(torch.float32)
 
     def _as_rgb(self, rgb) -> Optional[torch.Tensor]:
+        """Colors on the device as float32 in [0, 1]; uint8 is divided by 255."""
         if rgb is None:
             return None
         if not torch.is_tensor(rgb):
-            rgb = np.asarray(rgb)
-            if rgb.dtype == np.uint8:
-                rgb = rgb.astype(np.float32) / 255.0
-        return torch.as_tensor(rgb, dtype=torch.float32, device=self.device)
+            rgb = torch.from_numpy(np.ascontiguousarray(rgb))
+        rgb = rgb.to(self.device)
+        if rgb.dtype == torch.uint8:
+            return rgb.to(torch.float32) / self._scale_rgb
+        return rgb.to(torch.float32)
 
-    def process_frame(self, depth, rgb=None, timestamp: Optional[float] = None) -> FrameStats:
+    def process_frame(self, depth, rgb=None, timestamp: Optional[float] = None,
+                      gt_pose: Optional[Pose] = None) -> FrameStats:
         """Run the per-frame pipeline on a (H, W) depth image in meters (NaN
         holes; or TUM uint16) and optional (H, W, 3) colors in [0, 1] (or
-        uint8). Returns timing and optimizer stats."""
+        uint8). With ``config.use_groundtruth`` the pose is ``gt_pose`` and
+        nothing is tracked; a frame without one (a groundtruth gap) is
+        rejected. Returns timing and optimizer stats."""
         cfg = self.config
         self.frame_num += 1
         timestamp = float(timestamp) if timestamp is not None else float(self.frame_num)
@@ -237,7 +256,14 @@ class Reconstruction:
         _sync(self.device)
         preprocess_ms = (time.perf_counter() - t0) * 1e3
         t0 = time.perf_counter()
-        if self.frame_num > 1:
+        if cfg.use_groundtruth:
+            if gt_pose is not None:
+                self._pose_prev = self.pose
+                self.pose = gt_pose.to(self.device)
+            else:  # tracking here would mix tracked poses into an oracle run
+                rejected = True
+                self._pose_prev = None
+        elif self.frame_num > 1:
             res = self._track(self._predict_pose(), points)
             # the frame's one read of the tracking state: its stats and the
             # failure gate's inputs
@@ -308,8 +334,8 @@ class Reconstruction:
         meters with NaN holes, or TUM uint16 (1/5000 m, 0 = hole); ``rgbs``
         (N, H, W, 3) in [0, 1] or uint8; ``timestamps`` N floats (default the
         frame indices). Needs the brick-major mode and one process_frame
-        call first (frame 0 bootstraps the grid); the analytic Jacobian and
-        tracked (not groundtruth) poses are the only modes the port builds.
+        call first (frame 0 bootstraps the grid), and tracked poses: the
+        groundtruth oracle mode runs per frame only.
 
         Each frame preprocesses, tracks from the carried pose (the
         constant-velocity guess with pose_init="velocity"), gates a failed
@@ -331,10 +357,10 @@ class Reconstruction:
         it track_ms is the chunk's wall time over N. A calibration that
         fails warns (RuntimeWarning) and leaves that fallback."""
         cfg = self.config
-        if self._bgrid is None or self.frame_num < 1:
+        if self._bgrid is None or self.frame_num < 1 or cfg.use_groundtruth:
             raise ValueError(
-                "process_chunk needs mode='brickmajor' and one process_frame call "
-                "first (frame 0 bootstraps the grid)")
+                "process_chunk needs mode='brickmajor', tracked (not groundtruth) "
+                "poses and one process_frame call first (frame 0 bootstraps the grid)")
         depths = self._stage(depths, rgb=False)
         n = depths.shape[0]
         has_color = cfg.fusion.fuse_color and rgbs is not None
@@ -402,6 +428,7 @@ class Reconstruction:
             self.stats.append(stat)
             stats_out.append(stat)
         overflow = sum(max(c[0] - cap, 0) + c[2] + c[3] for c in counts)
+        self.overflow_drops += overflow
         if overflow:
             warnings.warn(
                 f"process_chunk: {overflow} brick-cap overflow drops across the chunk "
@@ -415,23 +442,30 @@ class Reconstruction:
             metrics_log: Optional[str] = None, skip_frames: int = 0,
             chunk: int = 0) -> List[FrameStats]:
         """Consume any iterable of frame-likes (``depth``, ``rgb``,
-        ``timestamp``; data.tum.TUMFrame). ``skip_frames`` skips that many
-        frames first, ``max_frames`` stops at that frame index;
+        ``timestamp``, optionally ``gt_pose``; data.tum.TUMFrame).
+        ``skip_frames`` skips that many frames first (pass ``frame_num``
+        after restore_checkpoint), ``max_frames`` stops at that frame index;
         ``metrics_log`` appends one JSON line of FrameStats per frame.
         ``chunk`` > 1 hands that many frames at a time to process_chunk
-        (frame 0 and an odd tail run per frame; the flat layout, which has
-        no chunked path, warns and runs per frame). Meshing and checkpoints
-        are not ported: setting them raises NotImplementedError."""
-        if mesh_every or mesh_path or checkpoint_every or checkpoint_path:
-            raise NotImplementedError("the port has no meshing or checkpoints yet")
-        if chunk > 1 and self._bgrid is None:
-            warnings.warn("chunked processing needs mode='brickmajor'; running per frame",
+        (frame 0 and an odd tail run per frame; the flat layout and the
+        groundtruth oracle mode, which have no chunked path, warn and run
+        per frame). ``checkpoint_every`` saves to ``checkpoint_path`` when
+        the newest processed frame's index is a multiple of it (a chunk
+        saves once, at its last frame, if that index is). Meshing is not
+        ported: ``mesh_every`` or ``mesh_path`` raise NotImplementedError."""
+        if mesh_every or mesh_path:
+            raise NotImplementedError("the port has no meshing yet")
+        cfg = self.config
+        if chunk > 1 and (self._bgrid is None or cfg.use_groundtruth):
+            warnings.warn("chunked processing needs mode='brickmajor' and tracked "
+                          "(not groundtruth) poses; running per frame",
                           RuntimeWarning, stacklevel=2)
             chunk = 0
         log = open(metrics_log, "a") if metrics_log else None
         pend = []  # frames held for the next chunk
 
         def emit(stat: FrameStats) -> None:
+            self.emit_times.append(time.perf_counter())
             if progress:
                 print(f"frame {stat.index}: track {stat.track_ms:.1f} ms "
                       f"({stat.gn_iterations} GN iters, {stat.num_valid} px), "
@@ -439,6 +473,11 @@ class Reconstruction:
             if log is not None:
                 log.write(json.dumps(dataclasses.asdict(stat)) + "\n")
                 log.flush()
+            # a chunk emits its stats after it ran: only its newest frame saves
+            if (checkpoint_every and checkpoint_path
+                    and stat.index % checkpoint_every == 0
+                    and stat.index == self.frame_num):
+                self.save_checkpoint(checkpoint_path)
 
         def flush(final: bool = False) -> None:
             if final and len(pend) < chunk:  # the odd tail runs per frame
@@ -446,7 +485,7 @@ class Reconstruction:
                     emit(self.process_frame(f.depth, f.rgb, timestamp=f.timestamp))
             elif pend:
                 rgbs = None
-                if self.config.fusion.fuse_color and all(f.rgb is not None for f in pend):
+                if cfg.fusion.fuse_color and all(f.rgb is not None for f in pend):
                     rgbs = _stack([f.rgb for f in pend])
                 for stat in self.process_chunk(_stack([f.depth for f in pend]), rgbs,
                                                timestamps=[f.timestamp for f in pend]):
@@ -464,12 +503,59 @@ class Reconstruction:
                     if len(pend) == chunk:
                         flush()
                     continue
-                emit(self.process_frame(frame.depth, frame.rgb, timestamp=frame.timestamp))
+                gt = None
+                if cfg.use_groundtruth and getattr(frame, "gt_pose", None) is not None:
+                    t, q = frame.gt_pose
+                    gt = Pose(matrix_from_quaternion(torch.as_tensor(
+                        np.asarray(q, np.float32), device=self.device)),
+                        torch.as_tensor(np.asarray(t, np.float32), device=self.device))
+                emit(self.process_frame(frame.depth, frame.rgb, timestamp=frame.timestamp,
+                                        gt_pose=gt))
             flush(final=True)
         finally:
             if log is not None:
                 log.close()
         return self.stats
+
+    def save_checkpoint(self, path: str) -> None:
+        """Snapshot the dense grid, the pose, the velocity carry and the
+        frame counter (pipeline.checkpoint)."""
+        from tracking_sdf_tpu_torch.pipeline.checkpoint import save_checkpoint
+
+        save_checkpoint(path, self.grid, self.pose, self.frame_num,
+                        pose_prev=self._pose_prev)
+
+    def restore_checkpoint(self, path: str) -> None:
+        """Continue from a checkpoint: the run then goes on bit for bit as
+        if it had not stopped. The trajectory file, if not yet written to,
+        is appended to."""
+        from tracking_sdf_tpu_torch.pipeline.checkpoint import load_checkpoint
+
+        grid, pose, frame_num, _, pose_prev = load_checkpoint(path, device=self.device)
+        if self._writer is not None and not self._writer.started:
+            self._writer.set_append(True)
+        self.grid = grid  # the setter drops the captured chunk steps
+        self.pose = pose
+        self._pose_prev = pose_prev
+        self.frame_num = frame_num
+
+    def summary(self) -> Dict[str, float]:
+        """Frames, mean track and fuse ms, mean GN iterations and frames per
+        second (of track + fuse) over the frames after the first, which
+        carries first-use costs, and the bricks dropped at a cap in all."""
+        if not self.stats:
+            return {}
+        rest = self.stats[1:]
+        track = np.asarray([s.track_ms for s in rest] or [0.0])
+        fuse = np.asarray([s.fuse_ms for s in rest] or [s.fuse_ms for s in self.stats])
+        return {
+            "frames": float(len(self.stats)),
+            "track_ms_mean": float(track.mean()),
+            "fuse_ms_mean": float(fuse.mean()),
+            "gn_iters_mean": float(np.mean([s.gn_iterations for s in rest] or [0])),
+            "fps": 1e3 / float(track.mean() + fuse.mean()),
+            "overflow_drops": float(self.overflow_drops),
+        }
 
     def close(self) -> None:
         if self._writer is not None:

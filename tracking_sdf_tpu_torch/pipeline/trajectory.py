@@ -49,6 +49,17 @@ class TrajectoryWriter:
         self._append = append
         self._f = None
 
+    @property
+    def started(self) -> bool:
+        return self._f is not None
+
+    def set_append(self, append: bool) -> None:
+        """Switch to append mode, before the first write only (a restored
+        run keeps the poses written before it stopped)."""
+        if self._f is not None:
+            raise RuntimeError("set_append after the first write")
+        self._append = append
+
     def write(self, timestamp: float, pose: Pose) -> None:
         if self._f is None:
             self._f = open(self._path, "a" if self._append else "w")
