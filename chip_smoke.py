@@ -104,6 +104,27 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      ms a frame on the same clock: the median time between the ends of two
      chunks over the chunk's frames (or between two frames, per frame),
      loading, stacking, staging, the replays and the read included.
+  8. rendering and meshing (plain PyTorch on the card; no hand-written
+     kernel): the raycaster (cold, warm, stride 2, color) and marching
+     tetrahedra (trilinear colors; Shepard colors with uint16 vertices) on
+     the card against the CPU on a 64^3 sphere + box grid_from_scene grid,
+     and d(mean hit depth)/d(t_y) on both (rtol 1e-3); then on the final
+     rows of phase 5's tum256 and tum512 runs: the dense view (ms, median
+     of 5 CUDA-event timings), 640x480 renders from the final tracked pose
+     (cold at strides 1, 2, 4 and warm from the stride-1 range: ms, hit
+     share, dropped, median steps), the stride-1 depth against the
+     analytic scene's at the true final pose (the frame fused last) over
+     the pixels whose exact hit lies inside the grid's box or that miss
+     (hit agreement >= 0.97, median |err| < 5 mm, 95th percentile < 20 mm),
+     and the mesh with and without color (one shot at 256^3, 4 i-slabs at
+     512^3) split into active cells, triangulation, compaction, colors,
+     host copy and PLY write, with triangles, dropped cells, the median
+     |sdf| of the vertices (under half a voxel) and the peak memory; then
+     phase 7's tum256 chunked CLI run again with --mesh, --render and
+     --mesh-async (publisher and CUDA-graph captures in one process): the
+     PLY parses, the PNG decodes, the publisher exported with no error, the
+     ATE equals phase 7's to the digit, and the launches are counted as in
+     phase 7. Its numbers also go out as one JSON line, {"phase8": ...}.
 The last two lines are the kernels' JSON record (bound_ms from this run's
 inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
 at 67 TFLOP/s, whichever is longer) and {"ok": true, "device": {...}}.
@@ -112,11 +133,14 @@ Without a CUDA device it exits non-zero.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -259,7 +283,9 @@ def k1_bound(n: int, nvalid: int, elem_bytes: int, out_bytes: int):
 
 
 def union(*parts):
-    """A scene whose ray hits are the nearest hit of any part."""
+    """A scene whose ray hits are the nearest hit of any part, whose signed
+    distance is the least of the parts' and whose color is the nearest
+    part's."""
     class Scene:
         def intersect(self, o, d):
             t = parts[0].intersect(o, d)
@@ -268,6 +294,14 @@ def union(*parts):
                 t = torch.where(torch.isnan(t), tb,
                                 torch.where(torch.isnan(tb), t, torch.minimum(t, tb)))
             return t
+
+        def sdf(self, x):
+            return torch.stack([s.sdf(x) for s in parts]).amin(dim=0)
+
+        def color(self, x):
+            near = torch.stack([s.sdf(x) for s in parts]).argmin(dim=0)
+            cols = torch.stack([s.color(x) for s in parts])
+            return torch.gather(cols, 0, near[None, ..., None].expand(1, *near.shape, 3))[0]
 
     return Scene()
 
@@ -1181,6 +1215,11 @@ def cli_run(label, argv, work, chunk=0):
         def __init__(self, *a, **k):
             super().__init__(*a, **k)
             made.append(self)
+            self.publisher = None
+
+        def start_mesh_publisher(self, *a, **k):
+            self.publisher = super().start_mesh_publisher(*a, **k)
+            return self.publisher
 
     log = os.path.join(work, f"{label}.jsonl")
     if os.path.exists(log):
@@ -1218,140 +1257,494 @@ def cli_run(label, argv, work, chunk=0):
     return summary, made[-1], launches, rejected
 
 
-def dataset_phase(dev, repo, chunk_ms):
-    """Phase 7. ``chunk_ms``: this run's phase-6 ms/frame per preset, printed
-    beside the CLI's. Returns the two chunked runs' records for the kernels'
-    line."""
-    import shutil
-    import tempfile
-
+def dataset_phase(dev, work, chunk_ms):
+    """Phase 7, in the directory ``work``. ``chunk_ms``: this run's phase-6
+    ms/frame per preset, printed beside the CLI's. Returns the two chunked
+    runs' records for the kernels' line and phase 8."""
     from tracking_sdf_tpu_torch.config import preset
     from tracking_sdf_tpu_torch.data.make_sequence import generate
 
-    work = tempfile.mkdtemp(prefix="chip_smoke_dataset_", dir=os.path.join(repo, "build"))
-    try:
-        root = os.path.join(work, "seq")
-        t0 = time.perf_counter()
-        stats = generate(root, n_frames=DATASET_FRAMES, device=dev)
-        print(f"dataset: {DATASET_FRAMES} tabletop frames at 640x480 generated on the card "
-              f"in {time.perf_counter() - t0:.1f} s, min_valid_frac "
-              f"{stats['min_valid_frac']:.4f}")
-        check(stats["min_valid_frac"] > 0.9, "dataset: frames with little valid depth")
-        native_ok = zlib_header_present()
-        if native_ok:
-            native_loader_check(root)
-        else:
-            print("native loader: zlib.h absent on this machine")
-        loader_ms = loader_ms_per_frame(root, native_ok)
-        if native_ok:
-            staging_ms_per_chunk(root, dev)
-        loader = ["--native-loader"] if native_ok else []
-        gt_file = os.path.join(root, "groundtruth.txt")
+    root = os.path.join(work, "seq")
+    t0 = time.perf_counter()
+    stats = generate(root, n_frames=DATASET_FRAMES, device=dev)
+    print(f"dataset: {DATASET_FRAMES} tabletop frames at 640x480 generated on the card "
+          f"in {time.perf_counter() - t0:.1f} s, min_valid_frac "
+          f"{stats['min_valid_frac']:.4f}")
+    check(stats["min_valid_frac"] > 0.9, "dataset: frames with little valid depth")
+    native_ok = zlib_header_present()
+    if native_ok:
+        native_loader_check(root)
+    else:
+        print("native loader: zlib.h absent on this machine")
+    loader_ms = loader_ms_per_frame(root, native_ok)
+    if native_ok:
+        staging_ms_per_chunk(root, dev)
+    loader = ["--native-loader"] if native_ok else []
+    gt_file = os.path.join(root, "groundtruth.txt")
 
-        def argv(name, traj, *extra):
-            return ["--preset", name, "--dataset", root, "--trajectory",
-                    os.path.join(work, traj)] + list(extra)
+    def argv(name, traj, *extra):
+        return ["--preset", name, "--dataset", root, "--trajectory",
+                os.path.join(work, traj)] + list(extra)
 
-        chunked = loader + ["--chunk", str(DATASET_CHUNK)]
-        records, rows256 = {}, None
-        for name in ("tum256", "tum512"):
-            cfg = preset(name)
-            s, recon, launches, rejected = cli_run(
-                f"{name} chunked", argv(name, f"{name}.txt", *chunked), work, DATASET_CHUNK)
-            per_step = ((len(cfg.pyramid_levels) - 1) * COARSE_ITERATIONS
-                        + cfg.tracking.max_iterations)
-            voxel_mm = cfg.grid.width / cfg.grid.m * 1e3
-            ate_mm = s["ate_rmse_m"] * 1e3
-            t_err = final_t_err_mm(os.path.join(work, f"{name}.txt"), gt_file)
-            tracked, fused = DATASET_FRAMES - 1, DATASET_FRAMES - rejected
-            print(f"  {name}: ATE {ate_mm:.4f} mm vs the JAX package's {JAX_ATE_MM[name]} mm "
-                  f"(bound +-{0.5 * voxel_mm:.2f} mm, half a voxel), final |t err| "
-                  f"{t_err:.2f} mm; steady {s['steady_ms']:.3f} ms/frame from disk "
-                  f"(loader alone {loader_ms:.3f}) against {chunk_ms[name]:.3f} ms/frame of "
-                  f"phase 6's timed chunk on frames already on the card")
-            check(s["frames"] == DATASET_FRAMES and s["ate_pairs"] == DATASET_FRAMES
-                  and rejected == 0, f"{name} dataset: frames {s['frames']}, ate_pairs "
-                  f"{s['ate_pairs']}, rejected {rejected}")
-            check(s["ate_rmse_m"] < T_ERR_MAX, f"{name} dataset: ATE {ate_mm:.2f} mm")
-            check(abs(ate_mm - JAX_ATE_MM[name]) <= 0.5 * voxel_mm,
-                  f"{name} dataset: ATE {ate_mm:.2f} mm is not within half a voxel of the "
-                  f"JAX package's {JAX_ATE_MM[name]} mm")
-            check(launches["gn_step_brick"] == per_step * tracked
-                  and launches["brick_fuse_rows"] == fused
-                  and launches["brick_merge_rows"] == 0,
-                  f"{name} dataset: expected gn_step_brick {per_step} per tracked frame, "
-                  f"brick_fuse_rows once per fused frame, brick_merge_rows never: {launches}")
-            records[f"{name}_dataset"] = dict(
-                launches=launches, tracked=tracked, fused=fused, ate_mm=ate_mm,
-                t_err_mm=t_err, fps=s["run_frames"] / s["run_s"],
-                steady_ms=s["steady_ms"],
-                overflow_drops=s["overflow_drops"])
-            if name == "tum256":
-                bg = recon.brick_grid
-                rows256 = [x.clone() for x in (bg.D, bg.W, bg.C)]
-            del recon
-            torch.cuda.empty_cache()
-
-        # tum256 per frame, and paced at the sensor's 30 Hz
-        s, recon, _, rejected = cli_run("tum256 per frame", argv("tum256", "pf.txt", *loader),
-                                        work)
-        print(f"  tum256 per frame: ATE {s['ate_rmse_m'] * 1e3:.4f} mm beside the chunked "
-              f"{records['tum256_dataset']['ate_mm']:.4f} mm")
-        check(s["frames"] == DATASET_FRAMES and rejected == 0 and s["ate_rmse_m"] < T_ERR_MAX,
-              f"tum256 per frame over the dataset: {s}")
-        del recon
-        s, recon, _, _ = cli_run("tum256 --realtime 30",
-                                 argv("tum256", "rt.txt", "--realtime", "30"), work)
-        print(f"  tum256 --realtime 30: realtime_yielded {s['realtime_yielded']:.0f}, "
-              f"realtime_dropped {s['realtime_dropped']:.0f}")
-        check(s["realtime_yielded"] + s["realtime_dropped"] == DATASET_FRAMES,
-              f"realtime: yielded + dropped != {DATASET_FRAMES}: {s}")
-        del recon
-
-        # stop at frame 60 with a checkpoint, resume, compare with the whole run
-        ck = ["--checkpoint", os.path.join(work, "ck"), "--checkpoint-every", "60"]
-        t0 = time.perf_counter()
-        s, recon, _, _ = cli_run("tum256 to frame 60",
-                                 argv("tum256", "ck.txt", *chunked, *ck, "--frames", "60"), work,
-                                 DATASET_CHUNK)
-        check(s["frames"] == 60, f"checkpoint: the first part ran {s['frames']} frames")
-        del recon
-        s, recon, _, _ = cli_run("tum256 resumed", argv("tum256", "ck.txt", *chunked, *ck), work,
-                                 DATASET_CHUNK)
-        bg = recon.brick_grid
-        rows_differ = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
-                          for a, b in zip((bg.D, bg.W, bg.C), rows256))
-        with open(os.path.join(work, "ck.txt")) as f, open(os.path.join(work, "tum256.txt")) as g:
-            same_traj = f.read() == g.read()
-        size = os.path.getsize(os.path.join(work, "ck", "state.npz")) / 2 ** 20
-        print(f"  tum256 checkpoint at frame 60 ({size:.0f} MiB) and resume: {s['frames']:.0f} "
-              f"frames after it, rows differing from the uninterrupted run {rows_differ}, "
-              f"trajectory equal {same_traj}; both parts {time.perf_counter() - t0:.1f} s")
-        check(s["frames"] == 60 and s["ate_pairs"] == DATASET_FRAMES and rows_differ == 0
-              and same_traj, "checkpoint: the resumed run differs from the uninterrupted one")
-        del recon, bg, rows256
-        torch.cuda.empty_cache()
-
-        # what tum512's FREE-cap drops cost: every brick (no drop) beside the preset's cap
-        nb = (preset("tum512").grid.m // 8) ** 3
-        s, recon, _, rejected = cli_run(
-            "tum512 --brick-cap-free NB",
-            argv("tum512", "free.txt", *chunked, "--brick-cap-free", str(nb)), work,
-            DATASET_CHUNK)
-        ref = records["tum512_dataset"]
-        t_err = final_t_err_mm(os.path.join(work, "free.txt"), gt_file)
-        print(f"  tum512 FREE cap {nb} (no FREE drop) vs the preset's "
-              f"{preset('tum512').fusion.brick_cap_free}: ATE {s['ate_rmse_m'] * 1e3:.4f} vs "
-              f"{ref['ate_mm']:.4f} mm, final |t err| {t_err:.2f} vs {ref['t_err_mm']:.2f} mm, "
-              f"dropped bricks {s['overflow_drops']:.0f} vs {ref['overflow_drops']:.0f}, "
-              f"steady {s['steady_ms']:.3f} vs {ref['steady_ms']:.3f} ms/frame")
-        check(s["frames"] == DATASET_FRAMES and rejected == 0 and s["ate_rmse_m"] < T_ERR_MAX,
-              f"tum512 with every FREE brick: {s}")
+    chunked = loader + ["--chunk", str(DATASET_CHUNK)]
+    records, rows256 = {}, None
+    for name in ("tum256", "tum512"):
+        cfg = preset(name)
+        s, recon, launches, rejected = cli_run(
+            f"{name} chunked", argv(name, f"{name}.txt", *chunked), work, DATASET_CHUNK)
+        per_step = ((len(cfg.pyramid_levels) - 1) * COARSE_ITERATIONS
+                    + cfg.tracking.max_iterations)
+        voxel_mm = cfg.grid.width / cfg.grid.m * 1e3
+        ate_mm = s["ate_rmse_m"] * 1e3
+        t_err = final_t_err_mm(os.path.join(work, f"{name}.txt"), gt_file)
+        tracked, fused = DATASET_FRAMES - 1, DATASET_FRAMES - rejected
+        print(f"  {name}: ATE {ate_mm:.4f} mm vs the JAX package's {JAX_ATE_MM[name]} mm "
+              f"(bound +-{0.5 * voxel_mm:.2f} mm, half a voxel), final |t err| "
+              f"{t_err:.2f} mm; steady {s['steady_ms']:.3f} ms/frame from disk "
+              f"(loader alone {loader_ms:.3f}) against {chunk_ms[name]:.3f} ms/frame of "
+              f"phase 6's timed chunk on frames already on the card")
+        check(s["frames"] == DATASET_FRAMES and s["ate_pairs"] == DATASET_FRAMES
+              and rejected == 0, f"{name} dataset: frames {s['frames']}, ate_pairs "
+              f"{s['ate_pairs']}, rejected {rejected}")
+        check(s["ate_rmse_m"] < T_ERR_MAX, f"{name} dataset: ATE {ate_mm:.2f} mm")
+        check(abs(ate_mm - JAX_ATE_MM[name]) <= 0.5 * voxel_mm,
+              f"{name} dataset: ATE {ate_mm:.2f} mm is not within half a voxel of the "
+              f"JAX package's {JAX_ATE_MM[name]} mm")
+        check(launches["gn_step_brick"] == per_step * tracked
+              and launches["brick_fuse_rows"] == fused
+              and launches["brick_merge_rows"] == 0,
+              f"{name} dataset: expected gn_step_brick {per_step} per tracked frame, "
+              f"brick_fuse_rows once per fused frame, brick_merge_rows never: {launches}")
+        records[f"{name}_dataset"] = dict(
+            launches=launches, tracked=tracked, fused=fused, ate_mm=ate_mm,
+            ate_rmse_m=s["ate_rmse_m"], run_s=s["run_s"],
+            t_err_mm=t_err, fps=s["run_frames"] / s["run_s"],
+            steady_ms=s["steady_ms"],
+            overflow_drops=s["overflow_drops"])
+        if name == "tum256":
+            bg = recon.brick_grid
+            rows256 = [x.clone() for x in (bg.D, bg.W, bg.C)]
         del recon
         torch.cuda.empty_cache()
-        return records
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+
+    # tum256 per frame, and paced at the sensor's 30 Hz
+    s, recon, _, rejected = cli_run("tum256 per frame", argv("tum256", "pf.txt", *loader),
+                                    work)
+    print(f"  tum256 per frame: ATE {s['ate_rmse_m'] * 1e3:.4f} mm beside the chunked "
+          f"{records['tum256_dataset']['ate_mm']:.4f} mm")
+    check(s["frames"] == DATASET_FRAMES and rejected == 0 and s["ate_rmse_m"] < T_ERR_MAX,
+          f"tum256 per frame over the dataset: {s}")
+    del recon
+    s, recon, _, _ = cli_run("tum256 --realtime 30",
+                             argv("tum256", "rt.txt", "--realtime", "30"), work)
+    print(f"  tum256 --realtime 30: realtime_yielded {s['realtime_yielded']:.0f}, "
+          f"realtime_dropped {s['realtime_dropped']:.0f}")
+    check(s["realtime_yielded"] + s["realtime_dropped"] == DATASET_FRAMES,
+          f"realtime: yielded + dropped != {DATASET_FRAMES}: {s}")
+    del recon
+
+    # stop at frame 60 with a checkpoint, resume, compare with the whole run
+    ck = ["--checkpoint", os.path.join(work, "ck"), "--checkpoint-every", "60"]
+    t0 = time.perf_counter()
+    s, recon, _, _ = cli_run("tum256 to frame 60",
+                             argv("tum256", "ck.txt", *chunked, *ck, "--frames", "60"), work,
+                             DATASET_CHUNK)
+    check(s["frames"] == 60, f"checkpoint: the first part ran {s['frames']} frames")
+    del recon
+    s, recon, _, _ = cli_run("tum256 resumed", argv("tum256", "ck.txt", *chunked, *ck), work,
+                             DATASET_CHUNK)
+    bg = recon.brick_grid
+    rows_differ = sum(int((a.view(torch.int16) != b.view(torch.int16)).sum())
+                      for a, b in zip((bg.D, bg.W, bg.C), rows256))
+    with open(os.path.join(work, "ck.txt")) as f, open(os.path.join(work, "tum256.txt")) as g:
+        same_traj = f.read() == g.read()
+    size = os.path.getsize(os.path.join(work, "ck", "state.npz")) / 2 ** 20
+    print(f"  tum256 checkpoint at frame 60 ({size:.0f} MiB) and resume: {s['frames']:.0f} "
+          f"frames after it, rows differing from the uninterrupted run {rows_differ}, "
+          f"trajectory equal {same_traj}; both parts {time.perf_counter() - t0:.1f} s")
+    check(s["frames"] == 60 and s["ate_pairs"] == DATASET_FRAMES and rows_differ == 0
+          and same_traj, "checkpoint: the resumed run differs from the uninterrupted one")
+    del recon, bg, rows256
+    torch.cuda.empty_cache()
+
+    # what tum512's FREE-cap drops cost: every brick (no drop) beside the preset's cap
+    nb = (preset("tum512").grid.m // 8) ** 3
+    s, recon, _, rejected = cli_run(
+        "tum512 --brick-cap-free NB",
+        argv("tum512", "free.txt", *chunked, "--brick-cap-free", str(nb)), work,
+        DATASET_CHUNK)
+    ref = records["tum512_dataset"]
+    t_err = final_t_err_mm(os.path.join(work, "free.txt"), gt_file)
+    print(f"  tum512 FREE cap {nb} (no FREE drop) vs the preset's "
+          f"{preset('tum512').fusion.brick_cap_free}: ATE {s['ate_rmse_m'] * 1e3:.4f} vs "
+          f"{ref['ate_mm']:.4f} mm, final |t err| {t_err:.2f} vs {ref['t_err_mm']:.2f} mm, "
+          f"dropped bricks {s['overflow_drops']:.0f} vs {ref['overflow_drops']:.0f}, "
+          f"steady {s['steady_ms']:.3f} vs {ref['steady_ms']:.3f} ms/frame")
+    check(s["frames"] == DATASET_FRAMES and rejected == 0 and s["ate_rmse_m"] < T_ERR_MAX,
+          f"tum512 with every FREE brick: {s}")
+    del recon
+    torch.cuda.empty_cache()
+    return records
+
+
+
+# --- phase 8: rendering and meshing -------------------------------------------
+
+RENDER_HIT_AGREE = 0.999  # card vs CPU: hit masks equal on this share of pixels
+RENDER_VALUE_SHARE = 0.995  # ... and on common hits this share within the tolerances
+RENDER_TOL = {"depth": 1e-4, "range_t": 1e-4, "normal_world": 1e-4, "rgb": 1e-5}
+RENDER_TOL_ALL = {"depth": 2e-3, "range_t": 2e-3, "normal_world": 1e-2, "rgb": 1e-2}
+MESH_TOL_VERT = 1e-6  # card vs CPU, m (a triangle may come back reversed, see below)
+MESH_TOL_COLOR = 1.0 / 255.0 + 1e-6
+GRAD_RTOL = 1e-3
+# the analytic comparison of tests/test_render.py
+ANALYTIC_HIT_AGREE, ANALYTIC_MEDIAN_M, ANALYTIC_P95_M = 0.97, 0.005, 0.02
+RENDER_REPS = 5
+
+
+def render_parity(label, a, b):
+    """Hold render ``b`` (card) to ``a`` (CPU); returns the largest errors."""
+    ha, hb = a.hit, b.hit.cpu()
+    agree = (ha == hb).float().mean().item()
+    both = ha & hb
+    errs = {}
+    for name, tol in RENDER_TOL.items():
+        x, y = getattr(a, name), getattr(b, name)
+        if x is None:
+            continue
+        e = (x - y.cpu()).abs()[both]
+        e = e.reshape(e.shape[0], -1).amax(-1)
+        share = (e <= tol).float().mean().item()
+        errs[name] = e.max().item()
+        check(share >= RENDER_VALUE_SHARE and errs[name] <= RENDER_TOL_ALL[name],
+              f"{label}: {name} within {tol} on {share:.4f} of common hits, max {errs[name]}")
+    steps = (a.steps == b.steps.cpu()).float().mean().item()
+    print(f"  {label}: hit agreement {agree:.5f} over {ha.numel()} pixels ({int(both.sum())} "
+          f"common hits), max errors {errs}, steps equal on {steps:.4f}, dropped "
+          f"{int(b.dropped)} (CPU {int(a.dropped)})")
+    check(agree >= RENDER_HIT_AGREE and steps >= 0.99 and int(a.dropped) == int(b.dropped),
+          f"{label}: the card's render disagrees with the CPU's")
+    return errs
+
+
+def mesh_parity(label, a, b):
+    """Hold mesh ``b`` (card) to ``a`` (CPU): equal counts, vertices within
+    MESH_TOL_VERT in order or, for a triangle whose winding test sat on zero,
+    reversed (at most 0.1% of them), colors within one uint8 step."""
+    import numpy as np
+
+    check(a.num_triangles == b.num_triangles > 0 and a.dropped_cells == b.dropped_cells,
+          f"{label}: {b.num_triangles} triangles ({b.dropped_cells} dropped cells) on the "
+          f"card, {a.num_triangles} ({a.dropped_cells}) on the CPU")
+    same = np.abs(a.vertices - b.vertices).reshape(-1, 9).max(-1)
+    rev = np.abs(a.vertices - b.vertices[:, ::-1]).reshape(-1, 9).max(-1)
+    reversed_ = (same > MESH_TOL_VERT) & (rev <= MESH_TOL_VERT)
+    err = np.minimum(same, rev).max()
+    cerr = 0.0 if a.colors is None else float(np.abs(a.colors - b.colors).max())
+    print(f"  {label}: {b.num_triangles} triangles, dropped cells {b.dropped_cells}, max vertex "
+          f"err {err:.3e} (tol {MESH_TOL_VERT:g}), {int(reversed_.sum())} reversed, max color "
+          f"err {cerr:.4f} (tol 1/255)")
+    check(err <= MESH_TOL_VERT and reversed_.mean() <= 1e-3 and cerr <= MESH_TOL_COLOR,
+          f"{label}: the card's mesh disagrees with the CPU's")
+
+
+def render_mesh_parity(dev):
+    """Phase 8, part 1: raycast and marching_cubes on the card against the
+    CPU on a 64^3 grid_from_scene sphere + box grid, and the pose gradient."""
+    from tracking_sdf_tpu_torch.config import GridParams, RaycastConfig
+    from tracking_sdf_tpu_torch.core.camera import PinholeCamera
+    from tracking_sdf_tpu_torch.core.lie import Pose
+    from tracking_sdf_tpu_torch.data.synthetic import (
+        CuboidScene, SphereScene, grid_from_scene, look_at)
+    from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid
+    from tracking_sdf_tpu_torch.render.marching_cubes import marching_cubes
+    from tracking_sdf_tpu_torch.render.raycast import raycast
+
+    params = GridParams(m=64, width=2.0, height=2.0, depth=2.0, origin=(-1.0, -1.0, -1.0),
+                        delta=0.1, epsilon=0.01)
+    cam = PinholeCamera(fx=60.0, fy=60.0, cx=47.5, cy=35.5, width=96, height=72)
+    scene = union(SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
+                  CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)))
+    cpu = grid_from_scene(params, scene, device="cpu")
+    card = TSDFGrid(*(getattr(cpu, k).to(dev) for k in FIELDS))
+    pose = look_at((0.0, -1.6, 0.2), (0.0, 0.0, 0.0), device="cpu")
+    cfg = RaycastConfig(t_near=0.05, t_far=4.0)
+    print(f"phase 8: rendering and meshing on {gpu_line()}")
+    for label, kw in (("raycast cold", {}), ("raycast stride 2", dict(stride=2))):
+        a = raycast(cpu, pose, params=params, cam=cam, cfg=cfg, with_color=True, **kw)
+        b = raycast(card, pose.to(dev), params=params, cam=cam, cfg=cfg, with_color=True, **kw)
+        render_parity(f"{label} (64^3, card vs CPU)", a, b)
+        if label == "raycast cold":
+            a = raycast(cpu, pose, params=params, cam=cam, cfg=cfg, with_color=True,
+                        t_init=a.range_t)
+            b = raycast(card, pose.to(dev), params=params, cam=cam, cfg=cfg, with_color=True,
+                        t_init=b.range_t)
+            render_parity("raycast warm (64^3, card vs CPU)", a, b)
+    for label, kw in (("marching_cubes trilinear", dict(with_colors=True)),
+                      ("marching_cubes shepard, vertex_quant",
+                       dict(with_colors=True, color_mode="shepard", vertex_quant=True))):
+        mesh_parity(f"{label} (64^3, card vs CPU)", marching_cubes(cpu, params=params, **kw),
+                    marching_cubes(card, params=params, **kw))
+    grads = []
+    for grid, d in ((cpu, "cpu"), (card, dev)):
+        ty = torch.zeros((), device=d, requires_grad=True)
+        p = pose.to(d)
+        r = raycast(grid, Pose(p.R, p.t + ty * torch.tensor([0.0, 1.0, 0.0], device=d)),
+                    params=params, cam=cam, stride=4)
+        (torch.where(r.hit, r.depth, 0.0).sum() / r.hit.sum()).backward()
+        grads.append(ty.grad.item())
+    rel = abs(grads[1] - grads[0]) / abs(grads[0])
+    print(f"  d(mean hit depth)/d(t_y), stride 4: card {grads[1]:.6f}, CPU {grads[0]:.6f}, "
+          f"rel err {rel:.2e} (tol {GRAD_RTOL:g})")
+    check(rel <= GRAD_RTOL and -1.7 < grads[1] < -0.6, "the pose gradient on the card")
+
+
+def memory_mark() -> int:
+    """Bytes allocated on the card now, with the peak counter reset to it;
+    collected first (a Reconstruction whose captured graphs close a cycle
+    is freed only by the collector, at a moment of its own)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def peak_gib_above(mark: int) -> float:
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - mark) / 2 ** 30
+
+
+def mesh_stages(grid, params, with_colors, n_chunks, path):
+    """marching_cubes in its stages over ``n_chunks`` i-slabs (1: one shot),
+    each stage timed on the host clock after a device sync: active cells
+    (mask, count and indices), triangulation, compaction, colors, the host
+    copy (uint16 quantization on the card, the copies, dequantization) and
+    the PLY write. Returns (ms per stage, the mesh)."""
+    import numpy as np
+
+    from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid
+    from tracking_sdf_tpu_torch.render import marching_cubes as mc
+
+    ms = dict(active=0.0, triangulate=0.0, compact=0.0, colors=0.0, host=0.0, ply=0.0)
+
+    def lap(key, t0):
+        torch.cuda.synchronize()
+        ms[key] += (time.perf_counter() - t0) * 1e3
+        return time.perf_counter()
+
+    m = params.m
+    step = -(-m // n_chunks)
+    verts, cols = [], []
+    for i0 in range(0, m, step):
+        sub = TSDFGrid(*(getattr(grid, k)[i0:min(i0 + step + 1, m)] for k in FIELDS))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        active = mc._active_cells(sub)
+        n_act = int(active.sum())
+        cells = mc._active_cell_indices(active, n_act)
+        del active
+        t0 = lap("active", t0)
+        v, valid = mc._triangulate_cells(sub, cells, params=params, i_offset=i0)
+        t0 = lap("triangulate", t0)
+        tri = mc._compact_triangles(v, valid)
+        del v, valid
+        t0 = lap("compact", t0)
+        if with_colors:
+            rgb8 = mc._vertex_colors(sub, tri, params=params, color_mode="trilinear",
+                                     i_offset=i0)
+            t0 = lap("colors", t0)
+            cols.append(rgb8.cpu().numpy().astype(np.float32) / 255.0)
+        verts.append(mc._dequantize(mc._quantize_tris(tri, params).cpu().numpy(), params))
+        lap("host", t0)
+    mesh = mc.Mesh(np.concatenate(verts), np.concatenate(cols) if with_colors else None)
+    t0 = time.perf_counter()
+    mc.export_ply(mesh, path)
+    ms["ply"] = (time.perf_counter() - t0) * 1e3
+    return ms, mesh
+
+
+def render_mesh_full(name, rows, pose, true_pose, cam, scene, dev, work):
+    """Phase 8, part 2, on one preset's final grid from phase 5: the dense
+    view, renders at 640x480 (cold at strides 1, 2 and 4, warm from the
+    stride-1 range), the depth against the analytic scene, and the mesh in
+    its stages with and without color. Returns the record."""
+    import numpy as np
+
+    from tracking_sdf_tpu_torch.fusion.brickmajor import BrickGrid, dense_from_brick_grid
+    from tracking_sdf_tpu_torch.render import marching_cubes as mc
+    from tracking_sdf_tpu_torch.render.raycast import raycast
+
+    cfg = path_config(name, None)
+    p, bs = cfg.grid, cfg.fusion.brick_shape
+    voxel = p.width / p.m
+    bg = BrickGrid(*rows)
+    base = memory_mark()
+    grid = dense_from_brick_grid(bg, p, bs)
+    torch.cuda.synchronize()
+    rec = dict(dense_view_peak_gib=peak_gib_above(base),
+               dense_view_gib=(torch.cuda.memory_allocated() - base) / 2 ** 30)
+    rec["dense_view_ms"] = cuda_time_ms(lambda: dense_from_brick_grid(bg, p, bs),
+                                        reps=RENDER_REPS, warmup=1)
+    print(f"{name} ({p.m}^3) dense view from the brick rows: {rec['dense_view_ms']:.3f} ms "
+          f"(median of {RENDER_REPS}, CUDA events), {rec['dense_view_gib']:.2f} GiB, peak "
+          f"{rec['dense_view_peak_gib']:.2f} GiB above the rows while it is made")
+
+    def render(stride, t_init=None):
+        return raycast(grid, pose, params=p, cam=cam, cfg=cfg.raycast, stride=stride,
+                       with_color=True, t_init=t_init)
+
+    renders = {}
+    base = memory_mark()  # the rows and the dense view
+    for label, stride, warm in (("cold s1", 1, False), ("cold s2", 2, False),
+                                ("cold s4", 4, False), ("warm s1", 1, True)):
+        t_init = renders["cold s1"][1].range_t if warm else None
+        r = render(stride, t_init)
+        ms = cuda_time_ms(lambda: render(stride, t_init), reps=RENDER_REPS, warmup=0)
+        hit = r.hit
+        steps_hit = float(r.steps[hit].float().median()) if hit.any() else float("nan")
+        renders[label] = (dict(ms=ms, hit_share=hit.float().mean().item(),
+                               dropped=int(r.dropped),
+                               median_steps=float(r.steps.float().median()),
+                               median_steps_hit=steps_hit), r)
+        rr = renders[label][0]
+        print(f"  render {label} ({r.hit.shape[1]}x{r.hit.shape[0]}, color): {ms:.3f} ms (median "
+              f"of {RENDER_REPS}), hit share {rr['hit_share']:.4f}, dropped {rr['dropped']}, "
+              f"median steps {rr['median_steps']:.0f} (over hits {steps_hit:.0f})")
+    rec["render_peak_gib"] = peak_gib_above(base)
+    rec["renders"] = {k: v[0] for k, v in renders.items()}
+    dev_ms, dev_ops = all_device_ms(lambda: render(1), n=3)
+    wall = rec["renders"]["cold s1"]["ms"]
+    rec.update(render_device_ms=dev_ms, render_device_ops=dev_ops, render_busy=dev_ms / wall)
+    print(f"  render cold s1 under torch.profiler: device {dev_ms:.3f} ms in {dev_ops:.0f} device "
+          f"ops per render, busy {dev_ms / wall:.1%} of its {wall:.3f} ms; peak "
+          f"{rec['render_peak_gib']:.2f} GiB above the rows and the dense view")
+
+    # depth against the analytic scene: the input frame at the final pose,
+    # over the pixels whose exact hit lies inside the grid's box
+    r = renders["cold s1"][1]
+    from tracking_sdf_tpu_torch.core.camera import pixel_rays
+    from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
+
+    exact = render_scene_depth(scene, cam, true_pose)
+    dirs, _ = pixel_rays(cam, device=dev)
+    pts = true_pose.t + exact[..., None] * torch.sum(true_pose.R * dirs[..., None, :], -1)
+    lo = torch.tensor(p.origin, device=dev) + voxel
+    hi = lo + torch.tensor(p.extent, device=dev) - 2 * voxel
+    inside = torch.isfinite(exact) & ((pts >= lo) & (pts <= hi)).all(-1)
+    judged = inside | ~torch.isfinite(exact)
+    exact_hit = torch.isfinite(exact)
+    agree = (r.hit == exact_hit)[judged].float().mean().item()
+    both = r.hit & exact_hit & inside
+    err = (r.depth - exact).abs()[both]
+    med, p95 = err.median().item(), torch.quantile(err.float(), 0.95).item()
+    rec.update(analytic_hit_agree=agree, analytic_median_m=med, analytic_p95_m=p95,
+               analytic_pixels=int(judged.sum()))
+    print(f"  depth vs the analytic scene at the final pose (rendered at the tracked pose; "
+          f"{int(judged.sum())} pixels whose exact hit is inside the box or that miss): hit "
+          f"agreement {agree:.4f} (>= {ANALYTIC_HIT_AGREE}), median |err| {med * 1e3:.3f} mm "
+          f"(< {ANALYTIC_MEDIAN_M * 1e3:g}), 95th percentile {p95 * 1e3:.3f} mm "
+          f"(< {ANALYTIC_P95_M * 1e3:g})")
+    check(agree >= ANALYTIC_HIT_AGREE and med < ANALYTIC_MEDIAN_M and p95 < ANALYTIC_P95_M,
+          f"{name}: the render disagrees with the analytic scene")
+    del renders, r, exact, dirs, pts
+
+    # meshes: one shot below 512^3, four i-slabs at 512^3, as the runner does
+    n_chunks = 4 if p.m >= 512 else 1
+    rec["mesh"] = {}
+    for color in (False, True):
+        base = memory_mark()  # the rows and the dense view
+        t0 = time.perf_counter()
+        whole = (mc.marching_cubes_chunked if n_chunks > 1 else mc.marching_cubes)(
+            grid, params=p, with_colors=color, vertex_quant=True)
+        whole_ms = (time.perf_counter() - t0) * 1e3
+        peak = peak_gib_above(base)
+        stages, mesh = mesh_stages(grid, p, color, n_chunks,
+                                   os.path.join(work, f"{name}_{int(color)}.ply"))
+        check(np.array_equal(mesh.vertices, whole.vertices)
+              and (not color or np.array_equal(mesh.colors, whole.colors)),
+              f"{name}: the staged mesh differs from marching_cubes'")
+        dist = scene.sdf(torch.from_numpy(mesh.vertices.reshape(-1, 3)).to(dev)).abs()
+        med_d = dist.median().item()
+        label = "color" if color else "geometry"
+        rec["mesh"][label] = dict(ms=whole_ms, stages_ms=stages, triangles=mesh.num_triangles,
+                                  dropped_cells=whole.dropped_cells, median_dist_m=med_d,
+                                  peak_gib=peak, slabs=n_chunks)
+        print(f"  mesh {label} ({'4 i-slabs' if n_chunks > 1 else 'one shot'}, vertex_quant): "
+              f"{whole_ms:.1f} ms in marching_cubes{'_chunked' if n_chunks > 1 else ''}; stages "
+              f"{ {k: round(v, 3) for k, v in stages.items()} } ms; {mesh.num_triangles} "
+              f"triangles, dropped cells {whole.dropped_cells}, median |sdf| of the vertices "
+              f"{med_d * 1e3:.3f} mm (< half a voxel, {0.5 * voxel * 1e3:.2f} mm); peak "
+              f"{peak:.2f} GiB above the rows and the dense view")
+        check(mesh.num_triangles > 10000 and whole.dropped_cells == 0
+              and med_d < 0.5 * voxel, f"{name}: mesh {label}")
+        del whole, mesh
+    del grid
+    torch.cuda.empty_cache()
+    return rec
+
+
+def cli_render_phase(work, ref):
+    """Phase 8, part 3: phase 7's tum256 chunked CLI run again with --mesh,
+    --render and --mesh-async; the ATE must equal phase 7's to the digit."""
+    import numpy as np
+
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.data.tum import decode_png
+
+    root = os.path.join(work, "seq")
+    ply, png, live = (os.path.join(work, f) for f in ("final.ply", "final.png", "live.ply"))
+    base = ["--preset", "tum256", "--dataset", root, "--chunk", str(DATASET_CHUNK)]
+    if zlib_header_present():
+        base.append("--native-loader")
+    plain = base + ["--trajectory", os.path.join(work, "plain.txt")]
+    argv = base + ["--trajectory", os.path.join(work, "flags.txt"), "--mesh", ply, "--render",
+                   png, "--mesh-async", live]
+    t0 = time.perf_counter()
+    s0, recon, _, _ = cli_run("tum256 --chunk 8 (again, without the flags)", plain, work,
+                              DATASET_CHUNK)
+    plain_wall_s = time.perf_counter() - t0
+    del recon
+    t0 = time.perf_counter()
+    s, recon, launches, rejected = cli_run("tum256 --chunk 8 --mesh --render --mesh-async",
+                                           argv, work, DATASET_CHUNK)
+    wall_s = time.perf_counter() - t0
+    pub = recon.publisher
+    with open(ply, "rb") as f:
+        head = f.read(512).partition(b"end_header\n")[0].decode()
+    n_faces = int(head.split("element face ")[1].split()[0])
+    size_ok = os.path.getsize(ply) == len(head) + 11 + n_faces * (3 * 15 + 13)
+    img, channels, _ = decode_png(png)
+    cfg = preset("tum256")
+    per_step = ((len(cfg.pyramid_levels) - 1) * COARSE_ITERATIONS + cfg.tracking.max_iterations)
+    rec = dict(launches=launches, tracked=DATASET_FRAMES - 1, fused=DATASET_FRAMES - rejected,
+               ate_rmse_m=s["ate_rmse_m"], run_s=s["run_s"], wall_s=wall_s,
+               plain_run_s=s0["run_s"], plain_wall_s=plain_wall_s,
+               steady_ms=s["steady_ms"], plain_steady_ms=s0["steady_ms"],
+               published=pub.published, errors=pub.errors, degraded_cycles=pub.degraded_cycles,
+               effective_interval_s=pub.effective_interval, faces=n_faces)
+    print(f"  PLY {ply}: {n_faces} faces, header parses, size matches {size_ok}; PNG "
+          f"{img.shape} decodes; publisher published {pub.published}, errors {pub.errors} "
+          f"(last {pub.last_error!r}), degraded cycles {pub.degraded_cycles}, effective "
+          f"interval {pub.effective_interval:.3f} s; ATE {s['ate_rmse_m'] * 1e3:.4f} mm vs "
+          f"phase 7's {ref['ate_rmse_m'] * 1e3:.4f} mm and {s0['ate_rmse_m'] * 1e3:.4f} mm "
+          f"without the flags just before; run() {s['run_s']:.3f} s vs {s0['run_s']:.3f} s "
+          f"without the flags (+{s['run_s'] - s0['run_s']:.3f} s: the publisher), steady "
+          f"{s['steady_ms']:.3f} vs {s0['steady_ms']:.3f} ms/frame; the whole call "
+          f"{wall_s:.3f} s vs {plain_wall_s:.3f} s (+{wall_s - plain_wall_s:.3f} s: the "
+          f"publisher, the final mesh and render, the publisher's last export)")
+    check(size_ok and n_faces > 10000 and img.shape == (480, 3 * 640, 3) and channels == 3,
+          "phase 8 CLI: the PLY or the PNG is malformed")
+    check(pub.published >= 1 and pub.errors == 0, f"phase 8 CLI: publisher {pub.published} "
+          f"published, {pub.errors} errors ({pub.last_error!r})")
+    check(s["ate_rmse_m"] == ref["ate_rmse_m"] == s0["ate_rmse_m"] and rejected == 0
+          and s["frames"] == DATASET_FRAMES,
+          "phase 8 CLI: the ATE differs from phase 7's run without the flags")
+    check(launches["gn_step_brick"] == per_step * rec["tracked"]
+          and launches["brick_fuse_rows"] == rec["fused"] and launches["brick_merge_rows"] == 0,
+          f"phase 8 CLI: launches {launches}")
+    del recon
+    torch.cuda.empty_cache()
+    return rec
 
 
 def main() -> int:
@@ -1367,6 +1760,7 @@ def main() -> int:
               "of the repository", file=sys.stderr)
         return 2
     from tracking_sdf_tpu_torch.core.camera import ros_default_camera
+    from tracking_sdf_tpu_torch.core.lie import Pose
     from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
 
     gpu = gpu_line()
@@ -1407,13 +1801,30 @@ def main() -> int:
     paths = {name: rec for name, (rec, _) in runs.items()}
     free_cap_cost(cam, depths, poses, rgb, dev, paths["tum512"])
     tum_decode_on_card(depths[1], dev)
+    finals = {}  # the presets' final rows and tracked pose, for phase 8
     for name in CHUNKS:
         paths[f"{name}_chunk"] = run_chunk_path(
             name, cam, depths, poses, rgb, dev,
             os.path.join(repo, "build", f"chip_smoke_{name}_chunk.txt"), runs[name][1])
+        R, t = runs[name][1]["poses"][-1]
+        finals[name] = (runs[name][1]["rows"], Pose(R, t))
         del runs[name]
-    paths.update(dataset_phase(dev, repo, {name: paths[f"{name}_chunk"]["ms_per_frame"]
-                                           for name in CHUNKS}))
+    work = tempfile.mkdtemp(prefix="chip_smoke_dataset_", dir=os.path.join(repo, "build"))
+    try:
+        paths.update(dataset_phase(dev, work, {name: paths[f"{name}_chunk"]["ms_per_frame"]
+                                               for name in CHUNKS}))
+        render_mesh_parity(dev)
+        phase8 = {}
+        for name in CHUNKS:
+            rows, pose = finals.pop(name)
+            phase8[name] = render_mesh_full(name, rows, pose, poses[TRACKED[name]], cam, scene,
+                                            dev, work)
+            del rows
+            torch.cuda.empty_cache()
+        paths["tum256_render"] = cli_render_phase(work, paths["tum256_dataset"])
+        phase8["cli"] = {k: v for k, v in paths["tum256_render"].items() if k != "launches"}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     def src(f):
         return f"tracking_sdf_tpu_torch/csrc/{f}"
@@ -1429,7 +1840,7 @@ def main() -> int:
     gn_tpu = "tracking_sdf_tpu/tracking/pallas_gn.py:82"
     merge_tpu = "tracking_sdf_tpu/fusion/pallas_merge.py:94"
     presets = ("tum256", "tum512", "tum256_chunk", "tum512_chunk", "tum256_dataset",
-               "tum512_dataset")
+               "tum512_dataset", "tum256_render")
     kernels = [
         entry("gn_reduce", "gn_reduce.cu", gn_tpu, ("slice",), "tracked", k1_dense),
         entry("gn_reduce_brick", "gn_reduce.cu", gn_tpu, presets, "tracked", k1_brick),
@@ -1442,6 +1853,7 @@ def main() -> int:
                    tum512_color=k2_fuse["tum512"][True],
                    tum512_geometry=k2_fuse["tum512"][False])),
     ]
+    print(json.dumps({"phase8": phase8}))
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

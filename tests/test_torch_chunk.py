@@ -269,18 +269,6 @@ def test_run_chunk_odd_tail(tmp_path):
         assert a.read() == b.read()
 
 
-@pytest.mark.parametrize("option", [dict(mesh_every=5), dict(mesh_path="m.ply"),
-                                    dict(mesh_every=5, mesh_path="m.ply"),
-                                    dict(mesh_path="m.ply", checkpoint_every=5,
-                                         checkpoint_path="c")])
-def test_run_unported_options_raise(option):
-    """Meshing is not ported: its options raise (checkpoints are ported,
-    tests/test_torch_checkpoint.py)."""
-    r = new_recon(chunk_config("tum256", 48))
-    with pytest.raises(NotImplementedError):
-        r.run([], **option)
-
-
 @pytest.mark.parametrize("mode", ["no_bootstrap", "flat"])
 def test_process_chunk_preconditions(mode):
     cfg = chunk_config("tum256", 48)

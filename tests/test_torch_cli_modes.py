@@ -130,9 +130,6 @@ def test_config_overrides(sequence, tmp_path, monkeypatch):  # noqa: F811
 
 
 UNPORTED_ARGS = {
-    "mesh": ["--mesh", "m.ply"], "mesh_every": ["--mesh-every", "5"],
-    "mesh_async": ["--mesh-async", "a.ply"], "mesh_hz": ["--mesh-hz", "2"],
-    "mesh_decimate": ["--mesh-decimate", "2"], "render": ["--render", "r.png"],
     "distributed": ["--distributed"], "multihost": ["--multihost"],
     "coordinator": ["--coordinator", "localhost:1234"],
     "num_processes": ["--num-processes", "2"], "process_id": ["--process-id", "0"],

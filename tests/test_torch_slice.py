@@ -261,15 +261,18 @@ def test_trajectory_metrics_match_jax(tmp_path):
 
 
 def test_port_runs_without_jax(tmp_path):
-    """Two frames through the port on the CPU in a fresh interpreter, then a
-    sequence written by its generator and replayed through its CLI (native
-    loader, chunked, checkpointed, evaluated): the interpreter must never
-    load jax, any module of the JAX package, or PIL (the test process itself
-    has them loaded)."""
+    """Two frames through the port on the CPU in a fresh interpreter, a render
+    and a mesh of them, then a sequence written by its generator and replayed
+    through its CLI (native loader, chunked, checkpointed, evaluated, meshed
+    live and at the end, rendered): the interpreter must never load jax, any
+    module of the JAX package, or PIL (the test process itself has them
+    loaded)."""
     script = textwrap.dedent(f"""
         import dataclasses, sys
         import torch
         from tracking_sdf_tpu_torch.config import GridParams, preset
+        from tracking_sdf_tpu_torch.pipeline import visualizer
+        from tracking_sdf_tpu_torch.render import image_io, marching_cubes, raycast
         from tracking_sdf_tpu_torch.core.camera import PinholeCamera
         from tracking_sdf_tpu_torch.data.synthetic import SphereScene, look_at, render_scene_depth
         from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
@@ -290,6 +293,8 @@ def test_port_runs_without_jax(tmp_path):
             for i, eye in enumerate([(0.0, -1.5, 0.2), (0.02, -1.5, 0.2)]):
                 r.process_frame(render_scene_depth(
                     scene, cam, look_at(eye, (0.0, 0.0, 0.0), device="cpu")))
+            assert r.render(stride=4).hit.any()
+            assert r.export_mesh({str(tmp_path / "m.ply")!r}) > 0
             r.close()
             assert not any(s.rejected for s in r.stats), r.stats
             assert r.stats[1].gn_iterations > 0
@@ -305,6 +310,9 @@ def test_port_runs_without_jax(tmp_path):
                          "--native-loader", "--chunk", "2", "--eval", "--json", "--cpu",
                          "--checkpoint", {str(tmp_path / "ck")!r}, "--checkpoint-every", "3",
                          "--profile", {str(tmp_path / "prof")!r},
+                         "--mesh", {str(tmp_path / "cli.ply")!r},
+                         "--mesh-async", {str(tmp_path / "live.ply")!r},
+                         "--render", {str(tmp_path / "cli.png")!r},
                          "--trajectory", {str(tmp_path / "cli.txt")!r}]) == 0
         assert len(open({str(tmp_path / "cli.txt")!r}).readlines()) >= 1
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)

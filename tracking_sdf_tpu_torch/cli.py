@@ -28,12 +28,6 @@ import time
 
 # flag (as argparse stores it) -> the ROADMAP item that ports it
 UNPORTED = {
-    "mesh": "queue 1, meshing",
-    "mesh_every": "queue 1, meshing",
-    "mesh_async": "queue 1, meshing",
-    "mesh_hz": "queue 1, meshing",
-    "mesh_decimate": "queue 1, meshing",
-    "render": "queue 1, raycast",
     "distributed": "queue 1, multi-device",
     "multihost": "queue 1, multi-device",
     "coordinator": "queue 1, multi-device",
@@ -77,15 +71,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "reported. Incompatible with --chunk.")
     p.add_argument("--trajectory", default="trajectory.txt",
                    help="output TUM trajectory path ('' disables)")
-    p.add_argument("--mesh", help="(not ported yet) export a PLY mesh at the end")
-    p.add_argument("--render", help="(not ported yet) raycast the final model to a PNG")
+    p.add_argument("--mesh", help="export a PLY mesh at the end")
+    p.add_argument("--render", help="raycast the final model to a PNG (depth, "
+                                    "normals, and color unless --no-color)")
     p.add_argument("--mesh-every", type=int, default=0,
-                   help="(not ported yet) also export every N frames")
-    p.add_argument("--mesh-async", help="(not ported yet) async mesh publisher")
+                   help="also export the --mesh PLY every N frames")
+    p.add_argument("--mesh-async", metavar="PLY",
+                   help="live mesh: a background thread re-exports this PLY "
+                        "while the frames run")
     p.add_argument("--mesh-hz", type=float, default=0.0,
-                   help="(not ported yet) async publisher rate")
+                   help="--mesh-async export rate (0 = 1 Hz; it degrades, "
+                        "with a warning, when an export takes longer)")
     p.add_argument("--mesh-decimate", type=int, default=0,
-                   help="(not ported yet) async publisher decimation")
+                   help="--mesh-async voxel decimation (0 = auto: 4 at 512^3, "
+                        "2 at 256^3, else 1)")
     p.add_argument("--debug-nans", action="store_true",
                    help="(not ported yet) fail at the op that produced a NaN")
     p.add_argument("--eval", action="store_true",
@@ -227,6 +226,10 @@ def main(argv=None) -> int:
     if args.groundtruth_poses:
         changes["use_groundtruth"] = True
     changes["trajectory_path"] = args.trajectory or None
+    if args.mesh_hz:
+        changes["mesh_hz"] = args.mesh_hz
+    if args.mesh_decimate:
+        changes["mesh_decimate"] = args.mesh_decimate
     cfg = dataclasses.replace(cfg, **changes)
 
     if args.synthetic:
@@ -274,6 +277,9 @@ def main(argv=None) -> int:
         # the bytes), which process_chunk decodes on the device
         frames = dataset.stream(raw=args.chunk > 1)
 
+    if args.mesh_async:
+        recon.start_mesh_publisher(args.mesh_async, with_colors=not args.no_color)
+
     profile_cm = contextlib.nullcontext()
     if args.profile:
         from tracking_sdf_tpu_torch.utils.profiling import trace
@@ -283,15 +289,24 @@ def main(argv=None) -> int:
     try:
         with profile_cm:
             recon.run(frames, max_frames=args.frames, progress=args.progress,
+                      mesh_every=args.mesh_every, mesh_path=args.mesh,
                       checkpoint_every=args.checkpoint_every,
                       checkpoint_path=args.checkpoint,
                       metrics_log=args.metrics_log, skip_frames=skip,
                       chunk=args.chunk)
             if device == "cuda":
                 torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        if args.mesh:
+            n_tri = recon.export_mesh(args.mesh)
+            print(f"mesh: {n_tri} triangles -> {args.mesh}", file=sys.stderr)
+        if args.render:
+            from tracking_sdf_tpu_torch.render.image_io import save_render_png
+
+            save_render_png(recon.render(with_color=not args.no_color), args.render)
+            print(f"render -> {args.render}", file=sys.stderr)
     finally:
         recon.close()
-    run_s = time.perf_counter() - t0
 
     summary = recon.summary()
     # wall clock around run(): loading, decoding and staging included

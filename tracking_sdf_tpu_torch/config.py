@@ -109,8 +109,9 @@ class FusionConfig(NamedTuple):
 
 
 class RaycastConfig(NamedTuple):
-    """Sphere-tracing raycaster (not ported yet; kept so that the configs
-    compare field for field)."""
+    """Sphere-tracing raycaster (render.raycast). ``empty_skip`` and
+    ``far_field="chamfer"`` are not ported (they raise); ``march_unroll``
+    is kept so that the configs compare field for field, and ignored."""
 
     max_steps: int = 64
     hit_epsilon: float = 1e-3  # meters

@@ -1,14 +1,16 @@
-"""Analytic scenes and exact depth rendering (counterpart of
-tracking_sdf_tpu.data.synthetic): frames made on the device from a pose,
-with no dataset."""
+"""Analytic scenes, exact depth rendering and analytic grids (counterpart of
+tracking_sdf_tpu.data.synthetic): frames and grids made on the device from a
+pose or a scene, with no dataset. A scene's ``sdf`` is positive outside."""
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
 import torch
 
+from tracking_sdf_tpu_torch.config import GridParams
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera, pixel_rays
 from tracking_sdf_tpu_torch.core.lie import Pose
+from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, voxel_centers_world
 
 _NAN = float("nan")
 
@@ -18,6 +20,10 @@ class SphereScene(NamedTuple):
 
     center: Tuple[float, float, float] = (0.0, 0.0, 0.0)
     radius: float = 0.5
+
+    def sdf(self, x: torch.Tensor) -> torch.Tensor:
+        c = torch.tensor(self.center, dtype=x.dtype, device=x.device)
+        return torch.linalg.norm(x - c, dim=-1) - self.radius
 
     def color(self, x: torch.Tensor) -> torch.Tensor:
         b = torch.clamp(x[..., 0] - float(self.center[0]) + 0.5, 0.0, 1.0)
@@ -44,6 +50,26 @@ class CuboidScene(NamedTuple):
     min_corner: Tuple[float, float, float] = (-0.5, -0.5, -0.5)
     max_corner: Tuple[float, float, float] = (0.5, 0.5, 0.5)
 
+    def _bounds(self, x: torch.Tensor):
+        return (torch.tensor(self.min_corner, dtype=x.dtype, device=x.device),
+                torch.tensor(self.max_corner, dtype=x.dtype, device=x.device))
+
+    def sdf(self, x: torch.Tensor) -> torch.Tensor:
+        """The exact box SDF."""
+        lo, hi = self._bounds(x)
+        q = torch.abs(x - (lo + hi) / 2.0) - (hi - lo) / 2.0
+        outside = torch.linalg.norm(torch.clamp(q, min=0.0), dim=-1)
+        inside = torch.clamp(q.amax(dim=-1), max=0.0)
+        return outside + inside
+
+    def sdf_reference_style(self, x: torch.Tensor) -> torch.Tensor:
+        """The reference fixture's field: the distance to the nearest pair of
+        parallel faces, negated inside."""
+        lo, hi = self._bounds(x)
+        d = torch.minimum(torch.abs(x - lo), torch.abs(x - hi)).amin(dim=-1)
+        inside = ((x > lo) & (x < hi)).all(dim=-1)
+        return torch.where(inside, -d, d)
+
     def color(self, x: torch.Tensor) -> torch.Tensor:
         ones = torch.ones_like(x[..., 0])
         return torch.stack([ones, 0.3 * ones, 0.2 * ones], dim=-1)
@@ -60,6 +86,21 @@ class CuboidScene(NamedTuple):
         hit = (tmax >= tmin) & (tmax > 0)
         t = torch.where(tmin > 0, tmin, tmax)
         return torch.where(hit, t, torch.full_like(t, _NAN))
+
+
+def grid_from_scene(params: GridParams, scene, weight: float = 1.0,
+                    reference_style: bool = False, *, device) -> TSDFGrid:
+    """A grid holding the scene's full (untruncated) signed distance and its
+    color at the voxel centers, with W = Wc = ``weight`` everywhere."""
+    x, y, z = voxel_centers_world(params, device=device)
+    pts = torch.stack(torch.broadcast_tensors(x, y, z), dim=-1)
+    sdf_fn = (scene.sdf_reference_style
+              if reference_style and hasattr(scene, "sdf_reference_style") else scene.sdf)
+    D = sdf_fn(pts)
+    rgb = scene.color(pts)
+    W = torch.full(D.shape, weight, dtype=D.dtype, device=device)
+    return TSDFGrid(D=D, W=W, R=rgb[..., 0].contiguous(), G=rgb[..., 1].contiguous(),
+                    B=rgb[..., 2].contiguous(), Wc=W.clone())
 
 
 def render_scene_depth(scene, cam: PinholeCamera, pose: Pose) -> torch.Tensor:

@@ -1,11 +1,20 @@
-"""Masked trilinear interpolation with analytic gradient over a masked view
-(counterpart of tracking_sdf_tpu.grid.interp).
+"""Grid interpolation (counterpart of tracking_sdf_tpu.grid.interp).
 
-``masked_view`` folds the observation mask into D (W <= 0 -> NaN) so a
-query needs one gather; a corner is observed iff its value is finite. The
-view is either a dense (m, m, m) tensor or a ``BrickMaskedView`` of the
-brick-major D rows. Coordinates are continuous voxel units
-(grid.world_to_voxel).
+Two families:
+  * masked trilinear interpolation with its analytic gradient:
+    ``trilinear_with_grad(D, W, coords)`` masks the corners with W <= 0 (or
+    out of bounds) and renormalizes; ``trilinear_with_grad_nan`` does the
+    same against a masked view, where ``masked_view`` has folded the mask
+    into D (W <= 0 -> NaN) so a query needs one gather. The view is either a
+    dense (m, m, m) tensor or a ``BrickMaskedView`` of the brick-major D
+    rows. Both are plain differentiable torch ops: the raycaster's
+    refinement takes gradients through them with respect to the coordinates
+    and to D.
+  * ``shepard_l1`` and its color form: the reference's inverse-L1 (Shepard)
+    weights over the 8 corners around trunc(coords), with an exact-hit
+    return.
+Coordinates are continuous voxel units (grid.world_to_voxel); all the math
+runs in float32 or wider whatever the storage dtype.
 """
 from __future__ import annotations
 
@@ -97,6 +106,45 @@ def _corner_fetch_brick(view: BrickMaskedView, ci, cj, ck) -> torch.Tensor:
     return view.rows.reshape(-1)[F]
 
 
+def _axis_factors(f: torch.Tensor) -> torch.Tensor:
+    """Per-corner, per-axis trilinear factors (..., 8, 3): f where the
+    corner's offset is 1, 1 - f where it is 0."""
+    off = _offsets(f.device, f.dtype)
+    return off * f[..., None, :] + (1.0 - off) * (1.0 - f[..., None, :])
+
+
+def _normalized(wm: torch.Tensor, d: torch.Tensor):
+    """(value = N/Z where Z > 1e-12 else 0, N, safe Z, valid) with
+    N = sum(wm * d) and Z = sum(wm) over the corners."""
+    Z = torch.sum(wm, dim=-1)
+    N = torch.sum(wm * d, dim=-1)
+    valid = Z > 1e-12
+    safe_Z = torch.where(valid, Z, torch.ones_like(Z))
+    return torch.where(valid, N / safe_Z, torch.zeros_like(N)), N, safe_Z, valid
+
+
+def _quotient_grad(fax, mask, d, N, safe_Z, valid) -> torch.Tensor:
+    """d(N/Z)/df (..., 3) by the quotient rule, 0 where not valid."""
+    sign = 2.0 * _offsets(fax.device, fax.dtype) - 1.0
+    prod_other = torch.stack([fax[..., 1] * fax[..., 2],
+                              fax[..., 0] * fax[..., 2],
+                              fax[..., 0] * fax[..., 1]], dim=-1)
+    dw = sign * prod_other * mask[..., None]
+    dN = torch.sum(dw * d[..., None], dim=-2)
+    dZ = torch.sum(dw, dim=-2)
+    return torch.where(
+        valid[..., None],
+        (dN * safe_Z[..., None] - N[..., None] * dZ) / (safe_Z ** 2)[..., None],
+        torch.zeros_like(dN))
+
+
+def _observed(d_raw: torch.Tensor, inb: torch.Tensor, dtype: torch.dtype):
+    """(mask, d): corners in bounds and finite, and their values with 0
+    elsewhere (a select, not a multiply: NaN * 0 is NaN)."""
+    mask = (inb & torch.isfinite(d_raw)).to(dtype)
+    return mask, torch.where(mask > 0, d_raw, torch.zeros_like(d_raw))
+
+
 def trilinear_from_corners(
     d_raw: torch.Tensor, inb: torch.Tensor, f: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -106,32 +154,24 @@ def trilinear_from_corners(
     bounds mask, f (..., 3) fractional position. value = N/Z over the
     observed corners; the gradient is the quotient-rule derivative of that
     renormalised form. Returns (value, grad (..., 3), valid)."""
-    mask = (inb & torch.isfinite(d_raw)).to(f.dtype)
-    # a select, not a multiply: NaN * 0 is NaN
-    d = torch.where(mask > 0, d_raw, torch.zeros_like(d_raw))
-    off = _offsets(f.device, f.dtype)
-    fax = off * f[..., None, :] + (1.0 - off) * (1.0 - f[..., None, :])
-    w = fax[..., 0] * fax[..., 1] * fax[..., 2]
+    mask, d = _observed(d_raw, inb, f.dtype)
+    fax = _axis_factors(f)
+    value, N, safe_Z, valid = _normalized(fax[..., 0] * fax[..., 1] * fax[..., 2] * mask, d)
+    return value, _quotient_grad(fax, mask, d, N, safe_Z, valid), valid
 
-    wm = w * mask
-    Z = torch.sum(wm, dim=-1)
-    N = torch.sum(wm * d, dim=-1)
-    valid = Z > 1e-12
-    safe_Z = torch.where(valid, Z, torch.ones_like(Z))
-    value = torch.where(valid, N / safe_Z, torch.zeros_like(N))
 
-    sign = 2.0 * off - 1.0
-    prod_other = torch.stack([fax[..., 1] * fax[..., 2],
-                              fax[..., 0] * fax[..., 2],
-                              fax[..., 0] * fax[..., 1]], dim=-1)
-    dw = sign * prod_other * mask[..., None]
-    dN = torch.sum(dw * d[..., None], dim=-2)
-    dZ = torch.sum(dw, dim=-2)
-    grad = torch.where(
-        valid[..., None],
-        (dN * safe_Z[..., None] - N[..., None] * dZ) / (safe_Z ** 2)[..., None],
-        torch.zeros_like(dN))
-    return value, grad, valid
+def _view_corners(Dm: MaskedView, coords: torch.Tensor):
+    """(corner values (..., 8) as float32, in-bounds mask, fractional
+    position) of a masked view, dense or brick-major."""
+    base_f = torch.floor(coords)
+    base = base_f.to(torch.int64)
+    ci, cj, ck = _corner_indices(base)
+    inb = _in_bounds(ci, cj, ck, Dm.shape)
+    if isinstance(Dm, BrickMaskedView):
+        d_raw = _corner_fetch_brick(Dm, ci, cj, ck)
+    else:
+        d_raw = _gather_corners(Dm, ci, cj, ck)
+    return d_raw.to(torch.float32), inb, coords - base_f
 
 
 def trilinear_with_grad_nan(
@@ -140,13 +180,117 @@ def trilinear_with_grad_nan(
     """Trilinear value + analytic gradient against a masked view (dense or
     brick-major). bfloat16 corners are upcast right after the gather, so all
     the math runs in float32. Returns (value, grad, valid)."""
+    return trilinear_from_corners(*_view_corners(Dm, coords))
+
+
+def trilinear_nan(Dm: MaskedView, coords: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The value of trilinear_with_grad_nan without its gradient (the
+    raycaster's march). Returns (value, valid)."""
+    d_raw, inb, f = _view_corners(Dm, coords)
+    mask, d = _observed(d_raw, inb, f.dtype)
+    fax = _axis_factors(f)
+    value, _, _, valid = _normalized(fax[..., 0] * fax[..., 1] * fax[..., 2] * mask, d)
+    return value, valid
+
+
+def _math_dtype(dtype: torch.dtype) -> torch.dtype:
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _trilinear_weights(W: torch.Tensor, coords: torch.Tensor, dtype: torch.dtype):
+    """The masked trilinear corner weights of ``coords`` (corners with
+    W <= 0 or out of bounds get 0): (corner indices, per-axis factors
+    (..., 8, 3), masked weights (..., 8), mask)."""
     base_f = torch.floor(coords)
-    base = base_f.to(torch.int64)
-    f = coords - base_f
+    ci, cj, ck = _corner_indices(base_f.to(torch.int64))
+    inb = _in_bounds(ci, cj, ck, W.shape)
+    mask = (inb & (_gather_corners(W, ci, cj, ck) > 0)).to(dtype)
+    fax = _axis_factors((coords - base_f).to(dtype))
+    return (ci, cj, ck), fax, fax[..., 0] * fax[..., 1] * fax[..., 2] * mask, mask
+
+
+def trilinear_with_grad(
+    D: torch.Tensor, W: torch.Tensor, coords: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Trilinear value + analytic gradient w.r.t. the voxel coordinates:
+    value = N/Z with N = sum_i m_i w_i(f) D_i and Z = sum_i m_i w_i(f), where
+    m_i masks unobserved (W <= 0) and out-of-bounds corners; the gradient is
+    the quotient-rule derivative of that renormalized form. Differentiable
+    with respect to ``coords`` and ``D``. Returns (value, grad (..., 3),
+    valid)."""
+    idx, fax, wm, mask = _trilinear_weights(W, coords, _math_dtype(D.dtype))
+    d = _gather_corners(D, *idx).to(wm.dtype)
+    value, N, safe_Z, valid = _normalized(wm, d)
+    return value, _quotient_grad(fax, mask, d, N, safe_Z, valid), valid
+
+
+def trilinear(D: torch.Tensor, W: torch.Tensor,
+              coords: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Masked renormalized trilinear interpolation (the value of
+    trilinear_with_grad, without its gradient). Returns (value, valid)."""
+    idx, _, wm, _ = _trilinear_weights(W, coords, _math_dtype(D.dtype))
+    value, _, _, valid = _normalized(wm, _gather_corners(D, *idx).to(wm.dtype))
+    return value, valid
+
+
+def _shepard_weights(W: torch.Tensor, coords: torch.Tensor, dtype: torch.dtype):
+    """Inverse-L1 corner weights around trunc(coords): (corner indices,
+    weights (0 on invalid and exact corners), exact-hit mask, valid)."""
+    base = torch.trunc(coords).to(torch.int64)
     ci, cj, ck = _corner_indices(base)
-    inb = _in_bounds(ci, cj, ck, Dm.shape)
-    if isinstance(Dm, BrickMaskedView):
-        d_raw = _corner_fetch_brick(Dm, ci, cj, ck)
-    else:
-        d_raw = _gather_corners(Dm, ci, cj, ck)
-    return trilinear_from_corners(d_raw.to(torch.float32), inb, f)
+    inb = _in_bounds(ci, cj, ck, W.shape)
+    valid_corner = inb & (_gather_corners(W, ci, cj, ck) > 0)
+    corner_pos = base[..., None, :] + _offsets(base.device)
+    vol = torch.sum(torch.abs(corner_pos.to(dtype) - coords[..., None, :]), dim=-1)
+    exact = valid_corner & (vol < 1e-5)
+    safe_vol = torch.where(vol < 1e-5, torch.ones_like(vol), vol)
+    w = torch.where(valid_corner & (vol >= 1e-5), 1.0 / safe_vol, torch.zeros_like(vol))
+    return (ci, cj, ck), w, exact, torch.any(valid_corner, dim=-1)
+
+
+def _shepard_value(d: torch.Tensor, w: torch.Tensor, exact: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    zero = torch.zeros_like(d)
+    exact_val = torch.sum(torch.where(exact, d, zero), dim=-1)  # at most one corner
+    w_sum = torch.sum(w, dim=-1)
+    blended = torch.sum(w * d, dim=-1) / torch.where(w_sum > 0, w_sum,
+                                                     torch.ones_like(w_sum))
+    value = torch.where(torch.any(exact, dim=-1), exact_val, blended)
+    return torch.where(valid, value, torch.zeros_like(value))
+
+
+def shepard_l1(D: torch.Tensor, W: torch.Tensor,
+               coords: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's inverse-L1 (Shepard) interpolation: corners around
+    trunc(coords) (truncation toward zero, as a C cast), weight 1/L1
+    distance, out-of-bounds and W <= 0 corners skipped, and a valid corner
+    closer than 1e-5 returned exactly. valid is False where no corner is
+    valid (value 0 there). Returns (value, valid)."""
+    dtype = _math_dtype(D.dtype)
+    idx, w, exact, valid = _shepard_weights(W, coords, dtype)
+    return _shepard_value(_gather_corners(D, *idx).to(dtype), w, exact, valid), valid
+
+
+def shepard_color(R: torch.Tensor, G: torch.Tensor, B: torch.Tensor,
+                  Wc: torch.Tensor, coords: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's color interpolation: shepard_l1 per channel, gated on
+    the color weight Wc (the weights are computed once for the three).
+    Returns (rgb (..., 3), valid)."""
+    dtype = _math_dtype(R.dtype)
+    idx, w, exact, valid = _shepard_weights(Wc, coords, dtype)
+    rgb = [_shepard_value(_gather_corners(c, *idx).to(dtype), w, exact, valid)
+           for c in (R, G, B)]
+    return torch.stack(rgb, dim=-1), valid
+
+
+def interp_color(R: torch.Tensor, G: torch.Tensor, B: torch.Tensor,
+                 Wc: torch.Tensor, coords: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Trilinear color lookup masked by the color weight Wc (trilinear per
+    channel; the weights are computed once for the three). Returns
+    (rgb (..., 3), valid)."""
+    idx, _, wm, _ = _trilinear_weights(Wc, coords, _math_dtype(R.dtype))
+    out = [_normalized(wm, _gather_corners(c, *idx).to(wm.dtype)) for c in (R, G, B)]
+    return torch.stack([o[0] for o in out], dim=-1), out[0][3]

@@ -23,6 +23,11 @@ graphs allocate lives in one pool that the variants share, and nothing of it
 outlives a replay. The graphs hold the addresses of the grid's rows, so a
 new grid needs a new ``ChunkSteps``.
 
+Device lock: a capture (warm-up included) and a chunk's replays (under the
+no-sync guard, which is process-wide) hold ``DEVICE_LOCK``; other threads
+that work on the card (the runner's mesh publisher) take it around their
+device work, so nothing of theirs runs inside a capture or trips the guard.
+
 Launch counts: a replay runs kernels without calling their wrappers, so a
 capture records the launches of one step and each replay adds them to the
 wrappers' counters. The warm-up, the capture itself and the calibration
@@ -31,6 +36,7 @@ loops are not frames and add nothing.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -47,6 +53,9 @@ from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 # counts (n_full, n_free, FREE bricks dropped, mixed super-bricks dropped).
 REC_R, REC_T, REC_ITERS, REC_NVALID, REC_MRES, REC_REJ, REC_COUNTS = 0, 9, 12, 13, 14, 15, 16
 REC = 20
+
+# held by a capture and by a chunk's replays; see the module docstring
+DEVICE_LOCK = threading.RLock()
 
 # the kernel wrappers' launch counters
 _COUNTERS = ((gn_reduce, "launches"), (gn_reduce, "launches_brick"),
@@ -156,16 +165,17 @@ class ChunkSteps:
         CUDA graph in ``pool``. Returns (graph, the launch counts of one
         replay); the counters are left as they were."""
         before = launch_counts()
-        cur = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            fn()
-        cur.wait_stream(side)
-        warm = launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=pool):
-            fn()
+        with DEVICE_LOCK:
+            cur = torch.cuda.current_stream(self.device)
+            side = torch.cuda.Stream(self.device)
+            side.wait_stream(cur)
+            with torch.cuda.stream(side):
+                fn()
+            cur.wait_stream(side)
+            warm = launch_counts()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                fn()
         per_replay = tuple(a - b for a, b in zip(launch_counts(), warm))
         _set_launch_counts(before)
         return graph, per_replay
@@ -233,7 +243,7 @@ class ChunkSteps:
         self.prev_t.copy_(p.t)
         self.have_prev.fill_(prev is not None)
         out = torch.empty((len(colors), REC), dtype=torch.float32, device=self.device)
-        with self._no_host_sync():
+        with DEVICE_LOCK, self._no_host_sync():
             for k, color in enumerate(colors):
                 depth.copy_(depths[k], non_blocking=True)
                 if rgb is not None:

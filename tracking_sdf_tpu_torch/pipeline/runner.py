@@ -35,7 +35,7 @@ from tracking_sdf_tpu_torch.fusion.brick import FuseStats, fuse_frame_bricked
 from tracking_sdf_tpu_torch.fusion.brickmajor import (
     BrickGrid, brick_grid_from_dense, brick_masked_view, dense_from_brick_grid,
     empty_brick_grid, fuse_frame_brickmajor_core, fuse_stats, storage_dtype)
-from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, empty_grid
+from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid, empty_grid
 from tracking_sdf_tpu_torch.pipeline import chunk as chunked
 from tracking_sdf_tpu_torch.pipeline.trajectory import TrajectoryWriter
 from tracking_sdf_tpu_torch.tracking.gauss_newton import TrackResult, track_frame
@@ -138,6 +138,8 @@ class Reconstruction:
         # TUM wire formats are decoded on the device by true division
         self._scale_depth = torch.full((), 5000.0, device=self.device)
         self._scale_rgb = torch.full((), 255.0, device=self.device)
+        self._publisher = None  # pipeline.visualizer.MeshPublisher
+        self._last_publish = float("-inf")
 
     @property
     def grid(self) -> TSDFGrid:
@@ -295,6 +297,8 @@ class Reconstruction:
             self._fuse(points, normals, rgb_t)
             _sync(self.device)
         fuse_ms = (time.perf_counter() - t0) * 1e3
+        if not rejected:
+            self._maybe_publish()
 
         stat = FrameStats(index=self.frame_num, timestamp=timestamp,
                           track_ms=track_ms, fuse_ms=fuse_ms,
@@ -434,7 +438,99 @@ class Reconstruction:
                 f"process_chunk: {overflow} brick-cap overflow drops across the chunk "
                 f"(cap {cap} = the preset max; peak n_full {max(c[0] for c in counts)}: "
                 f"raise FusionConfig.brick_cap to cover it)", RuntimeWarning, stacklevel=2)
+        self._maybe_publish()
         return stats_out
+
+    # --- meshing and rendering ----------------------------------------------
+
+    def _maybe_publish(self) -> None:
+        """Hand the publisher a snapshot when its (effective) interval has
+        passed since the last: a snapshot is a full dense copy, not worth
+        making for exports that cannot keep up. The brick-major dense view is
+        a fresh copy already; the flat grid is updated in place, so it is
+        copied."""
+        if self._publisher is None:
+            return
+        now = time.perf_counter()
+        if now - self._last_publish >= self._publisher.effective_interval:
+            self._publisher.publish(self.grid, copy=self._bgrid is None)
+            self._last_publish = now
+
+    def _extract_mesh(self, grid: TSDFGrid, with_colors: bool, color_mode: str):
+        """marching_cubes of ``grid``: in 4 i-slabs at m >= 512 (bounds the
+        peak device memory next to the live grid), one shot otherwise;
+        vertices read back as uint16 box coordinates unless
+        ``config.mesh_vertex_quant`` is False."""
+        from tracking_sdf_tpu_torch.render.marching_cubes import (
+            marching_cubes, marching_cubes_chunked)
+
+        mc = marching_cubes_chunked if self.config.grid.m >= 512 else marching_cubes
+        return mc(grid, params=self.config.grid, with_colors=with_colors,
+                  color_mode=color_mode, vertex_quant=self.config.mesh_vertex_quant)
+
+    def export_mesh(self, path: str, with_colors: bool = True,
+                    color_mode: str = "trilinear") -> int:
+        """Mesh the current grid into a PLY file; returns the triangle count.
+        color_mode="shepard" is the reference's per-vertex interpolate_color."""
+        from tracking_sdf_tpu_torch.render.marching_cubes import export_ply
+
+        mesh = self._extract_mesh(self.grid, with_colors, color_mode)
+        export_ply(mesh, path)
+        return mesh.num_triangles
+
+    def start_mesh_publisher(self, path: str, with_colors: bool = True):
+        """Start the background mesh export into ``path`` at config.mesh_hz
+        (0 = 1 Hz). The live mesh is decimated by config.mesh_decimate (0 =
+        4 at m >= 512, 2 at m >= 256, else 1; stepped down until it divides
+        m): D is metric, so every dec-th voxel is the same field, dec times
+        coarser. A final export_mesh is never decimated. Each export holds
+        pipeline.chunk's device lock while it works on the card."""
+        from tracking_sdf_tpu_torch.pipeline.visualizer import MeshPublisher
+        from tracking_sdf_tpu_torch.render.marching_cubes import export_ply, marching_cubes
+
+        g = self.config.grid
+        dec = self.config.mesh_decimate or (4 if g.m >= 512 else 2 if g.m >= 256 else 1)
+        dec = max(1, dec)
+        while g.m % dec:
+            dec -= 1
+
+        def export(grid: TSDFGrid) -> None:
+            with chunked.DEVICE_LOCK:
+                if dec > 1:
+                    coarse = TSDFGrid(*(getattr(grid, k)[::dec, ::dec, ::dec]
+                                        for k in FIELDS))
+                    mesh = marching_cubes(coarse, params=g._replace(m=g.m // dec),
+                                          with_colors=with_colors, color_mode="trilinear",
+                                          vertex_quant=self.config.mesh_vertex_quant)
+                else:
+                    mesh = self._extract_mesh(grid, with_colors, "trilinear")
+            export_ply(mesh, path)
+
+        self._publisher = MeshPublisher(export, interval=1.0 / (self.config.mesh_hz or 1.0))
+        self._last_publish = float("-inf")  # the first frame publishes
+        return self._publisher
+
+    def render(self, pose: Optional[Pose] = None, stride: int = 1, with_color: bool = True,
+               t_init: Optional[torch.Tensor] = None):
+        """Raycast depth, normals and color of the current model from
+        ``pose`` (default the current pose) over the dense view.
+        ``t_init``: the previous render's ``range_t``, to start each ray
+        near its surface (RaycastConfig.warm_backoff). Warns
+        (RuntimeWarning) when rays overflowed the slots of the compacted
+        recovery march: they render as misses."""
+        from tracking_sdf_tpu_torch.render.raycast import raycast
+
+        p = (pose if pose is not None else self.pose).to(self.device)
+        result = raycast(self.grid, p, params=self.config.grid, cam=self.cam,
+                         cfg=self.config.raycast, stride=stride, with_color=with_color,
+                         t_init=t_init)
+        n_dropped = int(result.dropped)
+        if n_dropped > 0:
+            warnings.warn(
+                f"raycast: {n_dropped} rays exceeded the fine-phase recovery capacity and "
+                "render as misses; use RaycastConfig(sample='trilinear') for exact coverage",
+                RuntimeWarning, stacklevel=2)
+        return result
 
     def run(self, dataset, max_frames: Optional[int] = None, mesh_every: int = 0,
             mesh_path: Optional[str] = None, progress: bool = False,
@@ -451,10 +547,10 @@ class Reconstruction:
         groundtruth oracle mode, which have no chunked path, warn and run
         per frame). ``checkpoint_every`` saves to ``checkpoint_path`` when
         the newest processed frame's index is a multiple of it (a chunk
-        saves once, at its last frame, if that index is). Meshing is not
-        ported: ``mesh_every`` or ``mesh_path`` raise NotImplementedError."""
-        if mesh_every or mesh_path:
-            raise NotImplementedError("the port has no meshing yet")
+        saves once, at its last frame, if that index is). ``mesh_every``
+        exports the mesh to ``mesh_path`` on every emitted frame whose index
+        is a multiple of it (a chunk's frames are emitted after the chunk,
+        so each such frame of it exports the chunk's final grid)."""
         cfg = self.config
         if chunk > 1 and (self._bgrid is None or cfg.use_groundtruth):
             warnings.warn("chunked processing needs mode='brickmajor' and tracked "
@@ -473,6 +569,8 @@ class Reconstruction:
             if log is not None:
                 log.write(json.dumps(dataclasses.asdict(stat)) + "\n")
                 log.flush()
+            if mesh_every and mesh_path and stat.index % mesh_every == 0:
+                self.export_mesh(mesh_path)
             # a chunk emits its stats after it ran: only its newest frame saves
             if (checkpoint_every and checkpoint_path
                     and stat.index % checkpoint_every == 0
@@ -558,6 +656,11 @@ class Reconstruction:
         }
 
     def close(self) -> None:
+        """Stop the mesh publisher (after its final export) and close the
+        trajectory file."""
+        if self._publisher is not None:
+            self._publisher.close()
+            self._publisher = None
         if self._writer is not None:
             self._writer.close()
             self._writer = None
