@@ -125,6 +125,48 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      PLY parses, the PNG decodes, the publisher exported with no error, the
      ATE equals phase 7's to the digit, and the launches are counted as in
      phase 7. Its numbers also go out as one JSON line, {"phase8": ...}.
+  9. the reference-exact path and the remaining single-device modes:
+       K2 brick_fuse_rows with the sat_skip bitset against its plain version
+         on the second frame's real lists at tum256 and tum512, over rows
+         whose FREE bricks sit at max_weight 3 (the first frame fused four
+         times): rows and bitset bitwise, saturated bricks counted; its
+         device time beside the same launch without the bitset;
+       the JAX README's first command through cli.main (--preset synthetic64
+         --synthetic --frames 20 --mesh P --eval): the PLY parses, the ATE
+         lies within half a voxel of JAX_SYNTHETIC64_ATE_MM, K1's dense
+         gn_step launched 20 times a tracked frame, brick_fuse_rows never;
+         K1's dense reduction and step against their plain versions on that
+         run's final 64^3 grid at the preset's stride (as phase 2 does);
+       the full 2-D bilateral filter alone at 640x480 (ms, device ops);
+       tum128 as it is per frame on phase 5's scene (|t err| within half a
+         voxel of JAX_T_ERR_MM; preprocess, track and fuse ms), and through
+         cli.main over phase 7's 120 frames (--native-loader when zlib.h is
+         there; ATE within half a voxel of JAX_ATE_MM); K1 against its
+         plain versions on the per-frame run's final 128^3 grid;
+       --preset tum256 --fusion-mode dense over the same 120 frames (the
+         reference's own 256^3 dense configuration): ATE beside the JAX
+         CLI's, ms a frame, peak memory;
+       jacobian="central" at tum128 on phase 5's scene: |t err| within half
+         a voxel of the JAX package's, track ms; the same run on the CPU over
+         the same depth images, |t err| beside the card's;
+       the flat slice with brick_merge "xla", "rows" and "pallas", tracked
+         (|t err| of each; K2's dense form only on "pallas"), and the three
+         tails fusing the same five frames at their true poses: every leaf
+         within 1e-5 of the pallas tail's;
+       sat_skip at tum256 and tum512 with max_weight 4, per frame and
+         chunked: with brick_cap_free = NB the rows bitwise equal to the run
+         without the skip and n_sat > 0, brick_fuse_rows' sat form launched
+         once per fused frame; at the presets' cap_free n_free,
+         overflow_active and n_sat with the skip and without;
+       renders of phase 5's final rows with empty_skip and with
+         far_field="chamfer" against the plain march (hit masks differ on
+         at most 1% of the pixels, depth within 1e-4 m on >= 98% of common
+         hits: the bars of tests/test_torch_raycast_skip.py on a fused
+         field; hits lost and gained and the largest depth difference
+         printed), median steps and ms of each; and the band leap's
+         soundness: every leap taken before a ray first enters a surface-band
+         brick lands at least one voxel cell's diagonal before it.
+     Its numbers also go out as one JSON line, {"phase9": ...}.
 The last two lines are the kernels' JSON record (bound_ms from this run's
 inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
 at 67 TFLOP/s, whichever is longer) and {"ok": true, "device": {...}}.
@@ -135,6 +177,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
 import os
 import shutil
 import statistics
@@ -178,6 +221,15 @@ JAX_T_ERR_MM = {"tum256": 35.7974, "tum512": 21.4949}
 # seed 0, 640x480), rendered on the CPU. A preset on the card must land within
 # half a voxel of it.
 JAX_ATE_MM = {"tum256": 9.8514, "tum512": 5.8813}
+# tools/jax_reference_figures.py (JAX 0.9.0 on the CPU, unmodified presets):
+# tum128 per frame on the scene above (11 frames), with the analytic and with
+# the central Jacobian; the CLI over the 120 generated frames (per frame,
+# --native-loader) at tum128 and at tum256 with --fusion-mode dense; and the
+# JAX README's first command (--preset synthetic64 --synthetic --frames 20
+# --mesh P --eval --json), whose synthetic frames both CLIs generate alike.
+JAX_T_ERR_MM.update({"tum128": 20.1332, "tum128_central": 17.0512})
+JAX_ATE_MM.update({"tum128": 15.2673, "tum256_dense": 6.6254})
+JAX_SYNTHETIC64_ATE_MM = 6.1332
 DATASET_FRAMES = 120
 DATASET_CHUNK = 8
 
@@ -349,7 +401,7 @@ def counters():
     return {"gn_reduce": k1.launches, "gn_reduce_brick": k1.launches_brick,
             "gn_step": k1.launches_step, "gn_step_brick": k1.launches_step_brick,
             "brick_merge": k2.launches, "brick_merge_rows": k2.launches_rows,
-            "brick_fuse_rows": k2f.launches}
+            "brick_fuse_rows": k2f.launches, "brick_fuse_rows_sat": k2f.launches_sat}
 
 
 def reset_counters():
@@ -358,16 +410,17 @@ def reset_counters():
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     k1.launches = k1.launches_brick = k1.launches_step = k1.launches_step_brick = 0
-    k2.launches = k2.launches_rows = k2f.launches = 0
+    k2.launches = k2.launches_rows = k2f.launches = k2f.launches_sat = 0
 
 
-def gn_compare(label, Dm, pose, pts1, p):
-    """K1 on the card against its plain version at strides 3 and 6."""
+def gn_compare(label, Dm, pose, pts1, p, strides=(3, 6)):
+    """K1 on the card against its plain version at ``strides`` of the point
+    image. Returns the first stride's record."""
     from tracking_sdf_tpu_torch.tracking.gn_reduce import (
         gn_reduce, gn_reduce_reference, gn_reducer)
 
     rec = {}
-    for stride in (3, 6):
+    for stride in strides:
         q = pts1[::stride, ::stride].reshape(-1, 3)
         out_k = gn_reduce(Dm, pose, q, p)
         out_r = gn_reduce_reference(Dm, pose, q, p)
@@ -395,18 +448,19 @@ def gn_compare(label, Dm, pose, pts1, p):
         rec[stride] = dict(max_abs_err=max_abs, ms=ms, device_ms=device_ms,
                            wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
                            bound_by=by)
-    return rec[3]
+    return rec[strides[0]]
 
 
-def step_compare(label, Dm, pose, pts1, p, tcfg):
-    """K1's step on the card against the plain step, at strides 3, 6 and 12
-    of the point image (read in place): one step from one state, then a
-    whole level of ``tcfg.max_iterations`` steps. Times full steps (a cfg
-    that never converges) and launches on a done state."""
+def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12)):
+    """K1's step on the card against the plain step, at ``strides`` of the
+    point image (read in place): one step from one state, then a whole level
+    of ``tcfg.max_iterations`` steps. Times full steps (a cfg that never
+    converges) and launches on a done state. Returns the first stride's
+    record."""
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     rec = {}
-    for stride in (3, 6, 12):
+    for stride in strides:
         img = pts1[::stride, ::stride]
         n = img.shape[0] * img.shape[1]
         sk = k1.init_state(pose, tcfg.damping)
@@ -463,7 +517,7 @@ def step_compare(label, Dm, pose, pts1, p, tcfg):
                            device_ms=device_ms, device_ms_done=device_ms_done,
                            wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
                            bound_by=by)
-    return rec[3]
+    return rec[strides[0]]
 
 
 def tracking_without_host_sync(Dm, pose, pts1, p, tcfg, levels):
@@ -1747,6 +1801,496 @@ def cli_render_phase(work, ref):
     return rec
 
 
+# --- phase 9: the reference-exact path and the remaining single-device modes -
+
+SAT_MAX_WEIGHT = 4.0  # below the runs' frame counts, so that FREE bricks saturate
+SKIP_DIFFER_MAX, SKIP_DEPTH_SHARE = 0.01, 0.98  # tests/test_torch_raycast_skip.py
+TAIL_TOL = 1e-5
+
+
+def fuse_rows_sat_compare(name, cam, scene, poses, rgb, dev):
+    """K2 with the sat_skip bitset on one preset's real lists: the second
+    frame's FULL and FREE bricks against rows fused from the first frame four
+    times at max_weight 3 (its FREE bricks at their fixed point). Rows and
+    bitset bitwise against the plain version; the sat form's times beside the
+    same launch without the bitset. Returns the record."""
+    from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
+    from tracking_sdf_tpu_torch.fusion.brick import _pixel_table
+    from tracking_sdf_tpu_torch.fusion.brick_fuse import (
+        brick_fuse_rows, brick_fuse_rows_reference, group_centre_pixels)
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        classify_compact_rows, empty_brick_grid, fuse_frame_brickmajor)
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+
+    cfg = path_config(name, None)
+    f, p = cfg.fusion._replace(max_weight=3.0), cfg.grid
+    bs, cap, cap_free = f.brick_shape, f.brick_cap, f.brick_cap_free
+    frames = [preprocess_frame(render_scene_depth(scene, cam, poses[k]), cam=cam,
+                               bilateral=cfg.bilateral_filter,
+                               bilateral_mode=cfg.bilateral_mode) for k in (0, 1)]
+    bg = empty_brick_grid(p, bs, device=dev, value_dtype=torch.bfloat16,
+                          weight_dtype=torch.bfloat16)
+    for _ in range(4):
+        fuse_frame_brickmajor(bg, poses[0], *frames[0], rgb, params=p, cam=cam, cfg=f,
+                              bs=bs, cap=cap, cap_free=cap_free)
+    pts, nrm = frames[1]
+    pose, hw = poses[1], tuple(frames[1][0].shape[:2])
+    ids, _ = classify_compact_rows(p, pose, pts, nrm, cam=cam, cfg=f, bs=bs, cap=cap,
+                                   cap_free=cap_free)
+    NB, BV = bg.D.shape
+    n_full, n_free = int((ids[:cap] < NB).sum()), int((ids[cap:] < NB).sum())
+    n_pix = int(torch.unique(group_centre_pixels(ids[:cap][ids[:cap] < NB], pose, params=p,
+                                                 cam=cam, cfg=f, bs=bs, hw=hw)).numel())
+    pix = _pixel_table(pts, nrm, rgb, True, f.distance)
+    kw = dict(cap=cap, hw=hw, params=p, cam=cam, cfg=f, bs=bs)
+    lk = [x.clone() for x in (bg.D, bg.W, bg.C)]
+    lr = [x.clone() for x in lk]
+    sk = torch.zeros(NB, dtype=torch.bool, device=dev)
+    sr = sk.clone()
+    brick_fuse_rows(*lk, ids, pix, pose, sat=sk, **kw)
+    brick_fuse_rows_reference(*lr, ids, pix, pose, sat=sr, **kw)
+    torch.cuda.synchronize()
+    nan_ok = all(torch.equal(torch.isnan(a), torch.isnan(b)) for a, b in zip(lk[:2], lr[:2]))
+    differ = sum(int((a[~torch.isnan(b)].view(torch.int16)
+                      != b[~torch.isnan(b)].view(torch.int16)).sum())
+                 for a, b in zip(lk[:2], lr[:2])) + int((lk[2] != lr[2]).sum())
+    differ_sat = int((sk != sr).sum())
+    n_sat = int(sk.sum())
+    err = max(float(torch.nan_to_num(a.float() - b.float()).abs().max())
+              for a, b in zip(lk[:2], lr[:2]))
+    scratch = sk.clone()
+
+    def with_sat():
+        brick_fuse_rows(*lk, ids, pix, pose, sat=scratch, **kw)
+
+    def without():
+        brick_fuse_rows(*lk, ids, pix, pose, **kw)
+
+    rec = dict(max_abs_err=err, n_sat=n_sat, n_full=n_full, n_free=n_free,
+               ms=events_ms(with_sat), ms_without=events_ms(without),
+               device_ms=kernel_device_ms(with_sat, ("brick_fuse_rows_kernel",)),
+               device_ms_without=kernel_device_ms(without, ("brick_fuse_rows_kernel",)),
+               wrapper_ms=cuda_time_ms(with_sat),
+               plain_ms=cuda_time_ms(lambda: brick_fuse_rows_reference(
+                   *lr, ids, pix, pose, sat=sr, **kw)))
+    # bytes: as the form without the bitset, plus one byte written per listed brick
+    rec["bound_ms"], rec["bound_by"] = bound(n_full * BV * 24 + n_free * BV * 8
+                                             + n_pix * pix.shape[1] * 4 + ids.numel() * 4
+                                             + 48 + n_full + n_free)
+    label = f"K2 brick_fuse_rows with sat ({name}, color, max_weight 3)"
+    print(f"{label} cap={cap} cap_free={cap_free}: {differ} stored values and {differ_sat} "
+          f"bits differ (tol 0), NaN masks equal {nan_ok}, {n_sat} bricks set of {n_free} "
+          f"FREE; sat form {rec['ms']:.4f} ms ({TIMED_LAUNCHES} back-to-back), device "
+          f"{rec['device_ms']} ms, without the bitset {rec['ms_without']:.4f} ms, device "
+          f"{rec['device_ms_without']} ms; wrapper {rec['wrapper_ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms ({rec['bound_by']})")
+    check(differ == 0 and differ_sat == 0 and nan_ok,
+          f"{label} disagrees with its plain version: {differ} values, {differ_sat} bits")
+    check(n_sat > 100, f"{label}: only {n_sat} bricks saturated")
+    del lk, lr, bg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def bench_path(label, cfg, cam, depths, poses, rgb, dev, n_tracked):
+    """One configuration per frame over phase 5's scene, the launch counts
+    set to 0 just before and read just after: its record and final rows (or
+    grid)."""
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
+    mark = memory_mark()
+    reset_counters()
+    wall = []
+    for k in range(n_tracked + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        recon.process_frame(depths[k], rgb=rgb, timestamp=float(k))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    launches = counters()
+    tracked = recon.stats[1:]
+    t_err = (recon.pose.t - poses[n_tracked].t).norm().item()
+    med = {k: statistics.median(getattr(s, k) for s in tracked)
+           for k in ("preprocess_ms", "track_ms", "fuse_ms")}
+    rec = dict(ms_per_frame=statistics.median(wall[1:]), t_err_mm=t_err * 1e3,
+               launches=launches, tracked=len(tracked),
+               fused=sum(not s.rejected for s in recon.stats),
+               gn_iterations=sum(s.gn_iterations for s in tracked),
+               peak_gib=peak_gib_above(mark), **med)
+    print(f"{label} ({cfg.grid.m}^3, {n_tracked} tracked frames): median "
+          f"{rec['ms_per_frame']:.2f} ms/frame, preprocess {med['preprocess_ms']:.2f}, track "
+          f"{med['track_ms']:.2f}, fuse {med['fuse_ms']:.2f} ms; GN iterations "
+          f"{rec['gn_iterations']}; final |t err| {rec['t_err_mm']:.2f} mm; peak "
+          f"{rec['peak_gib']:.2f} GiB; launches {launches}")
+    check(not any(s.rejected for s in recon.stats), f"{label}: a frame was rejected")
+    check(t_err < T_ERR_MAX, f"{label}: |t err| {t_err:.4f} m")
+    return rec, recon
+
+
+def within_half_voxel(label, got_mm, ref_mm, grid):
+    bar = 0.5 * grid.width / grid.m * 1e3
+    print(f"  {label}: {got_mm:.4f} mm vs the JAX package's {ref_mm} mm (bound +-{bar:.2f} "
+          f"mm, half a voxel)")
+    check(abs(got_mm - ref_mm) <= bar, f"{label}: {got_mm:.4f} mm is not within half a voxel "
+          f"of the JAX package's {ref_mm} mm")
+
+
+def ply_faces(path):
+    """The face count of a PLY that export_ply wrote; checks its size."""
+    with open(path, "rb") as f:
+        head = f.read(512).partition(b"end_header\n")[0].decode()
+    n_faces = int(head.split("element face ")[1].split()[0])
+    check(os.path.getsize(path) == len(head) + 11 + n_faces * (3 * 15 + 13),
+          f"{path}: the PLY's size does not match its header")
+    return n_faces
+
+
+def k1_at_path(name, grid, pose, pts, cfg):
+    """K1's dense reduction and step against their plain versions on one
+    dense path's final grid, at the preset's stride: the shapes that path
+    launches them at."""
+    from tracking_sdf_tpu_torch.grid.interp import masked_view
+
+    Dm = masked_view(grid.D, grid.W)
+    stride = (cfg.tracking.pixel_stride,)
+    return dict(gn_reduce=gn_compare(f"K1 gn_reduce (dense, {name})", Dm, pose, pts, cfg.grid,
+                                     stride),
+                gn_step=step_compare(f"K1 gn_step (dense, {name})", Dm, pose, pts, cfg.grid,
+                                     cfg.tracking, stride))
+
+
+def central_on_cpu(cfg, cam, depths, poses, rgb, n, pose_card):
+    """The central tracker's run on the CPU over the card's own inputs (the
+    same depth images, copied): which side a gap to the JAX figure comes
+    from."""
+    from tracking_sdf_tpu_torch.core.lie import Pose
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    t0 = time.perf_counter()
+    cpu = Pose(poses[0].R.cpu(), poses[0].t.cpu())
+    recon = Reconstruction(cam, cfg, initial_pose=cpu, device="cpu")
+    for k in range(n + 1):
+        recon.process_frame(depths[k].cpu(), rgb=rgb.cpu(), timestamp=float(k))
+    t_err = (recon.pose.t - poses[n].t.cpu()).norm().item() * 1e3
+    gap = (recon.pose.t - pose_card.t.cpu()).norm().item() * 1e3
+    print(f"  tum128_central on the CPU ({torch.get_num_threads()} threads, "
+          f"{time.perf_counter() - t0:.1f} s): final |t err| {t_err:.4f} mm; |t| card - CPU "
+          f"{gap:.4f} mm")
+    return dict(t_err_cpu_mm=t_err, card_vs_cpu_mm=gap)
+
+
+def dense_paths(cam, depths, poses, rgb, dev, work):
+    """The dense presets: synthetic64 through the CLI, the 2-D filter alone,
+    tum128 per frame (analytic and central) and over phase 7's frames, and
+    tum256 --fusion-mode dense over them. Returns their records."""
+    from tracking_sdf_tpu_torch import cli
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.tracking.preprocess import bilateral_filter, preprocess_frame
+
+    recs = {}
+    ply = os.path.join(work, "synthetic64.ply")
+    s, recon, launches, rejected = cli_run("synthetic64 (the JAX README's first command)", [
+        "--preset", "synthetic64", "--synthetic", "--frames", "20", "--mesh", ply,
+        "--trajectory", os.path.join(work, "synthetic64.txt")], work)
+    faces = ply_faces(ply)
+    cfg = preset("synthetic64")
+    within_half_voxel("synthetic64 ATE", s["ate_rmse_m"] * 1e3, JAX_SYNTHETIC64_ATE_MM, cfg.grid)
+    check(s["frames"] == 20 and rejected == 0 and faces > 1000
+          and launches["gn_step"] == 19 * cfg.tracking.max_iterations
+          and launches["brick_fuse_rows"] == 0, f"synthetic64: {s}, launches {launches}")
+    recs["synthetic64"] = dict(launches=launches, tracked=19, fused=20, faces=faces,
+                               ate_mm=s["ate_rmse_m"] * 1e3, steady_ms=s["steady_ms"])
+    # K1's dense form at this path's shapes: the final 64^3 grid, queried
+    # from the last tracked pose with the frame before's points (a step with
+    # motion to solve), at the preset's stride
+    frames, cam_s, _ = cli._synthetic_dataset(cfg, 20, dev)
+    pts, _ = preprocess_frame(torch.as_tensor(frames[18].depth, device=dev), cam=cam_s,
+                              bilateral_mode=cfg.bilateral_mode)
+    recs["k1"] = {"synthetic64": k1_at_path("synthetic64", recon.grid, recon.pose, pts, cfg)}
+    del recon, frames
+
+    d = depths[1]
+    ms = cuda_time_ms(lambda: bilateral_filter(d))
+    dev_ms, ops = all_device_ms(lambda: bilateral_filter(d))
+    print(f"full 2-D bilateral filter at {d.shape[1]}x{d.shape[0]} (11x11 taps at once): "
+          f"{ms:.3f} ms a call (median of CUDA events), device {dev_ms:.3f} ms in {ops:.0f} "
+          f"device ops")
+    recs["bilateral"] = dict(ms=ms, device_ms=dev_ms, device_ops=ops)
+
+    n = TRACKED["tum256"]
+    for label, jacobian in (("tum128", "analytic"), ("tum128_central", "central")):
+        c = preset("tum128")
+        c = dataclasses.replace(c, trajectory_path=None,
+                                tracking=c.tracking._replace(jacobian=jacobian))
+        rec, recon = bench_path(f"{label} per frame", c, cam, depths, poses, rgb, dev, n)
+        within_half_voxel(f"{label} final |t err|", rec["t_err_mm"], JAX_T_ERR_MM[label],
+                          c.grid)
+        want = n * c.tracking.max_iterations if jacobian == "analytic" else 0
+        check(rec["launches"]["gn_step"] == want and rec["launches"]["brick_fuse_rows"] == 0,
+              f"{label}: launches {rec['launches']}")
+        recs[label] = rec
+        if jacobian == "analytic":
+            # K1 at this path's shapes: the final 128^3 grid, the last
+            # frame's points from the pose before it
+            pts, _ = preprocess_frame(depths[n], cam=cam, bilateral_mode=c.bilateral_mode)
+            recs["k1"]["tum128"] = k1_at_path("tum128", recon.grid, poses[n - 1], pts, c)
+        else:
+            recs[label].update(central_on_cpu(c, cam, depths, poses, rgb, n, recon.pose))
+        del recon
+
+    root = os.path.join(work, "seq")
+    loader = ["--native-loader"] if zlib_header_present() else []
+    for label, name, ref, extra in (
+            ("tum128_dataset", "tum128", "tum128", []),
+            ("tum256_dense", "tum256", "tum256_dense", ["--fusion-mode", "dense"])):
+        cfg = preset(name)
+        mark = memory_mark()
+        s, recon, launches, rejected = cli_run(
+            f"{label} over the {DATASET_FRAMES} frames",
+            ["--preset", name, "--dataset", root, "--trajectory",
+             os.path.join(work, f"{label}.txt")] + loader + extra, work)
+        peak = peak_gib_above(mark)
+        per = ((len(cfg.pyramid_levels) - 1) * COARSE_ITERATIONS if cfg.pyramid_levels
+               else 0) + cfg.tracking.max_iterations
+        print(f"  {label}: steady {s['steady_ms']:.3f} ms/frame, track {s['track_ms_mean']:.3f} "
+              f"and fuse {s['fuse_ms_mean']:.3f} ms a frame (means), peak {peak:.2f} GiB "
+              f"above what was allocated before")
+        within_half_voxel(f"{label} ATE", s["ate_rmse_m"] * 1e3, JAX_ATE_MM[ref], cfg.grid)
+        check(s["frames"] == DATASET_FRAMES and rejected == 0
+              and launches["gn_step"] == per * (DATASET_FRAMES - 1)
+              and launches["gn_step_brick"] == launches["brick_fuse_rows"] == 0,
+              f"{label}: {s}, launches {launches}")
+        recs[label] = dict(launches=launches, tracked=DATASET_FRAMES - 1,
+                           fused=DATASET_FRAMES, ate_mm=s["ate_rmse_m"] * 1e3,
+                           steady_ms=s["steady_ms"], track_ms=s["track_ms_mean"],
+                           fuse_ms=s["fuse_ms_mean"], peak_gib=peak, run_s=s["run_s"])
+        del recon
+        torch.cuda.empty_cache()
+    return recs
+
+
+def flat_tails(cam, scene, depths, poses, rgb, dev):
+    """The flat slice with each merge tail, tracked; then the three tails
+    fusing the same five frames at their true poses."""
+    from tracking_sdf_tpu_torch.fusion.brick import fuse_frame_bricked
+    from tracking_sdf_tpu_torch.grid.grid import FIELDS, empty_grid
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+
+    recs = {}
+    for merge in ("xla", "rows", "pallas"):
+        c = path_config("slice", None)
+        c = dataclasses.replace(c, fusion=c.fusion._replace(brick_merge=merge))
+        rec, recon = bench_path(f"slice, brick_merge {merge}", c, cam, depths, poses, rgb,
+                                dev, TRACKED["slice"])
+        k2 = rec["launches"]["brick_merge"]
+        check(k2 == (rec["fused"] if merge == "pallas" else 0)
+              and rec["launches"]["gn_step"] > 0, f"slice {merge}: launches {rec['launches']}")
+        recs[f"slice_{merge}"] = rec
+        del recon
+    c = path_config("slice", None)
+    grids = {}
+    for merge in ("xla", "rows", "pallas"):
+        g = empty_grid(c.grid, device=dev)
+        for k in range(TRACKED["slice"] + 1):
+            pts, nrm = preprocess_frame(depths[k], cam=cam, bilateral_mode=c.bilateral_mode)
+            fuse_frame_bricked(g, poses[k], pts, nrm, rgb, params=c.grid, cam=cam,
+                               cfg=c.fusion, bs=c.fusion.brick_shape, cap=c.fusion.brick_cap,
+                               merge=merge)
+        grids[merge] = g
+    errs = {m: max(float((getattr(grids[m], k) - getattr(grids["pallas"], k)).abs().max())
+                   for k in FIELDS) for m in ("xla", "rows")}
+    t_err = {m: round(recs[f"slice_{m}"]["t_err_mm"], 3) for m in ("xla", "rows", "pallas")}
+    print(f"flat tails at the true poses ({TRACKED['slice'] + 1} frames, 256^3): max |leaf - "
+          f"pallas tail's| {errs} (tol {TAIL_TOL:g}); tracked |t err| {t_err} mm")
+    check(all(e <= TAIL_TOL for e in errs.values()), f"the flat tails disagree: {errs}")
+    recs["tails_max_err"] = errs
+    del grids
+    torch.cuda.empty_cache()
+    return recs
+
+
+def sat_runs(name, cam, depths, poses, rgb, dev):
+    """sat_skip at max_weight 4, per frame and chunked, against the run
+    without it: bitwise with every FREE brick kept (cap_free = NB), and the
+    FREE counts at the preset's own cap_free. Returns the records."""
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    base = path_config(name, None)
+    nb = (base.grid.m // 8) ** 3
+    n = TRACKED[name] + 1
+    half = (n - 1) // 2
+    recs = {}
+
+    def run(skip, cap_free, chunked):
+        f = base.fusion._replace(max_weight=SAT_MAX_WEIGHT, sat_skip=skip,
+                                 brick_cap_free=cap_free)
+        recon = Reconstruction(cam, dataclasses.replace(base, fusion=f), initial_pose=poses[0],
+                               device=dev)
+        recon.chunk_phase_metrics = False
+        reset_counters()
+        recon.process_frame(depths[0], rgb=rgb, timestamp=0.0)
+        fuse = [recon.last_fuse_stats]
+        if chunked:
+            for k, size in ((1, half), (1 + half, n - 1 - half)):
+                recon.process_chunk(torch.stack(depths[k:k + size]),
+                                    rgb[None].expand(size, -1, -1, -1))
+                fuse += recon.chunk_fuse_stats
+        else:
+            for k in range(1, n):
+                recon.process_frame(depths[k], rgb=rgb, timestamp=float(k))
+                fuse.append(recon.last_fuse_stats)
+        torch.cuda.synchronize()
+        return recon, fuse, counters()
+
+    def same_rows(a, b):
+        return all(torch.equal(x.view(torch.int16), y.view(torch.int16))
+                   for x, y in zip((a.D, a.W, a.C), (b.D, b.W, b.C)))
+
+    for cap_free, tag in ((nb, "NB"), (base.fusion.brick_cap_free, "preset")):
+        off, f_off, _ = run(False, cap_free, False)
+        on, f_on, l_on = run(True, cap_free, False)
+        onc, f_onc, l_onc = run(True, cap_free, True)
+        equal = same_rows(off.brick_grid, on.brick_grid)
+        equal_c = same_rows(on.brick_grid, onc.brick_grid)
+        print(f"{name} sat_skip, max_weight {SAT_MAX_WEIGHT:g}, cap_free {cap_free} ({tag}): "
+              f"per frame n_free / overflow_active / n_sat with the skip "
+              f"{[(s.n_free, s.overflow_active, s.n_sat) for s in f_on]}, without "
+              f"{[(s.n_free, s.overflow_active, s.n_sat) for s in f_off]}; chunked "
+              f"{[(s.n_free, s.overflow_active, s.n_sat) for s in f_onc]}; rows equal to the "
+              f"run without the skip {equal}, chunked equal to per frame {equal_c}; launches "
+              f"{l_on} per frame, {l_onc} chunked")
+        check(l_on["brick_fuse_rows_sat"] == n and l_on["brick_fuse_rows"] == 0
+              and l_onc["brick_fuse_rows_sat"] == n,
+              f"{name} sat_skip: the sat form must launch once per fused frame: {l_on}, {l_onc}")
+        # the per-frame loop adapts its FULL cap, the chunk holds the maximum:
+        # equal unless the per-frame run dropped FULL bricks
+        full_drop = any(s.overflow for s in f_on)
+        check((equal_c and f_onc == f_on) or full_drop,
+              f"{name} sat_skip: chunked differs from per frame")
+        if tag == "NB":
+            check(equal and f_on[-1].n_sat > 0,
+                  f"{name} sat_skip with every FREE brick kept: rows equal {equal}, n_sat "
+                  f"{f_on[-1].n_sat}")
+        recs[tag] = dict(n_free_on=[s.n_free for s in f_on], n_free_off=[s.n_free for s in f_off],
+                         overflow_on=[s.overflow_active for s in f_on],
+                         overflow_off=[s.overflow_active for s in f_off],
+                         n_sat=[s.n_sat for s in f_on], rows_equal=equal)
+        recs[f"launches_{tag}"] = l_on
+        del off, on, onc
+        torch.cuda.empty_cache()
+    return dict(recs, launches={k: recs["launches_NB"][k] + recs["launches_preset"][k]
+                                for k in recs["launches_NB"]},
+                fused=2 * n, tracked=2 * (n - 1))
+
+
+def band_leap_margin(grid, pose, p, cam, rcfg):
+    """far_field="chamfer"'s soundness on one render, as
+    tests/test_torch_raycast_skip.py holds it at m=64: every band leap taken
+    before a ray first enters a surface-band brick lands at least one voxel
+    cell's diagonal before that entry (sampled every 1/20 voxel). A step
+    longer than the nearest voxel's ordinary step is a leap. Returns (leaps
+    checked, least margin in m; >= 0 is sound)."""
+    from tracking_sdf_tpu_torch.core.camera import pixel_rays
+    from tracking_sdf_tpu_torch.grid.grid import world_to_voxel
+    from tracking_sdf_tpu_torch.grid.interp import masked_view
+    from tracking_sdf_tpu_torch.render import raycast as rc
+
+    samples, real = [], rc._leap  # each nearest step's sample points
+    rc._leap = lambda mip, uvw, ext: samples.append(uvw) or real(mip, uvw, ext)
+    try:
+        rc.raycast(grid, pose, params=p, cam=cam, cfg=rcfg._replace(far_field="chamfer"))
+    finally:
+        rc._leap = real
+    dev = grid.D.device
+    d = rc._rotate(pose.R, pixel_rays(cam, 1, device=dev)[0]).reshape(-1, 3)
+    u = d / d.norm(dim=-1, keepdim=True)
+    Dm = masked_view(grid.D, grid.W)
+    band = rc._band_skip_mip(Dm, p, rcfg.far_band)
+    nb, m = band.shape[0], p.m
+    entry = torch.full((u.shape[0],), float("inf"), device=dev)
+    for c in torch.split(torch.arange(rcfg.t_near, rcfg.t_far, min(p.voxel_size) / 20,
+                                      device=dev), 64):
+        uvw = world_to_voxel(p, pose.t + c[None, :, None] * u[:, None, :])
+        b = (uvw / 8).to(torch.int64).clamp(0, nb - 1)
+        inb = ((uvw >= 0) & (uvw < m)).all(-1) & (band[b[..., 0], b[..., 1], b[..., 2]] == 0)
+        entry = torch.minimum(entry, torch.where(inb.any(1), c[inb.to(torch.int8).argmax(1)],
+                                                 float("inf")))
+        del uvw, b, inb
+    scale = torch.tensor([m / e for e in p.extent], device=dev)
+    origin = torch.tensor(p.origin, device=dev)
+    h_max = max(p.extent) / m
+    delta = p.delta
+    miss = rcfg.miss_step if rcfg.miss_step > 0 else delta / 2
+    diag = math.sqrt(sum(v * v for v in p.voxel_size))
+    n_taken, margin = 0, float("inf")
+    t_prev = None
+    for uvw in samples:
+        t = (((uvw + 0.5) / scale + origin - pose.t) * u).sum(-1)
+        if t_prev is not None:
+            n = torch.round(uvw_prev).clamp(0, m - 1).to(torch.int64)
+            phi = Dm[n[:, 0], n[:, 1], n[:, 2]].float()
+            ordinary = torch.where(torch.isfinite(phi), (phi - rc._LIPSCHITZ_MARGIN * h_max)
+                                   .clamp(min=0.0) * rcfg.step_scale, miss).clamp(max=delta)
+            taken = (t_prev < entry) & (t - t_prev > ordinary + 1e-5)
+            n_taken += int(taken.sum())
+            if bool(taken.any()):
+                margin = min(margin, float((entry - diag - t)[taken].min()))
+        t_prev, uvw_prev = t, uvw
+    return n_taken, margin
+
+
+def skip_renders(name, rows, pose, cam):
+    """Renders of one preset's final rows from phase 5 with empty_skip and
+    with far_field="chamfer" against the plain march (stride 1, 640x480),
+    and the band leap's soundness on the chamfer render."""
+    from tracking_sdf_tpu_torch.fusion.brickmajor import BrickGrid, dense_from_brick_grid
+    from tracking_sdf_tpu_torch.render.raycast import raycast
+
+    cfg = path_config(name, None)
+    p = cfg.grid
+    grid = dense_from_brick_grid(BrickGrid(*rows), p, cfg.fusion.brick_shape)
+
+    def render(**kw):
+        return raycast(grid, pose, params=p, cam=cam, cfg=cfg.raycast._replace(**kw))
+
+    out = {}
+    plain = render()
+    for label, kw in (("plain", {}), ("empty_skip", dict(empty_skip=True)),
+                      ("chamfer", dict(far_field="chamfer"))):
+        r = render(**kw)
+        ms = cuda_time_ms(lambda: render(**kw), reps=RENDER_REPS, warmup=0)
+        differ = (r.hit != plain.hit).float().mean().item()
+        both = r.hit & plain.hit
+        err = (r.depth - plain.depth).abs()[both]
+        share = (err <= 1e-4).float().mean().item()
+        out[label] = dict(ms=ms, median_steps=float(r.steps.float().median()),
+                          mean_steps=r.steps.float().mean().item(), hit_differ=differ,
+                          lost=int((plain.hit & ~r.hit).sum()),
+                          gained=int((r.hit & ~plain.hit).sum()),
+                          max_depth_err=float(err.max()), depth_share=share,
+                          dropped=int(r.dropped))
+        print(f"  {name} render {label}: {ms:.3f} ms (median of {RENDER_REPS}), median steps "
+              f"{out[label]['median_steps']:.0f}, mean {out[label]['mean_steps']:.2f}, "
+              f"dropped {int(r.dropped)}; hit masks differ from the plain march on "
+              f"{differ:.5f} of the pixels ({out[label]['lost']} hits lost, "
+              f"{out[label]['gained']} gained), depth within 1e-4 m on {share:.5f} of common "
+              f"hits, largest difference {out[label]['max_depth_err']:.4g} m")
+        check(differ <= SKIP_DIFFER_MAX and share >= SKIP_DEPTH_SHARE
+              and out[label]["mean_steps"] <= out["plain"]["mean_steps"],
+              f"{name}: the {label} render departs from the plain march")
+    n_taken, margin = band_leap_margin(grid, pose, p, cam, cfg.raycast)
+    print(f"  {name} band leaps: {n_taken} taken before a ray's first band brick; the "
+          f"closest landed {margin:.4f} m before the point one cell diagonal short of its "
+          f"entry (>= 0: sound)")
+    check(n_taken > 1000 and margin >= -1e-5,
+          f"{name}: a band leap lands within a cell diagonal of the band ({margin})")
+    out["chamfer"].update(leaps_checked=n_taken, leap_margin_m=margin)
+    del grid
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs "
@@ -1790,6 +2334,9 @@ def main() -> int:
     k2_rows = kernel_merge_rows(dev)
     k2_fuse = {name: fuse_rows_compare(name, cam, scene, poses, rgb, dev)
                for name in ("tum256", "tum512")}
+    print(f"phase 9: K2 with the sat_skip bitset on {gpu_line()}")
+    k2_sat = {name: fuse_rows_sat_compare(name, cam, scene, poses, rgb, dev)
+              for name in ("tum256", "tum512")}
     small_parity(dev)
 
     depths = [render_scene_depth(scene, cam, p) for p in poses]
@@ -1816,13 +2363,26 @@ def main() -> int:
         render_mesh_parity(dev)
         phase8 = {}
         for name in CHUNKS:
-            rows, pose = finals.pop(name)
+            rows, pose = finals[name]
             phase8[name] = render_mesh_full(name, rows, pose, poses[TRACKED[name]], cam, scene,
                                             dev, work)
             del rows
             torch.cuda.empty_cache()
         paths["tum256_render"] = cli_render_phase(work, paths["tum256_dataset"])
         phase8["cli"] = {k: v for k, v in paths["tum256_render"].items() if k != "launches"}
+
+        print(f"phase 9: the reference-exact path and the remaining modes on {gpu_line()}")
+        phase9 = {"k2_sat": k2_sat}
+        dense = dense_paths(cam, depths, poses, rgb, dev, work)
+        tails = flat_tails(cam, scene, depths, poses, rgb, dev)
+        sat = {name: sat_runs(name, cam, depths, poses, rgb, dev) for name in CHUNKS}
+        paths.update({k: v for k, v in {**dense, **tails}.items() if "launches" in v})
+        paths.update({f"{name}_sat": v for name, v in sat.items()})
+        phase9.update(dense=dense, tails=tails, sat=sat, renders={})
+        for name in CHUNKS:
+            rows, pose = finals.pop(name)
+            phase9["renders"][name] = skip_renders(name, rows, pose, cam)
+            del rows
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1840,20 +2400,36 @@ def main() -> int:
     gn_tpu = "tracking_sdf_tpu/tracking/pallas_gn.py:82"
     merge_tpu = "tracking_sdf_tpu/fusion/pallas_merge.py:94"
     presets = ("tum256", "tum512", "tum256_chunk", "tum512_chunk", "tum256_dataset",
-               "tum512_dataset", "tum256_render")
+               "tum512_dataset", "tum256_render", "tum256_sat", "tum512_sat")
+    dense_paths_ = ("slice", "slice_xla", "slice_rows", "slice_pallas", "synthetic64",
+                    "tum128", "tum128_dataset", "tum256_dense")
+    def at_paths(form, rec):
+        """The slice's record with the dense presets' own, and the largest
+        error of them all."""
+        more = {name: r[form] for name, r in phase9["dense"]["k1"].items()}
+        return dict(rec, max_abs_err=max([rec["max_abs_err"]]
+                                          + [r["max_abs_err"] for r in more.values()]),
+                    **more)
+
     kernels = [
-        entry("gn_reduce", "gn_reduce.cu", gn_tpu, ("slice",), "tracked", k1_dense),
+        entry("gn_reduce", "gn_reduce.cu", gn_tpu, dense_paths_, "tracked",
+              at_paths("gn_reduce", k1_dense)),
         entry("gn_reduce_brick", "gn_reduce.cu", gn_tpu, presets, "tracked", k1_brick),
-        entry("gn_step", "gn_reduce.cu", gn_tpu, ("slice",), "tracked", k1_step_dense),
+        entry("gn_step", "gn_reduce.cu", gn_tpu, dense_paths_, "tracked",
+              at_paths("gn_step", k1_step_dense)),
         entry("gn_step_brick", "gn_reduce.cu", gn_tpu, presets, "tracked", k1_step_brick),
-        entry("brick_merge", "brick_merge.cu", merge_tpu, ("slice",), "fused", k2_dense),
+        entry("brick_merge", "brick_merge.cu", merge_tpu, ("slice", "slice_pallas"), "fused",
+              k2_dense),
         entry("brick_merge_rows", "brick_merge.cu", merge_tpu, presets, "fused", k2_rows),
         entry("brick_fuse_rows", "brick_fuse.cu", merge_tpu, presets, "fused",
               dict(k2_fuse["tum256"][True], tum256_geometry=k2_fuse["tum256"][False],
                    tum512_color=k2_fuse["tum512"][True],
                    tum512_geometry=k2_fuse["tum512"][False])),
+        entry("brick_fuse_rows_sat", "brick_fuse.cu", merge_tpu, presets, "fused",
+              dict(k2_sat["tum256"], tum512=k2_sat["tum512"])),
     ]
     print(json.dumps({"phase8": phase8}))
+    print(json.dumps({"phase9": phase9}))
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

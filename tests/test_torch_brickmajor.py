@@ -184,7 +184,8 @@ def _fuse_both(cfg, frames, cap, cap_free, vdt, wdt, params=PARAMS, cam=CAM):
         assert tview.rows is tb.D
         got = dataclasses.astuple(st)
         want = tuple(int(getattr(sj, k)) for k in
-                     ("n_full", "overflow", "n_free", "overflow_active", "overflow_mixed"))
+                     ("n_full", "overflow", "n_free", "overflow_active", "overflow_mixed",
+                      "n_sat"))
         assert got == want, (got, want)
         yield jb, tb, st
 

@@ -5,6 +5,7 @@ package's, and the device rule. Sizes and the m=96 configuration are those of
 tests/test_torch_cli.py; ATE bounds are its 0.05 m (half a 62 mm voxel and
 far under the centimetres a lost tracker shows).
 """
+import dataclasses
 import json
 import os
 
@@ -133,8 +134,7 @@ UNPORTED_ARGS = {
     "distributed": ["--distributed"], "multihost": ["--multihost"],
     "coordinator": ["--coordinator", "localhost:1234"],
     "num_processes": ["--num-processes", "2"], "process_id": ["--process-id", "0"],
-    "debug_nans": ["--debug-nans"], "fusion_dense": ["--fusion-mode", "dense"],
-    "fusion_packed": ["--fusion-mode", "packed"],
+    "debug_nans": ["--debug-nans"], "fusion_packed": ["--fusion-mode", "packed"],
 }
 
 
@@ -149,7 +149,36 @@ def test_unported_flag_exits_2(flag, sequence, tmp_path, monkeypatch, capsys):  
     assert rc == 2 and len(err.splitlines()) == 1
     assert UNPORTED_ARGS[flag][0] in err and "ROADMAP" in err
     assert not traj.exists()
-    assert set(cli.UNPORTED) | {"fusion_dense", "fusion_packed"} == set(UNPORTED_ARGS)
+    assert set(cli.UNPORTED) | {"fusion_packed"} == set(UNPORTED_ARGS)
+
+
+def test_preset_synthetic64_runs(tmp_path, capsys):
+    """The JAX README's first command, shortened to 3 frames: the synthetic64
+    preset as it is (dense fusion, the full 2-D filter) runs and meshes."""
+    ply, traj = tmp_path / "scene.ply", tmp_path / "t.txt"
+    rc = cli.main(["--preset", "synthetic64", "--synthetic", "--frames", "3", "--mesh",
+                   str(ply), "--eval", "--json", "--cpu", "--trajectory", str(traj)])
+    out = capsys.readouterr()
+    assert rc == 0, out.err
+    s = json.loads(out.out.strip().splitlines()[-1])
+    assert s["frames"] == 3 and s["ate_pairs"] == 3 and s["ate_rmse_m"] < 0.01
+    assert ply.read_bytes().startswith(b"ply\n") and "mesh:" in out.err
+
+
+def test_preset_with_unported_mode_exits_2(tmp_path, monkeypatch, capsys):
+    """A preset whose own modes are not ported exits 2 with one line that
+    names the ROADMAP item, and no traceback."""
+    from tracking_sdf_tpu_torch import config
+
+    base = config.preset("synthetic64")
+    monkeypatch.setattr(config, "preset", lambda name: dataclasses.replace(
+        base, fusion=base.fusion._replace(mode="packed")))
+    traj = tmp_path / "t.txt"
+    rc = cli.main(["--synthetic", "--frames", "2", "--cpu", "--trajectory", str(traj)])
+    err = capsys.readouterr().err.strip()
+    assert rc == 2 and len(err.splitlines()) == 1
+    assert "packed" in err and "ROADMAP" in err and "Traceback" not in err
+    assert not traj.exists()
 
 
 def test_parser_has_every_jax_flag():

@@ -141,5 +141,11 @@ def test_preprocess_matches_jax():
         np.testing.assert_array_equal(np.isnan(_np(a)), np.isnan(_np(b)))
         np.testing.assert_allclose(_np(a), _np(b), atol=1e-5)
     assert np.isfinite(_np(nt)).all(-1).mean() > 0.5
-    with pytest.raises(NotImplementedError):
-        tpre.preprocess_frame(torch.from_numpy(depth), cam=CAM, bilateral_mode="full")
+    # the full 2-D kernel (the default mode): the same terms summed in
+    # another order, so within the JAX loop's own float32 rounding
+    pj, _ = jpre.preprocess_frame(jnp.asarray(depth), cam=jc, bilateral_mode="full")
+    pt, _ = tpre.preprocess_frame(torch.from_numpy(depth), cam=CAM, bilateral_mode="full")
+    np.testing.assert_array_equal(np.isnan(_np(pt)), np.isnan(_np(pj)))
+    np.testing.assert_allclose(_np(pt), _np(pj), atol=1e-5)
+    with pytest.raises(ValueError):
+        tpre.preprocess_frame(torch.from_numpy(depth), cam=CAM, bilateral_mode="box")

@@ -291,6 +291,113 @@ def test_brick_fuse_rows_kernel_matches_plain(dev, distance, weighting, color, v
     assert torch.equal(lk[2], C) != color  # color on FULL slots only
 
 
+@pytest.mark.parametrize("vdt,wdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.float32)])
+@pytest.mark.parametrize("color", [True, False])
+@pytest.mark.parametrize("weighting", ["exponential", "linear"])
+@pytest.mark.parametrize("distance", ["point_to_point", "point_to_plane"])
+def test_brick_fuse_rows_sat_kernel_matches_plain(dev, distance, weighting, color, vdt, wdt):
+    """The saturated-FREE skip's bitset through K2: half the FREE rows sit at
+    their fixed point (D = delta, W = max_weight), and the bits start random.
+    Rows and bitset bitwise equal to the plain version: FULL bricks' bits
+    cleared, FREE bricks' bits set exactly where their rows came out
+    unchanged, other bricks' bits untouched."""
+    cam, cfg, pose, pix, ids = _scene_frame(dev, distance, color)
+    cfg = cfg._replace(weighting=weighting)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    nb, bv = (PARAMS.m // 8) ** 3, 512
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device=dev)
+
+    W = rand(nb, bv, lo=-20.0, hi=140.0).clamp(0.0, 128.0)
+    D = torch.where(W > 0, rand(nb, bv, lo=-0.15, hi=0.15), float("nan"))
+    free = ids[96:][ids[96:] < nb].long()
+    D[free[::2]], W[free[::2]] = PARAMS.delta, 128.0
+    C = pack_color(*(rand(nb, bv).to(vdt) for _ in range(3)),
+                   rand(nb, bv, lo=0.0, hi=140.0).clamp(max=128.0).to(wdt))
+    lk = [D.to(vdt), W.to(wdt), C.clone()]
+    lr = [x.clone() for x in lk]
+    sat0 = rand(nb) < 0.5
+    sk, sr = sat0.clone(), sat0.clone()
+    kw = dict(cap=96, hw=(72, 96), params=PARAMS, cam=cam, cfg=cfg, bs=(8, 8, 8))
+    before = (brick_fuse.launches, brick_fuse.launches_sat)
+    brick_fuse.brick_fuse_rows(*lk, ids, pix, pose, sat=sk, **kw)
+    brick_fuse.brick_fuse_rows_reference(*lr, ids, pix, pose, sat=sr, **kw)
+    assert (brick_fuse.launches, brick_fuse.launches_sat) == (before[0], before[1] + 1)
+    for a, b in zip(lk, lr):
+        nan = torch.isnan(b) if b.is_floating_point() else torch.zeros_like(b, dtype=bool)
+        assert torch.equal(torch.isnan(a) if a.is_floating_point() else nan, nan)
+        bits = torch.int16 if a.element_size() == 2 else torch.int32
+        assert torch.equal(a[~nan].view(bits), b[~nan].view(bits))
+    assert torch.equal(sk, sr)
+    full = ids[:96][ids[:96] < nb].long()
+    listed = torch.zeros(nb, dtype=torch.bool, device=dev)
+    listed[full], listed[free] = True, True
+    assert not bool(sk[full].any()) and bool(sk[free[::2]].all())
+    assert not bool(sk[free[1::2]].any())
+    assert torch.equal(sk[~listed], sat0[~listed])
+    # without the bitset the kernel writes what it wrote before
+    lp = [x.clone() for x in lr]
+    brick_fuse.brick_fuse_rows(*lk, ids, pix, pose, **kw)
+    brick_fuse.brick_fuse_rows(*lp, ids, pix, pose, sat=sr.clone(), **kw)
+    for a, b in zip(lk, lp):
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def test_dense_reconstruction_on_the_card_matches_cpu(dev):
+    """The dense path (PipelineConfig(): dense fusion, the full 2-D filter,
+    K1's dense float32 gn_step) at 48^3 on the card against the same loop on
+    the CPU, as smoke phase 4 holds the other layouts; the card launches
+    gn_step and no plain step."""
+    import dataclasses
+
+    from tracking_sdf_tpu_torch.config import PipelineConfig
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    params = GridParams(m=48, width=2.0, height=2.0, depth=2.0, origin=(-1.0, -1.0, -1.0),
+                        delta=0.15, epsilon=0.02)
+    cam = PinholeCamera(fx=60.0, fy=60.0, cx=47.5, cy=35.5, width=96, height=72)
+    parts = (SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
+             CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)))
+
+    class Scene:
+        def intersect(self, o, d):
+            t, tb = parts[0].intersect(o, d), parts[1].intersect(o, d)
+            return torch.where(torch.isnan(t), tb,
+                               torch.where(torch.isnan(tb), t, torch.minimum(t, tb)))
+
+    cfg = dataclasses.replace(PipelineConfig(), grid=params, trajectory_path=None)
+    eyes = [(0.0, -1.5, 0.2), (0.02, -1.5, 0.21), (0.04, -1.49, 0.22)]
+    runs = []
+    for d in ("cpu", dev, dev):
+        r = Reconstruction(cam, cfg, device=d,
+                           initial_pose=look_at(eyes[0], (0, 0, 0), device=d))
+        before = k1.launches_step
+        for i, e in enumerate(eyes):
+            depth = render_scene_depth(Scene(), cam, look_at(e, (0, 0, 0), device="cpu"))
+            r.process_frame(depth.to(d), rgb=torch.full((72, 96, 3), 0.5, device=d),
+                            timestamp=i)
+        runs.append((r, k1.launches_step - before))
+    (a, na), (b, nb_), (b2, _) = runs
+    assert na == 0 and nb_ == 2 * cfg.tracking.max_iterations, (na, nb_)
+    # the card's path is deterministic: a second run is bitwise the first
+    assert torch.equal(b.pose.t, b2.pose.t) and torch.equal(b.pose.R, b2.pose.R)
+    assert all(torch.equal(getattr(b.grid, k), getattr(b2.grid, k)) for k in FIELDS)
+    dt = float((a.pose.t - b.pose.t.cpu()).abs().max())
+    iters = ([s.gn_iterations for s in a.stats], [s.gn_iterations for s in b.stats])
+    ga, gb = a.grid, b.grid
+    seen, seen_b = ga.W > 0, gb.W.cpu() > 0
+    both = seen & seen_b
+    dD = float((ga.D - gb.D.cpu()).abs()[both].max())
+    dW = float((ga.W - gb.W.cpu()).abs().max())
+    report = (f"pose |dt| {dt:.3e}, GN iterations {iters}; W > 0 masks differ on "
+              f"{int((seen != seen_b).sum())} voxels, max |dD| {dD:.3e}, max |dW| {dW:.3e}")
+    print(report)
+    assert dt < 1e-4 and iters[0] == iters[1], report
+    assert seen.sum() > 1000 and torch.equal(seen, seen_b) and max(dD, dW) <= 1e-4, report
+
+
 @pytest.mark.parametrize("pose_init", ["previous", "velocity"])
 def test_chunk_replays_match_per_frame_loop(dev, pose_init):
     """process_chunk on the card (CUDA-graph replays; numpy uint16 depth and
@@ -338,6 +445,57 @@ def test_chunk_replays_match_per_frame_loop(dev, pose_init):
     for k in ("D", "W", "C"):
         a, b = getattr(chk.brick_grid, k), getattr(seq.brick_grid, k)
         assert torch.equal(a.view(torch.int16), b.view(torch.int16)), k
+
+
+def test_chunk_capture_with_a_collectable_older_reconstruction(dev, monkeypatch):
+    """A Reconstruction whose captured graphs became garbage (it sits in a
+    reference cycle with its chunk steps) must not be collected inside
+    another one's capture, where destroying a graph invalidates the capture.
+    The cyclic GC, when enabled, may run at any allocation; here it runs as
+    the next capture begins, just after the older one became garbage. The
+    second chunk's capture and its phase calibration succeed and agree with
+    the first."""
+    import dataclasses
+    import gc
+    import warnings
+
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    cam = PinholeCamera(fx=60.0, fy=60.0, cx=47.5, cy=35.5, width=96, height=72)
+    cfg = preset("tum256")
+    cfg = dataclasses.replace(cfg, grid=PARAMS, trajectory_path=None)
+    scene = _Union(SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
+                   CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)))
+    depths = torch.stack([render_scene_depth(scene, cam, look_at(
+        (0.02 * i, -1.5, 0.2 + 0.01 * i), (0, 0, 0), device="cpu")) for i in range(4)]).to(dev)
+    p0 = look_at((0.0, -1.5, 0.2), (0, 0, 0), device=dev)
+
+    def run():
+        r = Reconstruction(cam, cfg, initial_pose=p0, device=dev)
+        r.process_frame(depths[0], timestamp=0.0)
+        r.process_chunk(depths[1:])
+        return r
+
+    held = [run()]
+    pose = (held[0].pose.R.clone(), held[0].pose.t.clone())
+    assert held[0]._chunk_steps.recon is held[0]  # a cycle: only the cyclic GC frees it
+    begin = torch.cuda.CUDAGraph.capture_begin
+    collected = []
+
+    def capture_begin(self, *a, **k):
+        begin(self, *a, **k)
+        if held:
+            held.clear()  # the older Reconstruction is garbage from here on
+            if gc.isenabled():
+                collected.append(gc.collect())
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", capture_begin)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RuntimeWarning)
+        second = run()
+    assert not held and not collected  # no collection ran inside the capture
+    assert torch.equal(second.pose.R, pose[0]) and torch.equal(second.pose.t, pose[1])
 
 
 class _Union:

@@ -348,13 +348,6 @@ def test_raycast_rotation_gradient_finite_with_misses():
     np.testing.assert_allclose(R.grad.numpy(), want, rtol=1e-3, atol=1e-3 * np.abs(want).max())
 
 
-@pytest.mark.parametrize("option", [dict(empty_skip=True), dict(far_field="chamfer")])
-def test_raycast_unported_options_raise(option):
-    _, tg = sphere_grids()
-    with pytest.raises(NotImplementedError, match="queue 1 #7"):
-        raycast(tg, POSE, params=PARAMS, cam=CAM, cfg=RaycastConfig(**option))
-
-
 def test_raycast_matches_analytic_depth():
     """The port alone against the exact sphere: the thresholds of
     tests/test_render.py (hit agreement > 0.97, median |err| < 5 mm, 95th

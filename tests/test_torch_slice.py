@@ -135,7 +135,8 @@ def test_preset_matches_jax_runner(tmp_path, name, m, fusion):
                                    atol=TOL_POSE, err_msg=f"frame {i}")
         fj = f["fuse_j"]
         assert dataclasses.astuple(f["fuse_t"]) == tuple(int(getattr(fj, k)) for k in (
-            "n_full", "overflow", "n_free", "overflow_active", "overflow_mixed")), i
+            "n_full", "overflow", "n_free", "overflow_active", "overflow_mixed",
+            "n_sat")), i
         n_free += f["fuse_t"].n_free
     assert sum(s.gn_iterations for s in rt.stats) > 4
     assert not any(s.rejected for s in rt.stats)
@@ -169,9 +170,7 @@ def test_preset_mean_residual_matches_jax(tmp_path, name, m, fusion):
     assert all(f["st"].mean_abs_residual > 0 for f in run["frames"][1:])
 
 
-@pytest.mark.parametrize("fusion", [{"sat_skip": True}, {"mode": "packed"},
-                                    {"mode": "dense"}, {"mode": "bricked"}],
-                         ids=["sat_skip", "packed", "dense", "bricked_xla"])
+@pytest.mark.parametrize("fusion", [{"mode": "packed"}], ids=["packed"])
 def test_unported_modes_raise(fusion):
     cfg = preset("tum256")
     cfg = dataclasses.replace(cfg, trajectory_path=None,

@@ -33,10 +33,9 @@ UNPORTED = {
     "coordinator": "queue 1, multi-device",
     "num_processes": "queue 1, multi-device",
     "process_id": "queue 1, multi-device",
-    "debug_nans": "queue 1, optional modes",
+    "debug_nans": "queue 1, --debug-nans",
 }
-UNPORTED_FUSION_MODES = {"dense": "queue 1, other layouts and parity modes",
-                         "packed": "not to port (a measured negative)"}
+UNPORTED_FUSION_MODES = {"packed": "queue 1, not to port (a measured negative)"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -114,8 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fusion-mode",
                    choices=("dense", "bricked", "brickmajor", "packed"),
                    default=None,
-                   help="override the preset's fusion path (dense and "
-                        "packed are not ported)")
+                   help="override the preset's fusion path (packed is "
+                        "not ported)")
     p.add_argument("--distance", choices=("point_to_plane", "point_to_point"),
                    default=None, help="fusion distance")
     p.add_argument("--storage-dtype", choices=("float32", "bfloat16"), default=None,
@@ -154,12 +153,11 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _unported(args, parser) -> list:
     """One line per flag set that belongs to a part not ported yet."""
-    lines = []
-    for dest, item in UNPORTED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            lines.append(f"--{dest.replace('_', '-')} is not ported yet (ROADMAP {item})")
+    lines = [f"--{dest.replace('_', '-')} is not ported yet (ROADMAP {item})"
+             for dest, item in UNPORTED.items()
+             if getattr(args, dest) != parser.get_default(dest)]
     if args.fusion_mode in UNPORTED_FUSION_MODES:
-        lines.append(f"--fusion-mode {args.fusion_mode} is not ported yet (ROADMAP "
+        lines.append(f"--fusion-mode {args.fusion_mode} is not ported (ROADMAP "
                      f"{UNPORTED_FUSION_MODES[args.fusion_mode]})")
     return lines
 
@@ -183,7 +181,7 @@ def main(argv=None) -> int:
         return 1
 
     from tracking_sdf_tpu_torch import config
-    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction, unsupported
     from tracking_sdf_tpu_torch.pipeline.trajectory import (
         Trajectory, ate_rmse, read_trajectory, rpe_rmse)
 
@@ -231,6 +229,11 @@ def main(argv=None) -> int:
     if args.mesh_decimate:
         changes["mesh_decimate"] = args.mesh_decimate
     cfg = dataclasses.replace(cfg, **changes)
+    # the modes that the preset and the flags select, ported or not
+    refused = unsupported(cfg)
+    if refused:
+        print("error: not ported: " + "; ".join(refused), file=sys.stderr)
+        return 2
 
     if args.synthetic:
         dataset, cam, init_pose = _synthetic_dataset(cfg, args.frames or 20, device)

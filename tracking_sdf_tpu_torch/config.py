@@ -3,11 +3,11 @@
 The same classes, field names, field order, defaults and presets as the JAX
 package's ``config.py``, so that the two configurations compare field for
 field (``tests/test_torch_config.py``). The port keeps its own copy and
-imports nothing of the JAX package. Fields that select TPU-only layouts or
-modes the port has not taken up yet stay as fields; the port ignores those
-that change no output (``factored_share``, ``march_unroll``) and raises
-``NotImplementedError`` on the modes it does not run
-(``pipeline.runner._check_supported``). The reasons behind each preset's
+imports nothing of the JAX package. Fields that select TPU-only layouts
+stay as fields; the port ignores those that change no output
+(``factored_share``, ``march_unroll``) and raises ``NotImplementedError``
+on the one mode it does not run, ``FusionConfig(mode="packed")``
+(``pipeline.runner.unsupported``). The reasons behind each preset's
 settings, measured on the TPU, are in the JAX package's config comments and
 BENCHMARKS.md; they are no measurement of the port.
 """
@@ -47,8 +47,8 @@ class GridParams(NamedTuple):
 class TrackingConfig(NamedTuple):
     """Gauss-Newton tracker settings.
 
-    ``jacobian``: "analytic" (trilinear value and exact grid gradient; the
-    only one the port runs) or "central" (the reference's 13-probe scheme).
+    ``jacobian``: "analytic" (trilinear value and exact grid gradient) or
+    "central" (the reference's 13-probe scheme).
     ``convergence``: "norm" (max |twist| < max_twist_diff) or "signed" (the
     reference's quirk: all six signed components < threshold).
     ``pose_update``: "se3" (T <- exp(xi)^-1 ∘ T) or "reference" (the
@@ -83,6 +83,8 @@ class FusionConfig(NamedTuple):
     every Nth frame. ``hier_classify``: super-brick factor of the
     hierarchical classification (0/1 = off), bounded by ``cap_mixed``.
     ``free_fold``: FREE rows merged in the FULL pass (bitwise equal).
+    ``sat_skip``: brick-major only; FREE bricks whose update is a proven
+    bitwise no-op under the max_weight clamp leave the FREE candidates.
     """
 
     weighting: str = "exponential"
@@ -93,7 +95,7 @@ class FusionConfig(NamedTuple):
     brick_shape: Tuple[int, int, int] = (1, 8, 128)
     brick_cap: int = 6144
     brick_cap_free: int = 0  # FREE-brick row cap for brickmajor (0 = brick_cap)
-    brick_merge: str = "xla"  # merge tail of mode="bricked": "xla" or "pallas"
+    brick_merge: str = "xla"  # merge tail of mode="bricked": "xla", "rows" or "pallas"
     brick_cap_active: int = 0  # 0 = auto (4 * brick_cap)
     pixel_share: int = 1
     storage_dtype: str = "float32"
@@ -110,8 +112,9 @@ class FusionConfig(NamedTuple):
 
 class RaycastConfig(NamedTuple):
     """Sphere-tracing raycaster (render.raycast). ``empty_skip`` and
-    ``far_field="chamfer"`` are not ported (they raise); ``march_unroll``
-    is kept so that the configs compare field for field, and ignored."""
+    ``far_field="chamfer"`` leap through unobserved and far space;
+    ``march_unroll`` is kept so that the configs compare field for field,
+    and ignored."""
 
     max_steps: int = 64
     hit_epsilon: float = 1e-3  # meters

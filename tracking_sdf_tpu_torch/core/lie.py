@@ -105,6 +105,34 @@ def se3_exp(xi: torch.Tensor, dt: float = 1.0) -> Pose:
     return Pose(so3_exp(w), (so3_left_jacobian(w) @ v[..., None])[..., 0])
 
 
+def so3_log(R: torch.Tensor) -> torch.Tensor:
+    """Inverse of so3_exp, valid for theta in [0, pi): theta / (2 sin theta)
+    times the vee of the antisymmetric part (series 1/2 + theta^2/12 near 0)."""
+    trace = R[..., 0, 0] + R[..., 1, 1] + R[..., 2, 2]
+    theta = torch.arccos(torch.clamp((trace - 1.0) / 2.0, -1.0, 1.0))
+    vee = torch.stack([R[..., 2, 1] - R[..., 1, 2], R[..., 0, 2] - R[..., 2, 0],
+                       R[..., 1, 0] - R[..., 0, 1]], dim=-1)
+    theta_sq = theta * theta
+    small = theta_sq < _SMALL
+    safe = torch.where(small, torch.ones_like(theta), theta)
+    scale = torch.where(small, 0.5 + theta_sq / 12.0, safe / (2.0 * torch.sin(safe)))
+    return scale[..., None] * vee
+
+
+def se3_log(p: Pose) -> torch.Tensor:
+    """Inverse of se3_exp: Pose -> twist (v, w), v = V(w)^-1 t with
+    V^-1 = I - K/2 + coeff K^2, coeff = (1 - sinc / (2 mcosc)) / theta^2."""
+    w = so3_log(p.R)
+    theta_sq, K, KK, eye = _hat_and_square(w)
+    sinc, mcosc, _ = _theta_coeffs(theta_sq)
+    small = theta_sq < _SMALL
+    safe_sq = torch.where(small, torch.ones_like(theta_sq), theta_sq)
+    coeff = torch.where(small, 1.0 / 12.0 + theta_sq / 720.0,
+                        (1.0 - sinc / (2.0 * mcosc)) / safe_sq)
+    V_inv = eye - 0.5 * K + coeff[..., None, None] * KK
+    return torch.cat([(V_inv @ p.t[..., None])[..., 0], w], dim=-1)
+
+
 def quaternion_from_matrix(R: torch.Tensor) -> torch.Tensor:
     """Rotation matrix -> quaternion (x, y, z, w), TUM trajectory order.
 

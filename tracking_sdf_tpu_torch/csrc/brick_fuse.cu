@@ -22,6 +22,14 @@
 //   FREE  (slot >= cap): w = 1, w*d = +delta, geometry only.
 // The lists are disjoint and hold each brick once: no atomics, deterministic.
 //
+// The saturated-FREE skip (FusionConfig.sat_skip; the JAX package's `sat` in
+// tracking_sdf_tpu/fusion/brickmajor.py:462-470, 542-550): with a non-null
+// `sat` (one byte per brick, bool) a FULL block writes 0 for its brick, and a
+// FREE block writes 1 when the stored D and W of every voxel after the merge
+// equal their values before it (a block-wide AND, __syncthreads_and; NaN
+// never equals), else 0. Each block owns its brick's byte. With a null `sat`
+// the kernel writes exactly what it writes without the skip.
+//
 // What bounds it on the card: bytes. A FULL brick with color and bf16
 // storage reads and writes 1 KB each of D and W and its 4 KB row of C, and
 // reads its share groups' pixel rows (32 rows of 32 B with 4x4 sharing); a
@@ -180,7 +188,7 @@ __global__ void __launch_bounds__(kMaxThreads, 3)
 brick_fuse_rows_kernel(TV* __restrict__ D, TW* __restrict__ W, uint16_t* __restrict__ C,
                        const int* __restrict__ ids, const float* __restrict__ pix,
                        const float* __restrict__ pose_R, const float* __restrict__ pose_t,
-                       FuseArgs a) {
+                       uint8_t* __restrict__ sat, FuseArgs a) {
   using PV = typename Pair<TV>::type;
   using PW = typename Pair<TW>::type;
   extern __shared__ float4 group_rows[];  // (groups, channels / 4)
@@ -289,6 +297,20 @@ brick_fuse_rows_kernel(TV* __restrict__ D, TW* __restrict__ W, uint16_t* __restr
   }
   Dp[q] = dout;
   Wp[q] = wout;
+  if (sat != nullptr) {
+    // block-uniform branches: every thread of the block reaches the AND
+    const bool first = threadIdx.x == 0 && threadIdx.y == 0 && threadIdx.z == 0;
+    if (full) {
+      if (first) sat[b] = 0;
+    } else {
+      bool same = true;
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        same = same && to_f32(dn[e]) == to_f32(dr[e]) && to_f32(wn[e]) == to_f32(wr[e]);
+      const int all = __syncthreads_and(same);
+      if (first) sat[b] = all ? 1 : 0;
+    }
+  }
   if (color) {
     // no sanitising here, as in the merge; colors keep their bits where
     // w*cos == 0
@@ -318,13 +340,14 @@ brick_fuse_rows_kernel(TV* __restrict__ D, TW* __restrict__ W, uint16_t* __restr
 
 template <typename TV, typename TW>
 int launch(void* D, void* W, void* C, const int* ids, int n_ids, const float* pix,
-           const float* R, const float* t, const FuseArgs& a, cudaStream_t stream) {
+           const float* R, const float* t, uint8_t* sat, const FuseArgs& a,
+           cudaStream_t stream) {
   const int groups = a.bi * (a.bj / a.sj) * (a.bk / a.sk);
   const size_t smem = static_cast<size_t>(groups) * a.channels * sizeof(float);
   const dim3 block(a.bk / 2, a.bj, a.bi);
   brick_fuse_rows_kernel<TV, TW><<<n_ids, block, smem, stream>>>(
       static_cast<TV*>(D), static_cast<TW*>(W), static_cast<uint16_t*>(C), ids, pix, R,
-      t, a);
+      t, sat, a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -333,11 +356,12 @@ int launch(void* D, void* W, void* C, const int* ids, int n_ids, const float* pi
 // value_bf16 / weight_bf16 != 0: D (and R, G, B) / W (and Wc) are bfloat16,
 // else float32. The wrapper (fusion/brick_fuse.py) has checked shapes,
 // dtypes, the even k extent, the share groups and the table's alignment.
+// `sat` may be null (no saturated-FREE skip).
 extern "C" int tsdf_brick_fuse_rows(
     void* D, void* W, void* C, int c_width, int value_bf16, int weight_bf16,
     const int* ids, int n_ids, int cap, int nb, int bi, int bj, int bk, int m,
     const float* pix, int channels, int img_h, int img_w, const float* R,
-    const float* t, int sj, int sk, int point_to_plane, int weighting, float sx,
+    const float* t, void* sat_bytes, int sj, int sk, int point_to_plane, int weighting, float sx,
     float sy, float sz, float ox, float oy, float oz, float fx, float fy, float cx,
     float cy, float delta, float eps, float w_delta, float w_inv, float max_weight,
     cudaStream_t stream) {
@@ -374,9 +398,10 @@ extern "C" int tsdf_brick_fuse_rows(
   a.w_inv = w_inv;
   a.max_weight = max_weight;
   using bf16 = __nv_bfloat16;
+  uint8_t* sat = static_cast<uint8_t*>(sat_bytes);
   if (value_bf16 && weight_bf16)
-    return launch<bf16, bf16>(D, W, C, ids, n_ids, pix, R, t, a, stream);
-  if (value_bf16) return launch<bf16, float>(D, W, C, ids, n_ids, pix, R, t, a, stream);
-  if (weight_bf16) return launch<float, bf16>(D, W, C, ids, n_ids, pix, R, t, a, stream);
-  return launch<float, float>(D, W, C, ids, n_ids, pix, R, t, a, stream);
+    return launch<bf16, bf16>(D, W, C, ids, n_ids, pix, R, t, sat, a, stream);
+  if (value_bf16) return launch<bf16, float>(D, W, C, ids, n_ids, pix, R, t, sat, a, stream);
+  if (weight_bf16) return launch<float, bf16>(D, W, C, ids, n_ids, pix, R, t, sat, a, stream);
+  return launch<float, float>(D, W, C, ids, n_ids, pix, R, t, sat, a, stream);
 }

@@ -1,5 +1,5 @@
 """Brick-compacted TSDF fusion over the flat (m, m, m) layout
-(counterpart of tracking_sdf_tpu.fusion.brick, ``merge="pallas"`` tail), and
+(counterpart of tracking_sdf_tpu.fusion.brick, all three merge tails), and
 the classification, compaction and per-voxel update pieces that the
 brick-major path (fusion.brickmajor) shares with it.
 
@@ -9,9 +9,16 @@ Each brick is classified exactly and conservatively:
   FREE  inside the image and strictly in front of every candidate surface:
         every voxel's update is exactly (w = 1, d = +delta), no pixel reads.
   FULL  everything else: the dense path's per-voxel math on compacted bricks.
-The first ``cap`` FULL bricks (in id order) get update rows; the first
-``cap_act`` active bricks are merged by K2 (``brick_merge``). Bricks past a cap
-are dropped for the frame and reported in FuseStats, never silently.
+The first ``cap`` FULL bricks (in id order) get update rows, which one of
+three tails merges into the grid (``FusionConfig.brick_merge``):
+  "pallas"  K2 (``brick_merge``) over the first ``cap_act`` active bricks;
+  "xla"     K2's plain merge (``brick_merge_reference``) over every active
+            brick: the JAX package's merge pass over the whole grid, less the
+            voxels that add nothing;
+  "rows"    the same plain merge over the FULL bricks and the first
+            ``cap_free`` FREE bricks.
+Bricks past a cap are dropped for the frame and reported in FuseStats, never
+silently.
 """
 from __future__ import annotations
 
@@ -25,7 +32,8 @@ import torch
 from tracking_sdf_tpu_torch.config import FusionConfig, GridParams
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose
-from tracking_sdf_tpu_torch.fusion.brick_merge import FREE, FULL, brick_merge
+from tracking_sdf_tpu_torch.fusion.brick_merge import (
+    FREE, FULL, brick_merge, brick_merge_reference)
 from tracking_sdf_tpu_torch.fusion.fuse import (
     pixel_finite, weighting, world_to_camera_components)
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
@@ -45,6 +53,9 @@ class FuseStats:
     # hierarchical classification: mixed super-bricks beyond cap_mixed,
     # whose child bricks are dropped for the frame
     overflow_mixed: int = 0
+    # brick-major sat_skip: bricks marked saturated after the frame (their
+    # FREE update is a proven bitwise no-op; left out of FREE compaction)
+    n_sat: int = 0
 
 
 @dataclasses.dataclass
@@ -299,7 +310,7 @@ def _compact_ids(flags: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
 
 def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
                           distance, cap, cap_free, factor, cap_mixed,
-                          share_margin=0.0):
+                          share_margin=0.0, sat: Optional[torch.Tensor] = None):
     """Hierarchical classification and FULL/FREE compaction.
 
     Super-bricks of ``factor``^3 bricks are classified first; only MIXED
@@ -312,7 +323,14 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
     tensors. full_ids come in (mixed-super rank, child) order, not globally
     sorted; fr_ids hold the FREE bricks of mixed supers first, then the
     children of FREE supers, ``cap_free // factor^3`` supers at most.
-    Mixed supers past cap_mixed are dropped with their bricks and reported."""
+    Mixed supers past cap_mixed are dropped with their bricks and reported.
+
+    ``sat`` ((NB,) bool, the sat_skip bitset): saturated bricks leave the
+    FREE candidates at three levels: FREE bricks of mixed supers, FREE
+    supers whose children are all saturated (before compaction, so their
+    slot is reclaimed), and saturated children of the FREE supers kept
+    (their positions stay NB-padded holes). n_free then counts only the
+    candidates kept; overflow_free keeps its count over whole supers."""
     h, w_img = points_cam.shape[:2]
     bi, bj, bk = bs
     m = params.m
@@ -371,10 +389,16 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
 
     # ---- FREE ids: FREE bricks of mixed supers, then children of FREE supers
     free_fine = fcls == FREE
+    if sat is not None:  # FREE implies a valid id
+        free_fine = free_fine & ~sat[gflat.clamp(max=NB - 1)]
     n_free_mixed = free_fine.sum()
     fr_ids = _compact_vals(free_fine, gflat, cap_free, NB)
     cap_sfree = max(cap_free // vol, 1)
     free_super = scls == FREE
+    if sat is not None:
+        sat_super = (sat.reshape(nbi // f, f, nsj, f, nsk, f).permute(0, 2, 4, 1, 3, 5)
+                     .reshape(NS, vol).all(dim=1))
+        free_super = free_super & ~sat_super
     n_sf = free_super.sum()
     sf_ids = _compact_ids(free_super, cap_sfree, NS)
     valid_sf = sf_ids < NS
@@ -383,10 +407,16 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
                          .reshape(cap_sfree, vol), NB).reshape(-1)
     # appended right after the compacted mixed-super prefix
     pos = n_free_mixed + torch.arange(cap_sfree * vol, device=dev)
-    keep = valid_sf[:, None].expand(cap_sfree, vol).reshape(-1) & (pos < cap_free)
+    kept = valid_sf[:, None].expand(cap_sfree, vol).reshape(-1)
+    keep = kept & (pos < cap_free)
+    n_sat_child = 0
+    if sat is not None:  # saturated children of kept supers: holes
+        sat_child = sat[sf_gid.clamp(max=NB - 1)] & kept
+        keep = keep & ~sat_child
+        n_sat_child = sat_child.sum()
     fr_ids = torch.cat([fr_ids, fr_ids.new_full((1,), NB)]).scatter_(
         0, torch.where(keep, pos, cap_free), sf_gid)[:cap_free]
-    n_free = n_free_mixed + vol * n_sf
+    n_free = n_free_mixed + vol * n_sf - n_sat_child
     overflow_free = (
         torch.clamp(n_free_mixed + vol * torch.clamp(n_sf, max=cap_sfree) - cap_free,
                     min=0)
@@ -512,19 +542,24 @@ def fuse_frame_bricked(
     cfg: FusionConfig = FusionConfig(),
     bs: Tuple[int, int, int] = (8, 8, 8),
     cap: int = 1024,
+    merge: str = "pallas",
     cap_act: Optional[int] = None,
+    cap_free: Optional[int] = None,
 ) -> Tuple[TSDFGrid, FuseStats]:
-    """Brick-compacted fusion, updating ``grid`` in place through K2.
-    Geometry is exactly the dense path's; color is fused in FULL bricks only.
-    Returns (grid, FuseStats)."""
+    """Brick-compacted fusion, updating ``grid`` in place through the merge
+    tail ``merge`` ("pallas": K2 over the first ``cap_act`` active bricks,
+    default 4·cap; "xla": K2's plain version over every active brick; "rows":
+    the same over the FULL bricks and the FREE bricks up to ``cap_free``,
+    default cap, the rest dropped). Geometry is exactly the dense path's; color is fused in
+    FULL bricks only. Returns (grid, FuseStats)."""
     h, w_img = points_cam.shape[:2]
     m = params.m
     bi, bj, bk = bs
     if tuple(grid.D.shape) != (m, m, m) or m % bi or m % bj or m % bk:
         raise ValueError(f"grid {tuple(grid.D.shape)} not divisible by brick {bs}")
+    if merge not in ("pallas", "xla", "rows"):
+        raise ValueError(f"unknown brick_merge: {merge}")
     NB = (m // bi) * (m // bj) * (m // bk)
-    if cap_act is None:
-        cap_act = 4 * cap
     fuse_color = cfg.fuse_color and rgb is not None
     dev = grid.D.device
 
@@ -532,22 +567,34 @@ def fuse_frame_bricked(
         params, pose, points_cam, normals_cam, cam, bs, cfg.distance,
         share_margin=share_classify_margin(params, cfg)).reshape(-1)
     full_ids, n_full = _first_ids(brick_class == FULL, cap)
-    act_ids, n_active = _first_ids(brick_class > 0, cap_act)
-
     pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
     upd = torch.stack(_full_brick_updates(full_ids, pix, pose, params, cam, cfg,
                                           bs, (h, w_img), fuse_color), dim=-1)
     # row ``cap`` stays zero: FULL bricks past the FULL cap merge nothing
     U = torch.zeros((cap + 1, bi, bj, bk, upd.shape[-1]), device=dev)
     U[:full_ids.shape[0]] = upd
+    merge_kw = dict(bs=bs, delta=params.delta, max_weight=cfg.max_weight)
+    if merge == "rows":
+        cap_free = cap if cap_free is None else cap_free
+        fr_ids, n_free = _first_ids(brick_class == FREE, cap_free)
+        brick_merge_reference(
+            grid, U, torch.cat([full_ids, fr_ids]),
+            torch.cat([torch.full_like(full_ids, FULL), torch.full_like(fr_ids, FREE)]),
+            torch.cat([torch.arange(full_ids.shape[0], device=dev),
+                       torch.full_like(fr_ids, cap)]), **merge_kw)
+        return grid, FuseStats(n_full=n_full, overflow=max(n_full - cap, 0), n_free=n_free,
+                               overflow_active=max(n_free - cap_free, 0))
+    # "xla" merges every active brick (a voxel of any other brick adds nothing)
+    cap_act = NB if merge == "xla" else 4 * cap if cap_act is None else cap_act
+    act_ids, n_active = _first_ids(brick_class > 0, cap_act)
     slot_map = torch.full((NB,), cap, dtype=torch.int32, device=dev)
     slot_map[full_ids] = torch.arange(full_ids.shape[0], dtype=torch.int32,
                                       device=dev)
     cls_act = brick_class[act_ids]
     slot_act = torch.where(cls_act == FULL, slot_map[act_ids], cap).to(torch.int32)
-    brick_merge(grid, U, act_ids.to(torch.int32), cls_act.contiguous(),
-                slot_act.contiguous(), bs=bs, delta=params.delta,
-                max_weight=cfg.max_weight)
+    (brick_merge if merge == "pallas" else brick_merge_reference)(
+        grid, U, act_ids.to(torch.int32), cls_act.contiguous(), slot_act.contiguous(),
+        **merge_kw)
     stats = FuseStats(n_full=n_full, overflow=max(n_full - cap, 0),
                       n_free=n_active - n_full,
                       overflow_active=max(n_active - cap_act, 0))

@@ -13,6 +13,11 @@ update math that the JAX package leaves XLA to fuse into its merge.
 structure: per listed slot, each share group's centre voxel is projected for
 the group's pixel row, and each voxel is projected for its own masks and
 camera-space position.
+
+Both take the saturated-FREE skip's (NB,) bool bitset ``sat`` (or None):
+a listed FULL brick's bit is cleared, a listed FREE brick's bit is set when
+its stored D and W after the merge all equal their values before it, and
+cleared otherwise (fusion.brickmajor's module docstring).
 """
 from __future__ import annotations
 
@@ -27,7 +32,8 @@ from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.fusion.fuse import weighting, world_to_camera_components
 from tracking_sdf_tpu_torch.kernels import _build
 
-launches = 0  # brick_fuse_rows kernel launches on CUDA tensors
+launches = 0  # brick_fuse_rows kernel launches on CUDA tensors, without sat
+launches_sat = 0  # ... and with the sat_skip bitset
 
 _WEIGHTINGS = {"exponential": 0, "linear": 1, "constant": 2}
 _DISTANCES = {"point_to_point": 0, "point_to_plane": 1}
@@ -100,9 +106,10 @@ def group_centre_pixels(rows: torch.Tensor, pose: Pose, *, params: GridParams,
 def brick_fuse_rows_reference(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
                               ids: torch.Tensor, pix: torch.Tensor, pose: Pose, *,
                               cap: int, hw, params: GridParams, cam: PinholeCamera,
-                              cfg: FusionConfig, bs) -> None:
-    """Plain PyTorch version of ``brick_fuse_rows``; updates D, W, C in place.
-    It selects the listed rows with a boolean mask (one host sync)."""
+                              cfg: FusionConfig, bs, sat=None) -> None:
+    """Plain PyTorch version of ``brick_fuse_rows``; updates D, W, C (and
+    ``sat``) in place. It selects the listed rows with a boolean mask (one
+    host sync)."""
     # brickmajor imports this module
     from tracking_sdf_tpu_torch.fusion.brickmajor import pack_color, unpack_color
 
@@ -143,14 +150,21 @@ def brick_fuse_rows_reference(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
 
     # merge: D sanitised to 0 where W <= 0 (D holds NaN there), divide by the
     # uncapped sum, store the clamped weight, keep D's bits where w_add == 0
-    D_raw, W_old = D[rows], W[rows].to(torch.float32)
+    D_raw, W_raw = D[rows], W[rows]
+    W_old = W_raw.to(torch.float32)
     D_san = torch.where(W_old > 0, D_raw.to(torch.float32), 0.0 * one)
     W_sum = W_old + w_add
     has = w_add > 0
-    D[rows] = torch.where(
+    D_new = torch.where(
         has, ((W_old * D_san + wd_add) / torch.where(has, W_sum, one)).to(D.dtype), D_raw)
-    W[rows] = (W_sum if cfg.max_weight is None
-               else torch.clamp(W_sum, max=cfg.max_weight)).to(W.dtype)
+    W_new = (W_sum if cfg.max_weight is None
+             else torch.clamp(W_sum, max=cfg.max_weight)).to(W.dtype)
+    D[rows], W[rows] = D_new, W_new
+    if sat is not None:
+        # values compare (NaN never equals): a FREE brick is a no-op when
+        # every stored voxel came out as it was
+        same = ((D_new.float() == D_raw.float()) & (W_new.float() == W_raw.float())).all(1)
+        sat[rows] = ~full[:, 0] & same
     if pix.shape[1] == 8:
         fr = full[:, 0]
         crows, w_c, g_c = rows[fr], w[fr], g[fr]
@@ -169,7 +183,7 @@ def brick_fuse_rows_reference(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
         C[crows] = pack_color(R, G, B, Wc)
 
 
-def _validate(D, W, C, ids, pix, pose, cap, hw, params, cfg, bs):
+def _validate(D, W, C, ids, pix, pose, cap, hw, params, cfg, bs, sat):
     """Raise on what the kernel does not take; returns the kernel's scalars."""
     # brickmajor imports this module
     from tracking_sdf_tpu_torch.fusion.brickmajor import color_lane_widths
@@ -201,6 +215,9 @@ def _validate(D, W, C, ids, pix, pose, cap, hw, params, cfg, bs):
     for name, x, shape in (("pose.R", pose.R, (3, 3)), ("pose.t", pose.t, (3,))):
         if x.dtype != torch.float32 or tuple(x.shape) != shape:
             raise ValueError(f"brick_fuse_rows: {name} must be float32 {shape}")
+    if sat is not None and (sat.dtype != torch.bool or tuple(sat.shape) != (NB,)):
+        raise ValueError(f"brick_fuse_rows: sat must be bool ({NB},), got "
+                         f"{tuple(sat.shape)} {sat.dtype}")
     if cfg.distance not in _DISTANCES:
         raise ValueError(f"unknown distance: {cfg.distance}")
     sj, sk = share_group(cfg, bs)
@@ -211,7 +228,7 @@ def _validate(D, W, C, ids, pix, pose, cap, hw, params, cfg, bs):
 def brick_fuse_rows(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
                     ids: torch.Tensor, pix: torch.Tensor, pose: Pose, *, cap: int, hw,
                     params: GridParams, cam: PinholeCamera, cfg: FusionConfig,
-                    bs: Tuple[int, int, int]) -> None:
+                    bs: Tuple[int, int, int], sat=None) -> None:
     """Fuse one frame into the brick rows in place.
 
     ``D``, ``W`` (NB, BV) float32 or bfloat16 (D NaN where W <= 0); ``C``
@@ -220,20 +237,21 @@ def brick_fuse_rows(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
     padding slot (distinct ids); ``pix`` the (H·W, 4 or 8) float32 pixel
     table of ``brick._pixel_table`` (8 channels fuse color into the FULL
     bricks); ``pose`` float32 on the rows' device, read there (no host copy);
-    ``hw`` the image (H, W). FusionConfig supplies the distance, weighting,
-    pixel share and max_weight.
+    ``hw`` the image (H, W); ``sat`` the (NB,) bool sat_skip bitset or None
+    (module docstring). FusionConfig supplies the distance, weighting, pixel
+    share and max_weight.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    global launches
+    global launches, launches_sat
     NB, BV, sj, sk, dist, mode, w_delta, w_inv = _validate(
-        D, W, C, ids, pix, pose, cap, hw, params, cfg, bs)
+        D, W, C, ids, pix, pose, cap, hw, params, cfg, bs, sat)
     if D.device.type == "cpu":
         return brick_fuse_rows_reference(D, W, C, ids, pix, pose, cap=cap, hw=hw,
-                                         params=params, cam=cam, cfg=cfg, bs=bs)
+                                         params=params, cam=cam, cfg=cfg, bs=bs, sat=sat)
     if D.device.type != "cuda":
         raise ValueError(f"brick_fuse_rows: unsupported device {D.device}")
     R, t = pose.R.contiguous(), pose.t.contiguous()
-    tensors = (D, W, C, ids, pix, R, t)
+    tensors = (D, W, C, ids, pix, R, t) + (() if sat is None else (sat,))
     if any(x.device != D.device or not x.is_contiguous() for x in tensors):
         raise ValueError("brick_fuse_rows: D, W, C, ids, the pixel table and the pose "
                          "must be contiguous on one device")
@@ -249,9 +267,13 @@ def brick_fuse_rows(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
         int(D.dtype == torch.bfloat16), int(W.dtype == torch.bfloat16),
         ids.data_ptr(), ids.shape[0], cap, NB, bi, bj, bk, m,
         pix.data_ptr(), pix.shape[1], h, w_img, R.data_ptr(), t.data_ptr(),
-        sj, sk, dist, mode, params.width / m, params.height / m, params.depth / m,
+        None if sat is None else sat.data_ptr(), sj, sk, dist, mode, params.width / m,
+        params.height / m, params.depth / m,
         *params.origin, cam.fx, cam.fy, cam.cx, cam.cy, params.delta, params.epsilon,
         w_delta, w_inv, float("inf") if cfg.max_weight is None else cfg.max_weight,
         _build.stream_ptr(D.device))
     _build.check(rc, "brick_fuse_rows")
-    launches += 1
+    if sat is None:
+        launches += 1
+    else:
+        launches_sat += 1

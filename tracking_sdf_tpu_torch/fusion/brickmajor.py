@@ -18,6 +18,15 @@ sums and merges them and the FREE rows in one pass (the JAX package's
 ``free_fold``, which is bitwise equal to its unfolded merge). Values and
 weights may be stored as bfloat16; all arithmetic is float32, rounded to the
 storage dtype only at the store.
+
+Saturated-FREE skip (``FusionConfig.sat_skip``): with a max_weight clamp a
+FREE brick's update becomes a bitwise no-op once W saturates. The caller
+carries an (NB,) bool bitset ``sat``: saturated bricks leave the FREE
+candidates before compaction (their cap_free slots go to other bricks), the
+kernel clears the bit of every FULL brick it updates and sets the bit of a
+FREE brick whose stored D and W came out equal to what they were. Skipping
+a set brick is then invisible: the rows equal those of the run without the
+skip, bit for bit.
 """
 from __future__ import annotations
 
@@ -193,9 +202,11 @@ def brick_grid_to_numpy(bgrid: BrickGrid) -> Dict[str, np.ndarray]:
 def classify_compact_rows(params: GridParams, pose: Pose, points_cam: torch.Tensor,
                           normals_cam: torch.Tensor, *, cam: PinholeCamera,
                           cfg: FusionConfig, bs: Tuple[int, int, int], cap: int,
-                          cap_free: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                          cap_free: int, sat: Optional[torch.Tensor] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A frame's FULL and FREE brick lists, classified flat or hierarchically
-    (``cfg.hier_classify``), without a host sync.
+    (``cfg.hier_classify``), without a host sync. Bricks set in ``sat`` are
+    not FREE candidates.
 
     Returns (ids, counts): ids (cap + cap_free,) int32, the first ``cap``
     FULL ids then the first ``cap_free`` FREE ids, each padded with NB;
@@ -210,13 +221,16 @@ def classify_compact_rows(params: GridParams, pose: Pose, points_cam: torch.Tens
     if hier > 1 and all(n % hier == 0 for n in nb3):
         full_ids, fr_ids, n_full, n_free, ovf_mixed, ovf_free = classify_compact_hier(
             params, pose, points_cam, normals_cam, cam, bs, cfg.distance, cap,
-            cap_free, hier, cfg.cap_mixed, share_margin=share_m)
+            cap_free, hier, cfg.cap_mixed, share_margin=share_m, sat=sat)
     else:
         cls = classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
                               cfg.distance, share_margin=share_m).reshape(-1)
-        n_full, n_free = (cls == FULL).sum(), (cls == FREE).sum()
+        free = cls == FREE
+        if sat is not None:
+            free = free & ~sat
+        n_full, n_free = (cls == FULL).sum(), free.sum()
         full_ids = _compact_ids(cls == FULL, cap, NB)
-        fr_ids = _compact_ids(cls == FREE, cap_free, NB)
+        fr_ids = _compact_ids(free, cap_free, NB)
         ovf_free = torch.clamp(n_free - cap_free, min=0)
         ovf_mixed = torch.zeros_like(n_free)
     ids = torch.cat([full_ids, fr_ids]).to(torch.int32)
@@ -236,18 +250,21 @@ def fuse_frame_brickmajor_core(
     bs: Tuple[int, int, int] = (8, 8, 8),
     cap: int = 6144,
     cap_free: Optional[int] = None,
+    sat: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Fuse one frame into ``bgrid`` in place and read nothing back: the one
     place that owns the sequence classify_compact_rows -> _pixel_table ->
-    brick_fuse_rows, for the per-frame path and the chunked one.
+    brick_fuse_rows, for the per-frame path and the chunked one. ``sat``:
+    the (NB,) bool sat_skip bitset, updated in place (module docstring).
 
     Geometry is exactly the dense path's math; color is fused in FULL bricks
     only. FULL bricks past ``cap`` and FREE bricks past ``cap_free`` (default
     ``cap``) are dropped for the frame, as are mixed super-bricks past
-    ``cfg.cap_mixed`` with hierarchical classification. Returns the counts
-    of classify_compact_rows, (4,) int64 on the device: n_full, n_free, FREE
-    bricks dropped, mixed super-bricks dropped (``fuse_stats`` reads them).
-    An all-NaN frame leaves the rows bitwise unchanged."""
+    ``cfg.cap_mixed`` with hierarchical classification. Returns (5,) int64
+    counts on the device: those of classify_compact_rows (n_full, n_free,
+    FREE bricks dropped, mixed super-bricks dropped) and the bricks set in
+    ``sat`` after the frame (0 without it); ``fuse_stats`` reads them. An
+    all-NaN frame leaves the rows bitwise unchanged."""
     m = params.m
     bi, bj, bk = bs
     if m % bi or m % bj or m % bk:
@@ -259,19 +276,20 @@ def fuse_frame_brickmajor_core(
         cap_free = cap
     fuse_color = cfg.fuse_color and rgb is not None
     ids, counts = classify_compact_rows(params, pose, points_cam, normals_cam, cam=cam,
-                                        cfg=cfg, bs=bs, cap=cap, cap_free=cap_free)
+                                        cfg=cfg, bs=bs, cap=cap, cap_free=cap_free, sat=sat)
     pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
     brick_fuse_rows(bgrid.D, bgrid.W, bgrid.C, ids, pix, pose, cap=cap,
                     hw=tuple(points_cam.shape[:2]), params=params, cam=cam, cfg=cfg,
-                    bs=bs)
-    return counts
+                    bs=bs, sat=sat)
+    n_sat = counts[:1] * 0 if sat is None else sat.sum()[None]
+    return torch.cat([counts, n_sat])
 
 
 def fuse_stats(counts, cap: int) -> FuseStats:
-    """FuseStats of a frame from its four counts (host integers)."""
-    n_full, n_free, ovf_free, ovf_mixed = (int(c) for c in counts)
+    """FuseStats of a frame from its five counts (host integers)."""
+    n_full, n_free, ovf_free, ovf_mixed, n_sat = (int(c) for c in counts)
     return FuseStats(n_full=n_full, overflow=max(n_full - cap, 0), n_free=n_free,
-                     overflow_active=ovf_free, overflow_mixed=ovf_mixed)
+                     overflow_active=ovf_free, overflow_mixed=ovf_mixed, n_sat=n_sat)
 
 
 def fuse_frame_brickmajor(
@@ -287,14 +305,16 @@ def fuse_frame_brickmajor(
     bs: Tuple[int, int, int] = (8, 8, 8),
     cap: int = 6144,
     cap_free: Optional[int] = None,
+    sat: Optional[torch.Tensor] = None,
 ) -> Tuple[BrickGrid, BrickMaskedView, FuseStats]:
-    """Fuse one frame into ``bgrid`` in place (``fuse_frame_brickmajor_core``)
-    and read its stats in one host sync.
+    """Fuse one frame into ``bgrid`` (and the sat_skip bitset ``sat``) in
+    place (``fuse_frame_brickmajor_core``) and read its stats in one host
+    sync.
 
     Returns (bgrid, view, stats): ``view`` is the masked view of the merged D
     rows for the next frame's tracking; the dropped bricks are reported in
     ``stats``."""
     counts = fuse_frame_brickmajor_core(bgrid, pose, points_cam, normals_cam, rgb,
                                         params=params, cam=cam, cfg=cfg, bs=bs, cap=cap,
-                                        cap_free=cap_free)
+                                        cap_free=cap_free, sat=sat)
     return bgrid, brick_masked_view(bgrid, params, bs), fuse_stats(counts.tolist(), cap)

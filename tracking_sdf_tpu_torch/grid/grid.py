@@ -6,6 +6,7 @@ the reference's row-major layout. D is positive in free space.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Dict, Mapping
 
 import numpy as np
@@ -53,7 +54,14 @@ def grid_to_numpy(grid: TSDFGrid) -> Dict[str, np.ndarray]:
 
 
 def _axis_consts(values, like: torch.Tensor) -> torch.Tensor:
-    return torch.tensor(values, dtype=torch.float32, device=like.device)
+    return _device_consts(tuple(values), like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _device_consts(values: tuple, device: torch.device) -> torch.Tensor:
+    """A float32 constant on ``device``, copied there once: a copy from the
+    host waits for the device, which a loop of small ops must not do."""
+    return torch.tensor(values, dtype=torch.float32, device=device)
 
 
 def world_to_voxel(params: GridParams, x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ runs in float32 or wider whatever the storage dtype.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Tuple, Union
 
 import torch
@@ -30,7 +31,10 @@ OFFSETS = (
 )
 
 
+@functools.lru_cache(maxsize=None)
 def _offsets(device, dtype=torch.int64) -> torch.Tensor:
+    """The 8 corner offsets on ``device``, copied there once (a copy from
+    the host waits for the device)."""
     return torch.tensor(OFFSETS, dtype=dtype, device=device)
 
 

@@ -43,11 +43,11 @@ _SIGNATURES = {
     "tsdf_brick_merge_rows": [_P] * 3 + [_I] * 3 + [_P, _I, _P] + [_I] * 4
                              + [_F, _F, _P],
     # D, W, C, c_width, value_bf16, weight_bf16, ids, n_ids, cap, nb, bi, bj,
-    # bk, m, pix, channels, img_h, img_w, R, t, sj, sk, point_to_plane,
-    # weighting, sx, sy, sz, ox, oy, oz, fx, fy, cx, cy, delta, eps, w_delta,
-    # w_inv, max_weight, stream
+    # bk, m, pix, channels, img_h, img_w, R, t, sat (or NULL), sj, sk,
+    # point_to_plane, weighting, sx, sy, sz, ox, oy, oz, fx, fy, cx, cy, delta,
+    # eps, w_delta, w_inv, max_weight, stream
     "tsdf_brick_fuse_rows": [_P] * 3 + [_I] * 3 + [_P] + [_I] * 7 + [_P] + [_I] * 3
-                            + [_P, _P] + [_I] * 4 + [_F] * 15 + [_P],
+                            + [_P, _P, _P] + [_I] * 4 + [_F] * 15 + [_P],
 }
 
 _lib = None

@@ -36,6 +36,7 @@ loops are not frames and add nothing.
 from __future__ import annotations
 
 import contextlib
+import gc
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -49,10 +50,11 @@ from tracking_sdf_tpu_torch.tracking import gn_reduce
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 
 # A frame's record (float32; the counts are exact): R (9), t (3), GN
-# iterations, num_valid, mean |residual|, rejected, then fusion's four
-# counts (n_full, n_free, FREE bricks dropped, mixed super-bricks dropped).
+# iterations, num_valid, mean |residual|, rejected, then fusion's five
+# counts (n_full, n_free, FREE bricks dropped, mixed super-bricks dropped,
+# saturated bricks after the frame).
 REC_R, REC_T, REC_ITERS, REC_NVALID, REC_MRES, REC_REJ, REC_COUNTS = 0, 9, 12, 13, 14, 15, 16
-REC = 20
+REC = 21
 
 # held by a capture and by a chunk's replays; see the module docstring
 DEVICE_LOCK = threading.RLock()
@@ -61,7 +63,7 @@ DEVICE_LOCK = threading.RLock()
 _COUNTERS = ((gn_reduce, "launches"), (gn_reduce, "launches_brick"),
              (gn_reduce, "launches_step"), (gn_reduce, "launches_step_brick"),
              (brick_merge, "launches"), (brick_merge, "launches_rows"),
-             (brick_fuse, "launches"))
+             (brick_fuse, "launches"), (brick_fuse, "launches_sat"))
 
 
 def launch_counts() -> Tuple[int, ...]:
@@ -174,8 +176,17 @@ class ChunkSteps:
             cur.wait_stream(side)
             warm = launch_counts()
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=pool):
-                fn()
+            # no cyclic GC inside the capture: a collected graph (an older
+            # Reconstruction's) would be destroyed in it, which is not
+            # permitted while a stream captures and invalidates the capture
+            gc_was = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=pool):
+                    fn()
+            finally:
+                if gc_was:
+                    gc.enable()
         per_replay = tuple(a - b for a, b in zip(launch_counts(), warm))
         _set_launch_counts(before)
         return graph, per_replay
@@ -194,8 +205,10 @@ class ChunkSteps:
         a replay of its graph, captured at first use; on the CPU the eager
         step."""
         depth, rgb = inp
+        # the sat_skip bitset, when on, is a buffer of the Reconstruction at
+        # a fixed address that the graph reads and writes
         key = (tuple(depth.shape), depth.dtype, None if rgb is None else rgb.dtype,
-               color_on, cap)
+               color_on, cap, self.recon._sat is not None)
         if key in self._steps:
             return self._steps[key]
 
@@ -296,9 +309,10 @@ class ChunkSteps:
                   colors: Sequence[bool], cap: int) -> Tuple[float, float]:
         """(preprocess ms, fusion ms) per frame of these frames: a
         preprocess-only loop over them, then a fuse-only loop over its
-        points and normals into a device copy of the rows at the current
-        pose (fusion's cost hardly depends on the pose). Launches here are a
-        measurement and are not counted."""
+        points and normals into a device copy of the rows (and of the
+        sat_skip bitset) at the current pose (fusion's cost hardly depends
+        on the pose). Launches here are a measurement and are not
+        counted."""
         r = self.recon
         n = len(colors)
         t0 = time.perf_counter()
@@ -317,16 +331,19 @@ class ChunkSteps:
 
         live = r._bgrid
         snap = BrickGrid(*(x.clone() for x in (live.D, live.W, live.C)))
+        sat = None if r._sat is None else r._sat.clone()
         pose = Pose(r.pose.R.clone(), r.pose.t.clone())
 
         def restore():
             for dst, src in zip((snap.D, snap.W, snap.C), (live.D, live.W, live.C)):
                 dst.copy_(src)
+            if sat is not None:
+                sat.copy_(r._sat)
 
         def fuse():
             for k in range(n):
                 rgb = self._decode_rgb(RGB[k]) if colors[k] else None
-                r._fuse_core(pose, PTS[k], NRM[k], rgb, cap, bgrid=snap)
+                r._fuse_core(pose, PTS[k], NRM[k], rgb, cap, bgrid=snap, sat=sat)
 
         try:
             prep_ms = self._timed_ms(prep, lambda: None)

@@ -1,21 +1,27 @@
 """End-to-end frame loop (counterpart of tracking_sdf_tpu.pipeline.runner).
 
-Per frame: preprocess (separable bilateral filter, backprojection, normals),
-track from the second frame on (pyramid or flat Gauss-Newton; one K1 step
-launch per iteration, the state on the device), read the tracking state
-once (its stats and the failure gate's inputs), gate failed tracks, append the pose to the TUM trajectory, and
-fuse with brick compaction (K2 in every fused frame). Two single-device
-fusion layouts are ported:
+Per frame: preprocess (bilateral filter, full or separable, backprojection,
+normals), track from the second frame on (pyramid or flat Gauss-Newton; with
+the analytic Jacobian one K1 step launch per iteration, the state on the
+device), read the tracking state once (its stats and the failure gate's
+inputs), gate failed tracks, append the pose to the TUM trajectory, and
+fuse. Every single-device fusion layout of the JAX package but its "packed"
+one is ported:
+  * ``mode="dense"`` (the default; the synthetic64 and tum128 presets): the
+    flat (m, m, m) grid, fused voxel by voxel (fusion.fuse);
   * ``mode="brickmajor"`` (the tum256 and tum512 presets): the grid lives as
-    brick rows (fusion.brickmajor), and tracking reads the brick-major masked
-    view of the D rows; the dense grid is built only when ``grid`` is read.
-  * ``mode="bricked", brick_merge="pallas"``: the flat (m, m, m) grid.
-``process_chunk`` and ``run(chunk=N)`` process many brick-major frames per
-host round trip (pipeline.chunk: CUDA-graph replays of one captured frame
-step on the card). ``use_groundtruth`` is the fusion-only oracle mode (poses
-from the dataset's groundtruth). Checkpoints (pipeline.checkpoint) save and
-restore the grid, the pose and the frame counter. Rendering and meshing are
-not ported yet.
+    brick rows (fusion.brickmajor, K2 in every fused frame), and tracking
+    reads the brick-major masked view of the D rows; the dense grid is built
+    only when ``grid`` is read. ``sat_skip`` carries its bitset here;
+  * ``mode="bricked"``: the flat grid with brick compaction and the merge
+    tail ``brick_merge`` ("xla", "rows" or K2's "pallas").
+The central Jacobian reads the dense grid in every layout (brick-major: the
+dense view of the rows, made each tracked frame). ``process_chunk`` and
+``run(chunk=N)`` process many brick-major frames per host round trip
+(pipeline.chunk: CUDA-graph replays of one captured frame step on the card).
+``use_groundtruth`` is the fusion-only oracle mode (poses from the dataset's
+groundtruth). Checkpoints (pipeline.checkpoint) save and restore the grid,
+the pose and the frame counter.
 """
 from __future__ import annotations
 
@@ -35,6 +41,7 @@ from tracking_sdf_tpu_torch.fusion.brick import FuseStats, fuse_frame_bricked
 from tracking_sdf_tpu_torch.fusion.brickmajor import (
     BrickGrid, brick_grid_from_dense, brick_masked_view, dense_from_brick_grid,
     empty_brick_grid, fuse_frame_brickmajor_core, fuse_stats, storage_dtype)
+from tracking_sdf_tpu_torch.fusion.fuse import fuse_frame
 from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid, empty_grid
 from tracking_sdf_tpu_torch.pipeline import chunk as chunked
 from tracking_sdf_tpu_torch.pipeline.trajectory import TrajectoryWriter
@@ -63,25 +70,19 @@ class FrameStats:
     preprocess_ms: float = 0.0
 
 
+def unsupported(config: PipelineConfig) -> List[str]:
+    """The modes of ``config`` that the port does not run, each with the
+    ROADMAP entry that says why (the CLI exits 2 on them)."""
+    if config.fusion.mode == "packed":
+        return ["fusion.mode='packed' (ROADMAP queue 1, not to port: a measured "
+                "negative)"]
+    return []
+
+
 def _check_supported(config: PipelineConfig) -> None:
-    f = config.fusion
-    unsupported = [
-        (f.mode not in ("brickmajor", "bricked"), f"fusion.mode={f.mode!r}"),
-        (f.mode == "bricked" and f.brick_merge != "pallas",
-         f"fusion.brick_merge={f.brick_merge!r} with mode='bricked'"),
-        (f.sat_skip, "fusion.sat_skip=True"),
-        (config.tracking.jacobian != "analytic",
-         f"tracking.jacobian={config.tracking.jacobian!r}"),
-        (config.bilateral_filter and config.bilateral_mode != "separable",
-         f"bilateral_mode={config.bilateral_mode!r}"),
-    ]
-    bad = [what for cond, what in unsupported if cond]
+    bad = unsupported(config)
     if bad:
-        raise NotImplementedError(
-            "the port runs the single-device mode='brickmajor' path and the "
-            "mode='bricked', brick_merge='pallas' path, with the analytic "
-            "Jacobian and the separable bilateral filter; unsupported: "
-            + ", ".join(bad))
+        raise NotImplementedError("unsupported: " + ", ".join(bad))
 
 
 def _sync(device: torch.device) -> None:
@@ -110,6 +111,10 @@ class Reconstruction:
         self._grid: Optional[TSDFGrid] = None  # flat layout
         self._bgrid = None  # brick-major rows, with self._dm their masked view
         self._dm = None
+        # the saturated-FREE skip's (NB,) bitset (brick-major only, as in the
+        # JAX package), on the device at a fixed address; reset on every
+        # grid assignment
+        self._sat: Optional[torch.Tensor] = None
         if f.mode == "brickmajor":
             self._vdt = storage_dtype(f.storage_dtype)
             self._wdt = storage_dtype(f.weight_dtype)
@@ -117,6 +122,9 @@ class Reconstruction:
                                            value_dtype=self._vdt,
                                            weight_dtype=self._wdt)
             self._dm = brick_masked_view(self._bgrid, config.grid, self._bs)
+            if f.sat_skip:
+                self._sat = torch.zeros(self._bgrid.D.shape[0], dtype=torch.bool,
+                                        device=self.device)
         else:
             self._grid = empty_grid(config.grid, device=self.device)
         # adaptive FULL cap: the smallest of three levels that covers ~1.3x
@@ -152,6 +160,10 @@ class Reconstruction:
 
     @grid.setter
     def grid(self, g: TSDFGrid) -> None:
+        # a saturated bit states that the brick's rows did not change under
+        # its last FREE update: after a new grid no bit holds
+        if self._sat is not None:
+            self._sat.zero_()
         if self._bgrid is not None:
             self._bgrid = brick_grid_from_dense(g, self._bs, value_dtype=self._vdt,
                                                 weight_dtype=self._wdt)
@@ -167,17 +179,24 @@ class Reconstruction:
         return self._bgrid
 
     def _fuse_core(self, pose: Pose, points, normals, rgb, cap: int,
-                   bgrid: Optional[BrickGrid] = None) -> torch.Tensor:
-        """Brick-major fusion into ``bgrid`` (default the live rows) with no
-        host read; returns the device counts (fusion.brickmajor)."""
+                   bgrid: Optional[BrickGrid] = None,
+                   sat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Brick-major fusion into ``bgrid`` and ``sat`` (default the live
+        rows and bitset) with no host read; returns the device counts
+        (fusion.brickmajor)."""
         f = self.config.fusion
+        if bgrid is None:
+            bgrid, sat = self._bgrid, self._sat
         return fuse_frame_brickmajor_core(
-            self._bgrid if bgrid is None else bgrid, pose, points, normals, rgb,
-            params=self.config.grid, cam=self.cam, cfg=f, bs=self._bs, cap=cap,
-            cap_free=f.brick_cap_free or None)
+            bgrid, pose, points, normals, rgb, params=self.config.grid, cam=self.cam,
+            cfg=f, bs=self._bs, cap=cap, cap_free=f.brick_cap_free or None, sat=sat)
 
     def _fuse(self, points, normals, rgb) -> None:
         cfg = self.config
+        if cfg.fusion.mode == "dense":
+            self._grid = fuse_frame(self._grid, self.pose, points, normals, rgb,
+                                    params=cfg.grid, cam=self.cam, cfg=cfg.fusion)
+            return
         cap = self._cap_levels[self._cap_idx]
         if self._bgrid is not None:
             counts = self._fuse_core(self.pose, points, normals, rgb, cap)
@@ -186,6 +205,7 @@ class Reconstruction:
             _, stats = fuse_frame_bricked(
                 self._grid, self.pose, points, normals, rgb, params=cfg.grid,
                 cam=self.cam, cfg=cfg.fusion, bs=self._bs, cap=cap,
+                merge=cfg.fusion.brick_merge,
                 cap_act=cfg.fusion.brick_cap_active or None)
         self.last_fuse_stats = stats
         self.overflow_drops += stats.overflow + stats.overflow_active + stats.overflow_mixed
@@ -202,16 +222,20 @@ class Reconstruction:
 
     def _track(self, pose0: Pose, points: torch.Tensor) -> TrackResult:
         """Tracking of one frame's (H, W, 3) points from ``pose0``, issued
-        with no host read (brick-major: against the view of the D rows)."""
+        with no host read (brick-major: against the view of the D rows; the
+        central Jacobian against the dense grid, brick-major's made here)."""
         cfg = self.config
+        grid, dm = self._grid, self._dm
+        if cfg.tracking.jacobian == "central":
+            grid, dm = self.grid, None
         if cfg.pyramid_levels:
             res, _ = track_frame_pyramid(
-                self._grid, pose0, points, params=cfg.grid, cfg=cfg.tracking,
-                levels=cfg.pyramid_levels, Dm=self._dm)
+                grid, pose0, points, params=cfg.grid, cfg=cfg.tracking,
+                levels=cfg.pyramid_levels, Dm=dm)
             return res
         s = cfg.tracking.pixel_stride
-        return track_frame(self._grid, pose0, points[::s, ::s], params=cfg.grid,
-                           cfg=cfg.tracking, Dm=self._dm)
+        return track_frame(grid, pose0, points[::s, ::s], params=cfg.grid,
+                           cfg=cfg.tracking, Dm=dm)
 
     def _as_depth(self, depth) -> torch.Tensor:
         """A depth image on the device as float32 meters with NaN holes. TUM
@@ -310,6 +334,11 @@ class Reconstruction:
 
     # --- chunked processing ------------------------------------------------
 
+    def _chunk_supported(self) -> bool:
+        cfg = self.config
+        return (self._bgrid is not None and cfg.tracking.jacobian == "analytic"
+                and not cfg.use_groundtruth)
+
     def _stage(self, frames, rgb: bool) -> torch.Tensor:
         """A chunk's (N, ...) frames as the tensor its steps copy from: left
         on the device if they are there, else in host memory, pinned when
@@ -337,9 +366,10 @@ class Reconstruction:
         """Process N frames with one host read: ``depths`` (N, H, W) float32
         meters with NaN holes, or TUM uint16 (1/5000 m, 0 = hole); ``rgbs``
         (N, H, W, 3) in [0, 1] or uint8; ``timestamps`` N floats (default the
-        frame indices). Needs the brick-major mode and one process_frame
-        call first (frame 0 bootstraps the grid), and tracked poses: the
-        groundtruth oracle mode runs per frame only.
+        frame indices). Needs the brick-major mode with the analytic
+        Jacobian and one process_frame call first (frame 0 bootstraps the
+        grid), and tracked poses: the groundtruth oracle mode runs per frame
+        only (the JAX package's contract).
 
         Each frame preprocesses, tracks from the carried pose (the
         constant-velocity guess with pose_init="velocity"), gates a failed
@@ -361,10 +391,11 @@ class Reconstruction:
         it track_ms is the chunk's wall time over N. A calibration that
         fails warns (RuntimeWarning) and leaves that fallback."""
         cfg = self.config
-        if self._bgrid is None or self.frame_num < 1 or cfg.use_groundtruth:
+        if (not self._chunk_supported() or self.frame_num < 1):
             raise ValueError(
-                "process_chunk needs mode='brickmajor', tracked (not groundtruth) "
-                "poses and one process_frame call first (frame 0 bootstraps the grid)")
+                "process_chunk needs mode='brickmajor', jacobian='analytic', tracked "
+                "(not groundtruth) poses and one process_frame call first (frame 0 "
+                "bootstraps the grid)")
         depths = self._stage(depths, rgb=False)
         n = depths.shape[0]
         has_color = cfg.fusion.fuse_color and rgbs is not None
@@ -543,19 +574,20 @@ class Reconstruction:
         after restore_checkpoint), ``max_frames`` stops at that frame index;
         ``metrics_log`` appends one JSON line of FrameStats per frame.
         ``chunk`` > 1 hands that many frames at a time to process_chunk
-        (frame 0 and an odd tail run per frame; the flat layout and the
-        groundtruth oracle mode, which have no chunked path, warn and run
-        per frame). ``checkpoint_every`` saves to ``checkpoint_path`` when
-        the newest processed frame's index is a multiple of it (a chunk
+        (frame 0 and an odd tail run per frame; the flat layouts, the
+        central Jacobian and the groundtruth oracle mode, which have no
+        chunked path, warn and run per frame). ``checkpoint_every`` saves to
+        ``checkpoint_path`` when the newest processed frame's index is a
+        multiple of it (a chunk
         saves once, at its last frame, if that index is). ``mesh_every``
         exports the mesh to ``mesh_path`` on every emitted frame whose index
         is a multiple of it (a chunk's frames are emitted after the chunk,
         so each such frame of it exports the chunk's final grid)."""
         cfg = self.config
-        if chunk > 1 and (self._bgrid is None or cfg.use_groundtruth):
-            warnings.warn("chunked processing needs mode='brickmajor' and tracked "
-                          "(not groundtruth) poses; running per frame",
-                          RuntimeWarning, stacklevel=2)
+        if chunk > 1 and not self._chunk_supported():
+            warnings.warn("chunked processing needs mode='brickmajor', "
+                          "jacobian='analytic' and tracked (not groundtruth) poses; "
+                          "running per frame", RuntimeWarning, stacklevel=2)
             chunk = 0
         log = open(metrics_log, "a") if metrics_log else None
         pend = []  # frames held for the next chunk

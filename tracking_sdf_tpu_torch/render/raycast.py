@@ -20,10 +20,25 @@ A dead ray's state is a fixed point of a march step (t, hit and steps stay
 as they are, and t >= t_lo), so the loops test whether any ray is alive
 only every ``_ANY_EVERY`` steps, one host read each time, and stop at the
 same state as a test after every step would.
+
+Two optional leaps, off by default, save steps (the JAX package's
+conditions decide where they apply: m a multiple of 8 with (m/8)^3 a
+multiple of 128); a ray hits what the plain march hits, at the same depth,
+but for grazing rays and rays on which the plain march itself steps past a
+crossing of a truncated field (tests/test_torch_raycast_skip.py):
+  * ``empty_skip``: an L-inf chamfer distance s (capped at 8) from each 8^3
+    brick to the nearest brick with an observed voxel (W > 0); a sample in
+    unobserved space may step (s - 1) brick extents, every march;
+  * ``far_field="chamfer"`` (the nearest march only): the same distance to
+    the nearest surface-band brick (some D < far_band * delta); any sample
+    may leap (s - 1) brick extents less one voxel cell's diagonal, because a
+    trilinear crossing can reach one cell beyond its band brick.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional, Union
+
+import math
 
 import torch
 
@@ -36,6 +51,8 @@ from tracking_sdf_tpu_torch.grid.interp import (
 
 _ANY_EVERY = 8  # march steps between two tests for a live ray
 _LIPSCHITZ_MARGIN = 0.8660254  # sqrt(3)/2 voxels: nearest voxel centre to a point
+_SKIP_B = 8  # leap mip brick side, voxels (independent of fusion's bricks)
+_SKIP_K = 8  # chamfer iterations: the longest leap, in bricks
 
 
 class RenderResult(NamedTuple):
@@ -71,11 +88,50 @@ def _min_pool3(t: torch.Tensor) -> torch.Tensor:
                                                torch.cat([big, pooled[:, :-1]], dim=1)))
 
 
-def _check_supported(cfg: RaycastConfig) -> None:
-    if cfg.empty_skip or cfg.far_field == "chamfer":
-        raise NotImplementedError(
-            "RaycastConfig.empty_skip and far_field='chamfer' are not ported "
-            "(ROADMAP queue 1 #7, optional modes)")
+def _chamfer(occ: torch.Tensor) -> torch.Tensor:
+    """L-inf chamfer distance (capped at _SKIP_K) to the nearest True cell of
+    an (nb, nb, nb) bool grid: _SKIP_K - 1 separable 3^3 min-pools."""
+    nb = occ.shape[0]
+    dist = torch.where(occ, 0, _SKIP_K).to(torch.int32)
+    for _ in range(_SKIP_K - 1):
+        a = dist
+        for ax in range(3):
+            pad = [0, 0] * 3
+            pad[2 * (2 - ax):2 * (2 - ax) + 2] = [1, 1]
+            p = torch.nn.functional.pad(a, pad, value=_SKIP_K)
+            a = torch.minimum(torch.minimum(p.narrow(ax, 0, nb), p.narrow(ax, 1, nb)),
+                              p.narrow(ax, 2, nb))
+        dist = torch.minimum(dist, a + 1)
+    return dist
+
+
+def _brick_occupancy(x: torch.Tensor, largest: bool) -> torch.Tensor:
+    """Per 8^3 brick of an (m, m, m) grid: its max (or min) value."""
+    nb = x.shape[0] // _SKIP_B
+    x = x.reshape(nb, _SKIP_B, nb, _SKIP_B, nb, _SKIP_B)
+    return x.amax(dim=(1, 3, 5)) if largest else x.amin(dim=(1, 3, 5))
+
+
+def _skip_mip(W: torch.Tensor) -> torch.Tensor:
+    """Chamfer distance to the nearest 8^3 brick with an observed voxel: a
+    ray in unobserved space at distance s >= 2 cannot reach observed space
+    within s - 1 bricks."""
+    return _chamfer(_brick_occupancy(W, largest=True) > 0)
+
+
+def _band_skip_mip(Dm: torch.Tensor, params: GridParams, band_frac: float) -> torch.Tensor:
+    """Chamfer distance to the nearest surface-band 8^3 brick: one with a
+    voxel whose D is below band_frac * delta (NaN, unobserved, is not)."""
+    Dv = torch.where(torch.isnan(Dm), float("inf"), Dm)
+    return _chamfer(_brick_occupancy(Dv, largest=False) < band_frac * params.delta)
+
+
+def _leap(mip: torch.Tensor, uvw: torch.Tensor, extent: float) -> torch.Tensor:
+    """(s - 1) * extent at the mip brick of each voxel coordinate."""
+    nb = mip.shape[0]
+    b = (uvw / _SKIP_B).to(torch.int64).clamp(0, nb - 1)
+    s = mip.reshape(-1)[(b[:, 0] * nb + b[:, 1]) * nb + b[:, 2]]
+    return (s - 1).to(uvw.dtype) * extent
 
 
 def raycast(grid: TSDFGrid, pose: Pose, *, params: GridParams, cam: PinholeCamera,
@@ -88,7 +144,6 @@ def raycast(grid: TSDFGrid, pose: Pose, *, params: GridParams, cam: PinholeCamer
     min-pool of it less ``warm_backoff`` (default delta); rays with no prior
     start cold. ``dirs_cam`` (h, w, 3) camera-frame directions with z = 1
     replace ``pixel_rays(cam, stride)``."""
-    _check_supported(cfg)
     dev = grid.D.device
     dtype = grid.D.dtype
     delta = params.delta
@@ -127,6 +182,11 @@ def raycast(grid: TSDFGrid, pose: Pose, *, params: GridParams, cam: PinholeCamer
         def points(t, u):
             return world_to_voxel(params, o + t[:, None] * u)
 
+        m = params.m
+        mip_ok = m % _SKIP_B == 0 and (m // _SKIP_B) ** 3 % 128 == 0
+        brick_ext = _SKIP_B * min(params.width, params.height, params.depth) / m
+        skip = _skip_mip(grid.W) if cfg.empty_skip and mip_ok else None
+
         def loop(body, state, budget):
             """Run ``body`` ``budget`` times or until no ray is alive
             (state[2]), testing every _ANY_EVERY steps."""
@@ -140,17 +200,22 @@ def raycast(grid: TSDFGrid, pose: Pose, *, params: GridParams, cam: PinholeCamer
             """Trilinear sphere tracing: state (t, hit, alive, steps)."""
             def body(s):
                 t, hit, alive, steps = s
-                phi, ok = trilinear_nan(Dm, points(t, u))
+                uvw = points(t, u)
+                phi, ok = trilinear_nan(Dm, uvw)
                 hit_now = alive & ok & (phi.abs() < cfg.hit_epsilon)
                 step = torch.where(ok, phi * cfg.step_scale, miss_step).clamp(-delta, delta)
+                if skip is not None:  # unobserved: leap, past the band's cap
+                    step = torch.where(ok, step, torch.maximum(step, _leap(skip, uvw, brick_ext)))
                 t_new = torch.maximum(torch.where(alive & ~hit_now, t + step, t), t_lo)
                 return (t_new, hit | hit_now, alive & ~hit_now & ~(t_new > t_hi),
                         steps + alive.to(torch.int32))
             return loop(body, state, budget)
 
-        m = params.m
         # the JAX package's condition, kept: it decides which march runs
         nearest_ok = cfg.sample == "nearest_far" and m ** 3 % 128 == 0
+        band = (_band_skip_mip(Dm, params, cfg.far_band)
+                if cfg.far_field == "chamfer" and nearest_ok and mip_ok else None)
+        cell_diag = math.sqrt(sum(v * v for v in params.voxel_size))
         steps0 = torch.zeros(N, dtype=torch.int32, device=dev)
         hit0 = torch.zeros(N, dtype=torch.bool, device=dev)
         tp = cfg.two_phase
@@ -161,12 +226,17 @@ def raycast(grid: TSDFGrid, pose: Pose, *, params: GridParams, cam: PinholeCamer
             def body_n(s):
                 """Nearest-voxel steps; a ray freezes ("near") under t_fine."""
                 t, near, alive, steps = s
-                n = torch.round(points(t, unit_f)).clamp(0, m - 1).to(torch.int64)
+                uvw = points(t, unit_f)
+                n = torch.round(uvw).clamp(0, m - 1).to(torch.int64)
                 phi = Dm[n[:, 0], n[:, 1], n[:, 2]].to(t.dtype)
                 ok = torch.isfinite(phi)
                 near_now = alive & ok & (phi < t_fine)
                 step = torch.where(ok, torch.clamp(phi - margin, min=0.0) * cfg.step_scale,
                                    miss_step).clamp(max=delta)
+                if skip is not None:
+                    step = torch.where(ok, step, torch.maximum(step, _leap(skip, uvw, brick_ext)))
+                if band is not None:  # observed or not; one cell short of the band
+                    step = torch.maximum(step, _leap(band, uvw, brick_ext) - cell_diag)
                 t_new = torch.maximum(torch.where(alive & ~near_now, t + step, t), t_start_f)
                 return (t_new, near | near_now, alive & ~near_now & ~(t_new > t_stop_f),
                         steps + alive.to(torch.int32))

@@ -1,14 +1,20 @@
 """Direct Gauss-Newton camera tracking against the TSDF
-(counterpart of tracking_sdf_tpu.tracking.gauss_newton, analytic Jacobian).
+(counterpart of tracking_sdf_tpu.tracking.gauss_newton).
 
 The twist perturbs the camera-to-world pose on the left in the world frame,
 so dphi/dv = g (world-frame SDF gradient) and dphi/dw = a x g with a = R p.
-Each iteration is one ``gn_step`` on a state buffer on the view's device
-(tracking.gn_reduce): on the card one kernel launch forms the normal
-equations, solves the damped 6x6 system, tests convergence and updates the
-pose, and a done flag freezes the state once converged, as the JAX
-package's ``lax.while_loop`` stops. A level issues ``cfg.max_iterations``
-steps and reads nothing back; on the CPU the loop stops at the done flag.
+Two Jacobian schemes (``TrackingConfig.jacobian``):
+  * "analytic": trilinear value and exact gradient. Each iteration is one
+    ``gn_step`` on a state buffer on the view's device (tracking.gn_reduce):
+    on the card one kernel launch forms the normal equations, solves the
+    damped 6x6 system, tests convergence and updates the pose.
+  * "central": the reference's 13 Shepard-L1 probes per pixel; the normal
+    equations are PyTorch ops (the JAX package has no kernel for them
+    either), and ``gn_reduce.advance_state`` applies the same solve and
+    update to the same state buffer.
+A done flag freezes the state once converged, as the JAX package's
+``lax.while_loop`` stops. A level issues ``cfg.max_iterations`` steps and
+reads nothing back; on the CPU the loop stops at the done flag.
 """
 from __future__ import annotations
 
@@ -21,10 +27,10 @@ from tracking_sdf_tpu_torch.config import GridParams, TrackingConfig
 from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, world_to_voxel
 from tracking_sdf_tpu_torch.grid.interp import (
-    MaskedView, masked_view, trilinear_with_grad_nan)
+    MaskedView, masked_view, shepard_l1, trilinear_with_grad_nan)
 from tracking_sdf_tpu_torch.tracking.gn_reduce import (
-    S_COUNT, S_DONE, S_NVALID, S_SUMABS, S_TWIST, gn_stepper, init_state,
-    state_pose)
+    S_COUNT, S_DONE, S_NVALID, S_SUMABS, S_TWIST, advance_state, gn_stepper,
+    init_state, state_pose)
 
 
 class TrackStats(NamedTuple):
@@ -118,11 +124,55 @@ def pixel_residuals_analytic(
     return phi, J, valid_in & in_bounds & ok
 
 
+def pixel_residuals_central(
+    grid: TSDFGrid,
+    pose: Pose,
+    points_cam: torch.Tensor,  # (N, 3), NaN holes allowed
+    *,
+    params: GridParams,
+    v_h: float = 1.0,
+    w_h: float = 0.01,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The reference's residuals (phi (N,), J (N, 6), mask (N,)): 13
+    Shepard-L1 probes per pixel, the value, three ±v_h voxel translation
+    probes and three ±w_h rotation probes. A pixel counts only if every
+    probe interpolates (the reference's early-outs drop it)."""
+    p, valid_in = _sanitize(points_cam)
+    x = p @ pose.R.T + pose.t
+    uvw = world_to_voxel(params, x)
+    in_bounds = ((uvw >= 0) & (uvw < params.m)).all(dim=-1)
+    # the 13 probes in one interpolation, (13, N, 3): the value; ±v_h voxels
+    # along each grid axis; x ± (w_h e_i) × (x - t), i.e. (I ± w_h hat(e_i))
+    # R p + t, for each axis
+    eye = torch.eye(3, dtype=uvw.dtype, device=uvw.device)
+    step = (eye * v_h)[:, None, :]
+    delta = torch.linalg.cross((eye * w_h)[:, None, :], (x - pose.t)[None], dim=-1)
+    probes = torch.cat([uvw[None], torch.stack([uvw + step, uvw - step], 1).flatten(0, 1),
+                        world_to_voxel(params, torch.stack([x + delta, x - delta], 1)
+                                       .flatten(0, 1))])
+    vals, ok = shepard_l1(grid.D, grid.W, probes)
+    vp, vm = vals[1::2], vals[2::2]  # (6, N): the + and - probe of each column
+    # translation over 2·v_h voxel sizes (meters), rotation over 2·w_h
+    denom = [2.0 * v_h * e / params.m for e in params.extent] + [2.0 * w_h] * 3
+    J = torch.stack([(vp[c] - vm[c]) / denom[c] for c in range(6)], dim=-1)
+    return vals[0], J, valid_in & in_bounds & ok.all(dim=0)
+
+
 def normal_equations(phi: torch.Tensor, J: torch.Tensor, mask: torch.Tensor):
     """A = JᵀJ, b = Jᵀphi over valid pixels."""
     Jm = torch.where(mask[:, None], J, torch.zeros_like(J))
     rm = torch.where(mask, phi, torch.zeros_like(phi))
     return Jm.T @ Jm, Jm.T @ rm
+
+
+def central_sums(grid: TSDFGrid, pose: Pose, points: torch.Tensor, params: GridParams,
+                 cfg: TrackingConfig):
+    """(A, b, valid count, Σ|r| over valid pixels) of the central scheme."""
+    phi, J, mask = pixel_residuals_central(grid, pose, points, params=params,
+                                           v_h=cfg.v_h, w_h=cfg.w_h)
+    A, b = normal_equations(phi, J, mask)
+    return (A, b, mask.sum().to(torch.float32),
+            torch.where(mask, phi.abs(), torch.zeros_like(phi)).sum())
 
 
 def track_frame(
@@ -135,17 +185,29 @@ def track_frame(
     Dm: Optional[MaskedView] = None,  # precomputed masked view
 ) -> TrackResult:
     """Estimate the camera pose for one frame by damped GN on sum phi^2.
-    ``grid`` may be None when ``Dm`` is given (the brick-major loop never
-    builds the dense grid). On the card this issues ``cfg.max_iterations``
-    kernel launches and waits on nothing."""
-    if cfg.jacobian != "analytic":
-        raise NotImplementedError(f"jacobian={cfg.jacobian!r}: only 'analytic' is ported")
-    if Dm is None:
-        Dm = masked_view(grid.D, grid.W)
+    With the analytic Jacobian ``grid`` may be None when ``Dm`` is given (the
+    brick-major loop never builds the dense grid); the central scheme reads
+    ``grid`` (D and W). On the card this issues ``cfg.max_iterations`` steps
+    and waits on nothing."""
     state = init_state(pose0, cfg.damping)
-    step = gn_stepper(Dm, state, points_cam, params, cfg)
+    if cfg.jacobian == "analytic":
+        if Dm is None:
+            Dm = masked_view(grid.D, grid.W)
+        step = gn_stepper(Dm, state, points_cam, params, cfg)
+        device = Dm.device
+    elif cfg.jacobian == "central":
+        if grid is None:
+            raise ValueError("jacobian='central' reads the dense grid; grid is None")
+        flat = points_cam.reshape(-1, 3)
+
+        def step():
+            advance_state(state, *central_sums(grid, state_pose(state), flat, params, cfg),
+                          cfg)
+        device = grid.D.device
+    else:
+        raise ValueError(f"unknown jacobian mode: {cfg.jacobian}")
     ints = state.view(torch.int32)
-    on_cpu = Dm.device.type == "cpu"
+    on_cpu = device.type == "cpu"
     for _ in range(cfg.max_iterations):
         step()
         if on_cpu and bool(ints[S_DONE]):  # reading the flag is free here

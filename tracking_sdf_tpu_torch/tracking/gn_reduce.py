@@ -203,15 +203,17 @@ def converged(twist: torch.Tensor, cfg: TrackingConfig) -> torch.Tensor:
     raise ValueError(f"unknown convergence mode: {cfg.convergence}")
 
 
-def gn_step_reference(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
-                      params: GridParams, cfg: TrackingConfig) -> None:
-    """Plain PyTorch version of ``gn_step``; updates ``state`` in place.
-    ``points``: (N, 3) or an (h, w, 3) view of camera-frame points."""
+def advance_state(state: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
+                  nvalid: torch.Tensor, sum_abs: torch.Tensor, cfg: TrackingConfig) -> None:
+    """One Gauss-Newton iteration on ``state`` in place from the normal
+    equations A (6, 6), b (6,), the valid count and Σ|r| at its pose: the
+    damped solve, the convergence test and the pose update, frozen once the
+    state is done or has run ``cfg.max_iterations`` steps. Every Jacobian
+    scheme advances its state here (the card's ``gn_step`` does the same
+    inside its kernel)."""
     ints = state.view(torch.int32)
     active = (ints[S_DONE] == 0) & (ints[S_COUNT] < cfg.max_iterations)
     pose = state_pose(state)
-    A, b, nvalid, sum_abs = unpack(gn_reduce_reference(
-        Dm, pose, points.reshape(-1, 3), params))
     lam = state[S_LAM]
     # Marquardt damping plus a tiny floor that keeps a degenerate system
     # solvable; a non-finite solve (singular system) takes no step
@@ -227,6 +229,14 @@ def gn_step_reference(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
     i_new = torch.stack([count + 1, done.to(torch.int32), torch.zeros_like(count)])
     state[:S_COUNT] = torch.where(active, f_new, state[:S_COUNT])
     ints[S_COUNT:] = torch.where(active, i_new, ints[S_COUNT:])
+
+
+def gn_step_reference(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
+                      params: GridParams, cfg: TrackingConfig) -> None:
+    """Plain PyTorch version of ``gn_step``; updates ``state`` in place.
+    ``points``: (N, 3) or an (h, w, 3) view of camera-frame points."""
+    advance_state(state, *unpack(gn_reduce_reference(
+        Dm, state_pose(state), points.reshape(-1, 3), params)), cfg)
 
 
 def gn_stepper(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,

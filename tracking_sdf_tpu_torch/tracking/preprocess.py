@@ -1,11 +1,14 @@
-"""Depth preprocessing: separable bilateral smoothing and organized normals
+"""Depth preprocessing: bilateral smoothing and organized normals
 (counterpart of tracking_sdf_tpu.tracking.preprocess).
 
-Stencils over shifted copies of the image; invalidity is NaN. Only the
-separable bilateral filter, which the tum256/tum512 presets run, is ported.
+Stencils over shifted copies of the image; invalidity is NaN. Both bilateral
+filters are ported: the full 2-D kernel (``bilateral_mode="full"``, the
+default and the reference's) and the separable passes that the tum256 and
+tum512 presets run.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
@@ -22,6 +25,47 @@ def _shifted(img: torch.Tensor, dy: int, dx: int, fill: float) -> torch.Tensor:
     xs, xd = slice(max(dx, 0), w + min(dx, 0)), slice(max(-dx, 0), w + min(-dx, 0))
     out[yd, xd] = img[ys, xs]
     return out
+
+
+@functools.lru_cache(maxsize=None)
+def _spatial_weights(radius: int, sigma_spatial: float, device: torch.device) -> torch.Tensor:
+    """(2r+1, 2r+1) float32 tap weights exp(-(dy² + dx²) / (2 σs²)), taken in
+    double as the JAX package's ``math.exp``, copied to ``device`` once (a
+    captured frame step may not copy from the host)."""
+    inv2ss = 1.0 / (2.0 * sigma_spatial ** 2)
+    taps = range(-radius, radius + 1)
+    return torch.tensor([[math.exp(-(dy * dy + dx * dx) * inv2ss) for dx in taps]
+                         for dy in taps], dtype=torch.float32, device=device)
+
+
+def bilateral_filter(
+    depth: torch.Tensor,
+    radius: int = 5,
+    sigma_spatial: float = 3.0,
+    sigma_range: float = 0.03,
+) -> torch.Tensor:
+    """The full 2-D (2r+1)^2 bilateral kernel: edge-preserving depth
+    smoothing with NaN neighbours excluded; NaN holes stay NaN.
+
+    All taps are built at once (pad with NaN, two ``unfold``s, one reduction
+    over the window): ~10 launches a frame at (2r+1)^2·H·W floats of
+    temporaries, where the JAX package's loop over taps sums them one by one
+    (the same terms, summed in another order)."""
+    k = 2 * radius + 1
+    center_valid = torch.isfinite(depth)
+    d0 = torch.where(center_valid, depth, 0.0)
+    inv2sr = 1.0 / (2.0 * sigma_range ** 2)
+    sw = _spatial_weights(radius, sigma_spatial, depth.device)
+    padded = torch.nn.functional.pad(depth[None, None], (radius,) * 4,
+                                     value=float("nan"))[0, 0]
+    dn = padded.unfold(0, k, 1).unfold(1, k, 1)  # (H, W, k, k) view
+    ok = torch.isfinite(dn)
+    dn0 = torch.where(ok, dn, 0.0)
+    w = torch.where(ok, sw * torch.exp(-((dn0 - d0[..., None, None]) ** 2) * inv2sr), 0.0)
+    num = (w * dn0).sum(dim=(-2, -1))
+    den = w.sum(dim=(-2, -1))
+    out = num / torch.clamp(den, min=1e-12)
+    return torch.where(center_valid & (den > 0), out, float("nan"))
 
 
 def bilateral_filter_separable(
@@ -117,13 +161,16 @@ def preprocess_frame(
     *,
     cam: PinholeCamera,
     bilateral: bool = True,
-    bilateral_mode: str = "separable",
+    bilateral_mode: str = "full",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """depth (H, W) -> (points_cam, normals_cam), both (H, W, 3)."""
+    """depth (H, W) -> (points_cam, normals_cam), both (H, W, 3).
+    ``bilateral_mode``: "full" (the 2-D kernel) or "separable"."""
     if bilateral:
-        if bilateral_mode != "separable":
-            raise NotImplementedError(
-                f"bilateral_mode={bilateral_mode!r}: only 'separable' is ported")
-        depth = bilateral_filter_separable(depth)
+        if bilateral_mode == "full":
+            depth = bilateral_filter(depth)
+        elif bilateral_mode == "separable":
+            depth = bilateral_filter_separable(depth)
+        else:
+            raise ValueError(f"unknown bilateral_mode: {bilateral_mode}")
     points = backproject(cam, depth)
     return points, estimate_normals(points)

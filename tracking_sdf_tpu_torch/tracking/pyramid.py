@@ -33,11 +33,12 @@ def track_frame_pyramid(
 ) -> Tuple[TrackResult, Tuple[TrackResult, ...]]:
     """Returns (finest-level result, per-level results). Without ``Dm`` the
     masked view is built once here from ``grid``; with it, ``grid`` may be
-    None (the brick-major loop never builds the dense grid)."""
+    None (the brick-major loop never builds the dense grid). The central
+    Jacobian reads ``grid`` at every level."""
     if not levels or levels[-1] != 1:
         raise ValueError("levels must be non-empty and end at 1 "
                          "(finest = cfg.pixel_stride)")
-    if Dm is None:
+    if Dm is None and cfg.jacobian == "analytic":
         Dm = masked_view(grid.D, grid.W)
     pose = pose0
     results = []
@@ -46,7 +47,7 @@ def track_frame_pyramid(
         pts = points_img[::stride, ::stride]
         level_cfg = cfg if mult == 1 else cfg._replace(
             max_iterations=coarse_iterations, min_iterations=0)
-        res = track_frame(None, pose, pts, params=params, cfg=level_cfg, Dm=Dm)
+        res = track_frame(grid, pose, pts, params=params, cfg=level_cfg, Dm=Dm)
         pose = res.pose
         results.append(res)
     return results[-1], tuple(results)
