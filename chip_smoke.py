@@ -167,6 +167,51 @@ Phases, each of which fails the run (non-zero exit) on a fault:
          soundness: every leap taken before a ray first enters a surface-band
          brick lands at least one voxel cell's diagonal before it.
      Its numbers also go out as one JSON line, {"phase9": ...}.
+ 10. multi-device (tracking_sdf_tpu_torch.parallel), with the card's name,
+     power limit and compute mode (two processes on one card need
+     "Default"):
+       K1's slab form (gn_reduce with i0 and slab, the pose read from a GN
+         state buffer) on tum256's real bf16 rows fused from the first frame
+         and on tum128's dense 128^3 masked view, split into two slabs with
+         their halos, at the second frame's stride-3 queries: each slab
+         against its plain version (rtol 1e-5 / atol 1e-4, equal valid
+         counts); the slabs' sums against the whole grid's (valid counts
+         adding up exactly; 1e-4 of max |A| / |b|, the elementwise
+         rtol / atol outcome printed);
+       K2's slab form (brick_fuse_rows with i_offset and nbi) on each slab's
+         real lists of the second frame at tum256 and tum512, caps per rank
+         max(256, cap // 2): bitwise against its plain version; with caps
+         that bind nowhere the two slabs' rows bitwise equal to the whole
+         grid's kernel at the same pose;
+       a one-rank NCCL group (a local store) in this process: tum256
+         through Reconstruction(mesh=...) per frame (10 tracked frames) and
+         chunked (4, 3, 3; CUDA graphs with the collectives captured), the
+         launch counts set to 0 just before each and read just after (K1's
+         slab form 20 a tracked frame, K2's once a fused frame, no
+         single-device form), chunked equal to per frame bit for bit,
+         |t err| within half a voxel of the JAX package's sharded figure;
+         ms a frame, collectives a frame and their host time, NCCL kernels'
+         device time in a frame and in a replayed chunk;
+       a two-rank Gloo group of processes sharing the card
+         (tracking_sdf_tpu_torch.parallel.worker): tum256 (10 tracked
+         frames) and tum512 (5): both ranks' poses and trajectories
+         identical, |t err| within half a voxel of the JAX package's sharded
+         figures, tum256's gathered rows against the one-rank run (pose
+         1e-4, W 1e-3, D 1e-2 on observed voxels: tests/test_parallel.py's
+         bars); on its final grid the sharded 640x480 render (bitwise the
+         single-device render of the gathered grid), the sharded mesh (the
+         ranks' triangles equal marching_cubes of the gathered grid) and a
+         checkpoint restored bitwise into the group, into one device and
+         into the one-rank mesh;
+       the CLI as a two-rank group on phase 7's 120 frames (--multihost
+         --coordinator localhost:PORT --num-processes 2 --process-id r
+         --distributed --preset tum256 --dataset D --native-loader --chunk 8
+         --eval --json): byte-identical trajectories, ATE within half a
+         voxel of the JAX package's sharded figure, each rank's steady ms a
+         frame; then with --realtime 30: identical trajectories and drops.
+     Its numbers also go out as one JSON line, {"phase10": ...}, and the
+     kernels' line gains the slab forms (gn_reduce_slab_brick,
+     brick_fuse_rows_slab; launches from the one-rank mesh's runs).
 The last two lines are the kernels' JSON record (bound_ms from this run's
 inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
 at 67 TFLOP/s, whichever is longer) and {"ok": true, "device": {...}}.
@@ -399,9 +444,12 @@ def counters():
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     return {"gn_reduce": k1.launches, "gn_reduce_brick": k1.launches_brick,
+            "gn_reduce_slab": k1.launches_slab,
+            "gn_reduce_slab_brick": k1.launches_slab_brick,
             "gn_step": k1.launches_step, "gn_step_brick": k1.launches_step_brick,
             "brick_merge": k2.launches, "brick_merge_rows": k2.launches_rows,
-            "brick_fuse_rows": k2f.launches, "brick_fuse_rows_sat": k2f.launches_sat}
+            "brick_fuse_rows": k2f.launches, "brick_fuse_rows_sat": k2f.launches_sat,
+            "brick_fuse_rows_slab": k2f.launches_slab}
 
 
 def reset_counters():
@@ -410,7 +458,9 @@ def reset_counters():
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     k1.launches = k1.launches_brick = k1.launches_step = k1.launches_step_brick = 0
+    k1.launches_slab = k1.launches_slab_brick = 0
     k2.launches = k2.launches_rows = k2f.launches = k2f.launches_sat = 0
+    k2f.launches_slab = 0
 
 
 def gn_compare(label, Dm, pose, pts1, p, strides=(3, 6)):
@@ -2291,6 +2341,609 @@ def skip_renders(name, rows, pose, cam):
     return out
 
 
+
+# --- phase 10: multi-device ---------------------------------------------------
+
+# tools/jax_reference_figures.py (JAX 0.9.0 on the CPU, 2 virtual devices,
+# unmodified presets on the JAX package's sharded path, which runs no
+# pyramid): |t err| on the scene above after 10 / 5 tracked frames, and the
+# CLI's ATE with --distributed over the 120 generated frames (per frame,
+# --native-loader).
+JAX_SHARDED_T_ERR_MM = {"tum256": 39.6660, "tum512": 29.9349}
+JAX_SHARDED_ATE_MM = {"tum256": 12.6821}
+SHARDED_TRACKED = {"tum256": 10, "tum512": 5}
+SLAB_RTOL, SLAB_ATOL = 1e-5, 1e-4  # K1's slab form: tests/test_pallas_gn.py's bars
+RANK_POSE_TOL, RANK_W_TOL, RANK_D_TOL = 1e-4, 1e-3, 1e-2  # tests/test_parallel.py:352-363
+# W may differ by a whole observation on this share of the voxels at most: the
+# ranks' float32 sums in another order move the pose by ~1e-7, and a voxel
+# whose projection or brick class lies on a boundary then fuses once more or
+# less (17 of 256^3 voxels on the H100)
+RANK_W_SHARE = 1e-5
+GROUP_TIMEOUT_S = 600
+
+
+def compute_mode() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def slab_views(whole, n, p):
+    """Rank r's view of an n-way i-split of a masked view: its slab and the
+    next rank's first plane (dense) or brick layer, NaN past the last."""
+    from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView
+
+    m, s = p.m, p.m // n
+    if not isinstance(whole, BrickMaskedView):
+        nan = torch.full((1, m, m), float("nan"), device=whole.device)
+        return [torch.cat([whole[r * s:(r + 1) * s],
+                           whole[(r + 1) * s:(r + 1) * s + 1] if r < n - 1 else nan])
+                for r in range(n)]
+    rows, bs = whole.rows, whole.bs
+    per, layer = rows.shape[0] // n, (m // bs[1]) * (m // bs[2])
+    nan = torch.full((layer, rows.shape[1]), float("nan"), device=rows.device,
+                     dtype=rows.dtype)
+    return [BrickMaskedView(torch.cat([rows[r * per:(r + 1) * per],
+                                       rows[(r + 1) * per:(r + 1) * per + layer]
+                                       if r < n - 1 else nan]), m, bs, mi=s + bs[0])
+            for r in range(n)]
+
+
+def k1_slab_compare(label, whole, pose, q, p, n=2):
+    """K1's slab form on each of n slabs (the pose read from a GN state
+    buffer, as the sharded tracker reads it) against its plain version, and
+    the slabs' sums against the whole-grid kernel's. Returns the first
+    slab's record (times, bound) with the largest error."""
+    from tracking_sdf_tpu_torch.tracking.gn_reduce import (
+        gn_reduce, gn_reduce_reference, gn_reducer, init_state)
+
+    s = p.m // n
+    state = init_state(pose, 0.0)
+    views = slab_views(whole, n, p)
+    outs, err, nvalid = [], 0.0, []
+    for r, v in enumerate(views):
+        out = gn_reduce(v, state, q, p, i0=r * s, slab=s).clone()
+        ref = gn_reduce_reference(v, state, q, p, i0=r * s, slab=s)
+        torch.cuda.synchronize()
+        close = bool(torch.allclose(out[:27], ref[:27], rtol=SLAB_RTOL, atol=SLAB_ATOL))
+        err = max(err, (out[:27] - ref[:27]).abs().max().item())
+        nvalid.append(int(out[27].item()))
+        check(close and out[27].item() == ref[27].item(),
+              f"{label} slab {r}: the kernel disagrees with its plain version (rtol "
+              f"{SLAB_RTOL}, atol {SLAB_ATOL}): valid {out[27].item()} vs {ref[27].item()}, "
+              f"max abs err {(out[:27] - ref[:27]).abs().max().item():.3e}")
+        outs.append(out)
+    total = torch.stack(outs).sum(0)
+    one = gn_reduce(whole, pose, q, p)
+    sum_err = (total[:27] - one[:27]).abs().max().item()
+    # elementwise at the slabs' bar, and relative to the largest |A| and |b|
+    # as K1 is held to everywhere else: the slabs' float32 sums are taken in
+    # another order, and an entry that cancels (small beside its terms)
+    # keeps their rounding
+    past = (total[:27] - one[:27]).abs() > SLAB_ATOL + SLAB_RTOL * one[:27].abs()
+    rel = max((total[sl] - one[sl]).abs().max().item()
+              / max(one[sl].abs().max().item(), 1e-30) for sl in (slice(0, 21), slice(21, 27)))
+    print(f"{label}: the slabs' sums against the whole grid's: {int(past.sum())} of 27 "
+          f"entries past rtol {SLAB_RTOL} / atol {SLAB_ATOL} (the largest |difference| "
+          f"{sum_err:.3e}), relative {rel:.3e} of max |A| / |b| (tol {REL_TOL_GN:g})")
+    check(int(total[27].item()) == int(one[27].item()) and rel <= REL_TOL_GN,
+          f"{label}: the slabs' sums ({int(total[27].item())} valid) do not add up to the "
+          f"whole grid's ({int(one[27].item())} valid, relative error {rel:.3e})")
+    v0 = views[0]
+    launch = gn_reducer(v0, state, q, p, i0=0, slab=s)
+    ms = events_ms(launch)
+    device_ms = kernel_device_ms(launch, ("gn_partials_kernel", "gn_final_kernel"))
+    wrapper_ms = cuda_time_ms(lambda: gn_reduce(v0, state, q, p, i0=0, slab=s))
+    plain_ms = cuda_time_ms(lambda: gn_reduce_reference(v0, state, q, p, i0=0, slab=s))
+    bms, by = k1_bound(q.shape[0], nvalid[0], whole.dtype.itemsize, 29 * 4)
+    print(f"{label} slab form, {n} slabs, N={q.shape[0]}: valid {nvalid} (whole "
+          f"{int(one[27].item())}), max abs err vs plain {err:.3e}, slabs' sum vs whole "
+          f"{sum_err:.3e} (rtol {SLAB_RTOL}, atol {SLAB_ATOL}); slab 0: kernel {ms:.4f} ms "
+          f"({TIMED_LAUNCHES} back-to-back), device {device_ms} ms, wrapper "
+          f"{wrapper_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.6f} ms ({by})")
+    return dict(max_abs_err=err, sum_max_abs_err=sum_err, sum_rel_err=rel,
+                sum_entries_past_rtol=int(past.sum()), ms=ms, device_ms=device_ms,
+                wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                n=q.shape[0], valid=nvalid)
+
+
+def k1_slab_phase(cam, scene, poses, rgb, dev):
+    """K1's slab form on tum256's real bf16 rows (fused from the first
+    frame) and on tum128's dense 128^3 masked view, at the second frame's
+    stride-3 queries."""
+    from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        brick_masked_view, empty_brick_grid, fuse_frame_brickmajor)
+    from tracking_sdf_tpu_torch.fusion.fuse import fuse_frame
+    from tracking_sdf_tpu_torch.grid.grid import empty_grid
+    from tracking_sdf_tpu_torch.grid.interp import masked_view
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+
+    out = {}
+    for name in ("tum256", "tum128"):
+        cfg = path_config(name, None)
+        f, p = cfg.fusion, cfg.grid
+        frames = [preprocess_frame(render_scene_depth(scene, cam, poses[k]), cam=cam,
+                                   bilateral=cfg.bilateral_filter,
+                                   bilateral_mode=cfg.bilateral_mode) for k in (0, 1)]
+        if f.mode == "brickmajor":
+            bg = empty_brick_grid(p, f.brick_shape, device=dev, value_dtype=torch.bfloat16,
+                                  weight_dtype=torch.bfloat16)
+            fuse_frame_brickmajor(bg, poses[0], *frames[0], rgb, params=p, cam=cam, cfg=f,
+                                  bs=f.brick_shape, cap=f.brick_cap,
+                                  cap_free=f.brick_cap_free)
+            whole = brick_masked_view(bg, p, f.brick_shape)
+        else:
+            g = fuse_frame(empty_grid(p, device=dev), poses[0], *frames[0], rgb, params=p,
+                           cam=cam, cfg=f)
+            whole = masked_view(g.D, g.W).contiguous()
+        q = frames[1][0][::3, ::3].reshape(-1, 3).contiguous()
+        out[name] = k1_slab_compare(f"K1 gn_reduce ({name}, "
+                                    f"{'brick bf16' if f.mode == 'brickmajor' else 'dense'})",
+                                    whole, poses[1], q, p)
+        del whole
+    torch.cuda.empty_cache()
+    return out
+
+
+def k2_slab_compare(name, cam, scene, poses, rgb, dev, n=2):
+    """K2's slab form on each of n slabs' real lists of the second frame
+    (rows fused from the first), at the caps per rank: bitwise against its
+    plain version; with caps that bind nowhere, the slabs' rows concatenated
+    bitwise equal to the whole-grid kernel's at the same pose. Times and the
+    bound of slab 0 at the caps per rank."""
+    from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
+    from tracking_sdf_tpu_torch.fusion.brick import _pixel_table
+    from tracking_sdf_tpu_torch.fusion.brick_fuse import (
+        brick_fuse_rows, brick_fuse_rows_reference, group_centre_pixels)
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        classify_compact_rows, empty_brick_grid, fuse_frame_brickmajor)
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+
+    cfg = path_config(name, None)
+    f, p = cfg.fusion, cfg.grid
+    bs = f.brick_shape
+    frames = [preprocess_frame(render_scene_depth(scene, cam, poses[k]), cam=cam,
+                               bilateral=cfg.bilateral_filter,
+                               bilateral_mode=cfg.bilateral_mode) for k in (0, 1)]
+    bg = empty_brick_grid(p, bs, device=dev, value_dtype=torch.bfloat16,
+                          weight_dtype=torch.bfloat16)
+    fuse_frame_brickmajor(bg, poses[0], *frames[0], rgb, params=p, cam=cam, cfg=f, bs=bs,
+                          cap=f.brick_cap, cap_free=f.brick_cap_free)
+    pts, nrm = frames[1]
+    pose, hw = poses[1], tuple(pts.shape[:2])
+    pix = _pixel_table(pts, nrm, rgb, True, f.distance)
+    NB, BV = bg.D.shape
+    s, per = p.m // n, NB // n
+    cap, cap_free = max(256, f.brick_cap // n), max(256, f.brick_cap_free // n)
+    kw = dict(hw=hw, params=p, cam=cam, cfg=f, bs=bs)
+    differ, nan_ok, err, union = 0, True, 0.0, []
+    rec = None
+    for r in range(n):
+        sl = slice(r * per, (r + 1) * per)
+        slab_kw = dict(i_offset=r * s, **kw)
+        ids, _ = classify_compact_rows(p, pose, pts, nrm, cam=cam, cfg=f, bs=bs, cap=cap,
+                                       cap_free=cap_free, nbi=s // bs[0], i_offset=r * s)
+        lk = [x[sl].clone() for x in (bg.D, bg.W, bg.C)]
+        lr = [x.clone() for x in lk]
+        brick_fuse_rows(*lk, ids, pix, pose, cap=cap, nbi=s // bs[0], **slab_kw)
+        brick_fuse_rows_reference(*lr, ids, pix, pose, cap=cap, **slab_kw)
+        torch.cuda.synchronize()
+        nan_ok = nan_ok and all(torch.equal(torch.isnan(a), torch.isnan(b))
+                                for a, b in zip(lk[:2], lr[:2]))
+        differ += sum(int((a[~torch.isnan(b)].view(torch.int16)
+                           != b[~torch.isnan(b)].view(torch.int16)).sum())
+                      for a, b in zip(lk[:2], lr[:2])) + int((lk[2] != lr[2]).sum())
+        err = max([err] + [float(torch.nan_to_num(a.float() - b.float()).abs().max())
+                           for a, b in zip(lk[:2], lr[:2])])
+        if r == 0:
+            n_full, n_free = int((ids[:cap] < per).sum()), int((ids[cap:] < per).sum())
+            full_rows = ids[:cap][ids[:cap] < per]
+            n_pix = int(torch.unique(group_centre_pixels(full_rows, pose, params=p, cam=cam,
+                                                         cfg=f, bs=bs, hw=hw,
+                                                         i_offset=0)).numel())
+
+            def kernel():
+                brick_fuse_rows(*lk, ids, pix, pose, cap=cap, nbi=s // bs[0], **slab_kw)
+
+            ms = events_ms(kernel)
+            device_ms = kernel_device_ms(kernel, ("brick_fuse_rows_kernel",))
+            wrapper_ms = cuda_time_ms(kernel)
+            plain_ms = cuda_time_ms(lambda: brick_fuse_rows_reference(
+                *lr, ids, pix, pose, cap=cap, **slab_kw))
+            row = BV * 8
+            bms, by = bound(n_full * (row + BV * 16) + n_free * row
+                            + n_pix * pix.shape[1] * 4 + ids.numel() * 4 + 48)
+            rec = dict(ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                       bound_ms=bms, bound_by=by, n_full=n_full, n_free=n_free,
+                       centre_pixels=n_pix, cap=cap, cap_free=cap_free)
+        # the union with caps that bind nowhere
+        ids_all, _ = classify_compact_rows(p, pose, pts, nrm, cam=cam, cfg=f, bs=bs,
+                                           cap=per, cap_free=per, nbi=s // bs[0],
+                                           i_offset=r * s)
+        part = [x[sl].clone() for x in (bg.D, bg.W, bg.C)]
+        brick_fuse_rows(*part, ids_all, pix, pose, cap=per, nbi=s // bs[0], **slab_kw)
+        union.append(part)
+        del lk, lr
+    ids_one, _ = classify_compact_rows(p, pose, pts, nrm, cam=cam, cfg=f, bs=bs, cap=NB,
+                                       cap_free=NB)
+    one = [x.clone() for x in (bg.D, bg.W, bg.C)]
+    brick_fuse_rows(*one, ids_one, pix, pose, cap=NB, **kw)
+    torch.cuda.synchronize()
+    union_differ = sum(int((torch.cat([u[c] for u in union]).view(torch.int16)
+                            != one[c].view(torch.int16)).sum()) for c in range(3))
+    label = f"K2 brick_fuse_rows slab form ({name}, {n} slabs, color)"
+    print(f"{label}: caps per rank {cap} / {cap_free}; {differ} stored values differ from "
+          f"the plain version (tol 0), NaN masks equal {nan_ok}, max abs err {err:.3e}; "
+          f"slabs' rows vs the whole-grid kernel with no cap binding: {union_differ} "
+          f"16-bit lanes differ; slab 0: kernel {rec['ms']:.4f} ms ({TIMED_LAUNCHES} "
+          f"back-to-back), device {rec['device_ms']} ms, wrapper {rec['wrapper_ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.6f} ms "
+          f"({rec['bound_by']}; {rec['n_full']} FULL, {rec['n_free']} FREE)")
+    check(differ == 0 and nan_ok, f"{label} disagrees with its plain version")
+    check(union_differ == 0, f"{label}: the slabs' rows differ from the whole grid's")
+    del bg, one, union
+    torch.cuda.empty_cache()
+    return dict(rec, max_abs_err=err)
+
+
+def nccl_device_ms(fn):
+    """(device ms of the NCCL kernels, of all device ops) of one call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    nccl = sum(e.self_device_time_total for e in ev if "nccl" in e.key.lower())
+    return nccl / 1e3, sum(e.self_device_time_total for e in ev) / 1e3
+
+
+def one_rank_mesh(cam, depths, poses, rgb, dev, work):
+    """A one-rank NCCL group on the card: tum256 per frame and chunked
+    through Reconstruction(mesh=...), the launch counts set to 0 just
+    before and read just after; chunked equal to per frame bit for bit."""
+    from tracking_sdf_tpu_torch.parallel.mesh import init_group, make_mesh
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    mesh = make_mesh(device=init_group(device=dev))
+    name = "tum256"
+    n = SHARDED_TRACKED[name] + 1
+    cfg = path_config(name, os.path.join(work, "mesh1.txt"))
+    recon = Reconstruction(cam, cfg, initial_pose=poses[0], mesh=mesh)
+    torch.cuda.synchronize()
+    reset_counters()
+    c0, s0 = mesh.collectives, mesh.collective_s
+    wall, per_frame = [], []
+    for k in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = recon.process_frame(depths[k], rgb=rgb, timestamp=float(k))
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t0) * 1e3)
+        per_frame.append((recon.pose.R.clone(), recon.pose.t.clone()))
+        check(not st.rejected, f"one-rank mesh: frame {k} rejected")
+    launches = counters()
+    collectives = (mesh.collectives - c0) / n
+    coll_ms = (mesh.collective_s - s0) * 1e3 / n
+    rows = [x.clone() for x in (recon.brick_grid.D, recon.brick_grid.W, recon.brick_grid.C)]
+    recon.close()
+    with open(os.path.join(work, "mesh1.txt")) as f:
+        traj = f.read()
+    # one more frame, profiled (not part of the run compared below)
+    nccl_ms, dev_ms = nccl_device_ms(lambda: recon.process_frame(depths[n - 1], rgb=rgb,
+                                                                  timestamp=float(n)))
+    t_err = (per_frame[-1][1] - poses[n - 1].t).norm().item() * 1e3
+    del recon
+
+    chunks = (4, 3, 3)
+    ch = Reconstruction(cam, dataclasses.replace(cfg, trajectory_path=os.path.join(
+        work, "mesh1_chunk.txt")), initial_pose=poses[0], mesh=mesh)
+    ch.process_frame(depths[0], rgb=rgb, timestamp=0.0)
+    torch.cuda.synchronize()
+    reset_counters()
+    k, chunk_ms, same = 1, [], True
+    stack = torch.stack(depths[1:n])
+    rgbs = rgb.expand(n - 1, *rgb.shape)
+    for size in chunks:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ch.process_chunk(stack[k - 1:k - 1 + size], rgbs[k - 1:k - 1 + size],
+                         timestamps=[float(i) for i in range(k, k + size)])
+        chunk_ms.append((time.perf_counter() - t0) * 1e3 / size)
+        R, t = per_frame[k + size - 1]
+        same = same and torch.equal(ch.pose.R, R) and torch.equal(ch.pose.t, t)
+        k += size
+    chunk_launches = counters()
+    same = same and all(torch.equal(a.view(torch.int16), b.view(torch.int16))
+                        for a, b in zip((ch.brick_grid.D, ch.brick_grid.W, ch.brick_grid.C),
+                                        rows))
+    ch.close()
+    with open(os.path.join(work, "mesh1_chunk.txt")) as f:
+        same = same and f.read() == traj
+    # two more chunks of 3 whose shapes and color phases the chunks above
+    # calibrated already: one timed (replays and the read), one profiled
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ch.process_chunk(stack[:3], rgbs[:3], timestamps=[100.0, 101.0, 102.0])
+    torch.cuda.synchronize()
+    replay_ms = (time.perf_counter() - t0) * 1e3 / 3
+    replay_nccl_ms, replay_dev_ms = nccl_device_ms(lambda: ch.process_chunk(
+        stack[:3], rgbs[:3], timestamps=[103.0, 104.0, 105.0]))
+    del ch
+    voxel_mm = cfg.grid.width / cfg.grid.m * 1e3
+    ref = JAX_SHARDED_T_ERR_MM[name]
+    tracked = n - 1
+    print(f"one-rank NCCL mesh ({name}, {tracked} tracked frames): per frame median "
+          f"{statistics.median(wall[1:]):.2f} ms/frame, chunked {chunk_ms} ms/frame "
+          f"(chunks {chunks}, each with its phase calibration), a calibrated chunk of 3 "
+          f"{replay_ms:.2f} ms/frame; chunked == per frame bit for bit {same}; |t err| "
+          f"{t_err:.2f} mm vs the JAX package's sharded {ref} mm (+-{0.5 * voxel_mm:.2f}); "
+          f"collectives {collectives:.1f} a frame, host {coll_ms:.3f} ms a frame; NCCL "
+          f"kernels {nccl_ms:.4f} of {dev_ms:.4f} device ms in a frame, "
+          f"{replay_nccl_ms:.4f} of {replay_dev_ms:.4f} in a replayed chunk of 3; "
+          f"launches per frame {launches}, chunked {chunk_launches}")
+    per_step = cfg.tracking.max_iterations
+    check(same, "one-rank mesh: the chunked run differs from the per-frame run")
+    check(abs(t_err - ref) <= 0.5 * voxel_mm,
+          f"one-rank mesh: |t err| {t_err:.2f} mm not within half a voxel of {ref} mm")
+    for got in (launches, chunk_launches):
+        check(got["gn_reduce_slab_brick"] == per_step * tracked
+              and got["brick_fuse_rows_slab"] == tracked + (got is launches)
+              and got["gn_step_brick"] == 0 and got["brick_fuse_rows"] == 0,
+              f"one-rank mesh: expected the slab forms ({per_step} K1 a tracked frame, K2 "
+              f"once a fused frame) and no single-device form: {got}")
+    return mesh, dict(final_pose=per_frame[-1],
+                      ms_per_frame=statistics.median(wall[1:]), chunk_ms=chunk_ms,
+                      replay_ms_per_frame=replay_ms,
+                      t_err_mm=t_err, collectives_per_frame=collectives,
+                      collective_host_ms=coll_ms, nccl_device_ms=nccl_ms,
+                      frame_device_ms=dev_ms, replay_nccl_ms=replay_nccl_ms,
+                      replay_device_ms=replay_dev_ms, tracked=tracked, fused=tracked + 1,
+                      launches={k: launches[k] + chunk_launches[k] for k in launches},
+                      rows=rows)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _group(argvs, label):
+    """Start one process per argv (the ranks), wait for all; their stdout."""
+    env = dict(os.environ, OMP_NUM_THREADS="4")
+    procs = [subprocess.Popen(a, cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for a in argvs]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=GROUP_TIMEOUT_S))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{label}: rank {r} exited with {p.returncode}:\n"
+              f"{err[-3000:]}")
+    return [out for out, _ in outs]
+
+
+def two_rank_group(cam, depths, poses, rgb, dev, work, one_rank):
+    """Two processes sharing the card in a Gloo group (the worker module):
+    tum256 (10 tracked frames, then a 640x480 render, the mesh and a
+    checkpoint) and tum512 (5 tracked frames)."""
+    import numpy as np
+
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        BrickGrid, dense_from_brick_grid, storage_dtype)
+    from tracking_sdf_tpu_torch.render.marching_cubes import marching_cubes
+
+    n = SHARDED_TRACKED["tum256"] + 1
+    inputs = os.path.join(work, "group_in.npz")
+    np.savez(inputs, depths=torch.stack(depths[:n]).cpu().numpy(),
+             rgbs=rgb.expand(n, *rgb.shape).cpu().numpy(),
+             poses_R=torch.stack([p.R for p in poses[:n]]).cpu().numpy(),
+             poses_t=torch.stack([p.t for p in poses[:n]]).cpu().numpy())
+    runs = [dict(name="tum256", config=dict(preset="tum256"), frames=n,
+                 render=dict(stride=1, with_color=True), mesh=True, checkpoint=True),
+            dict(name="tum512", config=dict(preset="tum512"),
+                 frames=SHARDED_TRACKED["tum512"] + 1)]
+    spec = dict(coordinator=f"localhost:{_free_port()}", ranks=2, device="cuda", out=work,
+                inputs=inputs, cam=cam._asdict(), runs=runs, threads=4)
+    path = os.path.join(work, "group.json")
+    with open(path, "w") as f:
+        json.dump(spec, f)
+    t0 = time.perf_counter()
+    _group([[sys.executable, "-m", "tracking_sdf_tpu_torch.parallel.worker", path, str(r)]
+            for r in range(2)], "two-rank group")
+    wall_s = time.perf_counter() - t0
+    out = {}
+    for name in ("tum256", "tum512"):
+        a, b = (np.load(os.path.join(work, f"{name}_{r}.npz")) for r in range(2))
+        with open(os.path.join(work, f"{name}_traj_0.txt")) as f0, open(
+                os.path.join(work, f"{name}_traj_1.txt")) as f1:
+            same_traj = f0.read() == f1.read()
+        same = same_traj and all(np.array_equal(a[k], b[k])
+                                 for k in ("pose_R", "pose_t", "num_valid", "iterations"))
+        p = path_config(name, None).grid
+        voxel_mm = p.width / p.m * 1e3
+        tr = SHARDED_TRACKED[name]
+        t_err = float(np.linalg.norm(a["pose_t"] - poses[tr].t.cpu().numpy())) * 1e3
+        ref = JAX_SHARDED_T_ERR_MM[name]
+        rec = dict(ms_per_frame=[float(np.median(x["ms_per_frame"][1:])) for x in (a, b)],
+                   t_err_mm=t_err, collectives_per_frame=int(a["collectives"]) / (tr + 1),
+                   collective_host_ms=float(a["collective_s"]) * 1e3 / (tr + 1),
+                   overflow=int(a["overflow"]))
+        print(f"two-rank Gloo group ({name}, {tr} tracked frames, both ranks on the card): "
+              f"ranks' poses and trajectories identical {same}; median ms/frame per rank "
+              f"{rec['ms_per_frame']}; |t err| {t_err:.2f} mm vs the JAX package's sharded "
+              f"{ref} mm (+-{0.5 * voxel_mm:.2f}); collectives "
+              f"{rec['collectives_per_frame']:.1f} a frame, host {rec['collective_host_ms']:.3f} "
+              f"ms a frame; bricks dropped {rec['overflow']}")
+        check(same, f"two-rank group ({name}): the ranks disagree")
+        check(not a["rejected"].any(), f"two-rank group ({name}): a frame was rejected")
+        check(abs(t_err - ref) <= 0.5 * voxel_mm,
+              f"two-rank group ({name}): |t err| {t_err:.2f} mm not within half a voxel of "
+              f"{ref} mm")
+        if name == "tum256":
+            R1, t1 = (x.cpu().numpy() for x in one_rank["final_pose"])
+            dpose = max(float(np.abs(a["pose_t"] - t1).max()),
+                        float(np.abs(a["pose_R"] - R1).max()))
+            f = path_config(name, None).fusion
+            rows = BrickGrid(  # the worker wrote D and W as float32, exactly
+                D=torch.from_numpy(a["D"]).to(dev, storage_dtype(f.storage_dtype)),
+                W=torch.from_numpy(a["W"]).to(dev, storage_dtype(f.weight_dtype)),
+                C=torch.from_numpy(a["C"].view(np.int16)).to(dev))
+            D1, W1 = (x.float() for x in one_rank["rows"][:2])
+            eW = (rows.W.float() - W1).abs()
+            obs = (W1 > 0) & (rows.W.float() > 0)
+            eD = (rows.D.float() - D1)[obs].abs()
+            dW, dD = float(eW.max()), float(eD.max())
+            print(f"  against the one-rank run: pose {dpose:.3e} (tol {RANK_POSE_TOL}), W "
+                  f"{dW:.3e} (tol {RANK_W_TOL}; {int((eW > RANK_W_TOL).sum())} of "
+                  f"{eW.numel()} voxels past it), D on observed voxels {dD:.3e} (tol "
+                  f"{RANK_D_TOL}; {int((eD > RANK_D_TOL).sum())} of {eD.numel()} past it)")
+            w_past = int((eW > RANK_W_TOL).sum())
+            check(dpose <= RANK_POSE_TOL and w_past <= RANK_W_SHARE * eW.numel()
+                  and dD <= RANK_D_TOL,
+                  "two-rank group: the gathered rows or the pose differ from the one-rank run")
+            grid = dense_from_brick_grid(rows, p, f.brick_shape)
+            ref_mesh = marching_cubes(grid, params=p, with_colors=True)
+            tris = np.concatenate([a["tris"], b["tris"]])
+            cols = np.concatenate([a["cols"], b["cols"]])
+            mesh_same = (tris.shape == ref_mesh.vertices.shape
+                         and np.array_equal(tris, ref_mesh.vertices)
+                         and np.array_equal(cols, ref_mesh.colors))
+            print(f"  render 640x480 (sharded over the ranks, color): "
+                  f"{[float(x['render_ms']) for x in (a, b)]} ms, bitwise the single-device "
+                  f"render of the gathered grid {[bool(x['render_equal']) for x in (a, b)]}, "
+                  f"hits {int(a['render_hits'])}, dropped {int(a['render_dropped'])}; mesh "
+                  f"{[float(x['mesh_ms']) for x in (a, b)]} ms, {tris.shape[0]} triangles "
+                  f"(rank 0 {a['tris'].shape[0]}), equal to marching_cubes of the gathered "
+                  f"grid {mesh_same}; checkpoint restored bitwise into the group "
+                  f"{[bool(x['restore_equal']) for x in (a, b)]} and into one device "
+                  f"{bool(a['restore_single_equal'])}")
+            check(bool(a["render_equal"]) and bool(b["render_equal"]),
+                  "two-rank group: the sharded render differs from the single-device one")
+            check(mesh_same, "two-rank group: the sharded mesh differs")
+            check(bool(a["restore_equal"]) and bool(b["restore_equal"])
+                  and bool(a["restore_single_equal"]), "two-rank group: checkpoint restore")
+            rec.update(render_ms=[float(x["render_ms"]) for x in (a, b)],
+                       mesh_ms=[float(x["mesh_ms"]) for x in (a, b)],
+                       triangles=int(tris.shape[0]), pose_diff=dpose, W_diff=dW, D_diff=dD,
+                       W_voxels_past=w_past)
+            out["rows256"] = rows
+            del grid
+        out[name] = rec
+    out["wall_s"] = wall_s
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_into_one_rank(cam, poses, mesh, work, rows):
+    """The group's checkpoint restored into a one-rank mesh: its rows equal
+    the group's gathered rows bit for bit (every NaN alike)."""
+    from tracking_sdf_tpu_torch.parallel.worker import same_bits
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    r = Reconstruction(cam, path_config("tum256", None), initial_pose=poses[0], mesh=mesh)
+    r.restore_checkpoint(os.path.join(work, "tum256_ckpt"))
+    same = all(same_bits(getattr(r.brick_grid, k), getattr(rows, k)) for k in "DWC")
+    print(f"  the group's checkpoint restored into the one-rank mesh: rows equal {same}")
+    check(same, "the group's checkpoint does not restore into a one-rank mesh bitwise")
+    del r
+
+
+def cli_group(work):
+    """The CLI as a two-rank group on phase 7's 120 frames, chunked, then
+    --realtime 30: identical trajectories (and drops) on both ranks."""
+    root = os.path.join(work, "seq")
+    loader = ["--native-loader"] if zlib_header_present() else []
+    out = {}
+    for label, extra in (("chunked", ["--chunk", str(DATASET_CHUNK)]),
+                         ("realtime", ["--realtime", "30"])):
+        port = _free_port()
+        trajs = [os.path.join(work, f"cli_{label}_{r}.txt") for r in range(2)]
+        argvs = [[sys.executable, "-m", "tracking_sdf_tpu_torch.cli", "--multihost",
+                  "--coordinator", f"localhost:{port}", "--num-processes", "2",
+                  "--process-id", str(r), "--distributed", "--preset", "tum256",
+                  "--dataset", root, *loader, *extra, "--eval", "--json",
+                  "--trajectory", trajs[r]] for r in range(2)]
+        summaries = [json.loads(o.strip().splitlines()[-1])
+                     for o in _group(argvs, f"cli group {label}")]
+        with open(trajs[0]) as a, open(trajs[1]) as b:
+            same = a.read() == b.read()
+        s0, s1 = summaries
+        ate = s0["ate_rmse_m"] * 1e3
+        rec = dict(ate_mm=ate, steady_ms=[s["steady_ms"] for s in summaries],
+                   run_s=[s["run_s"] for s in summaries], frames=s0["frames"],
+                   collectives_per_frame=s0["collectives"] / s0["frames"],
+                   collective_host_ms=s0["collective_s"] * 1e3 / s0["frames"])
+        if label == "realtime":
+            rec.update(dropped=[s["realtime_dropped"] for s in summaries],
+                       yielded=[s["realtime_yielded"] for s in summaries])
+        print(f"cli two-rank group {label} (tum256, {s0['frames']:.0f} frames): "
+              f"trajectories byte-identical {same}, ATE {ate:.4f} mm (rank 1 "
+              f"{s1['ate_rmse_m'] * 1e3:.4f}), steady ms/frame per rank {rec['steady_ms']}, "
+              f"run s {rec['run_s']}, collectives {rec['collectives_per_frame']:.1f} a frame, "
+              f"host {rec['collective_host_ms']:.3f} ms a frame"
+              + (f", dropped {rec['dropped']}, yielded {rec['yielded']}"
+                 if label == "realtime" else ""))
+        check(same, f"cli group {label}: the ranks' trajectories differ")
+        if label == "chunked":
+            p = path_config("tum256", None).grid
+            voxel_mm = p.width / p.m * 1e3
+            ref = JAX_SHARDED_ATE_MM["tum256"]
+            check(s0["frames"] == DATASET_FRAMES and s0["ate_pairs"] == DATASET_FRAMES,
+                  f"cli group: {s0}")
+            if ref is not None:
+                print(f"  ATE vs the JAX package's sharded {ref} mm (+-{0.5 * voxel_mm:.2f})")
+                check(abs(ate - ref) <= 0.5 * voxel_mm,
+                      f"cli group: ATE {ate:.2f} mm not within half a voxel of {ref} mm")
+        else:
+            check(s0["realtime_dropped"] == s1["realtime_dropped"]
+                  and s0["realtime_yielded"] == s1["realtime_yielded"]
+                  and s0["realtime_yielded"] + s0["realtime_dropped"] == DATASET_FRAMES,
+                  f"cli group realtime: the ranks' drops differ: {summaries}")
+        out[label] = rec
+    return out
+
+
+def multi_device_phase(cam, scene, depths, poses, rgb, dev, work):
+    """Phase 10; returns (its record, the slab forms' kernel records, the
+    one-rank mesh's main path record: launches, tracked and fused frames
+    of its per-frame and chunked runs)."""
+    import torch.distributed as dist
+
+    mode = compute_mode()
+    print(f"phase 10: multi-device on {gpu_line()}, compute mode {mode}")
+    k1 = k1_slab_phase(cam, scene, poses, rgb, dev)
+    k2 = {name: k2_slab_compare(name, cam, scene, poses, rgb, dev)
+          for name in ("tum256", "tum512")}
+    if mode != "Default":
+        print(f"  two ranks on one card need compute mode Default; this card's is {mode}")
+    mesh, one = one_rank_mesh(cam, depths, poses, rgb, dev, work)
+    try:
+        ref = dict(rows=one.pop("rows"), final_pose=one.pop("final_pose"))
+        group = two_rank_group(cam, depths, poses, rgb, dev, work, ref)
+        del ref
+        checkpoint_into_one_rank(cam, poses, mesh, work, group.pop("rows256"))
+        cli = cli_group(work)
+    finally:
+        dist.destroy_process_group()
+    launches = one.pop("launches")
+    path = dict(launches=launches, tracked=2 * one["tracked"], fused=2 * one["tracked"] + 1)
+    record = dict(compute_mode=mode, one_rank=one, group=group, cli=cli)
+    return record, dict(k1=k1, k2=k2), path
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs "
@@ -2383,6 +3036,10 @@ def main() -> int:
             rows, pose = finals.pop(name)
             phase9["renders"][name] = skip_renders(name, rows, pose, cam)
             del rows
+        torch.cuda.empty_cache()
+
+        phase10, slab, paths["tum256_mesh"] = multi_device_phase(cam, scene, depths, poses,
+                                                                 rgb, dev, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2427,9 +3084,16 @@ def main() -> int:
                    tum512_geometry=k2_fuse["tum512"][False])),
         entry("brick_fuse_rows_sat", "brick_fuse.cu", merge_tpu, presets, "fused",
               dict(k2_sat["tum256"], tum512=k2_sat["tum512"])),
+        entry("gn_reduce_slab_brick", "gn_reduce.cu", gn_tpu, ("tum256_mesh",), "tracked",
+              dict(slab["k1"]["tum256"], tum128_dense=slab["k1"]["tum128"],
+                   max_abs_err=max(r["max_abs_err"] for r in slab["k1"].values()))),
+        entry("brick_fuse_rows_slab", "brick_fuse.cu", merge_tpu, ("tum256_mesh",), "fused",
+              dict(slab["k2"]["tum256"], tum512=slab["k2"]["tum512"],
+                   max_abs_err=max(r["max_abs_err"] for r in slab["k2"].values()))),
     ]
     print(json.dumps({"phase8": phase8}))
     print(json.dumps({"phase9": phase9}))
+    print(json.dumps({"phase10": phase10}))
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

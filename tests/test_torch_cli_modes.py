@@ -131,9 +131,6 @@ def test_config_overrides(sequence, tmp_path, monkeypatch):  # noqa: F811
 
 
 UNPORTED_ARGS = {
-    "distributed": ["--distributed"], "multihost": ["--multihost"],
-    "coordinator": ["--coordinator", "localhost:1234"],
-    "num_processes": ["--num-processes", "2"], "process_id": ["--process-id", "0"],
     "debug_nans": ["--debug-nans"], "fusion_packed": ["--fusion-mode", "packed"],
 }
 
@@ -150,6 +147,69 @@ def test_unported_flag_exits_2(flag, sequence, tmp_path, monkeypatch, capsys):  
     assert UNPORTED_ARGS[flag][0] in err and "ROADMAP" in err
     assert not traj.exists()
     assert set(cli.UNPORTED) | {"fusion_packed"} == set(UNPORTED_ARGS)
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+MULTI_DEVICE_ARGS = {
+    # --distributed alone: a one-rank group on this device (Gloo on the CPU)
+    "distributed": (["--distributed"], 1, "brickmajor"),
+    # packed, refused on one device, runs under a mesh as sharded bricked
+    "distributed_packed": (["--distributed", "--fusion-mode", "packed"], 1, "bricked"),
+    # a one-rank group over a TCP store at the coordinator
+    "multihost_coordinator": (["--multihost", "--coordinator", "localhost:{port}",
+                               "--num-processes", "1", "--process-id", "0",
+                               "--distributed"], 1, "brickmajor"),
+    # --multihost without --distributed: the group, but no mesh
+    "multihost_no_mesh": (["--multihost", "--coordinator", "localhost:{port}",
+                           "--num-processes", "1", "--process-id", "0"], 0, "brickmajor"),
+    # as in the JAX CLI, the group's flags mean nothing without --multihost
+    "group_flags_alone": (["--num-processes", "2", "--process-id", "1", "--coordinator",
+                           "localhost:1"], 0, "brickmajor"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MULTI_DEVICE_ARGS))
+def test_multi_device_flags_run(case, sequence, tmp_path, monkeypatch):  # noqa: F811
+    """The multi-device flags run the pipeline: a one-rank mesh (``ranks``
+    1, the fusion mode it runs) or, where the JAX CLI makes no mesh, the
+    single-device path; the process group is gone afterwards."""
+    import torch.distributed as dist
+
+    root, stats = sequence
+    extra, ranks, mode = MULTI_DEVICE_ARGS[case]
+    port = str(_free_port())
+    got = Run(cli, ["--dataset", root, "--camera", camera_arg(stats), "--eval",
+                    "--frames", "3"] + [a.replace("{port}", port) for a in extra],
+              tmp_path, case, monkeypatch)
+    assert got.rc == 0 and got.summary["frames"] == 3 and got.summary["ate_pairs"] == 3
+    assert got.summary["ate_rmse_m"] < 0.05, got.summary
+    assert got.summary.get("ranks", 0.0) == ranks
+    assert (got.recon.mesh is not None) == bool(ranks)
+    assert got.recon.config.fusion.mode == mode
+    assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("extra,message", [
+    (["--coordinator", "localhost:1"], "Number of processes must be defined"),
+    (["--coordinator", "localhost:1", "--num-processes", "2"], "process id"),
+    ([], "coordinator_address should be defined"),
+], ids=["no_num_processes", "no_process_id", "no_coordinator_no_env"])
+def test_multihost_bad_combinations_raise_as_jax(extra, message, tmp_path, monkeypatch):
+    """--multihost with an incomplete group raises ValueError before any
+    work, as jax.distributed.initialize does under the JAX CLI."""
+    for key in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(ValueError, match=message):
+        cli.main(["--synthetic", "--cpu", "--multihost", "--trajectory",
+                  str(tmp_path / "t.txt")] + extra)
+    assert not (tmp_path / "t.txt").exists()
 
 
 def test_preset_synthetic64_runs(tmp_path, capsys):

@@ -223,9 +223,100 @@ def test_brick_merge_rows_kernel_matches_plain(dev, channels, vdt, wdt):
     assert torch.equal(lk[2], C) == (channels == 2)  # color on FULL slots only
 
 
-def _scene_frame(dev, distance, color):
-    """A sphere, a box and a wall seen at 96x72: the pixel table, the pose
-    and the frame's FULL then FREE lists (cap 96 / 64, padded slots in both)."""
+def _slab_views(view, n):
+    """Rank r's view of an n-way i-split: its slab of ``view`` and the next
+    rank's first plane (dense) or brick layer (brick-major), NaN past the
+    last rank."""
+    m = PARAMS.m
+    s = m // n
+    if not isinstance(view, k1.BrickMaskedView):
+        nan = torch.full((1, m, m), float("nan"), device=view.device)
+        return [torch.cat([view[r * s:(r + 1) * s],
+                           view[(r + 1) * s:(r + 1) * s + 1] if r < n - 1 else nan])
+                for r in range(n)]
+    rows, bs = view.rows, view.bs
+    per, layer = rows.shape[0] // n, (m // bs[1]) * (m // bs[2])
+    nan = torch.full((layer, rows.shape[1]), float("nan"), device=rows.device,
+                     dtype=rows.dtype)
+    return [k1.BrickMaskedView(torch.cat([rows[r * per:(r + 1) * per],
+                                          rows[(r + 1) * per:(r + 1) * per + layer]
+                                          if r < n - 1 else nan]), m, bs, mi=s + bs[0])
+            for r in range(n)]
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
+def test_gn_reduce_slab_kernel_matches_plain(dev, form, n):
+    """K1's slab form (the sharded tracker's kernel) per rank against its
+    plain version, the pose read from a GN state buffer: equal valid counts,
+    A and b within 1e-4 relative; the slabs' valid counts add up to the
+    whole grid's exactly and their sums to its sums (ownership partitions
+    the queries)."""
+    view, pts, pose = _step_view(dev, form)
+    s = PARAMS.m // n
+    state = k1.init_state(pose, 1e-3)
+    brick = form != "dense"
+    name = "launches_slab_brick" if brick else "launches_slab"
+    before = getattr(k1, name)
+    outs = []
+    for r, v in enumerate(_slab_views(view, n)):
+        out = k1.gn_reduce(v, state, pts, PARAMS, i0=r * s, slab=s).clone()
+        ref = k1.gn_reduce_reference(v, state, pts, PARAMS, i0=r * s, slab=s)
+        assert out[27].item() == ref[27].item()
+        for sl in (slice(0, 21), slice(21, 27)):
+            err = (out[sl] - ref[sl]).abs().max() / ref[sl].abs().max().clamp(min=1e-30)
+            assert err.item() <= 1e-4
+        outs.append(out)
+    assert getattr(k1, name) == before + n
+    whole = k1.gn_reduce(view, pose, pts, PARAMS)
+    _check_gn(torch.stack(outs).sum(0), whole)
+
+
+@pytest.mark.parametrize("vdt", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("color", [True, False])
+def test_brick_fuse_rows_slab_kernel_matches_plain(dev, color, vdt):
+    """K2's slab form on each half of the grid (ids local to the slab,
+    i_offset its first voxel) against its plain version, bitwise, and equal
+    to the whole-grid kernel run on the same bricks by global id."""
+    cam, cfg, pose, pix, _ = _scene_frame(dev, "point_to_point", color)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    nb, bv, n = (PARAMS.m // 8) ** 3, 512, 2
+    s, per = PARAMS.m // n, nb // n
+
+    def rand(*shape, lo=0.0, hi=1.0):
+        return lo + (hi - lo) * torch.rand(*shape, generator=gen, device=dev)
+
+    W = rand(nb, bv, lo=-20.0, hi=140.0).clamp(0.0, 128.0)
+    D = torch.where(W > 0, rand(nb, bv, lo=-0.15, hi=0.15), float("nan"))
+    C = pack_color(*(rand(nb, bv).to(vdt) for _ in range(3)),
+                   rand(nb, bv, lo=0.0, hi=140.0).clamp(max=128.0).to(vdt))
+    whole = [D.to(vdt), W.to(vdt), C.clone()]
+    kw = dict(hw=(72, 96), params=PARAMS, cam=cam, cfg=cfg, bs=(8, 8, 8))
+    pts, nrm = _scene_points(cam, pose)
+    for r in range(n):
+        ids, _ = classify_compact_rows(PARAMS, pose, pts, nrm, cam=cam, cfg=cfg,
+                                       bs=(8, 8, 8), cap=64, cap_free=64, nbi=s // 8,
+                                       i_offset=r * s)
+        sl = slice(r * per, (r + 1) * per)
+        lk = [x[sl].clone() for x in whole]
+        lr = [x.clone() for x in lk]
+        before = brick_fuse.launches_slab
+        brick_fuse.brick_fuse_rows(*lk, ids, pix, pose, cap=64, i_offset=r * s,
+                                   nbi=s // 8, **kw)
+        brick_fuse.brick_fuse_rows_reference(*lr, ids, pix, pose, cap=64,
+                                             i_offset=r * s, **kw)
+        assert brick_fuse.launches_slab == before + 1
+        gk = [x.clone() for x in whole]
+        gids = torch.where(ids < per, ids + r * per, nb).to(torch.int32).contiguous()
+        brick_fuse.brick_fuse_rows(*gk, gids, pix, pose, cap=64, **kw)
+        for a, b, g in zip(lk, lr, gk):
+            bits = torch.int16 if a.element_size() == 2 else torch.int32
+            assert torch.equal(a.view(bits), b.view(bits))
+            assert torch.equal(a.view(bits), g[sl].view(bits))
+
+
+def _scene_points(cam, pose):
+    """Points and normals of a sphere, a box and a wall seen from ``pose``."""
     parts = (SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
              CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)),
              CuboidScene(min_corner=(-4.0, 0.8, -4.0), max_corner=(4.0, 1.2, 4.0)))
@@ -239,12 +330,17 @@ def _scene_frame(dev, distance, color):
                                 torch.where(torch.isnan(tb), t, torch.minimum(t, tb)))
             return t
 
+    return preprocess_frame(render_scene_depth(Scene(), cam, pose), cam=cam, bilateral=False)
+
+
+def _scene_frame(dev, distance, color):
+    """A sphere, a box and a wall seen at 96x72: the pixel table, the pose
+    and the frame's FULL then FREE lists (cap 96 / 64, padded slots in both)."""
     cam = PinholeCamera(fx=80.0, fy=80.0, cx=47.5, cy=35.5, width=96, height=72)
     cfg = FusionConfig(mode="brickmajor", pixel_share=4, pixel_share_j=4,
                        distance=distance, max_weight=128.0)
     pose = look_at((0.3, -2.4, 0.15), (0.0, 0.0, 0.0), device=dev)
-    pts, nrm = preprocess_frame(render_scene_depth(Scene(), cam, pose), cam=cam,
-                                bilateral=False)
+    pts, nrm = _scene_points(cam, pose)
     rgb = torch.rand(72, 96, 3, generator=torch.Generator(device=dev).manual_seed(5),
                      device=dev)
     nb = (PARAMS.m // 8) ** 3

@@ -275,6 +275,7 @@ def test_port_runs_without_jax(tmp_path):
         from tracking_sdf_tpu_torch.core.camera import PinholeCamera
         from tracking_sdf_tpu_torch.data.synthetic import SphereScene, look_at, render_scene_depth
         from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+        from tracking_sdf_tpu_torch.parallel import mesh, render, sharded, worker
         torch.set_num_threads(2)
         cfg = preset("tum256")
         cfg = dataclasses.replace(

@@ -19,6 +19,16 @@ Figures (all by default):
                   the generated tabletop sequence: ATE (mm)
   tum256_dense    --preset tum256 --fusion-mode dense over the same
                   sequence (its first --frames frames): ATE (mm)
+  tum256_sharded_bench, tum512_sharded_bench
+                  the preset on a 2-device mesh (Reconstruction(mesh=...),
+                  the JAX package's sharded path: no pyramid, caps per
+                  device) on bench.py's scene and trajectory: final |t err|
+                  (mm) after 10 / 5 tracked frames
+  tum256_sharded_dataset
+                  --preset tum256 --distributed --native-loader --eval over
+                  the generated sequence on 2 devices: ATE (mm)
+The sharded figures run on 2 virtual CPU devices
+(--xla_force_host_platform_device_count=2, set before JAX starts).
 """
 from __future__ import annotations
 
@@ -33,7 +43,9 @@ import sys
 import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FIGURES = ("synthetic64", "tum128_bench", "central_bench", "tum128_dataset", "tum256_dense")
+FIGURES = ("synthetic64", "tum128_bench", "central_bench", "tum128_dataset", "tum256_dense",
+           "tum256_sharded_bench", "tum512_sharded_bench", "tum256_sharded_dataset")
+SHARDED_DEVICES = 2
 
 
 def _jax_cpu():
@@ -55,9 +67,11 @@ def _cli(argv):
     return json.loads(out.getvalue().strip().splitlines()[-1])
 
 
-def bench_t_err_mm(jacobian: str) -> float:
-    """tum128 per frame on bench.py's scene and trajectory (chip_smoke's
-    phase 5 scene): the final |t err| after 10 tracked frames."""
+def bench_t_err_mm(jacobian: str, name: str = "tum128", tracked: int = 10,
+                   sharded: bool = False) -> float:
+    """A preset per frame on bench.py's scene and trajectory (chip_smoke's
+    phase 5 scene): the final |t err| after ``tracked`` frames; ``sharded``
+    on a mesh of SHARDED_DEVICES devices."""
     jax = _jax_cpu()
     import jax.numpy as jnp
 
@@ -87,17 +101,22 @@ def bench_t_err_mm(jacobian: str) -> float:
     for k in range(1, 11):
         xi_k = xi_base * (1.0 + 0.3 * (1.0 if k % 2 == 0 else -1.0))
         poses.append(pose_compose(poses[-1], se3_exp(xi_k)))
-    cfg = preset("tum128")
+    cfg = preset(name)
     cfg = dataclasses.replace(cfg, trajectory_path=None,
                               tracking=cfg.tracking._replace(jacobian=jacobian))
-    recon = Reconstruction(cam, cfg, initial_pose=poses[0])
+    mesh = None
+    if sharded:
+        from tracking_sdf_tpu.parallel import make_mesh
+
+        mesh = make_mesh(jax.devices()[:SHARDED_DEVICES])
+    recon = Reconstruction(cam, cfg, initial_pose=poses[0], mesh=mesh)
     rgb = jnp.full((cam.height, cam.width, 3), 0.5, jnp.float32)
     render = jax.jit(lambda p: render_scene_depth(Scene(), cam, p))
-    for k in range(11):
+    for k in range(tracked + 1):
         st = recon.process_frame(render(poses[k]), rgb=rgb, timestamp=float(k))
         if st.rejected:
             raise RuntimeError(f"frame {k} rejected")
-    return float(jnp.linalg.norm(recon.pose.t - poses[10].t)) * 1e3
+    return float(jnp.linalg.norm(recon.pose.t - poses[tracked].t)) * 1e3
 
 
 def sequence(work: str) -> str:
@@ -120,6 +139,11 @@ def figure(name: str, work: str, frames: int) -> dict:
     elif name in ("tum128_bench", "central_bench"):
         out = dict(t_err_mm=bench_t_err_mm("analytic" if name == "tum128_bench"
                                            else "central"))
+    elif name in ("tum256_sharded_bench", "tum512_sharded_bench"):
+        preset_name = name.split("_")[0]
+        tracked = 10 if preset_name == "tum256" else 5
+        out = dict(t_err_mm=bench_t_err_mm("analytic", preset_name, tracked, sharded=True),
+                   devices=SHARDED_DEVICES, tracked=tracked)
     else:
         root = sequence(work)
         _jax_cpu()
@@ -128,6 +152,8 @@ def figure(name: str, work: str, frames: int) -> dict:
                 "--trajectory", os.path.join(work, f"{name}.txt")]
         if name == "tum256_dense":
             argv += ["--fusion-mode", "dense"]
+        if name == "tum256_sharded_dataset":
+            argv += ["--distributed"]
         s = _cli(argv)
         out = dict(ate_mm=s["ate_rmse_m"] * 1e3, frames=s["frames"],
                    ate_pairs=s["ate_pairs"])
@@ -146,6 +172,9 @@ def main() -> int:
         ap.error(f"unknown figures {sorted(bad)}")
     os.makedirs(args.work, exist_ok=True)
     sys.path.insert(0, REPO)
+    if any("sharded" in f for f in args.figures or FIGURES):
+        os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_"
+                                   f"platform_device_count={SHARDED_DEVICES}").strip()
     import jax
 
     for name in args.figures or FIGURES:

@@ -13,6 +13,16 @@ A generated sequence at the reference's configuration:
     python -m tracking_sdf_tpu_torch.cli --preset tum256 --dataset /tmp/seq \\
         --native-loader --chunk 8 --trajectory trajectory.txt --eval --json
 
+Multi-device runs: ``--distributed`` shards the grid over a process group,
+one rank per device (parallel.sharded). Alone it is a one-rank group on this
+process's device. With ``--multihost --coordinator HOST:PORT --num-processes
+N --process-id R`` each of N processes joins one group over a TCP store
+(rank 0 serves it); ``--multihost`` without a coordinator reads the
+launcher's environment (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT). NCCL
+serves ranks with a GPU each, Gloo the CPU and ranks that share one GPU.
+Every rank runs the same command (its own ``--trajectory``); rank 0 writes
+the mesh, the render and the checkpoint.
+
 Flags of parts that are not ported yet exit with code 2 and name the
 ROADMAP item that will bring them (``UNPORTED``); none is ignored.
 """
@@ -28,14 +38,10 @@ import time
 
 # flag (as argparse stores it) -> the ROADMAP item that ports it
 UNPORTED = {
-    "distributed": "queue 1, multi-device",
-    "multihost": "queue 1, multi-device",
-    "coordinator": "queue 1, multi-device",
-    "num_processes": "queue 1, multi-device",
-    "process_id": "queue 1, multi-device",
-    "debug_nans": "queue 1, --debug-nans",
+    "debug_nans": "queue 1 #8, --debug-nans",
 }
-UNPORTED_FUSION_MODES = {"packed": "queue 1, not to port (a measured negative)"}
+UNPORTED_FUSION_MODES = {"packed": "queue 1, not to port (a measured negative); "
+                                   "under --distributed it runs as sharded bricked"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -126,7 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="clamp the stored fusion weight. 0 DISABLES the "
                         "clamp; negative = keep preset")
     p.add_argument("--distributed", action="store_true",
-                   help="(not ported yet) shard over all visible devices")
+                   help="shard the grid over a process group, one rank per "
+                        "device (alone: a one-rank group on this device)")
     p.add_argument("--progress", action="store_true")
     p.add_argument("--json", action="store_true", help="print summary as JSON")
     p.add_argument("--profile",
@@ -144,10 +151,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="run on the CPU (the default, and the only other "
                         "choice, is the CUDA GPU)")
-    p.add_argument("--multihost", action="store_true", help="(not ported yet)")
-    p.add_argument("--coordinator", default=None, help="(not ported yet)")
-    p.add_argument("--num-processes", type=int, default=None, help="(not ported yet)")
-    p.add_argument("--process-id", type=int, default=None, help="(not ported yet)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join a process group of several processes first; "
+                        "combine with --distributed to shard over all of them")
+    p.add_argument("--coordinator", default=None,
+                   help="host:port of the group's TCP store for --multihost "
+                        "(with --num-processes/--process-id); omit to read the "
+                        "launcher's environment (RANK, WORLD_SIZE, MASTER_ADDR)")
+    p.add_argument("--num-processes", type=int, default=None,
+                   help="total process count for --multihost --coordinator")
+    p.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank for --multihost --coordinator")
     return p
 
 
@@ -156,7 +170,7 @@ def _unported(args, parser) -> list:
     lines = [f"--{dest.replace('_', '-')} is not ported yet (ROADMAP {item})"
              for dest, item in UNPORTED.items()
              if getattr(args, dest) != parser.get_default(dest)]
-    if args.fusion_mode in UNPORTED_FUSION_MODES:
+    if args.fusion_mode in UNPORTED_FUSION_MODES and not args.distributed:
         lines.append(f"--fusion-mode {args.fusion_mode} is not ported (ROADMAP "
                      f"{UNPORTED_FUSION_MODES[args.fusion_mode]})")
     return lines
@@ -179,6 +193,28 @@ def main(argv=None) -> int:
     else:
         print("error: no CUDA GPU found; pass --cpu to run on the CPU", file=sys.stderr)
         return 1
+
+    group = None
+    if args.multihost or args.distributed:
+        from tracking_sdf_tpu_torch.parallel.mesh import init_group, make_mesh
+
+        device = init_group(device=device, coordinator=args.coordinator,
+                            num_processes=args.num_processes,
+                            process_id=args.process_id, multihost=args.multihost)
+        group = make_mesh(device=device)
+    try:
+        return _run(args, device, group)
+    finally:
+        if group is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _run(args, device, group) -> int:
+    """The run after the device (and, for --multihost / --distributed, the
+    process group ``group``, a parallel.mesh.Mesh) is set up."""
+    import torch
 
     from tracking_sdf_tpu_torch import config
     from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction, unsupported
@@ -229,8 +265,9 @@ def main(argv=None) -> int:
     if args.mesh_decimate:
         changes["mesh_decimate"] = args.mesh_decimate
     cfg = dataclasses.replace(cfg, **changes)
+    mesh = group if args.distributed else None
     # the modes that the preset and the flags select, ported or not
-    refused = unsupported(cfg)
+    refused = unsupported(cfg, sharded=mesh is not None)
     if refused:
         print("error: not ported: " + "; ".join(refused), file=sys.stderr)
         return 2
@@ -252,7 +289,7 @@ def main(argv=None) -> int:
         print("error: need --dataset DIR or --synthetic", file=sys.stderr)
         return 2
 
-    recon = Reconstruction(cam, cfg, initial_pose=init_pose, device=device)
+    recon = Reconstruction(cam, cfg, initial_pose=init_pose, device=device, mesh=mesh)
     skip = 0
     if args.checkpoint:
         from tracking_sdf_tpu_torch.pipeline import checkpoint as ckpt
@@ -272,9 +309,15 @@ def main(argv=None) -> int:
             print("warning: --realtime is arrival-driven per-frame; "
                   "ignoring --chunk", file=sys.stderr)
             args.chunk = 0
-        from tracking_sdf_tpu_torch.pipeline.realtime import RealtimePacer
+        from tracking_sdf_tpu_torch.pipeline.realtime import (
+            MultihostRealtimePacer, RealtimePacer)
 
-        frames = pacer = RealtimePacer(dataset, hz=args.realtime)
+        if args.multihost:
+            # rank 0 owns the arrival clock and broadcasts each chosen frame:
+            # every rank runs the same frames (the same collectives)
+            frames = pacer = MultihostRealtimePacer(dataset, group, hz=args.realtime)
+        else:
+            frames = pacer = RealtimePacer(dataset, hz=args.realtime)
     elif args.native_loader and hasattr(dataset, "stream"):
         # chunked runs take the raw uint16 / uint8 wire formats (a sixth of
         # the bytes), which process_chunk decodes on the device
@@ -300,14 +343,19 @@ def main(argv=None) -> int:
             if device == "cuda":
                 torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
+        # under a mesh every rank meshes and renders (collectives); rank 0 writes
+        writer = mesh is None or mesh.rank == 0
         if args.mesh:
             n_tri = recon.export_mesh(args.mesh)
-            print(f"mesh: {n_tri} triangles -> {args.mesh}", file=sys.stderr)
+            if writer:
+                print(f"mesh: {n_tri} triangles -> {args.mesh}", file=sys.stderr)
         if args.render:
             from tracking_sdf_tpu_torch.render.image_io import save_render_png
 
-            save_render_png(recon.render(with_color=not args.no_color), args.render)
-            print(f"render -> {args.render}", file=sys.stderr)
+            result = recon.render(with_color=not args.no_color)
+            if writer:
+                save_render_png(result, args.render)
+                print(f"render -> {args.render}", file=sys.stderr)
     finally:
         recon.close()
 
@@ -315,6 +363,11 @@ def main(argv=None) -> int:
     # wall clock around run(): loading, decoding and staging included
     summary["run_s"] = run_s
     summary["run_frames"] = float(len(recon.emit_times))
+    summary["steady_ms"] = _steady_ms(recon.emit_times, args.chunk)
+    if mesh is not None:
+        summary["ranks"] = float(mesh.size)
+        summary["collectives"] = float(mesh.collectives)
+        summary["collective_s"] = mesh.collective_s
     if pacer is not None:
         summary["realtime_dropped"] = float(pacer.dropped)
         summary["realtime_yielded"] = float(pacer.yielded)
@@ -348,6 +401,18 @@ def main(argv=None) -> int:
         for k, v in summary.items():
             print(f"{k}: {v:.4f}")
     return 0
+
+
+def _steady_ms(emit_times, chunk: int) -> float:
+    """Median host ms a frame between the ends of consecutive chunks of
+    ``chunk`` frames after frame 0 (between frames when per frame): run()
+    stamps each frame as it emits it, a chunk's frames together."""
+    import statistics
+
+    step = max(chunk, 1)
+    ends = emit_times[step::step] if chunk > 1 else emit_times
+    gaps = [(b - a) * 1e3 / step for a, b in zip(ends, ends[1:])]
+    return statistics.median(gaps) if gaps else float("nan")
 
 
 class _SubsampledDataset:

@@ -78,7 +78,8 @@ constexpr int kExponential = 0;
 constexpr int kConstant = 2;
 
 struct FuseArgs {
-  int nb, bv, bi, bj, bk, nbj, nbk;  // grid of bricks
+  int nb, bv, bi, bj, bk, nbj, nbk;  // grid of bricks (nb: the rows listed)
+  int i_offset;                      // global voxel i of the rows' first layer
   int cap;                           // FULL slots come first in ids
   int c_width;                       // int16 lanes per C row
   int channels;                      // pixel table: 4 (geometry) or 8 (color)
@@ -230,7 +231,7 @@ brick_fuse_rows_kernel(TV* __restrict__ D, TW* __restrict__ W, uint16_t* __restr
   float csum[2][4];
   if (full) {
     const unsigned ub = b, nbk = a.nbk, nbj = a.nbj, sj = a.sj, sk = a.sk;
-    const int I0 = static_cast<int>(ub / (nbj * nbk)) * a.bi;
+    const int I0 = static_cast<int>(ub / (nbj * nbk)) * a.bi + a.i_offset;
     const int J0 = static_cast<int>((ub / nbk) % nbj) * a.bj;
     const int K0 = static_cast<int>(ub % nbk) * a.bk;
     const int gj = a.bj / a.sj, gk = a.bk / a.sk;
@@ -356,10 +357,14 @@ int launch(void* D, void* W, void* C, const int* ids, int n_ids, const float* pi
 // value_bf16 / weight_bf16 != 0: D (and R, G, B) / W (and Wc) are bfloat16,
 // else float32. The wrapper (fusion/brick_fuse.py) has checked shapes,
 // dtypes, the even k extent, the share groups and the table's alignment.
-// `sat` may be null (no saturated-FREE skip).
+// `sat` may be null (no saturated-FREE skip). Slab form: the nb rows are an
+// i-slab of the m^3 grid whose first brick layer starts at global voxel i =
+// i_offset (0 and nb = (m/bi)(m/bj)(m/bk) for the whole grid); ids are local
+// to the slab and only the voxel centres move.
 extern "C" int tsdf_brick_fuse_rows(
     void* D, void* W, void* C, int c_width, int value_bf16, int weight_bf16,
     const int* ids, int n_ids, int cap, int nb, int bi, int bj, int bk, int m,
+    int i_offset,
     const float* pix, int channels, int img_h, int img_w, const float* R,
     const float* t, void* sat_bytes, int sj, int sk, int point_to_plane, int weighting, float sx,
     float sy, float sz, float ox, float oy, float oz, float fx, float fy, float cx,
@@ -373,6 +378,7 @@ extern "C" int tsdf_brick_fuse_rows(
   a.bk = bk;
   a.nbj = m / bj;
   a.nbk = m / bk;
+  a.i_offset = i_offset;
   a.cap = cap;
   a.c_width = c_width;
   a.channels = channels;

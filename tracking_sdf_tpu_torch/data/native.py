@@ -39,9 +39,13 @@ def build(force: bool = False) -> str:
     """Run make in the native directory (``force``: rebuild even when the
     library looks fresh, for one made on another machine) and return the
     library's path. Raises NativeLoaderError with the compiler's output."""
+    from tracking_sdf_tpu_torch.kernels._build import file_lock
+
     cmd = ["make", "-C", _NATIVE_DIR, "-s"] + (["-B"] if force else [])
     try:
-        subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+        # the ranks of a process group may reach here together
+        with file_lock("native_loader"):
+            subprocess.run(cmd, check=True, capture_output=True, timeout=300)
     except subprocess.CalledProcessError as e:
         said = (e.stderr or e.stdout or b"").decode("utf-8", "replace").strip()[-2000:]
         raise NativeLoaderError(

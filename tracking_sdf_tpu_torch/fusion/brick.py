@@ -220,23 +220,32 @@ def _query_zeta(mip: ZetaMip, u0, u1, v0, v1):
     return zeta_min, eta_max
 
 
-def _brick_corners_cam(params: GridParams, pose: Pose, bs):
+def _axis_lohi(nb: int, b: int, extent: float, origin: float, m: int, dev,
+               off: int = 0) -> torch.Tensor:
+    """(nb, 2) world coordinates of the first and last voxel centre of each
+    of nb bricks of extent b along one axis, the first brick starting at
+    voxel ``off``."""
+    idx = torch.arange(nb, dtype=torch.float32, device=dev) * b + float(off)
+    lo = (extent / m) * (idx + 0.5) + origin
+    hi = (extent / m) * (idx + b - 0.5) + origin
+    return torch.stack([lo, hi], dim=-1)
+
+
+def _brick_corners_cam(params: GridParams, pose: Pose, bs, nbi: Optional[int] = None,
+                       i_offset: int = 0):
     """Camera coords (px, py, pz), each (nbi, nbj, nbk, 8), of every brick's
-    voxel-center hull corners. p = Rᵀ(c - t) is separable per world axis."""
+    voxel-center hull corners. p = Rᵀ(c - t) is separable per world axis.
+    ``nbi`` / ``i_offset``: an i-slab of nbi brick layers (default all m/bi)
+    whose first brick starts at global voxel i = i_offset."""
     m = params.m
     Rt = pose.R.T
     dev = Rt.device
-
-    def axis_lohi(b, extent, origin):
-        idx = torch.arange(m // b, dtype=torch.float32, device=dev) * b
-        lo = (extent / m) * (idx + 0.5) + origin
-        hi = (extent / m) * (idx + b - 0.5) + origin
-        return torch.stack([lo, hi], dim=-1)  # (nb, 2)
-
     bi, bj, bk = bs
-    Ax = axis_lohi(bi, params.width, params.origin[0])[..., None] * Rt[:, 0]
-    Ay = axis_lohi(bj, params.height, params.origin[1])[..., None] * Rt[:, 1]
-    Az = axis_lohi(bk, params.depth, params.origin[2])[..., None] * Rt[:, 2]
+    nbi = m // bi if nbi is None else nbi
+    Ax = _axis_lohi(nbi, bi, params.width, params.origin[0], m, dev,
+                    i_offset)[..., None] * Rt[:, 0]
+    Ay = _axis_lohi(m // bj, bj, params.height, params.origin[1], m, dev)[..., None] * Rt[:, 1]
+    Az = _axis_lohi(m // bk, bk, params.depth, params.origin[2], m, dev)[..., None] * Rt[:, 2]
     base = -(Rt @ pose.t)
     sel = _corner_sel(dev)
     cx = Ax[:, sel[:, 0], :]  # (nbi, 8, 3)
@@ -273,12 +282,14 @@ def _class_from_corners(cx_, cy_, cz_, mip: ZetaMip, cam: PinholeCamera, hw):
 
 def classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
                     distance="point_to_plane", share_margin=0.0,
-                    mip: Optional[ZetaMip] = None) -> torch.Tensor:
-    """Brick classes (nbi, nbj, nbk) int32: 0 OUT, 1 FREE, 2 FULL."""
+                    mip: Optional[ZetaMip] = None, nbi: Optional[int] = None,
+                    i_offset: int = 0) -> torch.Tensor:
+    """Brick classes (nbi, nbj, nbk) int32: 0 OUT, 1 FREE, 2 FULL (``nbi`` /
+    ``i_offset``: an i-slab, as _brick_corners_cam)."""
     if mip is None:
         mip = _zeta_mip(points_cam, normals_cam, cam, params.delta, distance,
                         share_margin)
-    cx_, cy_, cz_ = _brick_corners_cam(params, pose, bs)
+    cx_, cy_, cz_ = _brick_corners_cam(params, pose, bs, nbi, i_offset)
     return _class_from_corners(cx_, cy_, cz_, mip, cam, points_cam.shape[:2])
 
 
@@ -310,7 +321,8 @@ def _compact_ids(flags: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
 
 def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
                           distance, cap, cap_free, factor, cap_mixed,
-                          share_margin=0.0, sat: Optional[torch.Tensor] = None):
+                          share_margin=0.0, sat: Optional[torch.Tensor] = None,
+                          nbi: Optional[int] = None, i_offset: int = 0):
     """Hierarchical classification and FULL/FREE compaction.
 
     Super-bricks of ``factor``^3 bricks are classified first; only MIXED
@@ -330,11 +342,15 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
     supers whose children are all saturated (before compaction, so their
     slot is reclaimed), and saturated children of the FREE supers kept
     (their positions stay NB-padded holes). n_free then counts only the
-    candidates kept; overflow_free keeps its count over whole supers."""
+    candidates kept; overflow_free keeps its count over whole supers.
+
+    ``nbi`` / ``i_offset``: an i-slab of nbi brick layers starting at global
+    voxel i = i_offset; the ids are then local to the slab."""
     h, w_img = points_cam.shape[:2]
     bi, bj, bk = bs
     m = params.m
-    nbi, nbj, nbk = m // bi, m // bj, m // bk
+    nbi = m // bi if nbi is None else nbi
+    nbj, nbk = m // bj, m // bk
     NB = nbi * nbj * nbk
     f = factor
     vol = f * f * f
@@ -346,7 +362,8 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
 
     # ---- level 1: super-bricks
     scls = classify_bricks(params, pose, points_cam, normals_cam, cam,
-                           (bi * f, bj * f, bk * f), distance, mip=mip).reshape(-1)
+                           (bi * f, bj * f, bk * f), distance, mip=mip,
+                           nbi=nbi // f, i_offset=i_offset).reshape(-1)
     n_mixed = (scls == FULL).sum()
     mixed_ids = _compact_ids(scls == FULL, cap_mixed, NS)
     valid_s = mixed_ids < NS
@@ -355,11 +372,8 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
     # ---- level 2: bricks of the mixed supers, from per-axis corner tables
     Rt = pose.R.T
 
-    def axis_tab(nb, b, extent, origin, col):
-        idx = torch.arange(nb, dtype=torch.float32, device=dev) * b
-        lo = (extent / m) * (idx + 0.5) + origin
-        hi = (extent / m) * (idx + b - 0.5) + origin
-        return torch.stack([lo, hi], dim=-1)[..., None] * Rt[:, col]  # (nb, 2, 3)
+    def axis_tab(nb, b, extent, origin, col, off=0):  # (nb, 2, 3)
+        return _axis_lohi(nb, b, extent, origin, m, dev, off)[..., None] * Rt[:, col]
 
     sel = _corner_sel(dev)
     la = torch.arange(f, device=dev)
@@ -374,7 +388,7 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
                 + fk[:, None, None, :])
 
     fi, fj, fk = children(ms)
-    Axg = axis_tab(nbi, bi, params.width, params.origin[0], 0)[fi][:, :, sel[:, 0], :]
+    Axg = axis_tab(nbi, bi, params.width, params.origin[0], 0, i_offset)[fi][:, :, sel[:, 0], :]
     Ayg = axis_tab(nbj, bj, params.height, params.origin[1], 1)[fj][:, :, sel[:, 1], :]
     Azg = axis_tab(nbk, bk, params.depth, params.origin[2], 2)[fk][:, :, sel[:, 2], :]
     c = (Axg[:, :, None, None] + Ayg[:, None, :, None]
@@ -456,23 +470,25 @@ def _pixel_table(points_cam, normals_cam, rgb, fuse_color,
 
 
 def _full_brick_updates(full_ids, pix, pose, params, cam, cfg, bs, hw,
-                        fuse_color) -> List[torch.Tensor]:
+                        fuse_color, nbi: Optional[int] = None,
+                        i_offset: int = 0) -> List[torch.Tensor]:
     """Per-voxel update sums of the FULL bricks ``full_ids`` (n,), where an
     id >= NB is a padding slot whose sums are all zero: the channels
     [w, w·d(, w·cos, w·cos·r, w·cos·g, w·cos·b)], each (n, bi, bj, bk). One
     pixel row per voxel, or per share group (its center voxel's row) with
-    pixel_share > 1."""
+    pixel_share > 1. ``nbi`` / ``i_offset``: the ids are local to an i-slab
+    of nbi brick layers starting at global voxel i = i_offset."""
     bi, bj, bk = bs
     h, w_img = hw
     m = params.m
     nbj, nbk = m // bj, m // bk
-    NB = (m // bi) * nbj * nbk
+    NB = (m // bi if nbi is None else nbi) * nbj * nbk
     dev = pix.device
     n = full_ids.shape[0]
     valid_brick = full_ids < NB
     fb = torch.where(valid_brick, full_ids, 0).to(torch.int64)
     ar = lambda k: torch.arange(k, device=dev)  # noqa: E731
-    I = (fb // (nbj * nbk))[:, None] * bi + ar(bi)  # (n, bi)
+    I = (fb // (nbj * nbk))[:, None] * bi + ar(bi) + i_offset  # (n, bi), global
     J = ((fb // nbk) % nbj)[:, None] * bj + ar(bj)
     K = (fb % nbk)[:, None] * bk + ar(bk)
     I, J, K = I[:, :, None, None], J[:, None, :, None], K[:, None, None, :]
@@ -545,31 +561,40 @@ def fuse_frame_bricked(
     merge: str = "pallas",
     cap_act: Optional[int] = None,
     cap_free: Optional[int] = None,
+    i_offset: int = 0,
 ) -> Tuple[TSDFGrid, FuseStats]:
     """Brick-compacted fusion, updating ``grid`` in place through the merge
     tail ``merge`` ("pallas": K2 over the first ``cap_act`` active bricks,
     default 4·cap; "xla": K2's plain version over every active brick; "rows":
     the same over the FULL bricks and the FREE bricks up to ``cap_free``,
     default cap, the rest dropped). Geometry is exactly the dense path's; color is fused in
-    FULL bricks only. Returns (grid, FuseStats)."""
+    FULL bricks only. ``grid`` may be an i-slab of (mi, m, m) leaves whose
+    first plane is global voxel i = ``i_offset`` (parallel.sharded); brick
+    ids are then local to it. Returns (grid, FuseStats)."""
     h, w_img = points_cam.shape[:2]
     m = params.m
+    mi = grid.D.shape[0]
     bi, bj, bk = bs
-    if tuple(grid.D.shape) != (m, m, m) or m % bi or m % bj or m % bk:
+    if tuple(grid.D.shape) != (mi, m, m) or mi % bi or m % bj or m % bk:
         raise ValueError(f"grid {tuple(grid.D.shape)} not divisible by brick {bs}")
     if merge not in ("pallas", "xla", "rows"):
         raise ValueError(f"unknown brick_merge: {merge}")
-    NB = (m // bi) * (m // bj) * (m // bk)
+    if merge == "pallas" and mi != m:
+        raise ValueError("brick_merge='pallas' takes a whole grid, not an i-slab")
+    nbi = mi // bi
+    NB = nbi * (m // bj) * (m // bk)
     fuse_color = cfg.fuse_color and rgb is not None
     dev = grid.D.device
 
     brick_class = classify_bricks(
         params, pose, points_cam, normals_cam, cam, bs, cfg.distance,
-        share_margin=share_classify_margin(params, cfg)).reshape(-1)
+        share_margin=share_classify_margin(params, cfg), nbi=nbi,
+        i_offset=i_offset).reshape(-1)
     full_ids, n_full = _first_ids(brick_class == FULL, cap)
     pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
     upd = torch.stack(_full_brick_updates(full_ids, pix, pose, params, cam, cfg,
-                                          bs, (h, w_img), fuse_color), dim=-1)
+                                          bs, (h, w_img), fuse_color, nbi, i_offset),
+                      dim=-1)
     # row ``cap`` stays zero: FULL bricks past the FULL cap merge nothing
     U = torch.zeros((cap + 1, bi, bj, bk, upd.shape[-1]), device=dev)
     U[:full_ids.shape[0]] = upd

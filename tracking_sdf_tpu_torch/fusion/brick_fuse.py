@@ -21,7 +21,7 @@ cleared otherwise (fusion.brickmajor's module docstring).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +34,7 @@ from tracking_sdf_tpu_torch.kernels import _build
 
 launches = 0  # brick_fuse_rows kernel launches on CUDA tensors, without sat
 launches_sat = 0  # ... and with the sat_skip bitset
+launches_slab = 0  # ... on an i-slab of the grid (parallel.sharded)
 
 _WEIGHTINGS = {"exponential": 0, "linear": 1, "constant": 2}
 _DISTANCES = {"point_to_point": 0, "point_to_plane": 1}
@@ -80,23 +81,26 @@ def _project(pose: Pose, params: GridParams, cam: PinholeCamera, hw, I, J, K):
     return px, py, pz, in_front, ins, flat
 
 
-def _brick_origins(rows: torch.Tensor, m: int, bs):
-    """(I0, J0, K0) of each brick id, each (n, 1, 1, 1) int64."""
+def _brick_origins(rows: torch.Tensor, m: int, bs, i_offset: int = 0):
+    """(I0, J0, K0) of each brick id, each (n, 1, 1, 1) int64: global voxel
+    indices of the brick's first voxel, the ids local to an i-slab that
+    starts at global voxel i = ``i_offset``."""
     bi, bj, bk = bs
     nbj, nbk = m // bj, m // bk
     b = rows.to(torch.int64)[:, None, None, None]
-    return (b // (nbj * nbk)) * bi, ((b // nbk) % nbj) * bj, (b % nbk) * bk
+    return (b // (nbj * nbk)) * bi + i_offset, ((b // nbk) % nbj) * bj, (b % nbk) * bk
 
 
 def group_centre_pixels(rows: torch.Tensor, pose: Pose, *, params: GridParams,
-                        cam: PinholeCamera, cfg: FusionConfig, bs, hw) -> torch.Tensor:
+                        cam: PinholeCamera, cfg: FusionConfig, bs, hw,
+                        i_offset: int = 0) -> torch.Tensor:
     """Flat pixel index (clamped into the image) of the centre voxel
     (sj // 2, sk // 2) of each share group of the bricks ``rows``:
     (n, bi, bj / sj, bk / sk) int64."""
     bi, bj, bk = bs
     sj, sk = share_group(cfg, bs)
     dev = rows.device
-    I0, J0, K0 = _brick_origins(rows, params.m, bs)
+    I0, J0, K0 = _brick_origins(rows, params.m, bs, i_offset)
     di = torch.arange(bi, device=dev)[:, None, None]
     dj = (torch.arange(bj // sj, device=dev) * sj + sj // 2)[None, :, None]
     dk = (torch.arange(bk // sk, device=dev) * sk + sk // 2)[None, None, :]
@@ -106,7 +110,7 @@ def group_centre_pixels(rows: torch.Tensor, pose: Pose, *, params: GridParams,
 def brick_fuse_rows_reference(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
                               ids: torch.Tensor, pix: torch.Tensor, pose: Pose, *,
                               cap: int, hw, params: GridParams, cam: PinholeCamera,
-                              cfg: FusionConfig, bs, sat=None) -> None:
+                              cfg: FusionConfig, bs, sat=None, i_offset: int = 0) -> None:
     """Plain PyTorch version of ``brick_fuse_rows``; updates D, W, C (and
     ``sat``) in place. It selects the listed rows with a boolean mask (one
     host sync)."""
@@ -126,11 +130,11 @@ def brick_fuse_rows_reference(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
     # FULL slots: the share groups' pixel rows, then every voxel's own
     # projection (FREE slots compute them too and discard them)
     grow = pix[group_centre_pixels(rows, pose, params=params, cam=cam, cfg=cfg, bs=bs,
-                                   hw=hw)]  # (n, bi, bj/sj, bk/sk, channels)
+                                   hw=hw, i_offset=i_offset)]  # (n, bi, bj/sj, bk/sk, ch)
     grp_j = torch.arange(bj, device=dev) // sj
     grp_k = torch.arange(bk, device=dev) // sk
     g = grow[:, :, grp_j][:, :, :, grp_k].reshape(rows.shape[0], BV, pix.shape[1])
-    I0, J0, K0 = _brick_origins(rows, params.m, bs)
+    I0, J0, K0 = _brick_origins(rows, params.m, bs, i_offset)
     px, py, pz, in_front, ins, _ = _project(
         pose, params, cam, hw, I0 + torch.arange(bi, device=dev)[:, None, None],
         J0 + torch.arange(bj, device=dev)[:, None], K0 + torch.arange(bk, device=dev))
@@ -183,7 +187,7 @@ def brick_fuse_rows_reference(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
         C[crows] = pack_color(R, G, B, Wc)
 
 
-def _validate(D, W, C, ids, pix, pose, cap, hw, params, cfg, bs, sat):
+def _validate(D, W, C, ids, pix, pose, cap, hw, params, cfg, bs, sat, i_offset, nbi):
     """Raise on what the kernel does not take; returns the kernel's scalars."""
     # brickmajor imports this module
     from tracking_sdf_tpu_torch.fusion.brickmajor import color_lane_widths
@@ -192,7 +196,11 @@ def _validate(D, W, C, ids, pix, pose, cap, hw, params, cfg, bs, sat):
     m = params.m
     if m % bi or m % bj or m % bk:
         raise ValueError(f"brick_fuse_rows: grid m={m} not divisible by brick {bs}")
-    NB, BV = (m // bi) * (m // bj) * (m // bk), bi * bj * bk
+    nbi = m // bi if nbi is None else nbi
+    if nbi < 1 or i_offset < 0 or i_offset % bi or i_offset + nbi * bi > m:
+        raise ValueError(f"brick_fuse_rows: the slab of {nbi} brick layers at voxel "
+                         f"i = {i_offset} does not lie on the m={m} grid's {bs} bricks")
+    NB, BV = nbi * (m // bj) * (m // bk), bi * bj * bk
     dtypes = (torch.float32, torch.bfloat16)
     if (D.dtype not in dtypes or W.dtype not in dtypes or tuple(D.shape) != (NB, BV)
             or W.shape != D.shape or bk % 2 or BV % 4 or BV > 1024):
@@ -228,7 +236,8 @@ def _validate(D, W, C, ids, pix, pose, cap, hw, params, cfg, bs, sat):
 def brick_fuse_rows(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
                     ids: torch.Tensor, pix: torch.Tensor, pose: Pose, *, cap: int, hw,
                     params: GridParams, cam: PinholeCamera, cfg: FusionConfig,
-                    bs: Tuple[int, int, int], sat=None) -> None:
+                    bs: Tuple[int, int, int], sat=None, i_offset: int = 0,
+                    nbi: Optional[int] = None) -> None:
     """Fuse one frame into the brick rows in place.
 
     ``D``, ``W`` (NB, BV) float32 or bfloat16 (D NaN where W <= 0); ``C``
@@ -241,13 +250,21 @@ def brick_fuse_rows(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
     (module docstring). FusionConfig supplies the distance, weighting, pixel
     share and max_weight.
 
+    Slab form (parallel.sharded, counted in ``launches_slab``): with
+    ``nbi`` given, the rows hold an i-slab of ``nbi`` brick layers whose
+    first brick starts at global voxel i = ``i_offset``; the ids are local
+    to the slab, and brick id b's first voxel is global i_offset +
+    (b // (nbj·nbk))·bi. With i_offset 0 and nbi m / bi it computes exactly
+    the whole-grid form.
+
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    global launches, launches_sat
+    global launches, launches_sat, launches_slab
     NB, BV, sj, sk, dist, mode, w_delta, w_inv = _validate(
-        D, W, C, ids, pix, pose, cap, hw, params, cfg, bs, sat)
+        D, W, C, ids, pix, pose, cap, hw, params, cfg, bs, sat, i_offset, nbi)
     if D.device.type == "cpu":
         return brick_fuse_rows_reference(D, W, C, ids, pix, pose, cap=cap, hw=hw,
-                                         params=params, cam=cam, cfg=cfg, bs=bs, sat=sat)
+                                         params=params, cam=cam, cfg=cfg, bs=bs, sat=sat,
+                                         i_offset=i_offset)
     if D.device.type != "cuda":
         raise ValueError(f"brick_fuse_rows: unsupported device {D.device}")
     R, t = pose.R.contiguous(), pose.t.contiguous()
@@ -265,7 +282,7 @@ def brick_fuse_rows(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
     rc = _build.library().tsdf_brick_fuse_rows(
         D.data_ptr(), W.data_ptr(), C.data_ptr(), C.shape[1],
         int(D.dtype == torch.bfloat16), int(W.dtype == torch.bfloat16),
-        ids.data_ptr(), ids.shape[0], cap, NB, bi, bj, bk, m,
+        ids.data_ptr(), ids.shape[0], cap, NB, bi, bj, bk, m, i_offset,
         pix.data_ptr(), pix.shape[1], h, w_img, R.data_ptr(), t.data_ptr(),
         None if sat is None else sat.data_ptr(), sj, sk, dist, mode, params.width / m,
         params.height / m, params.depth / m,
@@ -273,7 +290,9 @@ def brick_fuse_rows(D: torch.Tensor, W: torch.Tensor, C: torch.Tensor,
         w_delta, w_inv, float("inf") if cfg.max_weight is None else cfg.max_weight,
         _build.stream_ptr(D.device))
     _build.check(rc, "brick_fuse_rows")
-    if sat is None:
+    if nbi is not None:
+        launches_slab += 1
+    elif sat is None:
         launches += 1
     else:
         launches_sat += 1

@@ -135,8 +135,10 @@ def brick_grid_from_dense(grid: TSDFGrid, bs: Tuple[int, int, int],
 def dense_from_brick_grid(bgrid: BrickGrid, params: GridParams,
                           bs: Tuple[int, int, int]) -> TSDFGrid:
     """The dense float32 grid (the export surface): materializes six
-    (m, m, m) leaves, with the far value where W <= 0."""
-    shape = (params.m,) * 3
+    (m, m, m) leaves, with the far value where W <= 0. Rows of an i-slab
+    (fewer rows than the whole grid's) give the slab's (mi, m, m) leaves."""
+    m = params.m
+    shape = (bgrid.D.shape[0] // ((m // bs[1]) * (m // bs[2])) * bs[0], m, m)
     far = params.width + params.height + params.depth
     W = bgrid.W.to(torch.float32)
     D = torch.where(W > 0, bgrid.D.to(torch.float32), torch.full_like(W, far))
@@ -147,12 +149,13 @@ def dense_from_brick_grid(bgrid: BrickGrid, params: GridParams,
 
 def empty_brick_grid(params: GridParams, bs: Tuple[int, int, int], *, device,
                      value_dtype=torch.float32,
-                     weight_dtype=torch.float32) -> BrickGrid:
+                     weight_dtype=torch.float32, nbi: Optional[int] = None) -> BrickGrid:
     """Fresh grid in brick layout: D = NaN (nothing observed), W = 0, grey
-    color with Wc = 0."""
+    color with Wc = 0. ``nbi``: only the rows of an i-slab of that many
+    brick layers (default m / bi)."""
     bi, bj, bk = bs
     m = params.m
-    shp = ((m // bi) * (m // bj) * (m // bk), bi * bj * bk)
+    shp = ((m // bi if nbi is None else nbi) * (m // bj) * (m // bk), bi * bj * bk)
 
     def full(v, dtype):
         return torch.full(shp, v, dtype=dtype, device=device)
@@ -174,18 +177,24 @@ def brick_masked_view(bgrid: BrickGrid, params: GridParams,
     return BrickMaskedView(bgrid.D, params.m, bs)
 
 
-def brick_grid_from_numpy(arrays: Mapping[str, object], *, device) -> BrickGrid:
+def brick_grid_from_numpy(arrays: Mapping[str, object], *, device,
+                          mesh=None) -> BrickGrid:
     """BrickGrid from the D, W and C leaves as array-likes (for example a JAX
     BrickGrid's ``_asdict()``), bit for bit: float32 or bfloat16 D and W keep
     their dtype, the uint16 C lanes become int16 lanes. The leaves are
-    copies."""
-    def leaf(x):
+    copies. With ``mesh`` (parallel.mesh.Mesh) only this rank's rows of the
+    whole grid are kept (an i-slab of bricks)."""
+    def rows(x):
         a = np.asarray(x)
+        return a[mesh.rows(a.shape[0])] if mesh is not None else a
+
+    def leaf(x):
+        a = rows(x)
         if a.dtype.name == "bfloat16":  # numpy has no bfloat16 of its own
             return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
         return torch.from_numpy(np.array(a, np.float32))
 
-    C = np.asarray(arrays["C"])
+    C = rows(arrays["C"])
     if C.dtype.itemsize != 2:
         raise ValueError(f"C must hold 16-bit lanes, got {C.dtype}")
     return BrickGrid(D=leaf(arrays["D"]).to(device), W=leaf(arrays["W"]).to(device),
@@ -202,11 +211,13 @@ def brick_grid_to_numpy(bgrid: BrickGrid) -> Dict[str, np.ndarray]:
 def classify_compact_rows(params: GridParams, pose: Pose, points_cam: torch.Tensor,
                           normals_cam: torch.Tensor, *, cam: PinholeCamera,
                           cfg: FusionConfig, bs: Tuple[int, int, int], cap: int,
-                          cap_free: int, sat: Optional[torch.Tensor] = None
+                          cap_free: int, sat: Optional[torch.Tensor] = None,
+                          nbi: Optional[int] = None, i_offset: int = 0
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A frame's FULL and FREE brick lists, classified flat or hierarchically
     (``cfg.hier_classify``), without a host sync. Bricks set in ``sat`` are
-    not FREE candidates.
+    not FREE candidates. ``nbi`` / ``i_offset``: the bricks of an i-slab of
+    nbi brick layers starting at global voxel i = i_offset (ids local to it).
 
     Returns (ids, counts): ids (cap + cap_free,) int32, the first ``cap``
     FULL ids then the first ``cap_free`` FREE ids, each padded with NB;
@@ -214,17 +225,19 @@ def classify_compact_rows(params: GridParams, pose: Pose, points_cam: torch.Tens
     mixed super-bricks dropped."""
     m = params.m
     bi, bj, bk = bs
-    nb3 = (m // bi, m // bj, m // bk)
+    nb3 = (m // bi if nbi is None else nbi, m // bj, m // bk)
     NB = nb3[0] * nb3[1] * nb3[2]
     share_m = share_classify_margin(params, cfg)
     hier = cfg.hier_classify
     if hier > 1 and all(n % hier == 0 for n in nb3):
         full_ids, fr_ids, n_full, n_free, ovf_mixed, ovf_free = classify_compact_hier(
             params, pose, points_cam, normals_cam, cam, bs, cfg.distance, cap,
-            cap_free, hier, cfg.cap_mixed, share_margin=share_m, sat=sat)
+            cap_free, hier, cfg.cap_mixed, share_margin=share_m, sat=sat,
+            nbi=nb3[0], i_offset=i_offset)
     else:
         cls = classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
-                              cfg.distance, share_margin=share_m).reshape(-1)
+                              cfg.distance, share_margin=share_m, nbi=nb3[0],
+                              i_offset=i_offset).reshape(-1)
         free = cls == FREE
         if sat is not None:
             free = free & ~sat
@@ -251,45 +264,56 @@ def fuse_frame_brickmajor_core(
     cap: int = 6144,
     cap_free: Optional[int] = None,
     sat: Optional[torch.Tensor] = None,
+    i_offset: int = 0,
+    nbi_local: Optional[int] = None,
 ) -> torch.Tensor:
     """Fuse one frame into ``bgrid`` in place and read nothing back: the one
     place that owns the sequence classify_compact_rows -> _pixel_table ->
-    brick_fuse_rows, for the per-frame path and the chunked one. ``sat``:
-    the (NB,) bool sat_skip bitset, updated in place (module docstring).
+    brick_fuse_rows, for the per-frame path, the chunked one and the sharded
+    one. ``sat``: the (NB,) bool sat_skip bitset, updated in place (module
+    docstring). ``nbi_local`` / ``i_offset``: ``bgrid`` holds the rows of
+    an i-slab of nbi_local brick layers starting at global voxel i =
+    i_offset (parallel.sharded; default the whole grid).
 
     Geometry is exactly the dense path's math; color is fused in FULL bricks
     only. FULL bricks past ``cap`` and FREE bricks past ``cap_free`` (default
     ``cap``) are dropped for the frame, as are mixed super-bricks past
-    ``cfg.cap_mixed`` with hierarchical classification. Returns (5,) int64
-    counts on the device: those of classify_compact_rows (n_full, n_free,
-    FREE bricks dropped, mixed super-bricks dropped) and the bricks set in
-    ``sat`` after the frame (0 without it); ``fuse_stats`` reads them. An
-    all-NaN frame leaves the rows bitwise unchanged."""
+    ``cfg.cap_mixed`` with hierarchical classification. Returns (6,) int64
+    counts on the device (COUNTS): those of classify_compact_rows (n_full,
+    n_free, FREE bricks dropped, mixed super-bricks dropped), the bricks set
+    in ``sat`` after the frame (0 without it) and the FULL bricks dropped;
+    ``fuse_stats`` reads them, and a sum of several slabs' counts is the
+    counts of their union. An all-NaN frame leaves the rows bitwise
+    unchanged."""
     m = params.m
     bi, bj, bk = bs
-    if m % bi or m % bj or m % bk:
+    if m % bj or m % bk or (nbi_local is None and m % bi):
         raise ValueError(f"grid m={m} not divisible by brick {bs}")
-    NB = (m // bi) * (m // bj) * (m // bk)
+    nbi = m // bi if nbi_local is None else nbi_local
+    NB = nbi * (m // bj) * (m // bk)
     if tuple(bgrid.D.shape) != (NB, bi * bj * bk):
         raise ValueError(f"brick grid {tuple(bgrid.D.shape)} != ({NB}, {bi * bj * bk})")
     if cap_free is None:
         cap_free = cap
     fuse_color = cfg.fuse_color and rgb is not None
     ids, counts = classify_compact_rows(params, pose, points_cam, normals_cam, cam=cam,
-                                        cfg=cfg, bs=bs, cap=cap, cap_free=cap_free, sat=sat)
+                                        cfg=cfg, bs=bs, cap=cap, cap_free=cap_free, sat=sat,
+                                        nbi=nbi, i_offset=i_offset)
     pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
     brick_fuse_rows(bgrid.D, bgrid.W, bgrid.C, ids, pix, pose, cap=cap,
                     hw=tuple(points_cam.shape[:2]), params=params, cam=cam, cfg=cfg,
-                    bs=bs, sat=sat)
+                    bs=bs, sat=sat, i_offset=i_offset, nbi=nbi_local)
     n_sat = counts[:1] * 0 if sat is None else sat.sum()[None]
-    return torch.cat([counts, n_sat])
+    return torch.cat([counts, n_sat, torch.clamp(counts[:1] - cap, min=0)])
 
 
-def fuse_stats(counts, cap: int) -> FuseStats:
-    """FuseStats of a frame from its five counts (host integers)."""
-    n_full, n_free, ovf_free, ovf_mixed, n_sat = (int(c) for c in counts)
-    return FuseStats(n_full=n_full, overflow=max(n_full - cap, 0), n_free=n_free,
-                     overflow_active=ovf_free, overflow_mixed=ovf_mixed, n_sat=n_sat)
+# fuse_frame_brickmajor_core's counts
+COUNTS = ("n_full", "n_free", "overflow_active", "overflow_mixed", "n_sat", "overflow")
+
+
+def fuse_stats(counts) -> FuseStats:
+    """FuseStats of a frame from its six counts (host integers)."""
+    return FuseStats(**{k: int(c) for k, c in zip(COUNTS, counts)})
 
 
 def fuse_frame_brickmajor(
@@ -317,4 +341,4 @@ def fuse_frame_brickmajor(
     counts = fuse_frame_brickmajor_core(bgrid, pose, points_cam, normals_cam, rgb,
                                         params=params, cam=cam, cfg=cfg, bs=bs, cap=cap,
                                         cap_free=cap_free, sat=sat)
-    return bgrid, brick_masked_view(bgrid, params, bs), fuse_stats(counts.tolist(), cap)
+    return bgrid, brick_masked_view(bgrid, params, bs), fuse_stats(counts.tolist())

@@ -79,11 +79,15 @@ def fuse_frame(
     params: GridParams,
     cam: PinholeCamera,
     cfg: FusionConfig = FusionConfig(),
+    i_offset: int = 0,
 ) -> TSDFGrid:
-    """Fuse one frame; returns a new grid."""
+    """Fuse one frame; returns a new grid. ``grid`` may be an i-slab of
+    (mi, m, m) leaves whose first plane is global voxel i = ``i_offset``
+    (parallel.sharded)."""
     pix = pixel_channels(points_cam, normals_cam, rgb, cfg)
     h, w_img = points_cam.shape[:2]
-    x, y, z = voxel_centers_world(params, device=grid.D.device)
+    x, y, z = voxel_centers_world(params, device=grid.D.device, i_offset=i_offset,
+                                  mi=grid.D.shape[0])
     px, py, pz = world_to_camera_components(pose, x, y, z)
 
     in_front = pz > 0

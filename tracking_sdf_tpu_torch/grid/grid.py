@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -29,9 +29,10 @@ class TSDFGrid:
     Wc: torch.Tensor  # color fusion weight
 
 
-def empty_grid(params: GridParams, *, device) -> TSDFGrid:
-    """Fresh grid: D = width+height+depth (far free space), W = 0, grey color."""
-    shape = (params.m,) * 3
+def empty_grid(params: GridParams, *, device, mi: Optional[int] = None) -> TSDFGrid:
+    """Fresh grid: D = width+height+depth (far free space), W = 0, grey color.
+    ``mi``: only an i-slab of that many planes (default m)."""
+    shape = (params.m if mi is None else mi, params.m, params.m)
     far = params.width + params.height + params.depth
 
     def full(v):
@@ -41,12 +42,17 @@ def empty_grid(params: GridParams, *, device) -> TSDFGrid:
                     B=full(0.4), Wc=full(0.0))
 
 
-def grid_from_numpy(arrays: Mapping[str, object], *, device) -> TSDFGrid:
+def grid_from_numpy(arrays: Mapping[str, object], *, device, mesh=None) -> TSDFGrid:
     """TSDFGrid from a mapping of the six leaves to array-likes (for example
-    ``jax_grid._asdict()``). The leaves are copies."""
-    return TSDFGrid(**{
-        k: torch.tensor(np.asarray(arrays[k], np.float32), device=device)
-        for k in FIELDS})
+    ``jax_grid._asdict()``). The leaves are copies. With ``mesh``
+    (parallel.mesh.Mesh) only this rank's i-slab of the full grid is kept."""
+    def leaf(k):
+        a = np.asarray(arrays[k], np.float32)
+        if mesh is not None:
+            a = a[mesh.rows(a.shape[0])]
+        return torch.tensor(a, device=device)
+
+    return TSDFGrid(**{k: leaf(k) for k in FIELDS})
 
 
 def grid_to_numpy(grid: TSDFGrid) -> Dict[str, np.ndarray]:
@@ -82,13 +88,18 @@ def voxel_to_world(params: GridParams, ijk: torch.Tensor) -> torch.Tensor:
     return vsize * (ijk + 0.5) + origin
 
 
-def voxel_centers_world(params: GridParams, *, device):
+def voxel_centers_world(params: GridParams, *, device, i_offset: int = 0,
+                        mi: Optional[int] = None):
     """World coordinates of the voxel centers as three tensors broadcastable
-    to (m, m, m): x (m,1,1), y (1,m,1), z (1,1,m)."""
+    to (mi, m, m): x (mi,1,1), y (1,m,1), z (1,1,m). ``i_offset`` / ``mi``
+    address an i-slab (parallel.sharded): local plane 0 is global voxel i =
+    i_offset, and the slab holds ``mi`` planes (default m)."""
     m = params.m
+    mi = m if mi is None else mi
     idx = torch.arange(m, dtype=torch.float32, device=device)
+    ii = torch.arange(mi, dtype=torch.float32, device=device) + float(i_offset)
     ox, oy, oz = params.origin
-    x = (params.width / m) * (idx + 0.5) + ox
+    x = (params.width / m) * (ii + 0.5) + ox
     y = (params.height / m) * (idx + 0.5) + oy
     z = (params.depth / m) * (idx + 0.5) + oz
-    return x.view(m, 1, 1), y.view(1, m, 1), z.view(1, 1, m)
+    return x.view(mi, 1, 1), y.view(1, m, 1), z.view(1, 1, m)

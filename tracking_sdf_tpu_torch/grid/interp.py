@@ -70,21 +70,27 @@ class BrickMaskedView:
     holds NaN wherever W <= 0), float32 or bfloat16. Brick (ib, jb, kb) is
     row-major over (m/bi, m/bj, m/bk) and its voxels (di, dj, dk) row-major
     over ``bs``; ``pitch`` is the element stride between consecutive bricks
-    (default bi·bj·bk, one brick per row)."""
+    (default bi·bj·bk, one brick per row). ``mi`` is the view's i extent in
+    voxels (default m): a slab-local view (parallel.sharded) holds one
+    rank's brick layers and a halo layer, addressed by slab-local i in
+    [0, mi); j and k stay global."""
 
     rows: torch.Tensor
     m: int
     bs: Tuple[int, int, int]
     pitch: int = 0
+    mi: int = 0
 
     def __post_init__(self):
         self.bs = tuple(self.bs)
         if not self.pitch:
             self.pitch = self.bs[0] * self.bs[1] * self.bs[2]
+        if not self.mi:
+            self.mi = self.m
 
     @property
     def shape(self):
-        return (self.m, self.m, self.m)
+        return (self.mi, self.m, self.m)
 
     @property
     def dtype(self):
@@ -104,7 +110,7 @@ def _corner_fetch_brick(view: BrickMaskedView, ci, cj, ck) -> torch.Tensor:
     bi, bj, bk = view.bs
     m = view.m
     nbj, nbk = m // bj, m // bk
-    ci, cj, ck = ci.clamp(0, m - 1), cj.clamp(0, m - 1), ck.clamp(0, m - 1)
+    ci, cj, ck = ci.clamp(0, view.mi - 1), cj.clamp(0, m - 1), ck.clamp(0, m - 1)
     F = (((ci // bi) * nbj + cj // bj) * nbk + ck // bk) * view.pitch \
         + ((ci % bi) * bj + cj % bj) * bk + ck % bk
     return view.rows.reshape(-1)[F]

@@ -10,7 +10,9 @@ the CPU tests import every module.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -27,9 +29,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # dm, bf16, m, bi, bj, bk, pitch, pose, pts, n, ox, oy, oz, sx, sy, sz,
-    # partials, blocks, out, stream
-    "tsdf_gn_reduce": [_P] + [_I] * 6 + [_P, _P, _I] + [_F] * 6 + [_P, _I, _P, _P],
+    # dm, bf16, m, mi, i0, slab, bi, bj, bk, pitch, pose, pts, n, ox, oy, oz,
+    # sx, sy, sz, partials, blocks, out, stream
+    "tsdf_gn_reduce": [_P] + [_I] * 9 + [_P, _P, _I] + [_F] * 6 + [_P, _I, _P, _P],
     # dm, bf16, m, bi, bj, bk, pitch, pts, n, w, sh, sw, ox, oy, oz, sx, sy,
     # sz, partials, blocks, state, max_iterations, min_iterations,
     # signed_conv, reference_update, max_twist_diff, damping_decay, stream
@@ -43,10 +45,10 @@ _SIGNATURES = {
     "tsdf_brick_merge_rows": [_P] * 3 + [_I] * 3 + [_P, _I, _P] + [_I] * 4
                              + [_F, _F, _P],
     # D, W, C, c_width, value_bf16, weight_bf16, ids, n_ids, cap, nb, bi, bj,
-    # bk, m, pix, channels, img_h, img_w, R, t, sat (or NULL), sj, sk,
+    # bk, m, i_offset, pix, channels, img_h, img_w, R, t, sat (or NULL), sj, sk,
     # point_to_plane, weighting, sx, sy, sz, ox, oy, oz, fx, fy, cx, cy, delta,
     # eps, w_delta, w_inv, max_weight, stream
-    "tsdf_brick_fuse_rows": [_P] * 3 + [_I] * 3 + [_P] + [_I] * 7 + [_P] + [_I] * 3
+    "tsdf_brick_fuse_rows": [_P] * 3 + [_I] * 3 + [_P] + [_I] * 8 + [_P] + [_I] * 3
                             + [_P, _P, _P] + [_I] * 4 + [_F] * 15 + [_P],
 }
 
@@ -68,11 +70,31 @@ def library_path() -> Path:
     return BUILD_DIR / f"libtsdf_kernels_{h.hexdigest()[:16]}.so"
 
 
+@contextlib.contextmanager
+def file_lock(name: str):
+    """An exclusive lock across processes on ``build/NAME.lock`` (the ranks
+    of a process group started together build once, not in a race)."""
+    path = BUILD_DIR.parent / f"{name}.lock"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build() -> Path:
-    """Compile the library unless a build of these sources exists."""
+    """Compile the library unless a build of these sources exists (under
+    ``file_lock``: another process may be building it)."""
     so = library_path()
     if so.exists():
         return so
+    with file_lock("torch_kernels"):
+        return so if so.exists() else _compile(so)
+
+
+def _compile(so: Path) -> Path:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{so.stem}.{os.getpid()}"
     objs = [BUILD_DIR / f"{tag}.{Path(name).stem}.o" for name in SOURCES]

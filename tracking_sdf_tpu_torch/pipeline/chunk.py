@@ -32,6 +32,14 @@ Launch counts: a replay runs kernels without calling their wrappers, so a
 capture records the launches of one step and each replay adds them to the
 wrappers' counters. The warm-up, the capture itself and the calibration
 loops are not frames and add nothing.
+
+Under a mesh (parallel.sharded) the step is the same with the sharded
+tracker and fusion: its collectives (the halo's all_gather, an all_reduce a
+GN iteration, the counts' all_reduce) run inside it. Under NCCL they are
+captured in the graphs with the kernels. Gloo copies CUDA tensors through
+the host, which can sit neither in a capture nor under the no-sync guard, so
+under Gloo the step runs eagerly, frame by frame; the host still reads the
+records once per chunk.
 """
 from __future__ import annotations
 
@@ -50,20 +58,21 @@ from tracking_sdf_tpu_torch.tracking import gn_reduce
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 
 # A frame's record (float32; the counts are exact): R (9), t (3), GN
-# iterations, num_valid, mean |residual|, rejected, then fusion's five
-# counts (n_full, n_free, FREE bricks dropped, mixed super-bricks dropped,
-# saturated bricks after the frame).
+# iterations, num_valid, mean |residual|, rejected, then fusion's six
+# counts (fusion.brickmajor.COUNTS).
 REC_R, REC_T, REC_ITERS, REC_NVALID, REC_MRES, REC_REJ, REC_COUNTS = 0, 9, 12, 13, 14, 15, 16
-REC = 21
+REC = 22
 
 # held by a capture and by a chunk's replays; see the module docstring
 DEVICE_LOCK = threading.RLock()
 
 # the kernel wrappers' launch counters
 _COUNTERS = ((gn_reduce, "launches"), (gn_reduce, "launches_brick"),
+             (gn_reduce, "launches_slab"), (gn_reduce, "launches_slab_brick"),
              (gn_reduce, "launches_step"), (gn_reduce, "launches_step_brick"),
              (brick_merge, "launches"), (brick_merge, "launches_rows"),
-             (brick_fuse, "launches"), (brick_fuse, "launches_sat"))
+             (brick_fuse, "launches"), (brick_fuse, "launches_sat"),
+             (brick_fuse, "launches_slab"))
 
 
 def launch_counts() -> Tuple[int, ...]:
@@ -100,7 +109,9 @@ class ChunkSteps:
         self.recon = recon
         dev = recon.device
         self.device = dev
-        self.cuda = dev.type == "cuda"
+        mesh = recon.mesh
+        # CUDA graphs on the card, but not under Gloo (module docstring)
+        self.graphs = dev.type == "cuda" and (mesh is None or mesh.backend == "nccl")
         f32 = dict(dtype=torch.float32, device=dev)
         self.R, self.t = torch.zeros(3, 3, **f32), torch.zeros(3, **f32)
         self.prev_R, self.prev_t = torch.zeros(3, 3, **f32), torch.zeros(3, **f32)
@@ -109,7 +120,7 @@ class ChunkSteps:
         self._scale_depth, self._scale_rgb = recon._scale_depth, recon._scale_rgb
         self._inputs: Dict[tuple, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
         self._steps: Dict[tuple, Callable[[], None]] = {}
-        self._pool = torch.cuda.graph_pool_handle() if self.cuda else None
+        self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self.capture_ms: Dict[tuple, float] = {}  # per captured variant
         self.calibration_ms: List[float] = []  # per calibration
 
@@ -215,7 +226,7 @@ class ChunkSteps:
         def frame():
             self._frame(depth, rgb if color_on else None, cap)
 
-        if not self.cuda:
+        if not self.graphs:
             self._steps[key] = frame
             return frame
         # the warm-up fuses an all-NaN frame, which leaves the rows as they are
@@ -256,7 +267,8 @@ class ChunkSteps:
         self.prev_t.copy_(p.t)
         self.have_prev.fill_(prev is not None)
         out = torch.empty((len(colors), REC), dtype=torch.float32, device=self.device)
-        with DEVICE_LOCK, self._no_host_sync():
+        # eager steps (the CPU, Gloo) neither capture nor guard: no lock
+        with (DEVICE_LOCK if self.graphs else contextlib.nullcontext()), self._no_host_sync():
             for k, color in enumerate(colors):
                 depth.copy_(depths[k], non_blocking=True)
                 if rgb is not None:
@@ -268,7 +280,7 @@ class ChunkSteps:
     @contextlib.contextmanager
     def _no_host_sync(self):
         """On the card, any host sync inside raises."""
-        if not self.cuda:
+        if not self.graphs:
             yield
             return
         mode = torch.cuda.get_sync_debug_mode()
@@ -283,13 +295,15 @@ class ChunkSteps:
     def _timed_ms(self, fn: Callable[[], None], restore: Callable[[], None]) -> float:
         """Best of two runs of ``fn``, each after ``restore()``: on the card
         replays of its graph (captured in a pool of its own) timed with CUDA
-        events, on the CPU eager runs on the host clock."""
+        events, on the CPU (and under Gloo) eager runs on the host clock."""
         best = float("inf")
-        if not self.cuda:
+        if not self.graphs:
             for _ in range(2):
                 restore()
                 t0 = time.perf_counter()
                 fn()
+                if self.device.type == "cuda":  # eager under Gloo
+                    torch.cuda.synchronize(self.device)
                 best = min(best, (time.perf_counter() - t0) * 1e3)
             return best
         restore()

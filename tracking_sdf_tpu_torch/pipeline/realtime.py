@@ -1,5 +1,6 @@
 """Paced, arrival-driven replay (counterpart of
-tracking_sdf_tpu.pipeline.realtime's RealtimePacer).
+tracking_sdf_tpu.pipeline.realtime's RealtimePacer and
+MultihostRealtimePacer).
 
 A live sensor delivers frames at its own rate into a queue of size one: when
 the consumer is still busy, every frame but the newest is dropped, and the
@@ -15,6 +16,8 @@ from __future__ import annotations
 
 import time
 from typing import Iterator, Tuple
+
+import torch
 
 
 class RealtimePacer:
@@ -60,3 +63,44 @@ class RealtimePacer:
     def __iter__(self):
         for _, frame in self.paced():
             yield frame
+
+
+class MultihostRealtimePacer(RealtimePacer):
+    """The paced replay of a mesh's ranks in lockstep: wall clocks of their
+    own would drop different frames on different ranks, and the ranks'
+    collectives would then disagree. Rank 0 runs the arrival clock
+    (``paced()``, its sleeps included) and broadcasts each chosen index
+    before the frame is yielded, then -1 at the end; the other ranks yield
+    the frames of the indices they receive and rebuild the drop count from
+    the gaps between them (the warm-up frames are consecutive), so every
+    rank delivers the same frames and counts the same drops.
+    ``mesh``: parallel.mesh.Mesh (one broadcast of one int64 a frame)."""
+
+    def __init__(self, dataset, mesh, hz: float = 30.0, warmup: int = 2):
+        super().__init__(dataset, hz=hz, warmup=warmup)
+        self._mesh = mesh
+        self._idx = torch.zeros((), dtype=torch.int64, device=mesh.device)
+
+    def _bcast(self, idx: int) -> int:
+        self._idx.fill_(idx)
+        return int(self._mesh.broadcast_(self._idx, src=0))
+
+    def __iter__(self):
+        if self._mesh.rank == 0:
+            for i, frame in self.paced():
+                self._bcast(i)
+                yield frame
+            self._bcast(-1)
+            return
+        yield from (self._ds[i] for i in self.follow(iter(lambda: self._bcast(0), -1)))
+
+    def follow(self, indices) -> Iterator[int]:
+        """A follower's accounting over a stream of broadcast indices: yields
+        each index and counts the frames skipped between two as dropped."""
+        prev = -1
+        for idx in indices:
+            if prev >= 0:
+                self.dropped += max(idx - prev - 1, 0)
+            self.yielded += 1
+            prev = idx
+            yield idx

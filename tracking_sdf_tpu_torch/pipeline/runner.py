@@ -22,6 +22,16 @@ dense view of the rows, made each tracked frame). ``process_chunk`` and
 ``use_groundtruth`` is the fusion-only oracle mode (poses from the dataset's
 groundtruth). Checkpoints (pipeline.checkpoint) save and restore the grid,
 the pose and the frame counter.
+
+With ``mesh`` (parallel.mesh.Mesh) the grid is split into i-slabs over the
+ranks of a process group, one per device (parallel.sharded): brick-major
+keeps each rank's rows and tracks straight off them (K1's and K2's slab
+forms); dense and bricked keep dense slabs ("packed" maps to sharded bricked
+with (1, 8, 128) bricks). Tracking runs one level at ``pixel_stride`` (no
+pyramid), FULL and FREE caps are per rank (max(256, cap // n), no adaptive
+ladder), and ``sat_skip`` is off. Every rank must make the same calls in the
+same order (the collectives' rule): every frame, and ``grid``,
+``save_checkpoint``, ``render``, ``export_mesh`` and ``process_chunk``.
 """
 from __future__ import annotations
 
@@ -39,7 +49,7 @@ from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose, matrix_from_quaternion
 from tracking_sdf_tpu_torch.fusion.brick import FuseStats, fuse_frame_bricked
 from tracking_sdf_tpu_torch.fusion.brickmajor import (
-    BrickGrid, brick_grid_from_dense, brick_masked_view, dense_from_brick_grid,
+    COUNTS, BrickGrid, brick_grid_from_dense, brick_masked_view, dense_from_brick_grid,
     empty_brick_grid, fuse_frame_brickmajor_core, fuse_stats, storage_dtype)
 from tracking_sdf_tpu_torch.fusion.fuse import fuse_frame
 from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid, empty_grid
@@ -70,19 +80,37 @@ class FrameStats:
     preprocess_ms: float = 0.0
 
 
-def unsupported(config: PipelineConfig) -> List[str]:
-    """The modes of ``config`` that the port does not run, each with the
-    ROADMAP entry that says why (the CLI exits 2 on them)."""
+def unsupported(config: PipelineConfig, sharded: bool = False) -> List[str]:
+    """The modes of ``config`` that the port does not run (on one device, or
+    ``sharded`` over a mesh), each with the reason (the CLI exits 2 on
+    them)."""
+    if sharded:
+        if config.tracking.jacobian != "analytic":
+            return ["tracking.jacobian='central' under a mesh (the sharded tracker "
+                    "is analytic only, as the JAX package's)"]
+        return []
     if config.fusion.mode == "packed":
-        return ["fusion.mode='packed' (ROADMAP queue 1, not to port: a measured "
-                "negative)"]
+        return ["fusion.mode='packed' on one device (ROADMAP queue 1, not to port: a "
+                "measured negative; under --distributed it maps to sharded bricked)"]
     return []
 
 
-def _check_supported(config: PipelineConfig) -> None:
-    bad = unsupported(config)
+def _check_supported(config: PipelineConfig, sharded: bool) -> None:
+    bad = unsupported(config, sharded)
     if bad:
         raise NotImplementedError("unsupported: " + ", ".join(bad))
+
+
+def sharded_fusion_config(config: PipelineConfig) -> PipelineConfig:
+    """The fusion config a mesh runs: "packed" becomes the flat bricked
+    layout with (1, 8, 128) bricks (narrowed to m below 128), as the JAX
+    package maps it."""
+    f = config.fusion
+    if f.mode != "packed":
+        return config
+    m = config.grid.m
+    bs = (1, 8, 128) if m % 128 == 0 else (1, 8, m)
+    return dataclasses.replace(config, fusion=f._replace(mode="bricked", brick_shape=bs))
 
 
 def _sync(device: torch.device) -> None:
@@ -94,9 +122,17 @@ class Reconstruction:
     """Stateful frame loop: owns the grid, the pose and the trajectory file."""
 
     def __init__(self, cam: PinholeCamera, config: PipelineConfig = PipelineConfig(),
-                 initial_pose: Optional[Pose] = None, *, device):
-        _check_supported(config)
+                 initial_pose: Optional[Pose] = None, *, device=None, mesh=None):
+        _check_supported(config, mesh is not None)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            device = mesh.device
+            config = sharded_fusion_config(config)
+        elif device is None:
+            raise TypeError("Reconstruction needs device= (or mesh=)")
         self.device = torch.device(device)
+        self.mesh = mesh
         self.cam = cam
         self.config = config
         self.pose = (initial_pose if initial_pose is not None
@@ -115,18 +151,25 @@ class Reconstruction:
         # JAX package), on the device at a fixed address; reset on every
         # grid assignment
         self._sat: Optional[torch.Tensor] = None
+        m = config.grid.m
+        slab = mesh.slab(m) if mesh is not None else m
         if f.mode == "brickmajor":
             self._vdt = storage_dtype(f.storage_dtype)
             self._wdt = storage_dtype(f.weight_dtype)
+            if slab % self._bs[0]:
+                raise ValueError(f"slab {slab} not divisible by brick i-extent {self._bs[0]}")
             self._bgrid = empty_brick_grid(config.grid, self._bs, device=self.device,
-                                           value_dtype=self._vdt,
-                                           weight_dtype=self._wdt)
-            self._dm = brick_masked_view(self._bgrid, config.grid, self._bs)
-            if f.sat_skip:
+                                           value_dtype=self._vdt, weight_dtype=self._wdt,
+                                           nbi=slab // self._bs[0])
+            if mesh is None:
+                self._dm = brick_masked_view(self._bgrid, config.grid, self._bs)
+            if f.sat_skip and mesh is None:
                 self._sat = torch.zeros(self._bgrid.D.shape[0], dtype=torch.bool,
                                         device=self.device)
         else:
-            self._grid = empty_grid(config.grid, device=self.device)
+            self._grid = empty_grid(config.grid, device=self.device, mi=slab)
+        if mesh is not None:
+            self._init_sharded()
         # adaptive FULL cap: the smallest of three levels that covers ~1.3x
         # the previous frame's FULL count (overflow escalates the next frame)
         cap_max = config.fusion.brick_cap
@@ -148,18 +191,52 @@ class Reconstruction:
         self._scale_rgb = torch.full((), 255.0, device=self.device)
         self._publisher = None  # pipeline.visualizer.MeshPublisher
         self._last_publish = float("-inf")
+        self._last_publish_frame = 0  # under a mesh: the frame of the last snapshot
+        self._mesh_publishing = False  # under a mesh: start_mesh_publisher was called
+
+    def _init_sharded(self) -> None:
+        """The mesh's tracker and fusion (parallel.sharded): built once, the
+        caps per rank fixed at max(256, cap // n)."""
+        from tracking_sdf_tpu_torch.parallel import sharded
+
+        cfg, mesh = self.config, self.mesh
+        f = cfg.fusion
+        n = mesh.size
+        if f.mode == "brickmajor":
+            self._fuse_sh = sharded.sharded_fuse_frame_brickmajor(
+                mesh, params=cfg.grid, cam=self.cam, cfg=f, bs=self._bs,
+                cap_free=max(256, f.brick_cap_free // n) if f.brick_cap_free else None)
+            self._track_sh = sharded.sharded_track_frame_brickmajor(
+                mesh, params=cfg.grid, cfg=cfg.tracking, bs=self._bs)
+        else:
+            self._fuse_sh = (sharded.sharded_fuse_frame_bricked(
+                mesh, params=cfg.grid, cam=self.cam, cfg=f, bs=self._bs)
+                if f.mode == "bricked" else
+                sharded.sharded_fuse_frame(mesh, params=cfg.grid, cam=self.cam, cfg=f))
+            self._track_sh = sharded.sharded_track_frame(mesh, params=cfg.grid,
+                                                         cfg=cfg.tracking)
+        self._render_sh = {}
 
     @property
     def grid(self) -> TSDFGrid:
         """The dense (m, m, m) grid. In brick-major mode this materializes it
         from the brick rows (six float32 leaves): for tests and export, not
-        for the per-frame path."""
+        for the per-frame path. Under a mesh it gathers the ranks' slabs (a
+        collective: every rank reads it)."""
+        from tracking_sdf_tpu_torch.parallel.mesh import gather_brick_grid, gather_grid
+
         if self._bgrid is not None:
-            return dense_from_brick_grid(self._bgrid, self.config.grid, self._bs)
-        return self._grid
+            rows = (self._bgrid if self.mesh is None
+                    else gather_brick_grid(self._bgrid, self.mesh))
+            return dense_from_brick_grid(rows, self.config.grid, self._bs)
+        return self._grid if self.mesh is None else gather_grid(self._grid, self.mesh)
 
     @grid.setter
     def grid(self, g: TSDFGrid) -> None:
+        """Assign the whole dense grid (under a mesh every rank passes the
+        same grid and keeps its slab)."""
+        from tracking_sdf_tpu_torch.parallel.mesh import shard_brick_grid, shard_grid
+
         # a saturated bit states that the brick's rows did not change under
         # its last FREE update: after a new grid no bit holds
         if self._sat is not None:
@@ -167,10 +244,19 @@ class Reconstruction:
         if self._bgrid is not None:
             self._bgrid = brick_grid_from_dense(g, self._bs, value_dtype=self._vdt,
                                                 weight_dtype=self._wdt)
-            self._dm = brick_masked_view(self._bgrid, self.config.grid, self._bs)
+            if self.mesh is None:
+                self._dm = brick_masked_view(self._bgrid, self.config.grid, self._bs)
+            else:
+                self._bgrid = shard_brick_grid(self._bgrid, self.mesh)
             self._chunk_steps = None  # its graphs hold the old rows' addresses
         else:
-            self._grid = g
+            self._grid = g if self.mesh is None else shard_grid(g, self.mesh)
+
+    def _grid_slab(self) -> TSDFGrid:
+        """This rank's dense slab of the grid (a mesh only)."""
+        if self._bgrid is not None:
+            return dense_from_brick_grid(self._bgrid, self.config.grid, self._bs)
+        return self._grid
 
     @property
     def brick_grid(self):
@@ -183,24 +269,32 @@ class Reconstruction:
                    sat: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Brick-major fusion into ``bgrid`` and ``sat`` (default the live
         rows and bitset) with no host read; returns the device counts
-        (fusion.brickmajor)."""
+        (fusion.brickmajor; under a mesh summed over the ranks, at the
+        fixed caps per rank)."""
         f = self.config.fusion
         if bgrid is None:
             bgrid, sat = self._bgrid, self._sat
+        if self.mesh is not None:
+            return self._fuse_sh.core(bgrid, pose, points, normals, rgb)
         return fuse_frame_brickmajor_core(
             bgrid, pose, points, normals, rgb, params=self.config.grid, cam=self.cam,
             cfg=f, bs=self._bs, cap=cap, cap_free=f.brick_cap_free or None, sat=sat)
 
     def _fuse(self, points, normals, rgb) -> None:
         cfg = self.config
+        sharded = self.mesh is not None
         if cfg.fusion.mode == "dense":
-            self._grid = fuse_frame(self._grid, self.pose, points, normals, rgb,
-                                    params=cfg.grid, cam=self.cam, cfg=cfg.fusion)
+            self._grid = (self._fuse_sh(self._grid, self.pose, points, normals, rgb)
+                          if sharded else
+                          fuse_frame(self._grid, self.pose, points, normals, rgb,
+                                     params=cfg.grid, cam=self.cam, cfg=cfg.fusion))
             return
         cap = self._cap_levels[self._cap_idx]
         if self._bgrid is not None:
             counts = self._fuse_core(self.pose, points, normals, rgb, cap)
-            stats = fuse_stats(counts.tolist(), cap)  # the frame's one FuseStats read
+            stats = fuse_stats(counts.tolist())  # the frame's one FuseStats read
+        elif sharded:
+            _, stats = self._fuse_sh(self._grid, self.pose, points, normals, rgb)
         else:
             _, stats = fuse_frame_bricked(
                 self._grid, self.pose, points, normals, rgb, params=cfg.grid,
@@ -223,8 +317,12 @@ class Reconstruction:
     def _track(self, pose0: Pose, points: torch.Tensor) -> TrackResult:
         """Tracking of one frame's (H, W, 3) points from ``pose0``, issued
         with no host read (brick-major: against the view of the D rows; the
-        central Jacobian against the dense grid, brick-major's made here)."""
+        central Jacobian against the dense grid, brick-major's made here;
+        under a mesh the sharded tracker, one level at pixel_stride)."""
         cfg = self.config
+        if self.mesh is not None:
+            rows = self._bgrid.D if self._bgrid is not None else self._grid
+            return self._track_sh(rows, pose0, points)
         grid, dm = self._grid, self._dm
         if cfg.tracking.jacobian == "central":
             grid, dm = self.grid, None
@@ -420,7 +518,7 @@ class Reconstruction:
         self.pose = Pose(steps.R.clone(), steps.t.clone())
         self._pose_prev = (None if bool(rej[-1])
                            else Pose(steps.prev_R.clone(), steps.prev_t.clone()))
-        self.chunk_fuse_stats = [None if rj else fuse_stats(c, cap)
+        self.chunk_fuse_stats = [None if rj else fuse_stats(c)
                                  for rj, c in zip(rej.tolist(), counts)]
         fused = [s for s in self.chunk_fuse_stats if s is not None]
         if fused:
@@ -462,7 +560,8 @@ class Reconstruction:
                               rejected=bool(rej[i]), preprocess_ms=float(prep_i[i]))
             self.stats.append(stat)
             stats_out.append(stat)
-        overflow = sum(max(c[0] - cap, 0) + c[2] + c[3] for c in counts)
+        ovf = [COUNTS.index(k) for k in ("overflow", "overflow_active", "overflow_mixed")]
+        overflow = sum(c[i] for c in counts for i in ovf)
         self.overflow_drops += overflow
         if overflow:
             warnings.warn(
@@ -479,7 +578,19 @@ class Reconstruction:
         passed since the last: a snapshot is a full dense copy, not worth
         making for exports that cannot keep up. The brick-major dense view is
         a fresh copy already; the flat grid is updated in place, so it is
-        copied."""
+        copied. Under a mesh the snapshot is a gather, which every rank must
+        join at the same frame: the ranks decide by frame count (one
+        snapshot every round(30 / mesh_hz) frames of a 30 Hz sensor), and
+        only rank 0 runs a publisher."""
+        if self.mesh is not None:
+            every = max(1, round(30.0 / (self.config.mesh_hz or 1.0)))
+            if (self._mesh_publishing
+                    and self.frame_num // every > self._last_publish_frame // every):
+                self._last_publish_frame = self.frame_num
+                grid = self.grid
+                if self._publisher is not None:
+                    self._publisher.publish(grid, copy=False)
+            return
         if self._publisher is None:
             return
         now = time.perf_counter()
@@ -505,9 +616,37 @@ class Reconstruction:
         color_mode="shepard" is the reference's per-vertex interpolate_color."""
         from tracking_sdf_tpu_torch.render.marching_cubes import export_ply
 
-        mesh = self._extract_mesh(self.grid, with_colors, color_mode)
-        export_ply(mesh, path)
+        mesh = (self._extract_mesh(self.grid, with_colors, color_mode) if self.mesh is None
+                else self._sharded_mesh(with_colors, color_mode))
+        if self.mesh is None or self.mesh.rank == 0:  # under a mesh rank 0 writes
+            export_ply(mesh, path)
         return mesh.num_triangles
+
+    def _sharded_mesh(self, with_colors: bool, color_mode: str):
+        """marching_cubes_sharded of this rank's slab, then the ranks'
+        triangles gathered in rank order (collectives: every rank calls it);
+        equals marching_cubes of the gathered grid."""
+        from tracking_sdf_tpu_torch.render.marching_cubes import (
+            Mesh, marching_cubes_sharded)
+
+        mesh = self.mesh
+        part = marching_cubes_sharded(self._grid_slab(), mesh, params=self.config.grid,
+                                      with_colors=with_colors, color_mode=color_mode,
+                                      vertex_quant=self.config.mesh_vertex_quant)
+        cols = (part.vertices,) + ((part.colors,) if with_colors else ())
+        local = torch.from_numpy(np.concatenate([c.reshape(-1, 9) for c in cols], axis=1)
+                                 ).to(mesh.device)
+        sizes = mesh.all_gather(torch.tensor([local.shape[0], part.dropped_cells],
+                                             dtype=torch.int64, device=mesh.device)
+                                ).reshape(-1, 2).tolist()
+        top = max(1, max(k for k, _ in sizes))
+        padded = torch.zeros((top, local.shape[1]), dtype=local.dtype, device=mesh.device)
+        padded[:local.shape[0]] = local
+        every = mesh.all_gather(padded).reshape(mesh.size, top, -1).cpu().numpy()
+        rows = np.concatenate([every[r, :k] for r, (k, _) in enumerate(sizes)])
+        tri = np.ascontiguousarray(rows[:, :9].reshape(-1, 3, 3))
+        colors = np.ascontiguousarray(rows[:, 9:].reshape(-1, 3, 3)) if with_colors else None
+        return Mesh(tri, colors, dropped_cells=sum(d for _, d in sizes))
 
     def start_mesh_publisher(self, path: str, with_colors: bool = True):
         """Start the background mesh export into ``path`` at config.mesh_hz
@@ -520,6 +659,11 @@ class Reconstruction:
         from tracking_sdf_tpu_torch.render.marching_cubes import export_ply, marching_cubes
 
         g = self.config.grid
+        if self.mesh is not None:
+            # every rank joins the snapshots' gathers; rank 0 exports them
+            self._mesh_publishing = True
+            if self.mesh.rank != 0:
+                return None
         dec = self.config.mesh_decimate or (4 if g.m >= 512 else 2 if g.m >= 256 else 1)
         dec = max(1, dec)
         while g.m % dec:
@@ -533,7 +677,7 @@ class Reconstruction:
                     mesh = marching_cubes(coarse, params=g._replace(m=g.m // dec),
                                           with_colors=with_colors, color_mode="trilinear",
                                           vertex_quant=self.config.mesh_vertex_quant)
-                else:
+                else:  # the whole grid (under a mesh the gathered snapshot)
                     mesh = self._extract_mesh(grid, with_colors, "trilinear")
             export_ply(mesh, path)
 
@@ -546,15 +690,28 @@ class Reconstruction:
         """Raycast depth, normals and color of the current model from
         ``pose`` (default the current pose) over the dense view.
         ``t_init``: the previous render's ``range_t``, to start each ray
-        near its surface (RaycastConfig.warm_backoff). Warns
-        (RuntimeWarning) when rays overflowed the slots of the compacted
-        recovery march: they render as misses."""
+        near its surface (RaycastConfig.warm_backoff). Under a mesh the rays
+        are sharded over the ranks (parallel.render.sharded_raycast, equal to
+        the render of the gathered grid; every rank calls it and gets the
+        whole image); a warm start renders the gathered grid on each rank.
+        Warns (RuntimeWarning) when rays overflowed the slots of the
+        compacted recovery march: they render as misses."""
         from tracking_sdf_tpu_torch.render.raycast import raycast
 
         p = (pose if pose is not None else self.pose).to(self.device)
-        result = raycast(self.grid, p, params=self.config.grid, cam=self.cam,
-                         cfg=self.config.raycast, stride=stride, with_color=with_color,
-                         t_init=t_init)
+        if self.mesh is not None and t_init is None:
+            from tracking_sdf_tpu_torch.parallel.render import sharded_raycast
+
+            key = (stride, with_color)
+            if key not in self._render_sh:
+                self._render_sh[key] = sharded_raycast(
+                    self.mesh, params=self.config.grid, cam=self.cam,
+                    cfg=self.config.raycast, stride=stride, with_color=with_color)
+            result = self._render_sh[key](self._grid_slab(), p)
+        else:
+            result = raycast(self.grid, p, params=self.config.grid, cam=self.cam,
+                             cfg=self.config.raycast, stride=stride,
+                             with_color=with_color, t_init=t_init)
         n_dropped = int(result.dropped)
         if n_dropped > 0:
             warnings.warn(
@@ -649,11 +806,17 @@ class Reconstruction:
 
     def save_checkpoint(self, path: str) -> None:
         """Snapshot the dense grid, the pose, the velocity carry and the
-        frame counter (pipeline.checkpoint)."""
+        frame counter (pipeline.checkpoint). Under a mesh every rank calls
+        it: the grid is gathered, rank 0 writes, and the others wait for it
+        at a barrier."""
         from tracking_sdf_tpu_torch.pipeline.checkpoint import save_checkpoint
 
-        save_checkpoint(path, self.grid, self.pose, self.frame_num,
-                        pose_prev=self._pose_prev)
+        grid = self.grid
+        if self.mesh is None or self.mesh.rank == 0:
+            save_checkpoint(path, grid, self.pose, self.frame_num,
+                            pose_prev=self._pose_prev)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def restore_checkpoint(self, path: str) -> None:
         """Continue from a checkpoint: the run then goes on bit for bit as
@@ -662,6 +825,7 @@ class Reconstruction:
         from tracking_sdf_tpu_torch.pipeline.checkpoint import load_checkpoint
 
         grid, pose, frame_num, _, pose_prev = load_checkpoint(path, device=self.device)
+        # under a mesh every rank reads the whole grid and keeps its slab
         if self._writer is not None and not self._writer.started:
             self._writer.set_append(True)
         self.grid = grid  # the setter drops the captured chunk steps

@@ -292,3 +292,26 @@ def export_ply(mesh: Mesh, path: str, binary: bool = True) -> None:
                 f.write(f"{v[0]:.6f} {v[1]:.6f} {v[2]:.6f}\n")
         for i in range(n_f):
             f.write(f"3 {3 * i} {3 * i + 1} {3 * i + 2}\n")
+
+
+def marching_cubes_sharded(grid: TSDFGrid, mesh, *, params: GridParams,
+                           with_colors: bool = False, max_cells: Optional[int] = None,
+                           color_mode: str = "trilinear",
+                           vertex_quant: bool = False) -> Mesh:
+    """Mesh this rank's i-slab (TSDFGrid of (slab, m, m) leaves) of a grid
+    split over ``mesh`` (parallel.mesh.Mesh): the cells whose base voxel the
+    rank owns. The last owned plane's cells need the next rank's first
+    plane, which one collective fetches (every rank calls this; the last
+    rank has no next plane and meshes to m - 2). Returns this rank's
+    triangles: concatenated in rank order, the ranks' meshes equal
+    ``marching_cubes`` of the whole grid, triangle for triangle."""
+    first = torch.stack([getattr(grid, k)[:1] for k in FIELDS])
+    every = mesh.all_gather(first[None])  # (n, 6, 1, m, m)
+    sub = grid
+    if mesh.rank < mesh.size - 1:
+        nxt = every[mesh.rank + 1]
+        sub = TSDFGrid(*(torch.cat([getattr(grid, k), nxt[c]])
+                         for c, k in enumerate(FIELDS)))
+    return marching_cubes(sub, params=params, with_colors=with_colors,
+                          max_cells=max_cells, color_mode=color_mode,
+                          i_offset=mesh.i0(params.m), vertex_quant=vertex_quant)

@@ -143,14 +143,16 @@ def raycast(grid: TSDFGrid, pose: Pose, *, params: GridParams, cam: PinholeCamer
     ``range_t`` (NaN = miss) to start each ray near its surface: a 3x3
     min-pool of it less ``warm_backoff`` (default delta); rays with no prior
     start cold. ``dirs_cam`` (h, w, 3) camera-frame directions with z = 1
-    replace ``pixel_rays(cam, stride)``."""
+    replace ``pixel_rays(cam, stride)``; a ray whose direction is not finite
+    is dead from the start (it never marches and renders as a miss)."""
     dev = grid.D.device
     dtype = grid.D.dtype
     delta = params.delta
     miss_step = cfg.miss_step if cfg.miss_step > 0 else delta / 2
     if dirs_cam is None:
         dirs_cam, _ = pixel_rays(cam, stride, device=dev)
-    d_world = _rotate(pose.R, dirs_cam)
+    dead = ~torch.isfinite(dirs_cam).all(dim=-1)
+    d_world = _rotate(pose.R, torch.where(dead[..., None], 1.0, dirs_cam))
     dn = torch.linalg.norm(d_world, dim=-1, keepdim=True)
     unit = d_world / dn
     origin = pose.t
@@ -166,7 +168,7 @@ def raycast(grid: TSDFGrid, pose: Pose, *, params: GridParams, cam: PinholeCamer
         t_enter, t_exit = _ray_box(o, unit_f, lo, hi)
         t_start_f = torch.clamp(t_enter, min=cfg.t_near)
         t_stop_f = torch.clamp(t_exit, max=cfg.t_far)
-        alive0 = t_start_f < t_stop_f  # the ray meets the volume at all
+        alive0 = (t_start_f < t_stop_f) & ~dead.reshape(N)  # it meets the volume at all
 
         if t_init is not None:
             backoff = cfg.warm_backoff if cfg.warm_backoff > 0 else delta

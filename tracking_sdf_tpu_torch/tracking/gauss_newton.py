@@ -109,12 +109,21 @@ def pixel_residuals_analytic(
     points_cam: torch.Tensor,  # (N, 3), NaN holes allowed
     *,
     params: GridParams,
+    i0: int = 0,
+    slab: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """(phi (N,), J (N, 6), mask (N,)) via trilinear value + analytic gradient."""
+    """(phi (N,), J (N, 6), mask (N,)) via trilinear value + analytic gradient.
+    Slab form (``slab`` given): ``Dm`` holds global planes [i0, i0 + mi),
+    and the mask also requires the query's base plane floor(u) to lie in
+    [i0, i0 + slab) (the JAX package's ``_owned_residuals``)."""
     p, valid_in = _sanitize(points_cam)
     x = p @ pose.R.T + pose.t
     uvw = world_to_voxel(params, x)
     in_bounds = ((uvw >= 0) & (uvw < params.m)).all(dim=-1)
+    if slab is not None:
+        base_i = torch.floor(uvw[..., 0])
+        in_bounds = in_bounds & (base_i >= i0) & (base_i < i0 + slab)
+        uvw = uvw - torch.tensor([float(i0), 0.0, 0.0], device=uvw.device)
     phi, g_uvw, ok = trilinear_with_grad_nan(Dm, uvw)
     scale = torch.tensor([params.m / params.width, params.m / params.height,
                           params.m / params.depth], device=g_uvw.device)

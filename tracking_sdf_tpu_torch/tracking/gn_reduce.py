@@ -25,7 +25,7 @@ and the host never waits inside a frame's tracking.
 """
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 
@@ -49,6 +49,8 @@ N_STATE = 24
 # kernel launches made on CUDA tensors, per entry point and form of the view
 launches = 0  # gn_reduce, dense (m, m, m)
 launches_brick = 0  # gn_reduce, brick-major rows
+launches_slab = 0  # gn_reduce's slab form (i0 and slab given), dense
+launches_slab_brick = 0  # ... brick-major rows
 launches_step = 0  # gn_step, dense
 launches_step_brick = 0  # gn_step, brick-major rows
 
@@ -66,14 +68,22 @@ def unpack(out: torch.Tensor):
     return A, out[21:27], out[27], out[28]
 
 
-def gn_reduce_reference(Dm: MaskedView, pose: Pose, points: torch.Tensor,
-                        params: GridParams) -> torch.Tensor:
-    """Plain PyTorch version: pixel_residuals_analytic + normal_equations."""
+def _pose_of(pose) -> Pose:
+    """A Pose, or the pose at the head of a GN state buffer."""
+    return state_pose(pose) if torch.is_tensor(pose) else pose
+
+
+def gn_reduce_reference(Dm: MaskedView, pose, points: torch.Tensor,
+                        params: GridParams, i0: int = 0,
+                        slab: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version: pixel_residuals_analytic + normal_equations
+    (the slab form as ``gn_reduce``)."""
     # gauss_newton imports this module
     from tracking_sdf_tpu_torch.tracking.gauss_newton import (
         normal_equations, pixel_residuals_analytic)
 
-    phi, J, mask = pixel_residuals_analytic(Dm, pose, points, params=params)
+    phi, J, mask = pixel_residuals_analytic(Dm, _pose_of(pose), points, params=params,
+                                            i0=i0, slab=slab)
     A, b = normal_equations(phi, J, mask)
     iu = _triu(A.device)
     nvalid = mask.sum().to(torch.float32)
@@ -82,24 +92,26 @@ def gn_reduce_reference(Dm: MaskedView, pose: Pose, points: torch.Tensor,
 
 
 def _view_args(Dm: MaskedView, params: GridParams, what: str):
-    """Validate a CUDA view; (data, bf16, m, bi, bj, bk, pitch) for the kernel."""
+    """Validate a CUDA view of (mi, m, m) voxels; (data, bf16, m, mi, bi, bj,
+    bk, pitch) for the kernel."""
     m = params.m
     if isinstance(Dm, BrickMaskedView):
-        data, (bi, bj, bk), pitch = Dm.rows, Dm.bs, Dm.pitch
-        if (Dm.m != m or m % bi or m % bj or m % bk or pitch < bi * bj * bk
-                or data.numel() != (m // bi) * (m // bj) * (m // bk) * pitch):
+        data, (bi, bj, bk), pitch, mi = Dm.rows, Dm.bs, Dm.pitch, Dm.mi
+        if (Dm.m != m or mi % bi or m % bj or m % bk or pitch < bi * bj * bk
+                or data.numel() != (mi // bi) * (m // bj) * (m // bk) * pitch):
             raise ValueError(f"{what}: view rows {tuple(data.shape)} do not "
-                             f"hold an m={m} grid of {Dm.bs} bricks at pitch {pitch}")
+                             f"hold an ({mi}, {m}, {m}) grid of {Dm.bs} bricks at "
+                             f"pitch {pitch}")
         dtypes = (torch.float32, torch.bfloat16)
     else:
-        data, (bi, bj, bk), pitch = Dm, (0, 0, 0), 0
-        if tuple(Dm.shape) != (m, m, m):
-            raise ValueError(f"{what}: Dm shape {tuple(Dm.shape)} != {(m, m, m)}")
+        data, (bi, bj, bk), pitch, mi = Dm, (0, 0, 0), 0, Dm.shape[0]
+        if Dm.dim() != 3 or tuple(Dm.shape[1:]) != (m, m):
+            raise ValueError(f"{what}: Dm shape {tuple(Dm.shape)} != (mi, {m}, {m})")
         dtypes = (torch.float32,)
     if data.dtype not in dtypes or not data.is_contiguous():
         raise ValueError(f"{what}: the view must be contiguous {dtypes}, "
                          f"got {data.dtype}")
-    return data, int(data.dtype == torch.bfloat16), m, bi, bj, bk, pitch
+    return data, int(data.dtype == torch.bfloat16), m, mi, bi, bj, bk, pitch
 
 
 def _grid_scale(params: GridParams):
@@ -108,42 +120,63 @@ def _grid_scale(params: GridParams):
             params.m / params.depth)
 
 
-def gn_reducer(Dm: MaskedView, pose: Pose, points: torch.Tensor,
-               params: GridParams) -> Callable[[], torch.Tensor]:
+def _slab_args(mi: int, m: int, i0: int, slab: Optional[int], what: str):
+    """(i0, slab) of a view of ``mi`` planes, checked: an owned query's +1
+    corner must lie in the view unless it is past the grid's last plane."""
+    if slab is None:
+        if i0 != 0 or mi != m:
+            raise ValueError(f"{what}: a slab view ({mi} planes, i0={i0}) needs slab")
+        return 0, m
+    if i0 < 0 or slab < 1 or i0 + slab > m or mi < slab + (i0 + slab < m):
+        raise ValueError(f"{what}: slab {slab} at i0={i0} does not fit the m={m} grid "
+                         f"with a view of {mi} planes")
+    return i0, slab
+
+
+def gn_reducer(Dm: MaskedView, pose, points: torch.Tensor, params: GridParams,
+               i0: int = 0, slab: Optional[int] = None) -> Callable[[], torch.Tensor]:
     """Validate CUDA inputs and allocate once; returns a function that
-    launches the kernel on them and returns its (29,) output buffer (the
-    pose is copied into a device buffer here, once)."""
+    launches the kernel on them and returns its (29,) output buffer.
+    ``pose``: a Pose, copied into a device buffer here once, or a GN state
+    buffer (``init_state``), whose pose each launch reads in place. The slab
+    form as ``gn_reduce``."""
     view = _view_args(Dm, params, "gn_reduce")
-    data = view[0]
-    for name, x, shape in (("points", points, None),
-                           ("pose.R", pose.R, (3, 3)), ("pose.t", pose.t, (3,))):
-        if x.device != data.device or x.dtype != torch.float32:
-            raise ValueError(f"gn_reduce: {name} must be float32 on {data.device}")
-        if shape is not None and tuple(x.shape) != shape:
-            raise ValueError(f"gn_reduce: {name} shape {tuple(x.shape)} != {shape}")
-    if points.dim() != 2 or points.shape[1] != 3:
-        raise ValueError(f"gn_reduce: points shape {tuple(points.shape)} != (N, 3)")
-    if not points.is_contiguous():
-        raise ValueError("gn_reduce: points must be contiguous")
+    data, mi = view[0], view[3]
+    i0, slab_n = _slab_args(mi, params.m, i0, slab, "gn_reduce")
+    if torch.is_tensor(pose):
+        if (pose.dtype != torch.float32 or pose.device != data.device
+                or pose.numel() < S_LAM or not pose.is_contiguous()):
+            raise ValueError(f"gn_reduce: a state pose must be a contiguous float32 "
+                             f"buffer of at least {S_LAM} slots on {data.device}")
+        pose_buf = pose
+    else:
+        for name, x, shape in (("pose.R", pose.R, (3, 3)), ("pose.t", pose.t, (3,))):
+            if (x.device != data.device or x.dtype != torch.float32
+                    or tuple(x.shape) != shape):
+                raise ValueError(f"gn_reduce: {name} must be float32 {shape} on "
+                                 f"{data.device}")
+        pose_buf = torch.cat([pose.R.reshape(9), pose.t])
+    if (points.device != data.device or points.dtype != torch.float32
+            or points.dim() != 2 or points.shape[1] != 3 or not points.is_contiguous()):
+        raise ValueError(f"gn_reduce: points must be contiguous float32 (N, 3) on "
+                         f"{data.device}, got {tuple(points.shape)} {points.dtype}")
 
     n = points.shape[0]
     blocks = max(-(-n // THREADS), 1)
-    pose_buf = torch.cat([pose.R.reshape(9), pose.t])
     partials = torch.empty(blocks * N_OUT, dtype=torch.float32, device=data.device)
     out = torch.empty(N_OUT, dtype=torch.float32, device=data.device)
     lib = _build.library()
-    args = (data.data_ptr(), *view[1:], pose_buf.data_ptr(), points.data_ptr(), n,
-            *_grid_scale(params), partials.data_ptr(), blocks, out.data_ptr())
+    args = (data.data_ptr(), view[1], view[2], mi, i0, slab_n, *view[4:],
+            pose_buf.data_ptr(), points.data_ptr(), n, *_grid_scale(params),
+            partials.data_ptr(), blocks, out.data_ptr())
     brick = isinstance(Dm, BrickMaskedView)
+    counter = (("launches_slab_brick" if brick else "launches_slab") if slab is not None
+               else ("launches_brick" if brick else "launches"))
 
     def launch() -> torch.Tensor:
-        global launches, launches_brick
         _build.check(lib.tsdf_gn_reduce(*args, _build.stream_ptr(data.device)),
                      "gn_reduce")
-        if brick:
-            launches_brick += 1
-        else:
-            launches += 1
+        globals()[counter] += 1
         return out
 
     # the kernel reads and writes these through the pointers in ``args``
@@ -151,18 +184,25 @@ def gn_reducer(Dm: MaskedView, pose: Pose, points: torch.Tensor,
     return launch
 
 
-def gn_reduce(Dm: MaskedView, pose: Pose, points: torch.Tensor,
-              params: GridParams) -> torch.Tensor:
+def gn_reduce(Dm: MaskedView, pose, points: torch.Tensor, params: GridParams,
+              i0: int = 0, slab: Optional[int] = None) -> torch.Tensor:
     """Normal equations of the queries ``points`` (N, 3) (camera frame, NaN
-    holes allowed) at ``pose`` against the masked view ``Dm``: a dense
-    float32 (m, m, m) tensor or a BrickMaskedView of float32/bfloat16 rows.
+    holes allowed) at ``pose`` (a Pose, or a GN state buffer) against the
+    masked view ``Dm``: a dense float32 (mi, m, m) tensor or a
+    BrickMaskedView of float32/bfloat16 rows.
+
+    Slab form (the sharded tracker's, parallel.sharded): the view holds
+    global planes [i0, i0 + mi) (one rank's slab and a halo), and a query
+    counts only when the base floor(u) of its global i coordinate lies in
+    [i0, i0 + slab); the slabs' sums then add up to the whole grid's. With
+    i0 0 and slab m on a whole-grid view it computes the whole-grid form.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if Dm.device.type == "cpu":
-        return gn_reduce_reference(Dm, pose, points, params)
+        return gn_reduce_reference(Dm, pose, points, params, i0=i0, slab=slab)
     if Dm.device.type != "cuda":
         raise ValueError(f"gn_reduce: unsupported device {Dm.device}")
-    return gn_reducer(Dm, pose, points, params)()
+    return gn_reducer(Dm, pose, points, params, i0=i0, slab=slab)()
 
 
 # --- the Gauss-Newton step -------------------------------------------------
@@ -259,6 +299,9 @@ def gn_stepper(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
     if Dm.device.type != "cuda":
         raise ValueError(f"gn_step: unsupported device {Dm.device}")
     view = _view_args(Dm, params, "gn_step")
+    if view[3] != params.m:
+        raise ValueError("gn_step: the view must hold the whole grid (no slab form)")
+    view = view[:3] + view[4:]
     dev = view[0].device
     if (state.dtype != torch.float32 or tuple(state.shape) != (N_STATE,)
             or state.device != dev or not state.is_contiguous()):
