@@ -14,8 +14,9 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      kernel's own time per call from torch.profiler over 100 calls; the
      wrapper's time, the median CUDA-event time per call, validation and
      allocation included:
-       K1 gn_reduce, dense form, at 34,240 and 8,560 queries on a 256^3 grid
-         fused from the first frame (flat layout);
+       K1 gn_reduce (the slab form's kernel over the whole grid), dense
+         form, at 34,240 and 8,560 queries on a 256^3 grid fused from the
+         first frame (flat layout);
        K1 gn_reduce, brick-major form, at the same queries on the bf16 D rows
          of a 256^3 brick grid fused from the first frame (tum256);
        K1 gn_step, dense and brick-major bf16 forms, at 34,240, 8,560 and
@@ -28,7 +29,10 @@ Phases, each of which fails the run (non-zero exit) on a fault:
          tum256 view under torch.cuda.set_sync_debug_mode("error"), with the
          preset's levels (2, 1) and with (4, 2, 1), read after;
        K2 brick_merge, dense form, at cap 6144 / cap_act 24,576, geometry and
-         color, max_weight 128 with voxels at the clamp;
+         color, max_weight 128 with voxels at the clamp: bitwise against
+         the plain version (every stored value compared), the share
+         of the bound and the rate over the bytes it must move printed, and
+         beside them the first version's device time (before its redesign);
        K2 brick_merge_rows, row form, at cap 6144 / cap_free 2048 on bf16 rows
          and the packed color leaf, geometry and color, voxels at the clamp
          (bitwise on every stored non-NaN value, equal NaN masks); off the
@@ -170,28 +174,38 @@ Phases, each of which fails the run (non-zero exit) on a fault:
  10. multi-device (tracking_sdf_tpu_torch.parallel), with the card's name,
      power limit and compute mode (two processes on one card need
      "Default"):
-       K1's slab form (gn_reduce with i0 and slab, the pose read from a GN
+       a one-rank NCCL group (a local store) in this process, for what
+         follows;
+       K1's slab form (slab_stepper's reduce, the pose read from its GN
          state buffer) on tum256's real bf16 rows fused from the first frame
          and on tum128's dense 128^3 masked view, split into two slabs with
          their halos, at the second frame's stride-3 queries: each slab
          against its plain version (rtol 1e-5 / atol 1e-4, equal valid
          counts); the slabs' sums against the whole grid's (valid counts
          adding up exactly; 1e-4 of max |A| / |b|, the elementwise
-         rtol / atol outcome printed);
+         rtol / atol outcome printed); on the same whole views, the gate:
+         a level of one-rank iterations (the slab reduce, the group's
+         all_reduce, gn_finish) bit for bit a level of gn_step launches
+         after every iteration; gn_finish against advance_state (one step
+         from the same sums: twist within REL_TOL_STEP, equal counts and
+         flags; a level: equal steps, pose within POSE_TOL_LEVEL); its
+         device time beside advance_state's host time, device time and
+         device ops, and torch.linalg.solve_ex's time (the solve alone);
        K2's slab form (brick_fuse_rows with i_offset and nbi) on each slab's
          real lists of the second frame at tum256 and tum512, caps per rank
          max(256, cap // 2): bitwise against its plain version; with caps
          that bind nowhere the two slabs' rows bitwise equal to the whole
          grid's kernel at the same pose;
-       a one-rank NCCL group (a local store) in this process: tum256
-         through Reconstruction(mesh=...) per frame (10 tracked frames) and
-         chunked (4, 3, 3; CUDA graphs with the collectives captured), the
-         launch counts set to 0 just before each and read just after (K1's
-         slab form 20 a tracked frame, K2's once a fused frame, no
-         single-device form), chunked equal to per frame bit for bit,
-         |t err| within half a voxel of the JAX package's sharded figure;
-         ms a frame, collectives a frame and their host time, NCCL kernels'
-         device time in a frame and in a replayed chunk;
+       the one-rank group: tum256 through Reconstruction(mesh=...) per
+         frame (10 tracked frames) and chunked (4, 3, 3; CUDA graphs with
+         the collectives captured), the launch counts set to 0 just before
+         each and read just after (K1's slab form and gn_finish 20 each a
+         tracked frame, K2's once a fused frame, no single-device form;
+         printed a tracked frame by counter), chunked equal to per frame bit
+         for bit, |t err| within half a voxel of the JAX package's sharded
+         figure; ms a frame, collectives a frame and their host time, device
+         ops, device time and NCCL kernels' device time in a profiled frame
+         and in a replayed chunk;
        a two-rank Gloo group of processes sharing the card
          (tracking_sdf_tpu_torch.parallel.worker): tum256 (10 tracked
          frames) and tum512 (5): both ranks' poses and trajectories
@@ -210,7 +224,7 @@ Phases, each of which fails the run (non-zero exit) on a fault:
          voxel of the JAX package's sharded figure, each rank's steady ms a
          frame; then with --realtime 30: identical trajectories and drops.
      Its numbers also go out as one JSON line, {"phase10": ...}, and the
-     kernels' line gains the slab forms (gn_reduce_slab_brick,
+     kernels' line gains the slab forms (gn_reduce_slab_brick, gn_finish,
      brick_fuse_rows_slab; launches from the one-rank mesh's runs).
 The last two lines are the kernels' JSON record (bound_ms from this run's
 inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
@@ -254,6 +268,10 @@ CHUNKS = {"tum256": ((2, "calibrated"), (4, "timed"), (1, "calibrated"), (3, "pr
 COARSE_ITERATIONS = 10  # GN launches of a coarse pyramid level (track_frame_pyramid)
 KERNEL_NAMES = ("gn_step_kernel", "brick_fuse_rows_kernel", "brick_merge_rows_kernel")
 ABS_TOL_MERGE = 1e-5  # K2 dense form: same float32 formula per voxel
+# K2's dense form before its redesign (one voxel a thread, one block a
+# brick): device ms on kernel_merge's inputs with color (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md's kernel table)
+MERGE_DEVICE_MS_FIRST = 0.45458
 T_ERR_MAX = 0.0469  # m: the absolute |t err| bound, 2 voxels at 256^3
 # Final |t err| (mm) of the JAX package on the same scene, trajectory and
 # frames (tum256: 11 frames, tum512: 6), unmodified presets at full size, run
@@ -447,6 +465,7 @@ def counters():
             "gn_reduce_slab": k1.launches_slab,
             "gn_reduce_slab_brick": k1.launches_slab_brick,
             "gn_step": k1.launches_step, "gn_step_brick": k1.launches_step_brick,
+            "gn_finish": k1.launches_finish,
             "brick_merge": k2.launches, "brick_merge_rows": k2.launches_rows,
             "brick_fuse_rows": k2f.launches, "brick_fuse_rows_sat": k2f.launches_sat,
             "brick_fuse_rows_slab": k2f.launches_slab}
@@ -458,7 +477,7 @@ def reset_counters():
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     k1.launches = k1.launches_brick = k1.launches_step = k1.launches_step_brick = 0
-    k1.launches_slab = k1.launches_slab_brick = 0
+    k1.launches_slab = k1.launches_slab_brick = k1.launches_finish = 0
     k2.launches = k2.launches_rows = k2f.launches = k2f.launches_sat = 0
     k2f.launches_slab = 0
 
@@ -483,7 +502,7 @@ def gn_compare(label, Dm, pose, pts1, p, strides=(3, 6)):
         max_abs = (out_k[:27] - out_r[:27]).abs().max().item()
         ms = events_ms(gn_reducer(Dm, pose, q, p))
         device_ms = kernel_device_ms(gn_reducer(Dm, pose, q, p),
-                                     ("gn_partials_kernel", "gn_final_kernel"))
+                                     ("gn_reduce_slab_kernel",))
         wrapper_ms = cuda_time_ms(lambda: gn_reduce(Dm, pose, q, p))
         plain_ms = cuda_time_ms(lambda: gn_reduce_reference(Dm, pose, q, p))
         bms, by = k1_bound(q.shape[0], nv_k, Dm.dtype.itemsize, 29 * 4)
@@ -665,6 +684,8 @@ def kernel_merge(dev):
         brick_merge_reference(gr, *args, **kw)
         torch.cuda.synchronize()
         err = max((getattr(gk, k) - getattr(gr, k)).abs().max().item() for k in FIELDS)
+        differ = sum(int((getattr(gk, k).view(torch.int32)
+                          != getattr(gr, k).view(torch.int32)).sum()) for k in FIELDS)
         at_clamp = int((gk.W == 128.0).sum().item())
         ms = events_ms(lambda: brick_merge(gk, *args, **kw))
         device_ms = kernel_device_ms(lambda: brick_merge(gk, *args, **kw),
@@ -674,18 +695,27 @@ def kernel_merge(dev):
         # per voxel: a FULL brick in the cap reads C update channels and reads
         # and writes D, W (and R, G, B, Wc); a FREE brick reads and writes D, W
         n_full, n_free = min(cap, full_pos.numel()), int((cls == 1).sum())
-        bms, by = bound(512 * (n_full * (4 * C + 8 * (2 if C == 2 else 6)) + n_free * 16))
+        nbytes = 512 * (n_full * (4 * C + 8 * (2 if C == 2 else 6)) + n_free * 16)
+        bms, by = bound(nbytes)
+        share = bms / device_ms if device_ms else float("nan")
+        rate = nbytes / (device_ms * 1e-3) / 1e12 if device_ms else float("nan")
         print(f"K2 brick_merge (dense) C={C} cap={cap} cap_act={cap_act}: max abs err "
-              f"{err:.3e} (tol {ABS_TOL_MERGE:g}), {at_clamp} voxels at max_weight; "
-              f"kernel {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device "
-              f"{device_ms} ms, wrapper {wrapper_ms:.4f} ms per call, plain "
-              f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}; {n_full} FULL, {n_free} "
-              f"FREE bricks)")
+              f"{err:.3e} (tol {ABS_TOL_MERGE:g}), {differ} stored values differ from the "
+              f"plain version bit for bit, {at_clamp} voxels at max_weight; kernel "
+              f"{ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device {device_ms} ms, "
+              f"wrapper {wrapper_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound "
+              f"{bms:.6f} ms ({by}; {n_full} FULL, {n_free} FREE bricks): {share:.1%} of "
+              f"the bound, {rate:.3f} TB/s of the {nbytes / 1e6:.1f} MB it must move"
+              + (f"; before the redesign {MERGE_DEVICE_MS_FIRST} ms device"
+                 if C == 6 else ""))
         check(err <= ABS_TOL_MERGE, f"K2 disagrees with its plain version (C={C}): {err}")
+        # the __f*_rn arithmetic makes the dense merge the plain version bit for bit
+        check(differ == 0, f"K2 is not bitwise its plain version (C={C}): {differ} values")
         check(at_clamp > 0, "K2 inputs reached no clamp")
-        rec[C] = dict(max_abs_err=err, ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms,
-                      plain_ms=plain_ms, bound_ms=bms, bound_by=by)
-    return rec[6]
+        rec[C] = dict(max_abs_err=err, differ=differ, ms=ms, device_ms=device_ms,
+                      wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                      bound_share=share, tb_per_s=rate)
+    return dict(rec[6], geometry=rec[2])
 
 
 def kernel_merge_rows(dev):
@@ -2389,21 +2419,20 @@ def slab_views(whole, n, p):
             for r in range(n)]
 
 
-def k1_slab_compare(label, whole, pose, q, p, n=2):
-    """K1's slab form on each of n slabs (the pose read from a GN state
-    buffer, as the sharded tracker reads it) against its plain version, and
-    the slabs' sums against the whole-grid kernel's. Returns the first
-    slab's record (times, bound) with the largest error."""
-    from tracking_sdf_tpu_torch.tracking.gn_reduce import (
-        gn_reduce, gn_reduce_reference, gn_reducer, init_state)
+def k1_slab_compare(label, whole, pose, q, p, tcfg, n=2):
+    """K1's slab form (slab_stepper's reduce, the pose read from its GN
+    state buffer) on each of n slabs against its plain version, and the
+    slabs' sums against the whole-grid kernel's. Returns the first slab's
+    record (times, bound) with the largest error."""
+    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     s = p.m // n
-    state = init_state(pose, 0.0)
+    state = k1.init_state(pose, 0.0)
     views = slab_views(whole, n, p)
     outs, err, nvalid = [], 0.0, []
     for r, v in enumerate(views):
-        out = gn_reduce(v, state, q, p, i0=r * s, slab=s).clone()
-        ref = gn_reduce_reference(v, state, q, p, i0=r * s, slab=s)
+        out = k1.slab_stepper(v, state, q, p, tcfg, i0=r * s, slab=s)[0]().clone()
+        ref = k1.gn_reduce_slab_reference(v, state, q, p, tcfg, i0=r * s, slab=s)
         torch.cuda.synchronize()
         close = bool(torch.allclose(out[:27], ref[:27], rtol=SLAB_RTOL, atol=SLAB_ATOL))
         err = max(err, (out[:27] - ref[:27]).abs().max().item())
@@ -2414,7 +2443,7 @@ def k1_slab_compare(label, whole, pose, q, p, n=2):
               f"max abs err {(out[:27] - ref[:27]).abs().max().item():.3e}")
         outs.append(out)
     total = torch.stack(outs).sum(0)
-    one = gn_reduce(whole, pose, q, p)
+    one = k1.gn_reduce(whole, pose, q, p)
     sum_err = (total[:27] - one[:27]).abs().max().item()
     # elementwise at the slabs' bar, and relative to the largest |A| and |b|
     # as K1 is held to everywhere else: the slabs' float32 sums are taken in
@@ -2430,11 +2459,13 @@ def k1_slab_compare(label, whole, pose, q, p, n=2):
           f"{label}: the slabs' sums ({int(total[27].item())} valid) do not add up to the "
           f"whole grid's ({int(one[27].item())} valid, relative error {rel:.3e})")
     v0 = views[0]
-    launch = gn_reducer(v0, state, q, p, i0=0, slab=s)
+    launch = k1.slab_stepper(v0, state, q, p, tcfg, i0=0, slab=s)[0]
     ms = events_ms(launch)
-    device_ms = kernel_device_ms(launch, ("gn_partials_kernel", "gn_final_kernel"))
-    wrapper_ms = cuda_time_ms(lambda: gn_reduce(v0, state, q, p, i0=0, slab=s))
-    plain_ms = cuda_time_ms(lambda: gn_reduce_reference(v0, state, q, p, i0=0, slab=s))
+    device_ms = kernel_device_ms(launch, ("gn_reduce_slab_kernel",))
+    wrapper_ms = cuda_time_ms(lambda: k1.slab_stepper(v0, state, q, p, tcfg, i0=0,
+                                                      slab=s)[0]())
+    plain_ms = cuda_time_ms(lambda: k1.gn_reduce_slab_reference(v0, state, q, p, tcfg,
+                                                                i0=0, slab=s))
     bms, by = k1_bound(q.shape[0], nvalid[0], whole.dtype.itemsize, 29 * 4)
     print(f"{label} slab form, {n} slabs, N={q.shape[0]}: valid {nvalid} (whole "
           f"{int(one[27].item())}), max abs err vs plain {err:.3e}, slabs' sum vs whole "
@@ -2447,10 +2478,107 @@ def k1_slab_compare(label, whole, pose, q, p, n=2):
                 n=q.shape[0], valid=nvalid)
 
 
-def k1_slab_phase(cam, scene, poses, rgb, dev):
+def host_ms(fn, n: int = 50) -> float:
+    """Host time a call of ``fn`` over ``n`` calls, ended by a synchronize."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def slab_gate_and_finish(label, whole, pose, q, p, tcfg, mesh):
+    """On one rank holding the whole grid (i0 0, slab m): a level of slab
+    iterations (reduce, the mesh's all_reduce, gn_finish) against a level
+    of gn_step launches, bit for bit after every iteration; gn_finish
+    against advance_state (one step from the same sums: relative twist
+    error, equal counts and flags; a level, each on its own sums: equal
+    step counts, pose within POSE_TOL_LEVEL); gn_finish's device time beside
+    advance_state's host time, device time and ops, and solve_ex's time."""
+    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+
+    sa, sb = k1.init_state(pose, tcfg.damping), k1.init_state(pose, tcfg.damping)
+    reduce, finish = k1.slab_stepper(whole, sa, q, p, tcfg, i0=0, slab=p.m)
+    step = k1.gn_stepper(whole, sb, q, p, tcfg)
+    first_differ = None
+    for it in range(tcfg.max_iterations):
+        finish(mesh.all_reduce_(reduce()))
+        step()
+        if first_differ is None and not torch.equal(sa.view(torch.int32),
+                                                    sb.view(torch.int32)):
+            first_differ = it
+    steps = int(sa.view(torch.int32)[k1.S_COUNT])
+    # gn_finish against advance_state
+    s0 = k1.init_state(pose, tcfg.damping)
+    sums = k1.slab_stepper(whole, s0, q, p, tcfg)[0]().clone()
+    sk, sr = s0.clone(), s0.clone()
+    k1.slab_stepper(whole, sk, q, p, tcfg)[1](sums)
+    k1.advance_state(sr, *k1.unpack(sums), tcfg)
+    torch.cuda.synchronize()
+    tk, tr = sk[k1.S_TWIST:k1.S_TWIST + 6], sr[k1.S_TWIST:k1.S_TWIST + 6]
+    err = ((tk - tr).abs().max() / tr.abs().max().clamp(min=1e-30)).item()
+    max_abs = (sk[:k1.S_COUNT] - sr[:k1.S_COUNT]).abs().max().item()
+    ints_same = torch.equal(sk.view(torch.int32)[k1.S_COUNT:],
+                            sr.view(torch.int32)[k1.S_COUNT:])
+    lk, lr = k1.init_state(pose, tcfg.damping), k1.init_state(pose, tcfg.damping)
+    rk, fk = k1.slab_stepper(whole, lk, q, p, tcfg)
+    for _ in range(tcfg.max_iterations):
+        fk(rk())
+        k1.advance_state(lr, *k1.unpack(k1.gn_reduce_slab_reference(whole, lr, q, p, tcfg)),
+                         tcfg)
+    torch.cuda.synchronize()
+    iters = (int(lk.view(torch.int32)[k1.S_COUNT]), int(lr.view(torch.int32)[k1.S_COUNT]))
+    dpose = (lk[:k1.S_LAM] - lr[:k1.S_LAM]).abs().max().item()
+    # times on a level that never converges
+    never = tcfg._replace(max_iterations=1 << 30, min_iterations=0, max_twist_diff=-1.0)
+    sn = k1.init_state(pose, tcfg.damping)
+    fin = k1.slab_stepper(whole, sn, q, p, never)[1]
+    ms = events_ms(lambda: fin(sums))
+    device_ms = kernel_device_ms(lambda: fin(sums), ("gn_finish_kernel",))
+    wrapper_ms = cuda_time_ms(lambda: fin(sums))
+    sp = k1.init_state(pose, tcfg.damping)
+    adv = k1.unpack(sums)
+    plain_host_ms = host_ms(lambda: k1.advance_state(sp, *adv, never))
+    plain_ms = cuda_time_ms(lambda: k1.advance_state(sp, *adv, never))
+    plain_dev_ms, plain_ops = all_device_ms(lambda: k1.advance_state(sp, *adv, never))
+    A = adv[0] + tcfg.damping * torch.diag(torch.diag(adv[0])) + 1e-12 * torch.eye(
+        6, device=sums.device)
+    solve_ms = cuda_time_ms(lambda: torch.linalg.solve_ex(A, adv[1]))
+    bms, by = bound(29 * 4 + 2 * k1.N_STATE * 4)
+    print(f"{label}: one rank, whole grid: {tcfg.max_iterations} slab iterations (reduce, "
+          f"the {mesh.backend} all_reduce, gn_finish) against as many gn_step launches: "
+          f"bitwise after every iteration {first_differ is None} (first difference at "
+          f"iteration {first_differ}), {steps} steps run; gn_finish vs advance_state: one "
+          f"step rel twist err {err:.3e} (tol {REL_TOL_STEP:g}), max abs state err "
+          f"{max_abs:.3e}, counts and flags equal {ints_same}; a level {iters[0]} steps "
+          f"(plain {iters[1]}), max |pose diff| {dpose:.3e} (tol {POSE_TOL_LEVEL:g}); "
+          f"gn_finish {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device {device_ms} ms, "
+          f"wrapper {wrapper_ms:.4f} ms; advance_state host {plain_host_ms:.4f} ms a call, "
+          f"events {plain_ms:.4f} ms, device {plain_dev_ms:.4f} ms in {plain_ops:.0f} ops; "
+          f"solve_ex {solve_ms:.4f} ms; bound {bms:.8f} ms ({by}; latency in practice)")
+    check(first_differ is None,
+          f"{label}: the one-rank slab iteration differs from gn_step at iteration "
+          f"{first_differ}")
+    check(err <= REL_TOL_STEP and ints_same,
+          f"{label}: gn_finish disagrees with advance_state: {err}, {ints_same}")
+    check(iters[0] == iters[1] and dpose <= POSE_TOL_LEVEL,
+          f"{label}: a gn_finish level disagrees with advance_state: {iters}, {dpose}")
+    return dict(bitwise_gn_step=True, steps=steps, max_abs_err=max_abs, twist_rel_err=err,
+                level_pose_err=dpose, ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms,
+                plain_ms=plain_ms, plain_host_ms=plain_host_ms, plain_device_ms=plain_dev_ms,
+                plain_device_ops=plain_ops, library_ms=solve_ms,
+                library_call="torch.linalg.solve_ex (the solve only)", bound_ms=bms,
+                bound_by=by)
+
+
+def k1_slab_phase(cam, scene, poses, rgb, dev, mesh):
     """K1's slab form on tum256's real bf16 rows (fused from the first
     frame) and on tum128's dense 128^3 masked view, at the second frame's
-    stride-3 queries."""
+    stride-3 queries; on the same views the one-rank gate against gn_step
+    and gn_finish against advance_state (``mesh``: the one-rank group).
+    Returns ({name: slab record}, {name: finish record})."""
     from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
     from tracking_sdf_tpu_torch.fusion.brickmajor import (
         brick_masked_view, empty_brick_grid, fuse_frame_brickmajor)
@@ -2459,7 +2587,7 @@ def k1_slab_phase(cam, scene, poses, rgb, dev):
     from tracking_sdf_tpu_torch.grid.interp import masked_view
     from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 
-    out = {}
+    out, fin = {}, {}
     for name in ("tum256", "tum128"):
         cfg = path_config(name, None)
         f, p = cfg.fusion, cfg.grid
@@ -2478,12 +2606,14 @@ def k1_slab_phase(cam, scene, poses, rgb, dev):
                            cam=cam, cfg=f)
             whole = masked_view(g.D, g.W).contiguous()
         q = frames[1][0][::3, ::3].reshape(-1, 3).contiguous()
-        out[name] = k1_slab_compare(f"K1 gn_reduce ({name}, "
-                                    f"{'brick bf16' if f.mode == 'brickmajor' else 'dense'})",
-                                    whole, poses[1], q, p)
+        label = (f"K1 gn_reduce_slab ({name}, "
+                 f"{'brick bf16' if f.mode == 'brickmajor' else 'dense'})")
+        out[name] = k1_slab_compare(label, whole, poses[1], q, p, cfg.tracking)
+        fin[name] = slab_gate_and_finish(label.replace("gn_reduce_slab", "gn_finish"),
+                                         whole, poses[0], q, p, cfg.tracking, mesh)
         del whole
     torch.cuda.empty_cache()
-    return out
+    return out, fin
 
 
 def k2_slab_compare(name, cam, scene, poses, rgb, dev, n=2):
@@ -2588,7 +2718,8 @@ def k2_slab_compare(name, cam, scene, poses, rgb, dev, n=2):
 
 
 def nccl_device_ms(fn):
-    """(device ms of the NCCL kernels, of all device ops) of one call."""
+    """(device ms of the NCCL kernels, of all device ops, the device ops) of
+    one call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2598,17 +2729,17 @@ def nccl_device_ms(fn):
         torch.cuda.synchronize()
     ev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     nccl = sum(e.self_device_time_total for e in ev if "nccl" in e.key.lower())
-    return nccl / 1e3, sum(e.self_device_time_total for e in ev) / 1e3
+    return (nccl / 1e3, sum(e.self_device_time_total for e in ev) / 1e3,
+            sum(e.count for e in ev))
 
 
-def one_rank_mesh(cam, depths, poses, rgb, dev, work):
-    """A one-rank NCCL group on the card: tum256 per frame and chunked
-    through Reconstruction(mesh=...), the launch counts set to 0 just
-    before and read just after; chunked equal to per frame bit for bit."""
-    from tracking_sdf_tpu_torch.parallel.mesh import init_group, make_mesh
+def one_rank_mesh(cam, depths, poses, rgb, dev, work, mesh):
+    """The one-rank NCCL group ``mesh`` on the card: tum256 per frame and
+    chunked through Reconstruction(mesh=...), the launch counts set to 0
+    just before and read just after; chunked equal to per frame bit for
+    bit."""
     from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
 
-    mesh = make_mesh(device=init_group(device=dev))
     name = "tum256"
     n = SHARDED_TRACKED[name] + 1
     cfg = path_config(name, os.path.join(work, "mesh1.txt"))
@@ -2633,8 +2764,8 @@ def one_rank_mesh(cam, depths, poses, rgb, dev, work):
     with open(os.path.join(work, "mesh1.txt")) as f:
         traj = f.read()
     # one more frame, profiled (not part of the run compared below)
-    nccl_ms, dev_ms = nccl_device_ms(lambda: recon.process_frame(depths[n - 1], rgb=rgb,
-                                                                  timestamp=float(n)))
+    nccl_ms, dev_ms, dev_ops = nccl_device_ms(lambda: recon.process_frame(
+        depths[n - 1], rgb=rgb, timestamp=float(n)))
     t_err = (per_frame[-1][1] - poses[n - 1].t).norm().item() * 1e3
     del recon
 
@@ -2670,12 +2801,17 @@ def one_rank_mesh(cam, depths, poses, rgb, dev, work):
     ch.process_chunk(stack[:3], rgbs[:3], timestamps=[100.0, 101.0, 102.0])
     torch.cuda.synchronize()
     replay_ms = (time.perf_counter() - t0) * 1e3 / 3
-    replay_nccl_ms, replay_dev_ms = nccl_device_ms(lambda: ch.process_chunk(
+    replay_nccl_ms, replay_dev_ms, replay_ops = nccl_device_ms(lambda: ch.process_chunk(
         stack[:3], rgbs[:3], timestamps=[103.0, 104.0, 105.0]))
     del ch
     voxel_mm = cfg.grid.width / cfg.grid.m * 1e3
     ref = JAX_SHARDED_T_ERR_MM[name]
     tracked = n - 1
+    per_tracked = {k: v / tracked for k, v in launches.items() if v}
+    print(f"one-rank NCCL mesh ({name}): launches a tracked frame by counter "
+          f"{per_tracked} (K2 over {n} fused frames); a profiled frame {dev_ops} device ops "
+          f"for {dev_ms:.4f} device ms; a replayed chunk {replay_ops / 3:.1f} device ops "
+          f"and {replay_dev_ms / 3:.4f} device ms a frame")
     print(f"one-rank NCCL mesh ({name}, {tracked} tracked frames): per frame median "
           f"{statistics.median(wall[1:]):.2f} ms/frame, chunked {chunk_ms} ms/frame "
           f"(chunks {chunks}, each with its phase calibration), a calibrated chunk of 3 "
@@ -2691,19 +2827,23 @@ def one_rank_mesh(cam, depths, poses, rgb, dev, work):
           f"one-rank mesh: |t err| {t_err:.2f} mm not within half a voxel of {ref} mm")
     for got in (launches, chunk_launches):
         check(got["gn_reduce_slab_brick"] == per_step * tracked
+              and got["gn_finish"] == per_step * tracked
               and got["brick_fuse_rows_slab"] == tracked + (got is launches)
               and got["gn_step_brick"] == 0 and got["brick_fuse_rows"] == 0,
-              f"one-rank mesh: expected the slab forms ({per_step} K1 a tracked frame, K2 "
-              f"once a fused frame) and no single-device form: {got}")
-    return mesh, dict(final_pose=per_frame[-1],
-                      ms_per_frame=statistics.median(wall[1:]), chunk_ms=chunk_ms,
-                      replay_ms_per_frame=replay_ms,
-                      t_err_mm=t_err, collectives_per_frame=collectives,
-                      collective_host_ms=coll_ms, nccl_device_ms=nccl_ms,
-                      frame_device_ms=dev_ms, replay_nccl_ms=replay_nccl_ms,
-                      replay_device_ms=replay_dev_ms, tracked=tracked, fused=tracked + 1,
-                      launches={k: launches[k] + chunk_launches[k] for k in launches},
-                      rows=rows)
+              f"one-rank mesh: expected the slab forms ({per_step} K1 slab reduces and "
+              f"gn_finish launches a tracked frame, K2 once a fused frame) and no "
+              f"single-device form: {got}")
+    return dict(final_pose=per_frame[-1],
+                ms_per_frame=statistics.median(wall[1:]), chunk_ms=chunk_ms,
+                replay_ms_per_frame=replay_ms,
+                t_err_mm=t_err, collectives_per_frame=collectives,
+                collective_host_ms=coll_ms, nccl_device_ms=nccl_ms,
+                frame_device_ms=dev_ms, frame_device_ops=dev_ops,
+                replay_nccl_ms=replay_nccl_ms, replay_device_ms=replay_dev_ms,
+                replay_device_ops_per_frame=replay_ops / 3,
+                launches_per_tracked_frame=per_tracked, tracked=tracked, fused=tracked + 1,
+                launches={k: launches[k] + chunk_launches[k] for k in launches},
+                rows=rows)
 
 
 def _free_port() -> int:
@@ -2922,15 +3062,18 @@ def multi_device_phase(cam, scene, depths, poses, rgb, dev, work):
     of its per-frame and chunked runs)."""
     import torch.distributed as dist
 
+    from tracking_sdf_tpu_torch.parallel.mesh import init_group, make_mesh
+
     mode = compute_mode()
     print(f"phase 10: multi-device on {gpu_line()}, compute mode {mode}")
-    k1 = k1_slab_phase(cam, scene, poses, rgb, dev)
-    k2 = {name: k2_slab_compare(name, cam, scene, poses, rgb, dev)
-          for name in ("tum256", "tum512")}
-    if mode != "Default":
-        print(f"  two ranks on one card need compute mode Default; this card's is {mode}")
-    mesh, one = one_rank_mesh(cam, depths, poses, rgb, dev, work)
+    mesh = make_mesh(device=init_group(device=dev))
     try:
+        k1, finish = k1_slab_phase(cam, scene, poses, rgb, dev, mesh)
+        k2 = {name: k2_slab_compare(name, cam, scene, poses, rgb, dev)
+              for name in ("tum256", "tum512")}
+        if mode != "Default":
+            print(f"  two ranks on one card need compute mode Default; this card's is {mode}")
+        one = one_rank_mesh(cam, depths, poses, rgb, dev, work, mesh)
         ref = dict(rows=one.pop("rows"), final_pose=one.pop("final_pose"))
         group = two_rank_group(cam, depths, poses, rgb, dev, work, ref)
         del ref
@@ -2941,7 +3084,7 @@ def multi_device_phase(cam, scene, depths, poses, rgb, dev, work):
     launches = one.pop("launches")
     path = dict(launches=launches, tracked=2 * one["tracked"], fused=2 * one["tracked"] + 1)
     record = dict(compute_mode=mode, one_rank=one, group=group, cli=cli)
-    return record, dict(k1=k1, k2=k2), path
+    return record, dict(k1=k1, k2=k2, finish=finish), path
 
 
 def main() -> int:
@@ -3051,8 +3194,8 @@ def main() -> int:
         tracked (K1) or fused (K2) frame of those paths."""
         n = sum(paths[p]["launches"][name] for p in path_names)
         frames = sum(paths[p][per] for p in path_names)
-        return dict(name=name, route="cuda", source=src(source), replaces=replaces,
-                    launches=n, launches_per_frame=n / frames, library_ms=None, **rec)
+        return {**dict(name=name, route="cuda", source=src(source), replaces=replaces,
+                       launches=n, launches_per_frame=n / frames, library_ms=None), **rec}
 
     gn_tpu = "tracking_sdf_tpu/tracking/pallas_gn.py:82"
     merge_tpu = "tracking_sdf_tpu/fusion/pallas_merge.py:94"
@@ -3087,6 +3230,9 @@ def main() -> int:
         entry("gn_reduce_slab_brick", "gn_reduce.cu", gn_tpu, ("tum256_mesh",), "tracked",
               dict(slab["k1"]["tum256"], tum128_dense=slab["k1"]["tum128"],
                    max_abs_err=max(r["max_abs_err"] for r in slab["k1"].values()))),
+        entry("gn_finish", "gn_reduce.cu", gn_tpu, ("tum256_mesh",), "tracked",
+              dict(slab["finish"]["tum256"], tum128_dense=slab["finish"]["tum128"],
+                   max_abs_err=max(r["max_abs_err"] for r in slab["finish"].values()))),
         entry("brick_fuse_rows_slab", "brick_fuse.cu", merge_tpu, ("tum256_mesh",), "fused",
               dict(slab["k2"]["tum256"], tum512=slab["k2"]["tum512"],
                    max_abs_err=max(r["max_abs_err"] for r in slab["k2"].values()))),

@@ -77,32 +77,38 @@ def _assert_grids(port_grid, jax_grid, atol=ATOL):
                                    atol=atol, err_msg=k)
 
 
-def _merge_inputs(seed, color):
+def _merge_inputs(seed, color, bs=BS):
     """A random grid state and a random active-brick list: FULL bricks with
     update rows, FULL bricks past the cap (zero row), FREE bricks."""
     rng = np.random.default_rng(seed)
     m = PARAMS.m
+    nb = (m // bs[0]) * (m // bs[1]) * (m // bs[2])
     arrays = {k: rng.uniform(0.1, 1.0, (m, m, m)).astype(np.float32)
               for k in FIELDS}
     arrays["W"] = rng.uniform(0.0, 3.0, (m, m, m)).astype(np.float32)
     arrays["W"][rng.random((m, m, m)) < 0.3] = 0.0
     arrays["Wc"] = rng.uniform(0.0, 3.0, (m, m, m)).astype(np.float32)
     cap = 24
-    act = np.sort(rng.choice(NB, size=100, replace=False)).astype(np.int32)
+    act = np.sort(rng.choice(nb, size=100, replace=False)).astype(np.int32)
     cls = np.where(rng.random(100) < 0.4, 2, 1).astype(np.int32)
     full_pos = np.nonzero(cls == 2)[0]
     slot = np.full(100, cap, np.int32)
     slot[full_pos[:cap]] = np.arange(min(cap, len(full_pos)))
     C = 6 if color else 2
-    upd = rng.uniform(0.0, 1.0, (cap + 1,) + BS + (C,)).astype(np.float32)
+    upd = rng.uniform(0.0, 1.0, (cap + 1,) + bs + (C,)).astype(np.float32)
     upd[..., 0][rng.random(upd.shape[:-1]) < 0.3] = 0.0  # some voxels get no update
     upd[cap] = 0.0
     return arrays, upd, act, cls, slot
 
 
+@pytest.mark.parametrize("bs", [BS, (1, 8, 16)], ids=["8x8x8", "1x8x16"])
 @pytest.mark.parametrize("color", [False, True], ids=["geometry", "color"])
-def test_merge_reference_matches_pallas_interpret(color):
-    arrays, upd, act, cls, slot = _merge_inputs(0, color)
+def test_merge_reference_matches_pallas_interpret(color, bs):
+    """The dense merge's plain version (the flat tail with brick_merge
+    "pallas" on the CPU) against the Pallas kernel in interpret mode, at the
+    presets' 8^3 bricks and at a flat brick shape like the config's default
+    (1, 8, 128)."""
+    arrays, upd, act, cls, slot = _merge_inputs(0, color, bs)
     # the Pallas kernel takes cap_act slots with PAD (class 0, brick 0) first
     pad = 8
     bid_j = np.concatenate([np.zeros(pad, np.int32), act])
@@ -111,19 +117,19 @@ def test_merge_reference_matches_pallas_interpret(color):
     jgrid = jempty_grid(PARAMS)._replace(**{k: jnp.asarray(v) for k, v in arrays.items()})
     out_j = merge_active_bricks(
         jgrid, jnp.asarray(upd), jnp.asarray(bid_j), jnp.asarray(cls_j),
-        jnp.asarray(slot_j), bs=BS, cap_act=len(bid_j), delta=PARAMS.delta,
+        jnp.asarray(slot_j), bs=bs, cap_act=len(bid_j), delta=PARAMS.delta,
         fuse_color=color, interpret=True)
     g = grid_from_numpy(arrays, device="cpu")
     tmerge.brick_merge_reference(
         g, torch.from_numpy(upd), torch.from_numpy(act), torch.from_numpy(cls),
-        torch.from_numpy(slot), bs=BS, delta=PARAMS.delta, max_weight=None)
+        torch.from_numpy(slot), bs=bs, delta=PARAMS.delta, max_weight=None)
     _assert_grids(g, out_j)
     # the dispatching wrapper takes the plain version for CPU tensors
     g2 = grid_from_numpy(arrays, device="cpu")
     before = tmerge.launches
     tmerge.brick_merge(
         g2, torch.from_numpy(upd), torch.from_numpy(act), torch.from_numpy(cls),
-        torch.from_numpy(slot), bs=BS, delta=PARAMS.delta, max_weight=None)
+        torch.from_numpy(slot), bs=bs, delta=PARAMS.delta, max_weight=None)
     assert tmerge.launches == before
     for k in FIELDS:
         assert torch.equal(getattr(g2, k), getattr(g, k))

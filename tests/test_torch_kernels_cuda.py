@@ -6,10 +6,12 @@ every pytest-xdist worker collects the same tests). On a GPU machine run
 Tolerances: K1 relative 1e-4 of max|A| and max|b| (float32 sums in another
 order), K1's step relative 1e-4 of max|twist| with equal valid counts, step
 counts and done flags (the kernel solves in float64, the plain step in
-float32), K2's dense form absolute 1e-5 (the same per-voxel float32 formula),
-K2's row form and its fused form (brick_fuse_rows) bitwise on every stored
-non-NaN value with equal NaN masks (the kernels round each step as PyTorch's
-eager ops do).
+float32; the same bars hold gn_finish against advance_state), the sharded
+step's slab reduce and finish on one rank's whole grid bitwise against
+gn_step (the same per-query code, partial order and finish), K2's dense
+form, its row form and its fused form (brick_fuse_rows) bitwise on every
+stored non-NaN value with equal NaN masks (the kernels round each step as
+PyTorch's eager ops do).
 """
 import pytest
 import torch
@@ -73,6 +75,10 @@ def test_gn_reduce_kernel_matches_plain(dev):
     ref = k1.gn_reduce_reference(Dm, pose, pts, PARAMS)
     assert k1.launches == before + 1
     _check_gn(out, ref)
+    # the pose read from a GN state buffer: the same kernel on the same bits
+    state = k1.init_state(pose, 0.5)
+    assert torch.equal(k1.gn_reduce(Dm, state, pts, PARAMS), out)
+    assert k1.launches == before + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
@@ -162,19 +168,25 @@ def test_gn_step_rejects_bad_input(dev):
         k1.gn_step(view, state, pts.t(), PARAMS, cfg)
 
 
+@pytest.mark.parametrize("bs", [(8, 8, 8), (1, 8, 16), (4, 4, 2)])
 @pytest.mark.parametrize("channels", [2, 6])
-def test_brick_merge_kernel_matches_plain(dev, channels):
+def test_brick_merge_kernel_matches_plain(dev, channels, bs):
+    """The dense form at the presets' 8^3 bricks and at a flat shape (four
+    voxels a thread, float4), and at a k extent of 2 (one voxel a thread):
+    every leaf bit for bit; FULL bricks past the cap read the zero row."""
     gen = torch.Generator(device=dev).manual_seed(1)
-    m, bs, cap = 64, (8, 8, 8), 40
-    nb = (m // 8) ** 3
+    m, cap = 64, 40
+    nb = (m // bs[0]) * (m // bs[1]) * (m // bs[2])
     base = {k: torch.rand(m, m, m, generator=gen, device=dev) for k in FIELDS}
     base["W"] = (torch.rand(m, m, m, generator=gen, device=dev) * 3.0)
     bid = torch.randperm(nb, generator=gen, device=dev)[:300].sort().values.to(torch.int32)
     cls = torch.where(torch.rand(300, generator=gen, device=dev) < 0.3, 2, 1).to(torch.int32)
     full = torch.nonzero(cls == 2).reshape(-1)
+    assert full.numel() > cap
     slot = torch.full((300,), cap, dtype=torch.int32, device=dev)
     slot[full[:cap]] = torch.arange(min(cap, full.numel()), dtype=torch.int32, device=dev)
     upd = torch.rand(cap + 1, *bs, channels, generator=gen, device=dev)
+    upd[..., 0][torch.rand(cap + 1, *bs, generator=gen, device=dev) < 0.2] = 0.0
     upd[cap] = 0.0
     gk = TSDFGrid(**{k: v.clone() for k, v in base.items()})
     gr = TSDFGrid(**{k: v.clone() for k, v in base.items()})
@@ -183,7 +195,9 @@ def test_brick_merge_kernel_matches_plain(dev, channels):
     k2.brick_merge_reference(gr, upd, bid, cls, slot, bs=bs, delta=0.15, max_weight=2.0)
     assert k2.launches == before + 1
     for k in FIELDS:
-        torch.testing.assert_close(getattr(gk, k), getattr(gr, k), atol=1e-5, rtol=0)
+        a, b = getattr(gk, k), getattr(gr, k)
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), k
+        assert torch.equal(a, base[k]) == (k in ("R", "G", "B", "Wc") and channels == 2), k
     assert (gk.W == 2.0).any()
 
 
@@ -247,29 +261,124 @@ def _slab_views(view, n):
 @pytest.mark.parametrize("n", [2, 4])
 @pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
 def test_gn_reduce_slab_kernel_matches_plain(dev, form, n):
-    """K1's slab form (the sharded tracker's kernel) per rank against its
-    plain version, the pose read from a GN state buffer: equal valid counts,
-    A and b within 1e-4 relative; the slabs' valid counts add up to the
-    whole grid's exactly and their sums to its sums (ownership partitions
-    the queries)."""
+    """K1's slab form (the sharded tracker's reduce, ``slab_stepper``) per
+    rank against its plain version, the pose read from the GN state buffer:
+    equal valid counts, A and b within 1e-4 relative; the slabs' valid
+    counts add up to the whole grid's exactly and their sums to its sums
+    (ownership partitions the queries)."""
     view, pts, pose = _step_view(dev, form)
     s = PARAMS.m // n
+    cfg = TrackingConfig()
     state = k1.init_state(pose, 1e-3)
     brick = form != "dense"
     name = "launches_slab_brick" if brick else "launches_slab"
     before = getattr(k1, name)
     outs = []
     for r, v in enumerate(_slab_views(view, n)):
-        out = k1.gn_reduce(v, state, pts, PARAMS, i0=r * s, slab=s).clone()
-        ref = k1.gn_reduce_reference(v, state, pts, PARAMS, i0=r * s, slab=s)
+        reduce, _ = k1.slab_stepper(v, state, pts, PARAMS, cfg, i0=r * s, slab=s)
+        out = reduce().clone()
+        ref = k1.gn_reduce_slab_reference(v, state, pts, PARAMS, cfg, i0=r * s, slab=s)
         assert out[27].item() == ref[27].item()
         for sl in (slice(0, 21), slice(21, 27)):
             err = (out[sl] - ref[sl]).abs().max() / ref[sl].abs().max().clamp(min=1e-30)
             assert err.item() <= 1e-4
         outs.append(out)
     assert getattr(k1, name) == before + n
+    assert int(state.view(torch.int32)[k1.S_TICKET]) == 0  # reset by the last block
     whole = k1.gn_reduce(view, pose, pts, PARAMS)
     _check_gn(torch.stack(outs).sum(0), whole)
+
+
+@pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
+def test_gn_finish_kernel_matches_advance_state(dev, form):
+    """gn_finish on the same sums as advance_state, over a level, each step
+    from the state the kernel left: equal step counts and done flags, the
+    twist within 1e-4 relative, the pose within 1e-5 (float64 solve against
+    float32)."""
+    view, pts, pose = _step_view(dev, form)
+    cfg = TrackingConfig(max_iterations=6)
+    sk = k1.init_state(pose, cfg.damping)
+    sr = torch.empty_like(sk)
+    reduce, finish = k1.slab_stepper(view, sk, pts, PARAMS, cfg)
+    before = k1.launches_finish
+    for _ in range(cfg.max_iterations):
+        sums = reduce().clone()
+        sr.copy_(sk)
+        finish(sums)
+        k1.advance_state(sr, *k1.unpack(sums), cfg)
+        torch.cuda.synchronize()
+        ik, ir = sk.view(torch.int32), sr.view(torch.int32)
+        assert torch.equal(ik[k1.S_COUNT:], ir[k1.S_COUNT:])
+        assert sk[k1.S_NVALID].item() == sr[k1.S_NVALID].item() > 100
+        tk, tr = sk[k1.S_TWIST:k1.S_TWIST + 6], sr[k1.S_TWIST:k1.S_TWIST + 6]
+        assert ((tk - tr).abs().max() / tr.abs().max().clamp(min=1e-30)).item() <= 1e-4
+        assert (sk[:k1.S_LAM] - sr[:k1.S_LAM]).abs().max().item() <= 1e-5
+    assert k1.launches_finish == before + cfg.max_iterations
+
+
+@pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
+def test_one_rank_slab_iteration_is_gn_step_bitwise(dev, form):
+    """One rank holding the whole grid (i0 0, slab m): reduce, the identity
+    all_reduce and finish equal one gn_step launch bit for bit, step by step
+    over a level and on the done launches after it; the done level's sums
+    are zeros."""
+    view, pts, pose = _step_view(dev, form)
+    cfg = TrackingConfig(max_iterations=8)
+    sa, sb = k1.init_state(pose, cfg.damping), k1.init_state(pose, cfg.damping)
+    reduce, finish = k1.slab_stepper(view, sa, pts, PARAMS, cfg, i0=0, slab=PARAMS.m)
+    step = k1.gn_stepper(view, sb, pts, PARAMS, cfg)
+    for _ in range(cfg.max_iterations + 2):
+        sums = reduce()
+        finish(sums)
+        step()
+        torch.cuda.synchronize()
+        assert torch.equal(sa.view(torch.int32), sb.view(torch.int32))
+    assert int(sa.view(torch.int32)[k1.S_COUNT]) > 1
+    assert torch.equal(sums, torch.zeros_like(sums))  # the level is done
+
+
+def test_track_slab_on_the_card_is_reduce_allreduce_finish(dev, monkeypatch):
+    """The sharded tracker on CUDA tensors, a one-rank mesh double (identity
+    all_reduce): max_iterations slab launches, all_reduces and gn_finish
+    launches, no advance_state, and the state of a gn_step level bit for bit."""
+    from tracking_sdf_tpu_torch.parallel import sharded
+    from tracking_sdf_tpu_torch.parallel.mesh import Mesh
+
+    class OneRank(Mesh):
+        def all_reduce_(self, t):
+            self.collectives += 1
+            return t
+
+    def no_advance(*a, **kw):
+        raise AssertionError("advance_state ran on the card")
+
+    monkeypatch.setattr(k1, "advance_state", no_advance)
+    view, pts, pose = _step_view(dev, "brick_bf16")
+    cfg = TrackingConfig(max_iterations=10)
+    mesh = OneRank(group=None, size=1, rank=0, backend="nccl", device=dev)
+    before = (k1.launches_slab_brick, k1.launches_finish)
+    res = sharded.track_slab(view, pose, pts, i0=0, slab=PARAMS.m, params=PARAMS, cfg=cfg,
+                             mesh=mesh)
+    assert (k1.launches_slab_brick - before[0], k1.launches_finish - before[1],
+            mesh.collectives) == (10, 10, 10)
+    ref = k1.init_state(pose, cfg.damping)
+    step = k1.gn_stepper(view, ref, pts, PARAMS, cfg)
+    for _ in range(cfg.max_iterations):
+        step()
+    assert torch.equal(res.state.view(torch.int32), ref.view(torch.int32))
+
+
+def test_slab_stepper_rejects_bad_input(dev):
+    view, pts, pose = _step_view(dev, "dense")
+    state = k1.init_state(pose, 0.1)
+    cfg = TrackingConfig()
+    with pytest.raises(ValueError):  # a slab view needs its slab
+        k1.slab_stepper(view[:40], state, pts, PARAMS, cfg)
+    with pytest.raises(ValueError):
+        k1.slab_stepper(view, state[:20], pts, PARAMS, cfg)
+    _, finish = k1.slab_stepper(view, state, pts, PARAMS, cfg)
+    with pytest.raises(ValueError):
+        finish(torch.zeros(29, dtype=torch.float64, device=dev))
 
 
 @pytest.mark.parametrize("vdt", [torch.bfloat16, torch.float32])

@@ -7,7 +7,7 @@ collectives, the ranks run as threads of this process over ``ThreadMesh``,
 a test double of parallel.mesh.Mesh that exchanges tensors between the
 threads. The JAX side runs on conftest's 8 virtual CPU devices
 (``make_mesh(jax.devices()[:n])``), on the scenes of tests/test_parallel.py
-at m = 48, for n = 2 and 4 ranks.
+at m = 48, for n = 2 and 4 ranks (and n = 1 for the sharded trackers).
 
 Tolerances: fusion is voxel-local, so every sharded layout is bitwise equal
 to the port's single-device fusion and within atol 1e-5 of the JAX
@@ -60,7 +60,7 @@ from tracking_sdf_tpu_torch.render.marching_cubes import (
     marching_cubes, marching_cubes_sharded)
 from tracking_sdf_tpu_torch.render.raycast import raycast
 from tracking_sdf_tpu_torch.tracking.gn_reduce import (
-    advance_state, gn_reduce_reference, init_state, state_pose, unpack)
+    advance_state, gn_reduce_reference, init_state, slab_stepper, state_pose, unpack)
 
 torch.set_num_threads(1)
 
@@ -383,13 +383,14 @@ def _views(form, n, frame):
 
 
 @pytest.mark.parametrize("form", ["dense", "masked", "brick"])
-@pytest.mark.parametrize("n", RANKS)
+@pytest.mark.parametrize("n", (1,) + RANKS)
 def test_k1_slab_form_and_sharded_trackers(n, form, frame):
     """K1's slab form (plain version) per rank: the slabs' valid counts add
     up to the unsharded count exactly and their sums to the unsharded A, b;
-    the slab-summed Gauss-Newton loop and the port's sharded tracker (ranks
-    as threads) land within 5e-5 of the JAX package's sharded tracker with
-    its valid count."""
+    the slab-summed Gauss-Newton loop by hand, the ranks' slab steppers
+    (``slab_stepper``'s plain path: every rank's state bit for bit the
+    loop's) and the port's sharded tracker (ranks as threads) land within
+    5e-5 of the JAX package's sharded tracker with its valid count."""
     views, j_in, kind, whole = _views(form, n, frame)
     slab = PARAMS.m // n
     depth = render_scene_depth(SCENE, CAM, TRUE_POSE)
@@ -425,6 +426,17 @@ def test_k1_slab_form_and_sharded_trackers(n, form, frame):
                           ).sum(0)
         advance_state(state, *unpack(out), tcfg)
     by_hand = state_pose(state)
+
+    # the ranks' slab steppers in this process, the sums added alike
+    states = [init_state(pose0, tcfg.damping) for _ in range(n)]
+    steppers = [slab_stepper(v, states[r], pts, PARAMS, tcfg, i0=r * slab, slab=slab)
+                for r, v in enumerate(views)]
+    for _ in range(tcfg.max_iterations):
+        total = torch.stack([reduce() for reduce, _ in steppers]).sum(0)
+        for _, finish in steppers:
+            finish(total)
+    for s in states:
+        assert _equal(s, state)
 
     def track(mesh):
         if kind == "dense":

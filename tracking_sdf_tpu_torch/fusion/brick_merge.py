@@ -2,8 +2,11 @@
 
 Counterpart of tracking_sdf_tpu/fusion/pallas_merge.py. The CUDA kernels
 (``csrc/brick_merge.cu``) replace the Pallas ``_merge_kernel_geo`` /
-``_merge_kernel_color``: one thread block per brick, one thread per voxel;
-the source notes there say what bounds them on the card. Both forms apply
+``_merge_kernel_color``: the dense form gives each thread four voxels along
+k (float4 loads, all issued before any store) and each block four 8³
+bricks, its threads k-major across them; the row form one thread block per
+brick and one thread per voxel. The source notes there say what bounds
+them on the card. Both forms apply
 ``max_weight`` (divide by the uncapped weight sum, store the clamped one), as
 the JAX package's XLA merges do and its Pallas kernel does not.
 
@@ -105,7 +108,9 @@ def brick_merge(grid: TSDFGrid, upd: torch.Tensor, bid: torch.Tensor,
            or x.shape != D.shape or not x.is_contiguous() for x in leaves):
         raise ValueError("brick_merge: grid leaves must be contiguous float32 "
                          "(m, m, m) on one device")
-    if D.shape != (m, m, m) or m % bi or m % bj or m % bk or bi * bj * bk > 1024:
+    # a block holds at most 512 threads of 4 voxels (1 unless bk % 4 == 0)
+    if (D.shape != (m, m, m) or m % bi or m % bj or m % bk
+            or bi * bj * bk > 512 * (4 if bk % 4 == 0 else 1)):
         raise ValueError(f"brick_merge: grid {tuple(D.shape)} vs brick {bs}")
     if (C not in (2, 6) or upd.dim() != 5 or tuple(upd.shape[1:4]) != tuple(bs)
             or upd.dtype != torch.float32 or upd.device != D.device

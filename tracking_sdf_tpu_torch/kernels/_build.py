@@ -29,14 +29,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # dm, bf16, m, mi, i0, slab, bi, bj, bk, pitch, pose, pts, n, ox, oy, oz,
-    # sx, sy, sz, partials, blocks, out, stream
-    "tsdf_gn_reduce": [_P] + [_I] * 9 + [_P, _P, _I] + [_F] * 6 + [_P, _I, _P, _P],
     # dm, bf16, m, bi, bj, bk, pitch, pts, n, w, sh, sw, ox, oy, oz, sx, sy,
     # sz, partials, blocks, state, max_iterations, min_iterations,
     # signed_conv, reference_update, max_twist_diff, damping_decay, stream
     "tsdf_gn_step": [_P] + [_I] * 6 + [_P] + [_I] * 4 + [_F] * 6 + [_P, _I, _P]
                     + [_I] * 4 + [_F, _F, _P],
+    # dm, bf16, m, mi, i0, slab, bi, bj, bk, pitch, pts, n, w, sh, sw, ox, oy,
+    # oz, sx, sy, sz, partials, blocks, state, max_iterations, out, stream
+    "tsdf_gn_reduce_slab": [_P] + [_I] * 9 + [_P] + [_I] * 4 + [_F] * 6
+                           + [_P, _I, _P, _I, _P, _P],
+    # sums, state, max_iterations, min_iterations, signed_conv,
+    # reference_update, max_twist_diff, damping_decay, stream
+    "tsdf_gn_finish": [_P, _P] + [_I] * 4 + [_F, _F, _P],
     # D, W, R, G, B, Wc, upd, channels, bid, cls, slot, n, m, bi, bj, bk,
     # delta, max_weight, stream
     "tsdf_brick_merge": [_P] * 7 + [_I] + [_P] * 3 + [_I] * 5 + [_F, _F, _P],

@@ -14,13 +14,15 @@ program on it:
   next rank's first plane (dense) or first brick layer (brick-major, nbj·nbk
   rows) as a halo, so that a trilinear stencil that straddles the boundary
   is local; the last rank's halo is unobserved (NaN). Each Gauss-Newton
-  iteration is K1's slab form (``gn_reduce`` with i0 and slab; the pose read
-  from the state on the device), one all_reduce of its 29 sums, and
-  ``advance_state`` on every rank, so every rank holds the same state bit
-  for bit. A level issues ``max_iterations`` iterations and the done flag
-  freezes the state, with no host read (on the CPU the loop stops at the
-  flag, which every rank reads alike). No pyramid: the tracker runs one
-  level at ``pixel_stride``, as the JAX package's sharded path.
+  iteration is ``gn_reduce.slab_stepper``'s: K1's slab form (one launch;
+  the pose read from the state on the device), one all_reduce of its 29
+  sums, and ``gn_finish`` (one launch: the solve, test and update of K1's
+  step) on every rank, so every rank holds the same state bit for bit. A
+  level issues ``max_iterations`` iterations and the done flag freezes the
+  state, with no host read (on the CPU, where the plain versions run, the
+  loop stops at the flag, which every rank reads alike). No pyramid: the
+  tracker runs one level at ``pixel_stride``, as the JAX package's sharded
+  path.
 
 The slab functions take the slab's place (i0, slab) explicitly, so one
 process can run them for every rank in turn (the CPU tests do).
@@ -42,8 +44,7 @@ from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
 from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView, MaskedView, masked_view
 from tracking_sdf_tpu_torch.parallel.mesh import Mesh
 from tracking_sdf_tpu_torch.tracking.gauss_newton import TrackResult
-from tracking_sdf_tpu_torch.tracking.gn_reduce import (
-    S_DONE, advance_state, gn_reduce_reference, gn_reducer, init_state, unpack)
+from tracking_sdf_tpu_torch.tracking.gn_reduce import S_DONE, init_state, slab_stepper
 
 _NAN = float("nan")
 
@@ -59,19 +60,14 @@ def track_slab(view: MaskedView, pose0: Pose, points: torch.Tensor, *, i0: int,
     """The Gauss-Newton loop of one rank: ``view`` holds global planes
     [i0, i0 + mi) (its slab and the halo), ``points`` (N, 3) the queries.
     Each iteration sums the owned queries' normal equations (K1's slab form
-    on the card), all-reduces them over ``mesh`` and advances the state."""
+    on the card), all-reduces them over ``mesh`` and finishes the step on
+    them (``gn_finish`` on the card), all on the current stream."""
     state = init_state(pose0, cfg.damping)
-    pts = points.reshape(-1, 3).contiguous()
-    if view.device.type == "cuda":
-        reduce = gn_reducer(view, state, pts, params, i0=i0, slab=slab)
-    else:
-        def reduce():
-            return gn_reduce_reference(view, state, pts, params, i0=i0, slab=slab)
+    reduce, finish = slab_stepper(view, state, points, params, cfg, i0=i0, slab=slab)
     ints = state.view(torch.int32)
     on_cpu = view.device.type == "cpu"
     for _ in range(cfg.max_iterations):
-        out = mesh.all_reduce_(reduce())
-        advance_state(state, *unpack(out), cfg)
+        finish(mesh.all_reduce_(reduce()))
         if on_cpu and bool(ints[S_DONE]):  # the same flag on every rank
             break
     return TrackResult(state)

@@ -70,6 +70,7 @@ DEVICE_LOCK = threading.RLock()
 _COUNTERS = ((gn_reduce, "launches"), (gn_reduce, "launches_brick"),
              (gn_reduce, "launches_slab"), (gn_reduce, "launches_slab_brick"),
              (gn_reduce, "launches_step"), (gn_reduce, "launches_step_brick"),
+             (gn_reduce, "launches_finish"),
              (brick_merge, "launches"), (brick_merge, "launches_rows"),
              (brick_fuse, "launches"), (brick_fuse, "launches_sat"),
              (brick_fuse, "launches_slab"))

@@ -1,19 +1,21 @@
 """K1: the Gauss-Newton normal equations (A = JᵀJ, b = Jᵀr) and the whole
 Gauss-Newton step built on them.
 
-Counterpart of tracking_sdf_tpu/tracking/pallas_gn.py (the reduction) and of
+Counterpart of tracking_sdf_tpu/tracking/pallas_gn.py (the reduction), of
 the ``lax.while_loop`` body of tracking_sdf_tpu/tracking/gauss_newton.py
-(the step). The CUDA kernels (``csrc/gn_reduce.cu``) replace the Pallas
-``_gn_kernel`` together with its XLA front half ``gather_corner_inputs``:
-each GPU thread gathers its own corners from the masked view. Views: the
-dense float32 (m, m, m) view (the flat bricked loop) and the brick-major
-``BrickMaskedView`` of float32 or bfloat16 D rows (the presets' main path).
-The source note there says what bounds the kernels on the card and what the
-design does about it.
+(the step) and of the body of tracking_sdf_tpu/parallel/sharded.py's
+``_local_gn`` (the sharded step around its ``psum``). The CUDA kernels
+(``csrc/gn_reduce.cu``) replace the Pallas ``_gn_kernel`` together with its
+XLA front half ``gather_corner_inputs``: each GPU thread gathers its own
+corners from the masked view. Views: the dense float32 (m, m, m) view (the
+flat bricked loop) and the brick-major ``BrickMaskedView`` of float32 or
+bfloat16 D rows (the presets' main path). The source note there says what
+bounds the kernels on the card and what the design does about it.
 
 ``gn_reduce`` / ``gn_reduce_reference`` return 29 float32 values (``unpack``
 turns them back into A (6, 6), b (6,), the valid count and Σ|r| over valid
-queries).
+queries); on the card ``gn_reduce`` is one launch of K1's slab form over the
+whole grid.
 
 ``gn_step`` / ``gn_step_reference`` run one damped Gauss-Newton iteration on
 a state buffer that lives on the view's device (layout below): the normal
@@ -22,6 +24,12 @@ pose update, all frozen once the state is done or has run
 ``cfg.max_iterations`` steps. On the card the whole step is one kernel
 launch and nothing is read back, so a level issues a fixed number of steps
 and the host never waits inside a frame's tracking.
+
+``slab_stepper`` splits that step around a collective, for the sharded
+tracker (parallel.sharded): ``reduce`` sums one rank's slab of the queries
+at the state's pose (one launch of K1's slab form), the caller all-reduces
+the sums, and ``finish`` runs the solve, test and update on them (one
+launch of ``gn_finish``, the code ``gn_step``'s kernel finishes with).
 """
 from __future__ import annotations
 
@@ -49,10 +57,11 @@ N_STATE = 24
 # kernel launches made on CUDA tensors, per entry point and form of the view
 launches = 0  # gn_reduce, dense (m, m, m)
 launches_brick = 0  # gn_reduce, brick-major rows
-launches_slab = 0  # gn_reduce's slab form (i0 and slab given), dense
+launches_slab = 0  # slab_stepper's reduce (K1's slab form), dense
 launches_slab_brick = 0  # ... brick-major rows
 launches_step = 0  # gn_step, dense
 launches_step_brick = 0  # gn_step, brick-major rows
+launches_finish = 0  # slab_stepper's finish (gn_finish)
 
 
 def _triu(device):
@@ -76,8 +85,13 @@ def _pose_of(pose) -> Pose:
 def gn_reduce_reference(Dm: MaskedView, pose, points: torch.Tensor,
                         params: GridParams, i0: int = 0,
                         slab: Optional[int] = None) -> torch.Tensor:
-    """Plain PyTorch version: pixel_residuals_analytic + normal_equations
-    (the slab form as ``gn_reduce``)."""
+    """Plain PyTorch version: pixel_residuals_analytic + normal_equations.
+
+    Slab form (``i0`` and ``slab``; the plain version of slab_stepper's
+    reduce): the view holds global planes [i0, i0 + mi) (one rank's slab
+    and a halo), and a query counts only when the base floor(u) of its
+    global i coordinate lies in [i0, i0 + slab); the slabs' sums then add up
+    to the whole grid's."""
     # gauss_newton imports this module
     from tracking_sdf_tpu_torch.tracking.gauss_newton import (
         normal_equations, pixel_residuals_analytic)
@@ -133,76 +147,46 @@ def _slab_args(mi: int, m: int, i0: int, slab: Optional[int], what: str):
     return i0, slab
 
 
-def gn_reducer(Dm: MaskedView, pose, points: torch.Tensor, params: GridParams,
-               i0: int = 0, slab: Optional[int] = None) -> Callable[[], torch.Tensor]:
+def gn_reducer(Dm: MaskedView, pose, points: torch.Tensor,
+               params: GridParams) -> Callable[[], torch.Tensor]:
     """Validate CUDA inputs and allocate once; returns a function that
-    launches the kernel on them and returns its (29,) output buffer.
-    ``pose``: a Pose, copied into a device buffer here once, or a GN state
-    buffer (``init_state``), whose pose each launch reads in place. The slab
-    form as ``gn_reduce``."""
-    view = _view_args(Dm, params, "gn_reduce")
-    data, mi = view[0], view[3]
-    i0, slab_n = _slab_args(mi, params.m, i0, slab, "gn_reduce")
+    launches the kernel on them and returns its (29,) output buffer: K1's
+    slab form over the whole grid (i0 0, slab m) on a scratch state that
+    holds the pose. ``pose``: a Pose or a GN state buffer (``init_state``),
+    whose pose is copied into the scratch state here once."""
+    dev = Dm.device
     if torch.is_tensor(pose):
-        if (pose.dtype != torch.float32 or pose.device != data.device
+        if (pose.dtype != torch.float32 or pose.device != dev
                 or pose.numel() < S_LAM or not pose.is_contiguous()):
             raise ValueError(f"gn_reduce: a state pose must be a contiguous float32 "
-                             f"buffer of at least {S_LAM} slots on {data.device}")
-        pose_buf = pose
+                             f"buffer of at least {S_LAM} slots on {dev}")
+        src = pose[:S_LAM]
     else:
         for name, x, shape in (("pose.R", pose.R, (3, 3)), ("pose.t", pose.t, (3,))):
-            if (x.device != data.device or x.dtype != torch.float32
-                    or tuple(x.shape) != shape):
-                raise ValueError(f"gn_reduce: {name} must be float32 {shape} on "
-                                 f"{data.device}")
-        pose_buf = torch.cat([pose.R.reshape(9), pose.t])
-    if (points.device != data.device or points.dtype != torch.float32
-            or points.dim() != 2 or points.shape[1] != 3 or not points.is_contiguous()):
-        raise ValueError(f"gn_reduce: points must be contiguous float32 (N, 3) on "
-                         f"{data.device}, got {tuple(points.shape)} {points.dtype}")
-
-    n = points.shape[0]
-    blocks = max(-(-n // THREADS), 1)
-    partials = torch.empty(blocks * N_OUT, dtype=torch.float32, device=data.device)
-    out = torch.empty(N_OUT, dtype=torch.float32, device=data.device)
-    lib = _build.library()
-    args = (data.data_ptr(), view[1], view[2], mi, i0, slab_n, *view[4:],
-            pose_buf.data_ptr(), points.data_ptr(), n, *_grid_scale(params),
-            partials.data_ptr(), blocks, out.data_ptr())
-    brick = isinstance(Dm, BrickMaskedView)
-    counter = (("launches_slab_brick" if brick else "launches_slab") if slab is not None
-               else ("launches_brick" if brick else "launches"))
-
-    def launch() -> torch.Tensor:
-        _build.check(lib.tsdf_gn_reduce(*args, _build.stream_ptr(data.device)),
-                     "gn_reduce")
-        globals()[counter] += 1
-        return out
-
-    # the kernel reads and writes these through the pointers in ``args``
-    launch.buffers = (data, points, pose_buf, partials, out)
-    return launch
+            if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape:
+                raise ValueError(f"gn_reduce: {name} must be float32 {shape} on {dev}")
+        src = torch.cat([pose.R.reshape(9), pose.t])
+    state = torch.zeros(N_STATE, dtype=torch.float32, device=dev)
+    state[:S_LAM].copy_(src)
+    # max_iterations 1: the scratch state runs no step, so it is never done
+    return _slab_reducer(Dm, state, points, params, 1, 0, None,
+                         "launches_brick" if isinstance(Dm, BrickMaskedView)
+                         else "launches", "gn_reduce")
 
 
-def gn_reduce(Dm: MaskedView, pose, points: torch.Tensor, params: GridParams,
-              i0: int = 0, slab: Optional[int] = None) -> torch.Tensor:
+def gn_reduce(Dm: MaskedView, pose, points: torch.Tensor,
+              params: GridParams) -> torch.Tensor:
     """Normal equations of the queries ``points`` (N, 3) (camera frame, NaN
     holes allowed) at ``pose`` (a Pose, or a GN state buffer) against the
-    masked view ``Dm``: a dense float32 (mi, m, m) tensor or a
-    BrickMaskedView of float32/bfloat16 rows.
-
-    Slab form (the sharded tracker's, parallel.sharded): the view holds
-    global planes [i0, i0 + mi) (one rank's slab and a halo), and a query
-    counts only when the base floor(u) of its global i coordinate lies in
-    [i0, i0 + slab); the slabs' sums then add up to the whole grid's. With
-    i0 0 and slab m on a whole-grid view it computes the whole-grid form.
+    masked view ``Dm`` of the whole grid: a dense float32 (m, m, m) tensor
+    or a BrickMaskedView of float32/bfloat16 rows.
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if Dm.device.type == "cpu":
-        return gn_reduce_reference(Dm, pose, points, params, i0=i0, slab=slab)
+        return gn_reduce_reference(Dm, pose, points, params)
     if Dm.device.type != "cuda":
         raise ValueError(f"gn_reduce: unsupported device {Dm.device}")
-    return gn_reducer(Dm, pose, points, params, i0=i0, slab=slab)()
+    return gn_reducer(Dm, pose, points, params)()
 
 
 # --- the Gauss-Newton step -------------------------------------------------
@@ -243,16 +227,23 @@ def converged(twist: torch.Tensor, cfg: TrackingConfig) -> torch.Tensor:
     raise ValueError(f"unknown convergence mode: {cfg.convergence}")
 
 
+def level_active(state: torch.Tensor, cfg: TrackingConfig) -> torch.Tensor:
+    """The state is neither done nor at ``cfg.max_iterations`` steps (a
+    0-dim bool on its device)."""
+    ints = state.view(torch.int32)
+    return (ints[S_DONE] == 0) & (ints[S_COUNT] < cfg.max_iterations)
+
+
 def advance_state(state: torch.Tensor, A: torch.Tensor, b: torch.Tensor,
                   nvalid: torch.Tensor, sum_abs: torch.Tensor, cfg: TrackingConfig) -> None:
     """One Gauss-Newton iteration on ``state`` in place from the normal
     equations A (6, 6), b (6,), the valid count and Σ|r| at its pose: the
     damped solve, the convergence test and the pose update, frozen once the
     state is done or has run ``cfg.max_iterations`` steps. Every Jacobian
-    scheme advances its state here (the card's ``gn_step`` does the same
-    inside its kernel)."""
+    scheme advances its state here (the card's ``gn_step`` and ``gn_finish``
+    do the same inside their kernels)."""
     ints = state.view(torch.int32)
-    active = (ints[S_DONE] == 0) & (ints[S_COUNT] < cfg.max_iterations)
+    active = level_active(state, cfg)
     pose = state_pose(state)
     lam = state[S_LAM]
     # Marquardt damping plus a tiny floor that keeps a degenerate system
@@ -279,6 +270,84 @@ def gn_step_reference(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
         Dm, state_pose(state), points.reshape(-1, 3), params)), cfg)
 
 
+def gn_reduce_slab_reference(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
+                             params: GridParams, cfg: TrackingConfig, i0: int = 0,
+                             slab: Optional[int] = None) -> torch.Tensor:
+    """Plain PyTorch version of slab_stepper's reduce: the (29,) slab sums
+    at the state's pose, zeros once the level is done (so that an in-place
+    all_reduce of them stays zeros)."""
+    out = gn_reduce_reference(Dm, state_pose(state), points.reshape(-1, 3), params,
+                              i0=i0, slab=slab)
+    return torch.where(level_active(state, cfg), out, torch.zeros_like(out))
+
+
+def _check_modes(cfg: TrackingConfig) -> None:
+    if cfg.convergence not in ("norm", "signed"):
+        raise ValueError(f"unknown convergence mode: {cfg.convergence}")
+    if cfg.pose_update not in ("se3", "reference"):
+        raise ValueError(f"unknown pose_update: {cfg.pose_update}")
+
+
+def _step_cfg(cfg: TrackingConfig):
+    """The kernels' step settings: max_iterations, min_iterations,
+    signed_conv, reference_update, max_twist_diff, damping_decay."""
+    return (cfg.max_iterations, cfg.min_iterations, int(cfg.convergence == "signed"),
+            int(cfg.pose_update == "reference"), cfg.max_twist_diff, cfg.damping_decay)
+
+
+def _step_args(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
+               params: GridParams, what: str):
+    """Validate a CUDA level's inputs; (view args, point args (ptr, n, w, sh,
+    sw), device) for the kernels."""
+    view = _view_args(Dm, params, what)
+    dev = view[0].device
+    if (state.dtype != torch.float32 or tuple(state.shape) != (N_STATE,)
+            or state.device != dev or not state.is_contiguous()):
+        raise ValueError(f"{what}: state must be contiguous float32 ({N_STATE},) on {dev}")
+    if (points.dtype != torch.float32 or points.device != dev
+            or points.dim() not in (2, 3) or points.shape[-1] != 3
+            or points.stride(-1) != 1):
+        raise ValueError(f"{what}: points must be float32 (N, 3) or (h, w, 3) on "
+                         f"{dev} with unit stride along the last axis, got "
+                         f"{tuple(points.shape)} {points.dtype} {points.device}")
+    if points.dim() == 2:
+        h, w, sh, sw = points.shape[0], 1, points.stride(0), 0
+    else:
+        h, w, sh, sw = (*points.shape[:2], *points.stride()[:2])
+    return view, (points.data_ptr(), h * w, w, sh, sw), dev
+
+
+def _partials(n: int, dev):
+    """(blocks, scratch) of a launch over n queries."""
+    blocks = max(-(-n // THREADS), 1)
+    return blocks, torch.empty(blocks * N_OUT, dtype=torch.float32, device=dev)
+
+
+def _slab_reducer(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
+                  params: GridParams, max_iterations: int, i0: int, slab: Optional[int],
+                  counter: str, what: str) -> Callable[[], torch.Tensor]:
+    """K1's slab form on CUDA inputs, validated and allocated once: each call
+    is one launch that returns the (29,) sums at the state's pose (zeros once
+    the level is done) and adds one to the module counter ``counter``."""
+    view, pts, dev = _step_args(Dm, state, points, params, what)
+    i0, slab_n = _slab_args(view[3], params.m, i0, slab, what)
+    blocks, partials = _partials(pts[1], dev)
+    out = torch.empty(N_OUT, dtype=torch.float32, device=dev)
+    lib = _build.library()
+    args = (view[0].data_ptr(), view[1], view[2], view[3], i0, slab_n, *view[4:], *pts,
+            *_grid_scale(params), partials.data_ptr(), blocks, state.data_ptr(),
+            max_iterations, out.data_ptr())
+
+    def reduce() -> torch.Tensor:
+        _build.check(lib.tsdf_gn_reduce_slab(*args, _build.stream_ptr(dev)), what)
+        globals()[counter] += 1
+        return out
+
+    # the kernel reads and writes these through the pointers in ``args``
+    reduce.buffers = (partials, points, state, view[0], out)
+    return reduce
+
+
 def gn_stepper(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
                params: GridParams, cfg: TrackingConfig) -> Callable[[], None]:
     """Validate one level's inputs and allocate its scratch once; returns a
@@ -289,43 +358,19 @@ def gn_stepper(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
     strided view such as ``points_img[::s, ::s]`` in place (query q is
     element (q // w, q % w)). CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
-    if cfg.convergence not in ("norm", "signed"):
-        raise ValueError(f"unknown convergence mode: {cfg.convergence}")
-    if cfg.pose_update not in ("se3", "reference"):
-        raise ValueError(f"unknown pose_update: {cfg.pose_update}")
+    _check_modes(cfg)
     if Dm.device.type == "cpu":
         flat = points.reshape(-1, 3)
         return lambda: gn_step_reference(Dm, state, flat, params, cfg)
     if Dm.device.type != "cuda":
         raise ValueError(f"gn_step: unsupported device {Dm.device}")
-    view = _view_args(Dm, params, "gn_step")
+    view, pts, dev = _step_args(Dm, state, points, params, "gn_step")
     if view[3] != params.m:
         raise ValueError("gn_step: the view must hold the whole grid (no slab form)")
-    view = view[:3] + view[4:]
-    dev = view[0].device
-    if (state.dtype != torch.float32 or tuple(state.shape) != (N_STATE,)
-            or state.device != dev or not state.is_contiguous()):
-        raise ValueError(f"gn_step: state must be contiguous float32 ({N_STATE},) "
-                         f"on {dev}")
-    if (points.dtype != torch.float32 or points.device != dev
-            or points.dim() not in (2, 3) or points.shape[-1] != 3
-            or points.stride(-1) != 1):
-        raise ValueError(f"gn_step: points must be float32 (N, 3) or (h, w, 3) on "
-                         f"{dev} with unit stride along the last axis, got "
-                         f"{tuple(points.shape)} {points.dtype} {points.device}")
-    if points.dim() == 2:
-        h, w, sh, sw = points.shape[0], 1, points.stride(0), 0
-    else:
-        h, w, sh, sw = (*points.shape[:2], *points.stride()[:2])
-    n = h * w
-    blocks = max(-(-n // THREADS), 1)
-    partials = torch.empty(blocks * N_OUT, dtype=torch.float32, device=dev)
+    blocks, partials = _partials(pts[1], dev)
     lib = _build.library()
-    args = (view[0].data_ptr(), *view[1:], points.data_ptr(), n, w, sh, sw, *_grid_scale(params),
-            partials.data_ptr(), blocks, state.data_ptr(), cfg.max_iterations,
-            cfg.min_iterations, int(cfg.convergence == "signed"),
-            int(cfg.pose_update == "reference"), cfg.max_twist_diff,
-            cfg.damping_decay)
+    args = (view[0].data_ptr(), *view[1:3], *view[4:], *pts, *_grid_scale(params),
+            partials.data_ptr(), blocks, state.data_ptr(), *_step_cfg(cfg))
     brick = isinstance(Dm, BrickMaskedView)
 
     def step() -> None:
@@ -348,3 +393,58 @@ def gn_step(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
     should build ``gn_stepper`` once instead: this validates and allocates
     on every call."""
     gn_stepper(Dm, state, points, params, cfg)()
+
+
+def slab_stepper(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
+                 params: GridParams, cfg: TrackingConfig, *, i0: int = 0,
+                 slab: Optional[int] = None):
+    """One rank's Gauss-Newton step around a collective, validated and
+    allocated once: returns ``(reduce, finish)``.
+
+    ``reduce()`` returns the (29,) sums of this rank's queries at the
+    state's pose (K1's slab form: ``Dm`` holds global planes [i0, i0 + mi),
+    a query counts when its base plane lies in [i0, i0 + slab); zeros once
+    the level is done); the caller sums them over the ranks in place;
+    ``finish(sums)`` runs the damped solve, the convergence test and the
+    pose update on ``state`` from the summed equations, frozen once the
+    level is done. Every rank that finishes the same sums holds the same
+    state bit for bit. ``points`` as for ``gn_stepper``.
+
+    CPU tensors take the plain versions (``gn_reduce_slab_reference`` and
+    ``advance_state``); on CUDA tensors each call is one kernel launch
+    (``launches_slab`` / ``launches_slab_brick``, ``launches_finish``), on
+    the current stream, with nothing read by the host. On one rank with the
+    whole grid (i0 0, slab m or None) reduce, then finish, is one
+    ``gn_step`` launch bit for bit."""
+    _check_modes(cfg)
+    if Dm.device.type == "cpu":
+        flat = points.reshape(-1, 3)
+
+        def reduce_plain() -> torch.Tensor:
+            return gn_reduce_slab_reference(Dm, state, flat, params, cfg, i0=i0,
+                                            slab=slab)
+
+        def finish_plain(sums: torch.Tensor) -> None:
+            advance_state(state, *unpack(sums), cfg)
+
+        return reduce_plain, finish_plain
+    if Dm.device.type != "cuda":
+        raise ValueError(f"slab_stepper: unsupported device {Dm.device}")
+    reduce = _slab_reducer(Dm, state, points, params, cfg.max_iterations, i0, slab,
+                           "launches_slab_brick" if isinstance(Dm, BrickMaskedView)
+                           else "launches_slab", "slab_stepper")
+    dev = Dm.device
+    lib = _build.library()
+    step_cfg = _step_cfg(cfg)
+
+    def finish(sums: torch.Tensor) -> None:
+        global launches_finish
+        if (sums.dtype != torch.float32 or sums.device != dev or sums.numel() != N_OUT
+                or not sums.is_contiguous()):
+            raise ValueError(f"gn_finish: sums must be contiguous float32 ({N_OUT},) "
+                             f"on {dev}")
+        _build.check(lib.tsdf_gn_finish(sums.data_ptr(), state.data_ptr(), *step_cfg,
+                                        _build.stream_ptr(dev)), "gn_finish")
+        launches_finish += 1
+
+    return reduce, finish
