@@ -226,6 +226,32 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      Its numbers also go out as one JSON line, {"phase10": ...}, and the
      kernels' line gains the slab forms (gn_reduce_slab_brick, gn_finish,
      brick_fuse_rows_slab; launches from the one-rank mesh's runs).
+ 11. packed, --debug-nans and the library surface:
+       K1 gn_step on float32 brick rows (what fusion.mode="packed" runs) at
+         the tum256 preset's queries against its plain step, as in phase 3;
+         K2 brick_fuse_rows on float32 rows at tum256 and tum512 (packed's
+         flat classification, the presets' caps), geometry and color,
+         bitwise on the second frame's real lists, with its times and bound;
+       tum256 and tum512 through cli.main --fusion-mode packed --dataset D
+         --native-loader --eval per frame on phase 7's 120 frames: float32
+         rows, flat classification, gn_step_brick 30 / 40 launches a
+         tracked frame and brick_fuse_rows once a fused frame (these runs'
+         launches are the float32 forms'), tum256's ATE within
+         PACKED_ATE_TOL_MM of the JAX package's packed figure; ms a frame
+         and peak memory;
+       --debug-nans: tum256 through the CLI per frame and --chunk 8, each
+         trajectory byte for byte phase 7's run without the flag; the
+         check's device ms a frame (the rows a frame listed, beside the
+         whole grid) at tum256 and tum512; a NaN written by device ops into
+         a listed row where W > 0 at frame 3 raises FloatingPointError
+         naming frame 3, per frame and chunked, on one device and on a
+         one-rank NCCL group;
+       the JAX README's library example with the port's name and no
+         device=: Reconstruction(tum_fr1_camera(), preset("tum256")) on the
+         card, 3 frames of phase 7's sequence, a render and a mesh.
+     Its numbers go out as {"phase11": ...}; the kernels' line gains
+     gn_step_brick_f32 and brick_fuse_rows_f32 (launches from the packed
+     runs).
 The last two lines are the kernels' JSON record (bound_ms from this run's
 inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
 at 67 TFLOP/s, whichever is longer) and {"ok": true, "device": {...}}.
@@ -235,6 +261,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import importlib
 import json
 import math
 import os
@@ -788,27 +815,31 @@ def kernel_merge_rows(dev):
     return rec[6]
 
 
-def fuse_rows_compare(name, cam, scene, poses, rgb, dev):
+def fuse_rows_compare(name, cam, scene, poses, rgb, dev, cfg=None):
     """K2's fused form on one preset's real lists: the second frame's FULL
-    and FREE bricks against the bf16 rows fused from the first frame, at the
-    preset's caps, geometry and color. Returns {color: record}."""
+    and FREE bricks against the rows fused from the first frame, at the
+    preset's caps, geometry and color. ``cfg``: another configuration of the
+    preset (packed's float32 rows and flat classification) in place of the
+    preset's bf16 one; the unfused chain is timed for the preset's own only.
+    Returns {color: record}."""
     from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
     from tracking_sdf_tpu_torch.fusion.brick import _full_brick_updates, _pixel_table
     from tracking_sdf_tpu_torch.fusion.brick_fuse import (
         brick_fuse_rows, brick_fuse_rows_reference, group_centre_pixels)
     from tracking_sdf_tpu_torch.fusion.brick_merge import brick_merge_rows
     from tracking_sdf_tpu_torch.fusion.brickmajor import (
-        classify_compact_rows, empty_brick_grid, fuse_frame_brickmajor)
+        classify_compact_rows, empty_brick_grid, fuse_frame_brickmajor, storage_dtype)
     from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 
-    cfg = path_config(name, None)
+    own = cfg is None
+    cfg = path_config(name, None) if own else cfg
     f, p = cfg.fusion, cfg.grid
     bs, cap, cap_free = f.brick_shape, f.brick_cap, f.brick_cap_free
     frames = [preprocess_frame(render_scene_depth(scene, cam, poses[k]), cam=cam,
                                bilateral=cfg.bilateral_filter,
                                bilateral_mode=cfg.bilateral_mode) for k in (0, 1)]
-    bg = empty_brick_grid(p, bs, device=dev, value_dtype=torch.bfloat16,
-                          weight_dtype=torch.bfloat16)
+    bg = empty_brick_grid(p, bs, device=dev, value_dtype=storage_dtype(f.storage_dtype),
+                          weight_dtype=storage_dtype(f.weight_dtype))
     fuse_frame_brickmajor(bg, poses[0], *frames[0], rgb, params=p, cam=cam, cfg=f, bs=bs,
                           cap=cap, cap_free=cap_free)
     pts, nrm = frames[1]
@@ -853,23 +884,28 @@ def fuse_rows_compare(name, cam, scene, poses, rgb, dev):
         device_ms = kernel_device_ms(kernel, ("brick_fuse_rows_kernel",))
         wrapper_ms = cuda_time_ms(kernel)
         plain_ms = cuda_time_ms(lambda: brick_fuse_rows_reference(*lr, ids, pix, pose, **kw))
-        chain_ms, chain_ops = all_device_ms(chain)
-        chain_events_ms = cuda_time_ms(chain)
-        # bytes: bf16 D and W rows read and written (4 B a voxel each way),
-        # with color the C row read and written (16 B a voxel), the distinct
-        # group-centre pixel rows, the lists and the pose
-        row = BV * 8
-        bms, by = bound(n_full * (row + (BV * 16 if color else 0)) + n_free * row
+        chain_ms, chain_ops = all_device_ms(chain) if own else (None, None)
+        chain_events_ms = cuda_time_ms(chain) if own else None
+        # bytes: the D and W rows read and written (bf16: 4 B a voxel each
+        # way, float32: 8 B), with color the C row read and written (bf16:
+        # 16 B a voxel, float32: 32 B), the distinct group-centre pixel rows,
+        # the lists and the pose
+        row = BV * 2 * (bg.D.element_size() + bg.W.element_size())
+        crow = bg.C.shape[1] * bg.C.element_size() * 2
+        bms, by = bound(n_full * (row + (crow if color else 0)) + n_free * row
                         + n_pix * pix.shape[1] * 4 + ids.numel() * 4 + 48)
-        label = f"K2 brick_fuse_rows ({name}, {'color' if color else 'geometry'})"
+        form = "" if own else " " + str(bg.D.dtype).split(".")[-1]
+        label = f"K2 brick_fuse_rows ({name}{form}, {'color' if color else 'geometry'})"
+        chain_note = (f"; the unfused chain it replaces: device {chain_ms:.4f} ms in "
+                      f"{chain_ops:.0f} device ops, {chain_events_ms:.4f} ms per call"
+                      if own else "")
         print(f"{label} cap={cap} cap_free={cap_free}: {differ} stored values differ "
               f"(tol 0), NaN masks equal {nan_ok}, max abs err {err:.3e}, {fused} rows "
               f"fused, {touched} color rows updated; kernel {ms:.4f} ms "
               f"({TIMED_LAUNCHES} back-to-back), device {device_ms} ms, wrapper "
               f"{wrapper_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound {bms:.6f} ms "
-              f"({by}; {n_full} FULL, {n_free} FREE bricks, {n_pix} centre pixels); the "
-              f"unfused chain it replaces: device {chain_ms:.4f} ms in {chain_ops:.0f} "
-              f"device ops, {chain_events_ms:.4f} ms per call")
+              f"({by}; {n_full} FULL, {n_free} FREE bricks, {n_pix} centre pixels)"
+              f"{chain_note}")
         check(differ == 0 and nan_ok, f"{label} disagrees with its plain version: "
               f"{differ} values, NaN masks equal {nan_ok}")
         check(fused > 1000 and (touched > 0) == color, f"{label}: {fused} rows fused, "
@@ -1657,7 +1693,7 @@ def mesh_stages(grid, params, with_colors, n_chunks, path):
     import numpy as np
 
     from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid
-    from tracking_sdf_tpu_torch.render import marching_cubes as mc
+    mc = importlib.import_module("tracking_sdf_tpu_torch.render.marching_cubes")
 
     ms = dict(active=0.0, triangulate=0.0, compact=0.0, colors=0.0, host=0.0, ply=0.0)
 
@@ -1705,7 +1741,7 @@ def render_mesh_full(name, rows, pose, true_pose, cam, scene, dev, work):
     import numpy as np
 
     from tracking_sdf_tpu_torch.fusion.brickmajor import BrickGrid, dense_from_brick_grid
-    from tracking_sdf_tpu_torch.render import marching_cubes as mc
+    mc = importlib.import_module("tracking_sdf_tpu_torch.render.marching_cubes")
     from tracking_sdf_tpu_torch.render.raycast import raycast
 
     cfg = path_config(name, None)
@@ -2274,7 +2310,7 @@ def band_leap_margin(grid, pose, p, cam, rcfg):
     from tracking_sdf_tpu_torch.core.camera import pixel_rays
     from tracking_sdf_tpu_torch.grid.grid import world_to_voxel
     from tracking_sdf_tpu_torch.grid.interp import masked_view
-    from tracking_sdf_tpu_torch.render import raycast as rc
+    rc = importlib.import_module("tracking_sdf_tpu_torch.render.raycast")
 
     samples, real = [], rc._leap  # each nearest step's sample points
     rc._leap = lambda mip, uvw, ext: samples.append(uvw) or real(mip, uvw, ext)
@@ -3087,6 +3123,315 @@ def multi_device_phase(cam, scene, depths, poses, rgb, dev, work):
     return record, dict(k1=k1, k2=k2, finish=finish), path
 
 
+# --- phase 11: packed, --debug-nans and the library surface --------------------
+
+# tools/jax_reference_figures.py tum256_packed (JAX 0.9.0 on the CPU): --preset
+# tum256 --fusion-mode packed per frame over the 120 generated frames. Its
+# tum512 figure holds a 3.2 GB float32 grid and XLA's copies of it, and was
+# not run on a CPU.
+JAX_PACKED_ATE_MM = {"tum256": 9.9156}
+PACKED_ATE_TOL_MM = 0.03
+INJECT_FRAME = 3  # the frame (as FrameStats.index counts) that the injected NaN lands in
+
+
+def packed_config(name, trajectory_path=None):
+    """The preset with fusion.mode="packed", as the runner maps it on one
+    device (float32 rows, flat classification)."""
+    from tracking_sdf_tpu_torch.pipeline.runner import packed_fusion_config
+
+    cfg = path_config(name, trajectory_path)
+    return packed_fusion_config(dataclasses.replace(
+        cfg, fusion=cfg.fusion._replace(mode="packed")))
+
+
+def kernel_gn_f32(cam, scene, poses, rgb, dev):
+    """K1's step on float32 brick rows (packed's), fused from the first
+    frame and queried with the second, as phase 3 holds the bf16 form."""
+    from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
+    from tracking_sdf_tpu_torch.fusion.brickmajor import empty_brick_grid, fuse_frame_brickmajor
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+
+    cfg = packed_config("tum256")
+    f = cfg.fusion
+    pts0, nrm0 = preprocess_frame(render_scene_depth(scene, cam, poses[0]), cam=cam,
+                                  bilateral_mode=cfg.bilateral_mode)
+    pts1, _ = preprocess_frame(render_scene_depth(scene, cam, poses[1]), cam=cam,
+                               bilateral_mode=cfg.bilateral_mode)
+    bg = empty_brick_grid(cfg.grid, f.brick_shape, device=dev)
+    _, view, _ = fuse_frame_brickmajor(bg, poses[0], pts0, nrm0, rgb, params=cfg.grid,
+                                       cam=cam, cfg=f, bs=f.brick_shape, cap=f.brick_cap,
+                                       cap_free=f.brick_cap_free)
+    check(view.rows.dtype == torch.float32, "the packed view is not float32")
+    rec = step_compare("K1 gn_step (brick-major float32, packed)", view, poses[0], pts1,
+                       cfg.grid, cfg.tracking)
+    del bg, view
+    torch.cuda.empty_cache()
+    return rec
+
+
+def packed_phase(work):
+    """tum256 and tum512 with --fusion-mode packed through the CLI per frame
+    over phase 7's frames; returns their records for the kernels' line."""
+    from tracking_sdf_tpu_torch.config import preset
+
+    root = os.path.join(work, "seq")
+    loader = ["--native-loader"] if zlib_header_present() else []
+    records = {}
+    for name in ("tum256", "tum512"):
+        cfg = preset(name)
+        mark = memory_mark()
+        s, recon, launches, rejected = cli_run(
+            f"{name} --fusion-mode packed",
+            ["--preset", name, "--dataset", root, "--fusion-mode", "packed", "--trajectory",
+             os.path.join(work, f"{name}_packed.txt")] + loader, work)
+        peak = peak_gib_above(mark)
+        bg = recon.brick_grid
+        rows_gb = sum(x.numel() * x.element_size() for x in (bg.D, bg.W, bg.C)) / 1e9
+        f = recon.config.fusion
+        check(recon.packed and bg.D.dtype == bg.W.dtype == torch.float32
+              and f.hier_classify == 0 and recon._sat is None,
+              f"{name} packed: rows {bg.D.dtype} / {bg.W.dtype}, hier {f.hier_classify}")
+        per_step = ((len(cfg.pyramid_levels) - 1) * COARSE_ITERATIONS
+                    + cfg.tracking.max_iterations)
+        tracked, fused = DATASET_FRAMES - 1, DATASET_FRAMES - rejected
+        ate_mm = s["ate_rmse_m"] * 1e3
+        ref = JAX_PACKED_ATE_MM.get(name)
+        print(f"  {name} packed: ATE {ate_mm:.4f} mm (JAX package's packed "
+              f"{'not computed' if ref is None else format(ref, '.4f') + ' mm'}, bound "
+              f"+-{PACKED_ATE_TOL_MM} mm; its bf16 brick-major {JAX_ATE_MM[name]} mm), "
+              f"steady {s['steady_ms']:.3f} ms/frame per frame, rows {rows_gb:.3f} GB, "
+              f"peak {peak:.3f} GiB above the run's start, dropped bricks "
+              f"{s['overflow_drops']:.0f}")
+        check(s["frames"] == DATASET_FRAMES and rejected == 0 and s["ate_rmse_m"] < T_ERR_MAX,
+              f"{name} packed: {s}")
+        check(ref is None or abs(ate_mm - ref) <= PACKED_ATE_TOL_MM,
+              f"{name} packed: ATE {ate_mm:.4f} mm is not within {PACKED_ATE_TOL_MM} mm of "
+              f"the JAX package's {ref} mm")
+        check(launches["gn_step_brick"] == per_step * tracked
+              and launches["brick_fuse_rows"] == fused
+              and sum(launches.values()) == per_step * tracked + fused,
+              f"{name} packed: expected gn_step_brick {per_step} per tracked frame and "
+              f"brick_fuse_rows once per fused frame, nothing else: {launches}")
+        records[f"{name}_packed"] = dict(
+            launches=launches, tracked=tracked, fused=fused, ate_mm=ate_mm,
+            jax_ate_mm=ref, steady_ms=s["steady_ms"], peak_gib=peak, rows_gb=rows_gb)
+        del recon, bg
+        torch.cuda.empty_cache()
+    return records
+
+
+def debug_nans_cli(work):
+    """tum256 through the CLI with --debug-nans, per frame and --chunk 8:
+    each trajectory byte for byte phase 7's run without the flag."""
+    root = os.path.join(work, "seq")
+    loader = ["--native-loader"] if zlib_header_present() else []
+    out = {}
+    for label, chunk, ref in (("per frame", 0, "pf.txt"),
+                              (f"--chunk {DATASET_CHUNK}", DATASET_CHUNK, "tum256.txt")):
+        traj = os.path.join(work, f"dn_{chunk}.txt")
+        argv = (["--preset", "tum256", "--dataset", root, "--debug-nans", "--trajectory", traj]
+                + loader + (["--chunk", str(chunk)] if chunk else []))
+        s, recon, _, rejected = cli_run(f"tum256 --debug-nans {label}", argv, work, chunk)
+        with open(traj) as a, open(os.path.join(work, ref)) as b:
+            same = a.read() == b.read()
+        print(f"  tum256 --debug-nans {label}: trajectory byte for byte phase 7's {ref} "
+              f"{same}, steady {s['steady_ms']:.3f} ms/frame")
+        check(same and rejected == 0, f"--debug-nans {label} changed the run")
+        out[label] = dict(same_trajectory=same, steady_ms=s["steady_ms"])
+        del recon
+    return out
+
+
+def debug_check_cost(name, cam, scene, poses, rgb, dev):
+    """The --debug-nans check of one frame on the preset's rows and the
+    second frame's real lists (brickmajor.row_faults and the fault code),
+    beside the same check over the whole grid: ms a call (CUDA events) and
+    device ms and ops (profiler)."""
+    from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        classify_compact_rows, empty_brick_grid, fuse_frame_brickmajor, row_faults,
+        unpack_color_grid)
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+    from tracking_sdf_tpu_torch.utils import debug_nans
+
+    cfg = path_config(name, None)
+    f, p = cfg.fusion, cfg.grid
+    frames = [preprocess_frame(render_scene_depth(scene, cam, poses[k]), cam=cam,
+                               bilateral=cfg.bilateral_filter,
+                               bilateral_mode=cfg.bilateral_mode) for k in (0, 1)]
+    bg = empty_brick_grid(p, f.brick_shape, device=dev, value_dtype=torch.bfloat16,
+                          weight_dtype=torch.bfloat16)
+    fuse_frame_brickmajor(bg, poses[0], *frames[0], rgb, params=p, cam=cam, cfg=f,
+                          bs=f.brick_shape, cap=f.brick_cap, cap_free=f.brick_cap_free)
+    ids, _ = classify_compact_rows(p, poses[1], *frames[1], cam=cam, cfg=f, bs=f.brick_shape,
+                                   cap=f.brick_cap, cap_free=f.brick_cap_free)
+
+    def rows():
+        return debug_nans.fault_code(row_faults(bg, ids, poses[1]))
+
+    def whole():
+        return debug_nans.fault_code(torch.cat([
+            debug_nans.leaf_faults(bg.D, bg.W, *unpack_color_grid(bg)),
+            debug_nans.pose_faults(poses[1])]))
+
+    rec = {}
+    for label, fn in (("rows", rows), ("whole grid", whole)):
+        check(int(fn()) == 0, f"{name}: the clean rows break an invariant")
+        ms = cuda_time_ms(fn)
+        dms, ops = all_device_ms(fn)
+        rec[label] = dict(ms=ms, device_ms=dms, device_ops=ops)
+    n_rows = int((ids < bg.D.shape[0]).sum())
+    print(f"--debug-nans check ({name}, {n_rows} listed rows of {bg.D.shape[0]}): rows "
+          f"{rec['rows']['ms']:.4f} ms a call, device {rec['rows']['device_ms']:.4f} ms in "
+          f"{rec['rows']['device_ops']:.0f} ops; whole grid {rec['whole grid']['ms']:.4f} ms, "
+          f"device {rec['whole grid']['device_ms']:.4f} ms in "
+          f"{rec['whole grid']['device_ops']:.0f} ops")
+    del bg
+    torch.cuda.empty_cache()
+    return dict(rec, listed_rows=n_rows)
+
+
+def nan_injector(dev, at):
+    """A K2 wrapper for fusion.brickmajor that, on its ``at``-th call since
+    ``tick`` was last zeroed, writes NaN into D at the first voxel with
+    W > 0 of the rows the frame listed, by device ops only (it runs inside
+    captures and replays). Returns (wrapper, tick)."""
+    from tracking_sdf_tpu_torch.fusion import brickmajor as tbm
+
+    real = tbm.brick_fuse_rows
+    tick = torch.zeros((), dtype=torch.int64, device=dev)
+
+    def poisoned(D, W, C, ids, pix, pose, **kw):
+        real(D, W, C, ids, pix, pose, **kw)
+        tick.add_(1)
+        NB, BV = D.shape
+        rows = ids.clamp(max=NB - 1).long()  # a frame that lists nothing pads with NB
+        w = (W[rows] * (ids < NB)[:, None]).reshape(-1)
+        j = torch.argmax((w > 0).to(torch.int32)).reshape(1)  # no host read
+        flat = rows.gather(0, j // BV) * BV + j % BV
+        old = D.view(-1).gather(0, flat)
+        # only into a voxel with W > 0: a warm-up's frame lists no row
+        hit = (tick == at) & (w.gather(0, j) > 0)
+        D.view(-1).scatter_(0, flat, torch.where(hit, torch.full_like(old, float("nan")),
+                                                 old))
+
+    return poisoned, tick
+
+
+def debug_injection(cam, depths, poses, rgb, dev, mesh=None):
+    """A NaN written into a listed row where W > 0 at frame INJECT_FRAME:
+    per frame and chunked (frame 0, then one chunk of 4), tum256 on one
+    device or on ``mesh``; each must raise FloatingPointError naming it."""
+    from tracking_sdf_tpu_torch.fusion import brickmajor as tbm
+    from tracking_sdf_tpu_torch.pipeline import chunk as chunked
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+    from tracking_sdf_tpu_torch.utils import debug_nans
+
+    where = "a one-rank NCCL group" if mesh is not None else "one device"
+    cfg = path_config("tum256", None)
+    real_fuse, real_replay = tbm.brick_fuse_rows, chunked.ChunkSteps.replay
+    out = {}
+    for mode in ("per frame", "chunked"):
+        poisoned, tick = nan_injector(dev, INJECT_FRAME if mode == "per frame"
+                                      else INJECT_FRAME - 1)
+
+        def replay(self, *a, **k):
+            tick.zero_()  # the warm-up and the capture ran the step too
+            return real_replay(self, *a, **k)
+
+        kw = dict(mesh=mesh) if mesh is not None else dict(device=dev)
+        recon = Reconstruction(cam, cfg, initial_pose=poses[0], **kw)
+        recon.chunk_phase_metrics = False
+        tbm.brick_fuse_rows, chunked.ChunkSteps.replay = poisoned, replay
+        msg = None
+        try:
+            with debug_nans.switch():
+                recon.process_frame(depths[0], rgb=rgb, timestamp=0.0)
+                if mode == "per frame":
+                    for k in range(1, 5):
+                        recon.process_frame(depths[k], rgb=rgb, timestamp=float(k))
+                else:
+                    recon.process_chunk(torch.stack(depths[1:5]),
+                                        rgb.expand(4, *rgb.shape))
+        except FloatingPointError as e:
+            msg = str(e)
+        finally:
+            tbm.brick_fuse_rows, chunked.ChunkSteps.replay = real_fuse, real_replay
+        print(f"--debug-nans, a NaN injected at frame {INJECT_FRAME} ({mode}, {where}): "
+              f"{msg}")
+        check(msg is not None and f"frame {INJECT_FRAME}" in msg and "NaN in D" in msg,
+              f"--debug-nans ({mode}, {where}): the injected NaN raised {msg!r}")
+        out[mode] = msg
+        del recon
+    return out
+
+
+def library_example(work):
+    """The JAX README's library example with the port's package name and no
+    device=, on 3 frames of phase 7's sequence, in ``work`` (the preset
+    writes trajectory.txt into the working directory)."""
+    import itertools
+
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.core.camera import tum_fr1_camera
+    from tracking_sdf_tpu_torch.data.tum import TUMDataset
+    from tracking_sdf_tpu_torch.pipeline import Reconstruction
+
+    dataset = itertools.islice(TUMDataset(os.path.join(work, "seq")), 3)
+    cwd = os.getcwd()
+    os.chdir(work)
+    try:
+        t0 = time.perf_counter()
+        recon = Reconstruction(tum_fr1_camera(), preset("tum256"))
+        for frame in dataset:
+            recon.process_frame(frame.depth, frame.rgb, timestamp=frame.timestamp)
+        render = recon.render()
+        n_tri = recon.export_mesh("scene.ply")
+        recon.close()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    finally:
+        os.chdir(cwd)
+    hit = float(render.hit.float().mean())
+    print(f"library example on {recon.device}: {recon.frame_num} frames, render "
+          f"{tuple(render.depth.shape)} with {hit:.3f} hits, mesh {n_tri} triangles, "
+          f"{wall_s:.2f} s")
+    check(recon.device.type == "cuda" and recon.frame_num == 3
+          and not any(s.rejected for s in recon.stats) and hit > 0.1 and n_tri > 1000,
+          "the library example did not run on the card")
+    return dict(device=str(recon.device), frames=recon.frame_num, hit_share=hit,
+                triangles=n_tri, wall_s=wall_s)
+
+
+def surface_phase(cam, scene, depths, poses, rgb, dev, work):
+    """Phase 11; returns (its record, the float32 kernels' records, the
+    packed runs' records for the kernels' line)."""
+    import torch.distributed as dist
+
+    from tracking_sdf_tpu_torch.parallel.mesh import init_group, make_mesh
+
+    print(f"phase 11: packed, --debug-nans and the library surface on {gpu_line()}")
+    k1 = kernel_gn_f32(cam, scene, poses, rgb, dev)
+    k2 = {name: fuse_rows_compare(name, cam, scene, poses, rgb, dev, cfg=packed_config(name))
+          for name in ("tum256", "tum512")}
+    paths = packed_phase(work)
+    record = {"packed": {k: {x: v for x, v in r.items() if x != "launches"}
+                         for k, r in paths.items()}}
+    record["debug_nans"] = dict(
+        cli=debug_nans_cli(work),
+        check={name: debug_check_cost(name, cam, scene, poses, rgb, dev)
+               for name in ("tum256", "tum512")},
+        injected=debug_injection(cam, depths, poses, rgb, dev))
+    mesh = make_mesh(device=init_group(device=dev))
+    try:
+        record["debug_nans"]["injected_one_rank_nccl"] = debug_injection(
+            cam, depths, poses, rgb, dev, mesh=mesh)
+    finally:
+        dist.destroy_process_group()
+    record["library_example"] = library_example(work)
+    return record, dict(k1=k1, k2=k2), paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs "
@@ -3183,16 +3528,19 @@ def main() -> int:
 
         phase10, slab, paths["tum256_mesh"] = multi_device_phase(cam, scene, depths, poses,
                                                                  rgb, dev, work)
+        phase11, f32, packed_paths = surface_phase(cam, scene, depths, poses, rgb, dev, work)
+        paths.update(packed_paths)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
     def src(f):
         return f"tracking_sdf_tpu_torch/csrc/{f}"
 
-    def entry(name, source, replaces, path_names, per, rec):
-        """One kernel's record; launches from the named main paths, per
-        tracked (K1) or fused (K2) frame of those paths."""
-        n = sum(paths[p]["launches"][name] for p in path_names)
+    def entry(name, source, replaces, path_names, per, rec, counter=None):
+        """One kernel's record; launches (its wrapper's ``counter``, default
+        ``name``) from the named main paths, per tracked (K1) or fused (K2)
+        frame of those paths."""
+        n = sum(paths[p]["launches"][counter or name] for p in path_names)
         frames = sum(paths[p][per] for p in path_names)
         return {**dict(name=name, route="cuda", source=src(source), replaces=replaces,
                        launches=n, launches_per_frame=n / frames, library_ms=None), **rec}
@@ -3236,10 +3584,21 @@ def main() -> int:
         entry("brick_fuse_rows_slab", "brick_fuse.cu", merge_tpu, ("tum256_mesh",), "fused",
               dict(slab["k2"]["tum256"], tum512=slab["k2"]["tum512"],
                    max_abs_err=max(r["max_abs_err"] for r in slab["k2"].values()))),
+        # the packed runs' rows are float32: every launch of theirs is this form
+        entry("gn_step_brick_f32", "gn_reduce.cu", gn_tpu, tuple(packed_paths), "tracked",
+              f32["k1"], counter="gn_step_brick"),
+        entry("brick_fuse_rows_f32", "brick_fuse.cu", merge_tpu, tuple(packed_paths), "fused",
+              dict(f32["k2"]["tum256"][True], tum256_geometry=f32["k2"]["tum256"][False],
+                   tum512_color=f32["k2"]["tum512"][True],
+                   tum512_geometry=f32["k2"]["tum512"][False],
+                   max_abs_err=max(r["max_abs_err"] for k in f32["k2"].values()
+                                   for r in k.values())),
+              counter="brick_fuse_rows"),
     ]
     print(json.dumps({"phase8": phase8}))
     print(json.dumps({"phase9": phase9}))
     print(json.dumps({"phase10": phase10}))
+    print(json.dumps({"phase11": phase11}))
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """The port's CLI in its other modes, on the CPU: scene families, frame
 subsampling, the synthetic orbit, realtime pacing, checkpoint and resume,
-profiling, the flags of parts not ported, its parser against the JAX
+profiling, a mode that is not run, its parser against the JAX
 package's, and the device rule. Sizes and the m=96 configuration are those of
 tests/test_torch_cli.py; ATE bounds are its 0.05 m (half a 62 mm voxel and
 far under the centimetres a lost tracker shows).
@@ -130,25 +130,6 @@ def test_config_overrides(sequence, tmp_path, monkeypatch):  # noqa: F811
         512, 300, 3, None, "point_to_point", 4, False, "bfloat16", "float32")
 
 
-UNPORTED_ARGS = {
-    "debug_nans": ["--debug-nans"], "fusion_packed": ["--fusion-mode", "packed"],
-}
-
-
-@pytest.mark.parametrize("flag", sorted(UNPORTED_ARGS))
-def test_unported_flag_exits_2(flag, sequence, tmp_path, monkeypatch, capsys):  # noqa: F811
-    """A flag of a part not ported yet: exit code 2, one line that names the
-    flag and its ROADMAP item, nothing run and nothing written."""
-    root, _ = sequence
-    traj = tmp_path / "t.txt"
-    rc = cli.main(["--dataset", root, "--cpu", "--trajectory", str(traj)] + UNPORTED_ARGS[flag])
-    err = capsys.readouterr().err.strip()
-    assert rc == 2 and len(err.splitlines()) == 1
-    assert UNPORTED_ARGS[flag][0] in err and "ROADMAP" in err
-    assert not traj.exists()
-    assert set(cli.UNPORTED) | {"fusion_packed"} == set(UNPORTED_ARGS)
-
-
 def _free_port() -> int:
     import socket
 
@@ -226,18 +207,20 @@ def test_preset_synthetic64_runs(tmp_path, capsys):
 
 
 def test_preset_with_unported_mode_exits_2(tmp_path, monkeypatch, capsys):
-    """A preset whose own modes are not ported exits 2 with one line that
-    names the ROADMAP item, and no traceback."""
+    """A preset whose modes the port does not run together (the central
+    Jacobian under a mesh, which the JAX package's sharded tracker refuses
+    too) exits 2 with one line that names the mode, and no traceback."""
     from tracking_sdf_tpu_torch import config
 
     base = config.preset("synthetic64")
     monkeypatch.setattr(config, "preset", lambda name: dataclasses.replace(
-        base, fusion=base.fusion._replace(mode="packed")))
+        base, tracking=base.tracking._replace(jacobian="central")))
     traj = tmp_path / "t.txt"
-    rc = cli.main(["--synthetic", "--frames", "2", "--cpu", "--trajectory", str(traj)])
+    rc = cli.main(["--synthetic", "--frames", "2", "--cpu", "--distributed",
+                   "--trajectory", str(traj)])
     err = capsys.readouterr().err.strip()
     assert rc == 2 and len(err.splitlines()) == 1
-    assert "packed" in err and "ROADMAP" in err and "Traceback" not in err
+    assert "central" in err and "not ported" in err and "Traceback" not in err
     assert not traj.exists()
 
 

@@ -713,3 +713,174 @@ class _Union:
             tb = s.intersect(o, d)
             t = torch.where(torch.isnan(t), tb, torch.where(torch.isnan(tb), t, torch.minimum(t, tb)))
         return t
+
+
+def test_brick_fuse_rows_f32_on_tum256_real_lists(dev):
+    """K2 on float32 rows (what fusion.mode="packed" runs) at the tum256
+    preset's width: rows fused from a first 640x480 frame, then the second
+    frame's real FULL and FREE lists, geometry and color, bitwise against
+    the plain version."""
+    import dataclasses
+
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.core.camera import ros_default_camera
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        empty_brick_grid, fuse_frame_brickmajor)
+    from tracking_sdf_tpu_torch.pipeline.runner import packed_fusion_config
+
+    cfg = preset("tum256")
+    cfg = packed_fusion_config(dataclasses.replace(
+        cfg, fusion=cfg.fusion._replace(mode="packed")))
+    f, p = cfg.fusion, cfg.grid
+    cam = ros_default_camera()
+    poses = [look_at(e, (0.0, 0.0, 0.0), device=dev) for e in
+             ((0.3, -2.4, 0.15), (0.32, -2.39, 0.16))]
+    frames = [_scene_points(cam, pose) for pose in poses]
+    bg = empty_brick_grid(p, f.brick_shape, device=dev)
+    assert bg.D.dtype == bg.W.dtype == torch.float32
+    rgb = torch.full((cam.height, cam.width, 3), 0.5, device=dev)
+    fuse_frame_brickmajor(bg, poses[0], *frames[0], rgb, params=p, cam=cam, cfg=f,
+                          bs=f.brick_shape, cap=f.brick_cap, cap_free=f.brick_cap_free)
+    pts, nrm = frames[1]
+    ids, _ = classify_compact_rows(p, poses[1], pts, nrm, cam=cam, cfg=f, bs=f.brick_shape,
+                                   cap=f.brick_cap, cap_free=f.brick_cap_free)
+    NB = bg.D.shape[0]
+    assert int((ids[:f.brick_cap] < NB).sum()) > 100 and int((ids[f.brick_cap:] < NB).sum()) > 0
+    for color in (False, True):
+        pix = _pixel_table(pts, nrm, rgb if color else None, color, f.distance)
+        lk = [x.clone() for x in (bg.D, bg.W, bg.C)]
+        lr = [x.clone() for x in lk]
+        kw = dict(cap=f.brick_cap, hw=(cam.height, cam.width), params=p, cam=cam, cfg=f,
+                  bs=f.brick_shape)
+        before = brick_fuse.launches
+        brick_fuse.brick_fuse_rows(*lk, ids, pix, poses[1], **kw)
+        brick_fuse.brick_fuse_rows_reference(*lr, ids, pix, poses[1], **kw)
+        assert brick_fuse.launches == before + 1
+        for a, b in zip(lk[:2], lr[:2]):
+            nan = torch.isnan(b)
+            assert torch.equal(torch.isnan(a), nan)
+            assert torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+        assert torch.equal(lk[2], lr[2]) and torch.equal(lk[2], bg.C) != color
+        assert not torch.equal(lk[1], bg.W)
+
+
+def _small_config(mode, m=48):
+    import dataclasses
+
+    from tracking_sdf_tpu_torch.config import preset
+
+    cfg = preset("tum256")
+    nb = (m // 8) ** 3
+    return dataclasses.replace(
+        cfg, grid=GridParams(m=m, width=2.0, height=2.0, depth=2.0,
+                             origin=(-1.0, -1.0, -1.0), delta=0.15, epsilon=0.02),
+        trajectory_path=None,
+        fusion=cfg.fusion._replace(mode=mode, brick_cap=4 * nb, brick_cap_free=nb))
+
+
+def _small_frames(dev, n=4):
+    cam = PinholeCamera(fx=60.0, fy=60.0, cx=47.5, cy=35.5, width=96, height=72)
+    scene = _Union(SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
+                   CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)),
+                   CuboidScene(min_corner=(-4.0, 0.8, -4.0), max_corner=(4.0, 1.2, 4.0)))
+    eyes = [(0.02 * i, -2.4, 0.2 + 0.01 * i) for i in range(n)]
+    depths = torch.stack([render_scene_depth(scene, cam, look_at(e, (0, 0, 0), device="cpu"))
+                          for e in eyes]).to(dev)
+    return cam, depths, look_at(eyes[0], (0, 0, 0), device=dev)
+
+
+def test_packed_loop_on_the_card_matches_cpu(dev):
+    """fusion.mode="packed" at 48^3: float32 rows on the card, K1's brick
+    float32 step and K2 on float32 rows launched, against the same loop on
+    the CPU: poses within 1e-4 and equal GN iterations, as smoke phase 4
+    holds the other layouts, and W > 0 on the same voxels. The tracked poses
+    differ by float rounding (K1 sums in another order; ~3e-6 m), which
+    moves a voxel that projects next to a pixel boundary onto the other
+    pixel: at most 1% of the observed voxels may differ by more than 1e-4 in
+    D or 1e-4 relative in W, and D by at most 2e-3 (smoke phase 4's bf16
+    bar) anywhere."""
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    cfg = _small_config("packed")
+    cam, depths, p0 = _small_frames(dev)
+    rgb = torch.full((72, 96, 3), 0.5, device=dev)
+    runs = []
+    for d in ("cpu", dev):
+        r = Reconstruction(cam, cfg, device=d, initial_pose=p0.to(d))
+        before = (k1.launches_step_brick, brick_fuse.launches)
+        for i in range(depths.shape[0]):
+            r.process_frame(depths[i].to(d), rgb.to(d), timestamp=float(i))
+        runs.append((r, k1.launches_step_brick - before[0], brick_fuse.launches - before[1]))
+    (a, sa, fa), (b, sb, fb) = runs
+    assert b.packed and b.brick_grid.D.dtype == torch.float32
+    assert (sa, fa) == (0, 0) and sb > 0 and fb == depths.shape[0], (sa, fa, sb, fb)
+    dt = float((a.pose.t - b.pose.t.cpu()).abs().max())
+    iters = ([s.gn_iterations for s in a.stats], [s.gn_iterations for s in b.stats])
+    ga, gb = a.grid, b.grid
+    seen, seen_b = ga.W > 0, gb.W.cpu() > 0
+    both = seen & seen_b
+    dD = (ga.D - gb.D.cpu()).abs()
+    dW = (ga.W - gb.W.cpu()).abs() / ga.W.clamp(min=1.0)
+    share = float(((dD > 1e-4) | (dW > 1e-4))[both].float().mean())
+    report = (f"pose |dt| {dt:.3e}, GN iterations {iters}; W > 0 masks differ on "
+              f"{int((seen != seen_b).sum())} voxels, {share:.2e} of the observed past 1e-4, "
+              f"max |dD| {float(dD[both].max()):.3e}, max |dW|/max(W, 1) "
+              f"{float(dW.max()):.3e}")
+    print(report)
+    assert dt < 1e-4 and iters[0] == iters[1] and seen.sum() > 1000, report
+    assert torch.equal(seen, seen_b) and share <= 1e-2 and float(dD[both].max()) <= 2e-3, report
+
+
+def test_debug_nans_inside_a_captured_chunk_raises_after_the_replay(dev, monkeypatch):
+    """--debug-nans on the card: a clean chunk (CUDA-graph replays under the
+    no-sync guard) with the switch on equals one with it off bit for bit;
+    a NaN written by device ops into a listed row where W > 0 at the chunk's
+    second frame raises FloatingPointError naming that frame, after the
+    replays' one read."""
+    from tracking_sdf_tpu_torch.fusion import brickmajor as tbm
+    from tracking_sdf_tpu_torch.pipeline import chunk as chunked
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+    from tracking_sdf_tpu_torch.utils import debug_nans
+
+    cfg = _small_config("brickmajor")
+    cam, depths, p0 = _small_frames(dev, n=5)
+
+    def run(on):
+        r = Reconstruction(cam, cfg, device=dev, initial_pose=p0)
+        r.chunk_phase_metrics = False
+        with debug_nans.switch(on):
+            r.process_frame(depths[0], timestamp=0.0)
+            r.process_chunk(depths[1:])
+        return r
+
+    off, on = run(False), run(True)
+    assert all(torch.equal(getattr(off.brick_grid, k).view(torch.int16),
+                           getattr(on.brick_grid, k).view(torch.int16)) for k in "DWC")
+    assert torch.equal(off.pose.t, on.pose.t)
+
+    real, tick = tbm.brick_fuse_rows, torch.zeros((), dtype=torch.int64, device=dev)
+
+    def poisoned(D, W, C, ids, pix, pose, **kw):
+        real(D, W, C, ids, pix, pose, **kw)
+        tick.add_(1)
+        NB, BV = D.shape
+        rows = ids.clamp(max=NB - 1).long()  # a frame that lists nothing pads with NB
+        w = (W[rows] * (ids < NB)[:, None]).reshape(-1)
+        j = torch.argmax((w > 0).to(torch.int32)).reshape(1)  # no host read
+        flat = rows.gather(0, j // BV) * BV + j % BV
+        old = D.view(-1).gather(0, flat)
+        # only into a voxel with W > 0: a warm-up's frame lists no row
+        hit = (tick == 2) & (w.gather(0, j) > 0)
+        D.view(-1).scatter_(0, flat, torch.where(hit, torch.full_like(old, float("nan")),
+                                                 old))
+
+    replay = chunked.ChunkSteps.replay
+
+    def counted(self, *a, **k):
+        tick.zero_()  # the warm-up and the capture ran the step too
+        return replay(self, *a, **k)
+
+    monkeypatch.setattr(tbm, "brick_fuse_rows", poisoned)
+    monkeypatch.setattr(chunked.ChunkSteps, "replay", counted)
+    with pytest.raises(FloatingPointError, match=r"frame 3 \(chunk of 4\).*NaN in D"):
+        run(True)

@@ -56,9 +56,10 @@ from tracking_sdf_tpu_torch.data.synthetic import (
 from tracking_sdf_tpu_torch.grid.grid import FIELDS, grid_from_numpy, world_to_voxel
 from tracking_sdf_tpu_torch.grid.interp import masked_view
 from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
-from tracking_sdf_tpu_torch.render import raycast as traycast
 
 jraycast = importlib.import_module("tracking_sdf_tpu.render.raycast")
+# the module: the package attribute of this name is the function
+traycast = importlib.import_module("tracking_sdf_tpu_torch.render.raycast")
 torch.set_num_threads(2)
 
 KW = dict(m=64, width=2.0, height=2.0, depth=2.0, origin=(-1.0, -1.0, -1.0), delta=0.1,

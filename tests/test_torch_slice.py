@@ -170,13 +170,15 @@ def test_preset_mean_residual_matches_jax(tmp_path, name, m, fusion):
     assert all(f["st"].mean_abs_residual > 0 for f in run["frames"][1:])
 
 
-@pytest.mark.parametrize("fusion", [{"mode": "packed"}], ids=["packed"])
-def test_unported_modes_raise(fusion):
+@pytest.mark.parametrize("tracking", [{"jacobian": "central"}], ids=["central_under_a_mesh"])
+def test_unported_modes_raise(tracking):
+    """The one combination the port refuses, as the JAX package's sharded
+    tracker does: it raises before the mesh is touched."""
     cfg = preset("tum256")
     cfg = dataclasses.replace(cfg, trajectory_path=None,
-                              fusion=cfg.fusion._replace(**fusion))
-    with pytest.raises(NotImplementedError):
-        Reconstruction(CAM, cfg, device="cpu")
+                              tracking=cfg.tracking._replace(**tracking))
+    with pytest.raises(NotImplementedError, match="central"):
+        Reconstruction(CAM, cfg, mesh=object())
 
 
 def slice_config(trajectory_path, brick_merge="pallas", pose_init="previous"):
@@ -263,15 +265,17 @@ def test_port_runs_without_jax(tmp_path):
     """Two frames through the port on the CPU in a fresh interpreter, a render
     and a mesh of them, then a sequence written by its generator and replayed
     through its CLI (native loader, chunked, checkpointed, evaluated, meshed
-    live and at the end, rendered): the interpreter must never load jax, any
+    live and at the end, rendered), then every lazy subpackage of the
+    package imported: the interpreter must never load jax, any
     module of the JAX package, or PIL (the test process itself has them
     loaded)."""
     script = textwrap.dedent(f"""
-        import dataclasses, sys
+        import dataclasses, importlib, sys
         import torch
         from tracking_sdf_tpu_torch.config import GridParams, preset
         from tracking_sdf_tpu_torch.pipeline import visualizer
-        from tracking_sdf_tpu_torch.render import image_io, marching_cubes, raycast
+        for name in ("image_io", "marching_cubes", "raycast"):  # the modules
+            importlib.import_module("tracking_sdf_tpu_torch.render." + name)
         from tracking_sdf_tpu_torch.core.camera import PinholeCamera
         from tracking_sdf_tpu_torch.data.synthetic import SphereScene, look_at, render_scene_depth
         from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
@@ -315,6 +319,9 @@ def test_port_runs_without_jax(tmp_path):
                          "--render", {str(tmp_path / "cli.png")!r},
                          "--trajectory", {str(tmp_path / "cli.txt")!r}]) == 0
         assert len(open({str(tmp_path / "cli.txt")!r}).readlines()) >= 1
+        import tracking_sdf_tpu_torch as port
+        for name in port._SUBMODULES:  # every lazy subpackage and its exports
+            assert getattr(port, name).__name__ == "tracking_sdf_tpu_torch." + name
         assert "jax" not in sys.modules, sorted(m for m in sys.modules if "jax" in m)
         assert "PIL" not in sys.modules
         jax_pkg = sorted(m for m in sys.modules

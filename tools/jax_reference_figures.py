@@ -8,7 +8,7 @@ run on the CPU), so that both packages read the same files.
 
     python3 tools/jax_reference_figures.py [FIGURE ...] [--work DIR] [--frames N]
 
-Figures (all by default):
+Figures (all but tum512_packed by default):
   synthetic64     the JAX README's first command, --preset synthetic64
                   --synthetic --frames 20 --mesh P --eval --json: ATE (mm)
   tum128_bench    the tum128 preset per frame on bench.py's scene and
@@ -19,6 +19,11 @@ Figures (all by default):
                   the generated tabletop sequence: ATE (mm)
   tum256_dense    --preset tum256 --fusion-mode dense over the same
                   sequence (its first --frames frames): ATE (mm)
+  tum256_packed, tum512_packed
+                  --preset P --fusion-mode packed over the same sequence,
+                  per frame: ATE (mm). tum512_packed holds a 3.2 GB float32
+                  grid (and XLA's copies of it): run it only where the CPU
+                  has the memory
   tum256_sharded_bench, tum512_sharded_bench
                   the preset on a 2-device mesh (Reconstruction(mesh=...),
                   the JAX package's sharded path: no pyramid, caps per
@@ -44,7 +49,9 @@ import time
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FIGURES = ("synthetic64", "tum128_bench", "central_bench", "tum128_dataset", "tum256_dense",
-           "tum256_sharded_bench", "tum512_sharded_bench", "tum256_sharded_dataset")
+           "tum256_sharded_bench", "tum512_sharded_bench", "tum256_sharded_dataset",
+           "tum256_packed", "tum512_packed")
+DEFAULT_FIGURES = FIGURES[:-1]  # all but tum512_packed
 SHARDED_DEVICES = 2
 
 
@@ -147,11 +154,10 @@ def figure(name: str, work: str, frames: int) -> dict:
     else:
         root = sequence(work)
         _jax_cpu()
-        argv = ["--preset", "tum128" if name == "tum128_dataset" else "tum256",
-                "--dataset", root, "--native-loader", "--frames", str(frames),
-                "--trajectory", os.path.join(work, f"{name}.txt")]
-        if name == "tum256_dense":
-            argv += ["--fusion-mode", "dense"]
+        argv = ["--preset", name.split("_")[0], "--dataset", root, "--native-loader",
+                "--frames", str(frames), "--trajectory", os.path.join(work, f"{name}.txt")]
+        if name in ("tum256_dense", "tum256_packed", "tum512_packed"):
+            argv += ["--fusion-mode", name.split("_")[1]]
         if name == "tum256_sharded_dataset":
             argv += ["--distributed"]
         s = _cli(argv)
@@ -162,7 +168,8 @@ def figure(name: str, work: str, frames: int) -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("figures", nargs="*", help=f"any of {', '.join(FIGURES)}")
+    ap.add_argument("figures", nargs="*", help=f"any of {', '.join(FIGURES)} (default: all "
+                                                  "but tum512_packed)")
     ap.add_argument("--work", default=os.path.join(REPO, "build", "jax_figures"))
     ap.add_argument("--frames", type=int, default=120,
                     help="frames of the generated sequence the dataset figures run")
@@ -172,12 +179,12 @@ def main() -> int:
         ap.error(f"unknown figures {sorted(bad)}")
     os.makedirs(args.work, exist_ok=True)
     sys.path.insert(0, REPO)
-    if any("sharded" in f for f in args.figures or FIGURES):
+    if any("sharded" in f for f in args.figures or DEFAULT_FIGURES):
         os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") + " --xla_force_host_"
                                    f"platform_device_count={SHARDED_DEVICES}").strip()
     import jax
 
-    for name in args.figures or FIGURES:
+    for name in args.figures or DEFAULT_FIGURES:
         print(json.dumps(dict(figure(name, args.work, args.frames), jax=jax.__version__)),
               flush=True)
     return 0

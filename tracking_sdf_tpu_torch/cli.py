@@ -23,8 +23,9 @@ serves ranks with a GPU each, Gloo the CPU and ranks that share one GPU.
 Every rank runs the same command (its own ``--trajectory``); rank 0 writes
 the mesh, the render and the checkpoint.
 
-Flags of parts that are not ported yet exit with code 2 and name the
-ROADMAP item that will bring them (``UNPORTED``); none is ignored.
+``--debug-nans`` checks the grid's and the pose's invariants after every
+frame on the device (utils.debug_nans) and raises FloatingPointError at the
+first frame that breaks one.
 """
 from __future__ import annotations
 
@@ -35,13 +36,6 @@ import json
 import math
 import sys
 import time
-
-# flag (as argparse stores it) -> the ROADMAP item that ports it
-UNPORTED = {
-    "debug_nans": "queue 1 #8, --debug-nans",
-}
-UNPORTED_FUSION_MODES = {"packed": "queue 1, not to port (a measured negative); "
-                                   "under --distributed it runs as sharded bricked"}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -91,7 +85,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--mesh-async voxel decimation (0 = auto: 4 at 512^3, "
                         "2 at 256^3, else 1)")
     p.add_argument("--debug-nans", action="store_true",
-                   help="(not ported yet) fail at the op that produced a NaN")
+                   help="check the grid's and the pose's invariants after every "
+                        "frame on the device (no NaN in D where W > 0, finite "
+                        "weights, colors and pose) and raise FloatingPointError "
+                        "at the first frame that breaks one")
     p.add_argument("--eval", action="store_true",
                    help="print ATE RMSE vs the dataset's groundtruth.txt")
     p.add_argument("--groundtruth-poses", action="store_true",
@@ -119,8 +116,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fusion-mode",
                    choices=("dense", "bricked", "brickmajor", "packed"),
                    default=None,
-                   help="override the preset's fusion path (packed is "
-                        "not ported)")
+                   help="override the preset's fusion path (packed: "
+                        "brick-major on float32 rows, per frame)")
     p.add_argument("--distance", choices=("point_to_plane", "point_to_point"),
                    default=None, help="fusion distance")
     p.add_argument("--storage-dtype", choices=("float32", "bfloat16"), default=None,
@@ -165,26 +162,12 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _unported(args, parser) -> list:
-    """One line per flag set that belongs to a part not ported yet."""
-    lines = [f"--{dest.replace('_', '-')} is not ported yet (ROADMAP {item})"
-             for dest, item in UNPORTED.items()
-             if getattr(args, dest) != parser.get_default(dest)]
-    if args.fusion_mode in UNPORTED_FUSION_MODES and not args.distributed:
-        lines.append(f"--fusion-mode {args.fusion_mode} is not ported (ROADMAP "
-                     f"{UNPORTED_FUSION_MODES[args.fusion_mode]})")
-    return lines
-
-
 def main(argv=None) -> int:
-    parser = build_parser()
-    args = parser.parse_args(argv)
-    refused = _unported(args, parser)
-    if refused:
-        print("error: " + "; ".join(refused), file=sys.stderr)
-        return 2
+    args = build_parser().parse_args(argv)
 
     import torch
+
+    from tracking_sdf_tpu_torch.utils import debug_nans
 
     if args.cpu:
         device = "cpu"
@@ -203,7 +186,9 @@ def main(argv=None) -> int:
                             process_id=args.process_id, multihost=args.multihost)
         group = make_mesh(device=device)
     try:
-        return _run(args, device, group)
+        # the JAX flag sets a process-wide switch; this one holds for the run
+        with debug_nans.switch(args.debug_nans):
+            return _run(args, device, group)
     finally:
         if group is not None:
             import torch.distributed as dist
@@ -239,7 +224,7 @@ def _run(args, device, group) -> int:
     if args.fusion_mode:
         switched = args.fusion_mode != cfg.fusion.mode
         fusion = fusion._replace(mode=args.fusion_mode)
-        if args.fusion_mode == "brickmajor" and switched and cfg.grid.m % 8 == 0:
+        if args.fusion_mode in ("brickmajor", "packed") and switched and cfg.grid.m % 8 == 0:
             # a preset of another layout carries that layout's brick shape
             fusion = fusion._replace(brick_shape=(8, 8, 8))
     if args.storage_dtype:

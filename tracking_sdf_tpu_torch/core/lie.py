@@ -37,6 +37,11 @@ def pose_to_numpy(p: Pose):
     return p.R.detach().cpu().numpy(), p.t.detach().cpu().numpy()
 
 
+def pose_identity(dtype=torch.float32, *, device) -> Pose:
+    return Pose(torch.eye(3, dtype=dtype, device=device),
+                torch.zeros(3, dtype=dtype, device=device))
+
+
 def pose_inverse(p: Pose) -> Pose:
     Rt = p.R.transpose(-1, -2)
     return Pose(Rt, -(Rt @ p.t[..., None])[..., 0])

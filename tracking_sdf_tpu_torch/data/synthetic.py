@@ -5,6 +5,7 @@ from __future__ import annotations
 
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from tracking_sdf_tpu_torch.config import GridParams
@@ -124,3 +125,15 @@ def look_at(eye, target, up=(0.0, 0.0, 1.0), *, device) -> Pose:
     x = x / torch.linalg.norm(x)
     y = torch.linalg.cross(f, x)
     return Pose(torch.stack([x, y, f], dim=-1), eye)
+
+
+def orbit_poses(n: int, radius: float, height: float, target=(0.0, 0.0, 0.0),
+                arc: float = 2.0 * 3.14159265358979, *, device) -> list:
+    """``n`` poses orbiting ``target`` on a circle of ``radius`` at ``height``
+    above it, each looking at it: a trajectory with exact groundtruth."""
+    poses = []
+    for ang in np.linspace(0.0, arc, n, endpoint=False):
+        eye = (target[0] + radius * np.cos(ang), target[1] + radius * np.sin(ang),
+               target[2] + height)
+        poses.append(look_at(eye, target, device=device))
+    return poses

@@ -45,6 +45,7 @@ from tracking_sdf_tpu_torch.fusion.brick import (
 from tracking_sdf_tpu_torch.fusion.brick_fuse import brick_fuse_rows
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
 from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView
+from tracking_sdf_tpu_torch.utils import debug_nans
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -266,6 +267,7 @@ def fuse_frame_brickmajor_core(
     sat: Optional[torch.Tensor] = None,
     i_offset: int = 0,
     nbi_local: Optional[int] = None,
+    debug: bool = False,
 ) -> torch.Tensor:
     """Fuse one frame into ``bgrid`` in place and read nothing back: the one
     place that owns the sequence classify_compact_rows -> _pixel_table ->
@@ -283,7 +285,9 @@ def fuse_frame_brickmajor_core(
     n_free, FREE bricks dropped, mixed super-bricks dropped), the bricks set
     in ``sat`` after the frame (0 without it) and the FULL bricks dropped;
     ``fuse_stats`` reads them, and a sum of several slabs' counts is the
-    counts of their union. An all-NaN frame leaves the rows bitwise
+    counts of their union. ``debug`` (--debug-nans) appends the four
+    invariant counts of utils.debug_nans over the rows the frame listed and
+    ``pose`` (it only reads). An all-NaN frame leaves the rows bitwise
     unchanged."""
     m = params.m
     bi, bj, bk = bs
@@ -304,7 +308,22 @@ def fuse_frame_brickmajor_core(
                     hw=tuple(points_cam.shape[:2]), params=params, cam=cam, cfg=cfg,
                     bs=bs, sat=sat, i_offset=i_offset, nbi=nbi_local)
     n_sat = counts[:1] * 0 if sat is None else sat.sum()[None]
-    return torch.cat([counts, n_sat, torch.clamp(counts[:1] - cap, min=0)])
+    out = [counts, n_sat, torch.clamp(counts[:1] - cap, min=0)]
+    if debug:  # the FULL and FREE rows are the only ones K2 wrote
+        out.append(row_faults(bgrid, ids, pose))
+    return torch.cat(out)
+
+
+def row_faults(bgrid: BrickGrid, ids: torch.Tensor, pose: Pose) -> torch.Tensor:
+    """--debug-nans over the rows a frame listed: (4,) int64 on the device,
+    utils.debug_nans' leaf counts over the rows ``ids`` (padded with NB)
+    then the pose's."""
+    NB, BV = bgrid.D.shape
+    rows = ids.clamp(max=NB - 1).long()
+    R, G, B, Wc = unpack_color(bgrid.C[rows], bgrid.D.dtype, bgrid.W.dtype, BV)
+    return torch.cat([debug_nans.leaf_faults(bgrid.D[rows], bgrid.W[rows], R, G, B, Wc,
+                                             (ids < NB)[:, None]),
+                      debug_nans.pose_faults(pose)])
 
 
 # fuse_frame_brickmajor_core's counts

@@ -69,23 +69,22 @@ def pixel_channels(points_cam, normals_cam, rgb, cfg: FusionConfig) -> torch.Ten
     return torch.stack(channels, dim=-1).reshape(h * w_img, -1)
 
 
-def fuse_frame(
+def fuse_voxels(
     grid: TSDFGrid,
     pose: Pose,
-    points_cam: torch.Tensor,  # (H, W, 3) organized camera-frame points
-    normals_cam: torch.Tensor,  # (H, W, 3) normals toward the camera
-    rgb: Optional[torch.Tensor],  # (H, W, 3) in [0, 1], or None
+    pix: torch.Tensor,  # (H*W, C) from pixel_channels
+    image_hw: tuple,
     *,
     params: GridParams,
     cam: PinholeCamera,
-    cfg: FusionConfig = FusionConfig(),
+    cfg: FusionConfig,
     i_offset: int = 0,
 ) -> TSDFGrid:
-    """Fuse one frame; returns a new grid. ``grid`` may be an i-slab of
-    (mi, m, m) leaves whose first plane is global voxel i = ``i_offset``
-    (parallel.sharded)."""
-    pix = pixel_channels(points_cam, normals_cam, rgb, cfg)
-    h, w_img = points_cam.shape[:2]
+    """The per-voxel fusion pass over a (mi, m, m) grid slab whose first
+    plane is global voxel i = ``i_offset``: each voxel projects into the
+    image, reads its pixel's row of ``pix`` and folds it into the running
+    weighted means. Returns a new grid."""
+    h, w_img = image_hw
     x, y, z = voxel_centers_world(params, device=grid.D.device, i_offset=i_offset,
                                   mi=grid.D.shape[0])
     px, py, pz = world_to_camera_components(pose, x, y, z)
@@ -135,3 +134,32 @@ def fuse_frame(
     else:
         Wc_new, R_new, G_new, B_new = grid.Wc, grid.R, grid.G, grid.B
     return TSDFGrid(D=D_new, W=W_new, R=R_new, G=G_new, B=B_new, Wc=Wc_new)
+
+
+def fuse_frame(
+    grid: TSDFGrid,
+    pose: Pose,
+    points_cam: torch.Tensor,  # (H, W, 3) organized camera-frame points
+    normals_cam: torch.Tensor,  # (H, W, 3) normals toward the camera
+    rgb: Optional[torch.Tensor],  # (H, W, 3) in [0, 1], or None
+    *,
+    params: GridParams,
+    cam: PinholeCamera,
+    cfg: FusionConfig = FusionConfig(),
+    i_offset: int = 0,
+) -> TSDFGrid:
+    """Fuse one frame; returns a new grid. ``grid`` may be an i-slab of
+    (mi, m, m) leaves whose first plane is global voxel i = ``i_offset``
+    (parallel.sharded)."""
+    pix = pixel_channels(points_cam, normals_cam, rgb, cfg)
+    return fuse_voxels(grid, pose, pix, points_cam.shape[:2], params=params, cam=cam,
+                       cfg=cfg, i_offset=i_offset)
+
+
+def make_fuse_fn(params: GridParams, cam: PinholeCamera, cfg: FusionConfig):
+    """fuse_frame with ``params``, ``cam`` and ``cfg`` bound:
+    fn(grid, pose, points_cam, normals_cam, rgb=None) -> grid."""
+    def fn(grid, pose, points_cam, normals_cam, rgb=None):
+        return fuse_frame(grid, pose, points_cam, normals_cam, rgb, params=params,
+                          cam=cam, cfg=cfg)
+    return fn

@@ -193,12 +193,13 @@ def sharded_fuse_frame_bricked(mesh: Mesh, *, params: GridParams, cam: PinholeCa
 def fuse_brickmajor_slab(bgrid: BrickGrid, pose: Pose, points, normals, rgb, *,
                          i0: int, slab: int, params: GridParams, cam: PinholeCamera,
                          cfg: FusionConfig, bs, cap: int,
-                         cap_free: Optional[int] = None) -> torch.Tensor:
+                         cap_free: Optional[int] = None, debug: bool = False) -> torch.Tensor:
     """Brick-major fusion of one rank's rows (the slab of ``slab`` planes at
-    global i0), K2's slab form; returns its (6,) device counts."""
+    global i0), K2's slab form; returns its (6,) device counts (10 with
+    ``debug``: the invariant counts of the rows it wrote)."""
     return fuse_frame_brickmajor_core(bgrid, pose, points, normals, rgb, params=params,
                                       cam=cam, cfg=cfg, bs=bs, cap=cap, cap_free=cap_free,
-                                      i_offset=i0, nbi_local=slab // bs[0])
+                                      i_offset=i0, nbi_local=slab // bs[0], debug=debug)
 
 
 def sharded_fuse_frame_brickmajor(mesh: Mesh, *, params: GridParams, cam: PinholeCamera,
@@ -210,15 +211,19 @@ def sharded_fuse_frame_brickmajor(mesh: Mesh, *, params: GridParams, cam: Pinhol
     this rank's rows in place (K2's slab form), then the counts' all_reduce
     and one host read. ``emit_dm``: also this rank's dense (slab, m, m)
     masked view for ``sharded_track_frame_masked``. ``fn.core`` is the same
-    fusion returning the summed (6,) device counts, with no host read.
-    ``cap`` / ``cap_free`` are per rank (default max(256, cap // n))."""
+    fusion returning the summed (6,) device counts, with no host read (with
+    ``debug`` also the invariant counts, in the same all_reduce, so that
+    every rank sees every rank's faults). ``cap`` / ``cap_free`` are per
+    rank (default max(256, cap // n))."""
     slab, bs, cap = slab_caps(mesh, params, cfg, bs, cap)
     cap_free = cap_free if cap_free is not None else cap
 
-    def core(bgrid: BrickGrid, pose: Pose, points, normals, rgb=None) -> torch.Tensor:
+    def core(bgrid: BrickGrid, pose: Pose, points, normals, rgb=None,
+             debug: bool = False) -> torch.Tensor:
         counts = fuse_brickmajor_slab(bgrid, pose, points, normals, rgb,
                                       i0=mesh.i0(params.m), slab=slab, params=params,
-                                      cam=cam, cfg=cfg, bs=bs, cap=cap, cap_free=cap_free)
+                                      cam=cam, cfg=cfg, bs=bs, cap=cap, cap_free=cap_free,
+                                      debug=debug)
         return mesh.all_reduce_(counts)
 
     def fn(bgrid: BrickGrid, pose: Pose, points, normals, rgb=None):

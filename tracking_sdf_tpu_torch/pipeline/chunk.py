@@ -56,12 +56,15 @@ from tracking_sdf_tpu_torch.fusion import brick_fuse, brick_merge
 from tracking_sdf_tpu_torch.fusion.brickmajor import BrickGrid
 from tracking_sdf_tpu_torch.tracking import gn_reduce
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+from tracking_sdf_tpu_torch.utils import debug_nans
 
 # A frame's record (float32; the counts are exact): R (9), t (3), GN
-# iterations, num_valid, mean |residual|, rejected, then fusion's six
-# counts (fusion.brickmajor.COUNTS).
+# iterations, num_valid, mean |residual|, rejected, fusion's six counts
+# (fusion.brickmajor.COUNTS), then under --debug-nans the invariants' fault
+# code (utils.debug_nans) as the bits of an int32 (0 without the switch).
 REC_R, REC_T, REC_ITERS, REC_NVALID, REC_MRES, REC_REJ, REC_COUNTS = 0, 9, 12, 13, 14, 15, 16
-REC = 22
+REC_FAULT = 22
+REC = 23
 
 # held by a capture and by a chunk's replays; see the module docstring
 DEVICE_LOCK = threading.RLock()
@@ -123,6 +126,7 @@ class ChunkSteps:
         self._steps: Dict[tuple, Callable[[], None]] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self.capture_ms: Dict[tuple, float] = {}  # per captured variant
+        self.debug = False  # the --debug-nans switch of the prepared steps
         self.calibration_ms: List[float] = []  # per calibration
 
     # --- one frame --------------------------------------------------------
@@ -139,10 +143,12 @@ class ChunkSteps:
         return preprocess_frame(depth, cam=self.recon.cam, bilateral=cfg.bilateral_filter,
                                 bilateral_mode=cfg.bilateral_mode)
 
-    def _frame(self, depth: torch.Tensor, rgb: Optional[torch.Tensor], cap: int) -> None:
+    def _frame(self, depth: torch.Tensor, rgb: Optional[torch.Tensor], cap: int,
+               debug: bool) -> None:
         """One frame from the input buffers: tracks from the carry, gates,
         fuses, writes the record and advances the carry. ``rgb`` None fuses
-        no color."""
+        no color; ``debug`` checks the invariants of the rows written and
+        the pose into the record."""
         r = self.recon
         cfg = r.config
         pts, nrm = self._preprocess(depth)
@@ -161,11 +167,15 @@ class ChunkSteps:
                    torch.where(rejected, pose.t, st.pose.t))
         counts = r._fuse_core(new, torch.where(rejected, float("nan"), pts),
                               torch.where(rejected, float("nan"), nrm),
-                              None if rgb is None else self._decode_rgb(rgb), cap)
+                              None if rgb is None else self._decode_rgb(rgb), cap,
+                              debug=debug)
         scalars = torch.stack([st.iterations.to(torch.float32), st.num_valid,
                                st.mean_abs_residual, rejected.to(torch.float32)])
+        n = REC_FAULT - REC_COUNTS
+        fault = (counts[n:].to(torch.int32).view(torch.float32) if debug
+                 else scalars[:1] * 0)
         self.rec.copy_(torch.cat([new.R.reshape(9), new.t, scalars,
-                                  counts.to(torch.float32)]))
+                                  counts[:n].to(torch.float32), fault]))
         self.prev_R.copy_(self.R)
         self.prev_t.copy_(self.t)
         self.R.copy_(new.R)
@@ -220,12 +230,13 @@ class ChunkSteps:
         # the sat_skip bitset, when on, is a buffer of the Reconstruction at
         # a fixed address that the graph reads and writes
         key = (tuple(depth.shape), depth.dtype, None if rgb is None else rgb.dtype,
-               color_on, cap, self.recon._sat is not None)
+               color_on, cap, self.recon._sat is not None, self.debug)
         if key in self._steps:
             return self._steps[key]
+        debug = self.debug
 
         def frame():
-            self._frame(depth, rgb if color_on else None, cap)
+            self._frame(depth, rgb if color_on else None, cap, debug)
 
         if not self.graphs:
             self._steps[key] = frame
@@ -249,7 +260,9 @@ class ChunkSteps:
     def prepare(self, depths: torch.Tensor, rgbs: Optional[torch.Tensor],
                 colors: Sequence[bool], cap: int):
         """The input buffers and the steps (captured now on the card) that
-        ``replay`` needs for frames shaped like ``depths`` / ``rgbs``."""
+        ``replay`` needs for frames shaped like ``depths`` / ``rgbs``, with
+        the --debug-nans switch as it is now."""
+        self.debug = debug_nans.enabled()
         inp = self._input(tuple(depths.shape[1:3]), depths.dtype,
                           None if rgbs is None else rgbs.dtype)
         return inp, {c: self.step(inp, c, cap) for c in sorted(set(colors))}

@@ -5,8 +5,7 @@ normals), track from the second frame on (pyramid or flat Gauss-Newton; with
 the analytic Jacobian one K1 step launch per iteration, the state on the
 device), read the tracking state once (its stats and the failure gate's
 inputs), gate failed tracks, append the pose to the TUM trajectory, and
-fuse. Every single-device fusion layout of the JAX package but its "packed"
-one is ported:
+fuse. Every fusion mode of the JAX package runs:
   * ``mode="dense"`` (the default; the synthetic64 and tum128 presets): the
     flat (m, m, m) grid, fused voxel by voxel (fusion.fuse);
   * ``mode="brickmajor"`` (the tum256 and tum512 presets): the grid lives as
@@ -14,7 +13,10 @@ one is ported:
     reads the brick-major masked view of the D rows; the dense grid is built
     only when ``grid`` is read. ``sat_skip`` carries its bitset here;
   * ``mode="bricked"``: the flat grid with brick compaction and the merge
-    tail ``brick_merge`` ("xla", "rows" or K2's "pallas").
+    tail ``brick_merge`` ("xla", "rows" or K2's "pallas");
+  * ``mode="packed"``: what the JAX package's packed layout computes, run
+    as float32 brick-major rows with flat classification
+    (``packed_fusion_config``); per frame only, as there.
 The central Jacobian reads the dense grid in every layout (brick-major: the
 dense view of the rows, made each tracked frame). ``process_chunk`` and
 ``run(chunk=N)`` process many brick-major frames per host round trip
@@ -58,6 +60,7 @@ from tracking_sdf_tpu_torch.pipeline.trajectory import TrajectoryWriter
 from tracking_sdf_tpu_torch.tracking.gauss_newton import TrackResult, track_frame
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 from tracking_sdf_tpu_torch.tracking.pyramid import track_frame_pyramid
+from tracking_sdf_tpu_torch.utils import debug_nans
 
 # The reference's initial pose (camera z along world -y, 1 m up) with its
 # third row's sign flipped: the reference's literal matrix has det = -1.
@@ -83,15 +86,10 @@ class FrameStats:
 def unsupported(config: PipelineConfig, sharded: bool = False) -> List[str]:
     """The modes of ``config`` that the port does not run (on one device, or
     ``sharded`` over a mesh), each with the reason (the CLI exits 2 on
-    them)."""
-    if sharded:
-        if config.tracking.jacobian != "analytic":
-            return ["tracking.jacobian='central' under a mesh (the sharded tracker "
-                    "is analytic only, as the JAX package's)"]
-        return []
-    if config.fusion.mode == "packed":
-        return ["fusion.mode='packed' on one device (ROADMAP queue 1, not to port: a "
-                "measured negative; under --distributed it maps to sharded bricked)"]
+    them): the central Jacobian under a mesh, as in the JAX package."""
+    if sharded and config.tracking.jacobian != "analytic":
+        return ["tracking.jacobian='central' under a mesh (the sharded tracker "
+                "is analytic only, as the JAX package's)"]
     return []
 
 
@@ -113,6 +111,22 @@ def sharded_fusion_config(config: PipelineConfig) -> PipelineConfig:
     return dataclasses.replace(config, fusion=f._replace(mode="bricked", brick_shape=bs))
 
 
+def packed_fusion_config(config: PipelineConfig) -> PipelineConfig:
+    """The fusion config that "packed" runs on one device: the JAX package's
+    packed layout (fusion.packed, one (NB, 6, BV) array) computes brick-major
+    fusion on float32 leaves whatever the storage dtypes say, with the flat
+    classifier (no hierarchical classification, no saturated-FREE skip) and
+    FREE bricks capped at ``brick_cap_free`` or else the frame's cap. The port
+    runs that as brick-major rows with those fields; the layout itself is a
+    TPU workaround and is not ported."""
+    f = config.fusion
+    if f.mode != "packed":
+        return config
+    return dataclasses.replace(config, fusion=f._replace(
+        mode="brickmajor", storage_dtype="float32", weight_dtype="float32",
+        hier_classify=0, sat_skip=False))
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -128,13 +142,19 @@ class Reconstruction:
             if device is not None and torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's {mesh.device}")
             device = mesh.device
-            config = sharded_fusion_config(config)
         elif device is None:
-            raise TypeError("Reconstruction needs device= (or mesh=)")
+            # an entry point runs on the card unless the caller asks for the CPU
+            if not torch.cuda.is_available():
+                raise RuntimeError("Reconstruction runs on the GPU by default and no CUDA "
+                                   'device is available: pass device="cpu" to run on the CPU')
+            device = "cuda"
         self.device = torch.device(device)
         self.mesh = mesh
         self.cam = cam
-        self.config = config
+        # "packed" is per frame only, as in the JAX package
+        self.packed = config.fusion.mode == "packed" and mesh is None
+        self.config = config = (sharded_fusion_config(config) if mesh is not None
+                                else packed_fusion_config(config))
         self.pose = (initial_pose if initial_pose is not None
                      else REFERENCE_INITIAL_POSE).to(self.device)
         self._pose_prev: Optional[Pose] = None  # for pose_init="velocity"
@@ -237,6 +257,8 @@ class Reconstruction:
         same grid and keeps its slab)."""
         from tracking_sdf_tpu_torch.parallel.mesh import shard_brick_grid, shard_grid
 
+        if debug_nans.enabled():
+            self._check_invariants(debug_nans.grid_faults(g), None, "the assigned grid")
         # a saturated bit states that the brick's rows did not change under
         # its last FREE update: after a new grid no bit holds
         if self._sat is not None:
@@ -266,33 +288,64 @@ class Reconstruction:
 
     def _fuse_core(self, pose: Pose, points, normals, rgb, cap: int,
                    bgrid: Optional[BrickGrid] = None,
-                   sat: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   sat: Optional[torch.Tensor] = None, debug: bool = False) -> torch.Tensor:
         """Brick-major fusion into ``bgrid`` and ``sat`` (default the live
         rows and bitset) with no host read; returns the device counts
         (fusion.brickmajor; under a mesh summed over the ranks, at the
-        fixed caps per rank)."""
+        fixed caps per rank). ``debug``: a seventh count, the invariants'
+        fault code (utils.debug_nans) of the written rows and ``pose``."""
         f = self.config.fusion
         if bgrid is None:
             bgrid, sat = self._bgrid, self._sat
         if self.mesh is not None:
-            return self._fuse_sh.core(bgrid, pose, points, normals, rgb)
-        return fuse_frame_brickmajor_core(
-            bgrid, pose, points, normals, rgb, params=self.config.grid, cam=self.cam,
-            cfg=f, bs=self._bs, cap=cap, cap_free=f.brick_cap_free or None, sat=sat)
+            counts = self._fuse_sh.core(bgrid, pose, points, normals, rgb, debug=debug)
+        else:
+            counts = fuse_frame_brickmajor_core(
+                bgrid, pose, points, normals, rgb, params=self.config.grid, cam=self.cam,
+                cfg=f, bs=self._bs, cap=cap, cap_free=f.brick_cap_free or None, sat=sat,
+                debug=debug)
+        if debug:
+            n = len(COUNTS)
+            counts = torch.cat([counts[:n], debug_nans.fault_code(counts[n:])[None]])
+        return counts
+
+    def _check_invariants(self, leaf: Optional[torch.Tensor], pose: Optional[Pose],
+                          where: str) -> None:
+        """--debug-nans on the host: raise if the (3,) leaf counts or the
+        pose break an invariant (one read)."""
+        zero = torch.zeros(1, dtype=torch.int64, device=self.device)
+        faults = torch.cat([zero.repeat(3) if leaf is None else leaf,
+                            zero if pose is None else debug_nans.pose_faults(pose)])
+        debug_nans.check(int(debug_nans.fault_code(faults)), where)
+
+    def _check_flat(self) -> None:
+        """--debug-nans on the flat grid after a frame: the whole grid (under
+        a mesh every rank's slab, the counts summed by one all_reduce) and the
+        pose."""
+        leaf = debug_nans.grid_faults(self._grid)
+        if self.mesh is not None:
+            self.mesh.all_reduce_(leaf)
+        self._check_invariants(leaf, self.pose, f"frame {self.frame_num}")
 
     def _fuse(self, points, normals, rgb) -> None:
         cfg = self.config
         sharded = self.mesh is not None
+        debug = debug_nans.enabled()
         if cfg.fusion.mode == "dense":
             self._grid = (self._fuse_sh(self._grid, self.pose, points, normals, rgb)
                           if sharded else
                           fuse_frame(self._grid, self.pose, points, normals, rgb,
                                      params=cfg.grid, cam=self.cam, cfg=cfg.fusion))
+            if debug:
+                self._check_flat()
             return
         cap = self._cap_levels[self._cap_idx]
         if self._bgrid is not None:
-            counts = self._fuse_core(self.pose, points, normals, rgb, cap)
-            stats = fuse_stats(counts.tolist())  # the frame's one FuseStats read
+            counts = self._fuse_core(self.pose, points, normals, rgb, cap, debug=debug)
+            counts = counts.tolist()  # the frame's one FuseStats read
+            if debug:
+                debug_nans.check(counts[-1], f"frame {self.frame_num}")
+            stats = fuse_stats(counts)
         elif sharded:
             _, stats = self._fuse_sh(self._grid, self.pose, points, normals, rgb)
         else:
@@ -301,6 +354,8 @@ class Reconstruction:
                 cam=self.cam, cfg=cfg.fusion, bs=self._bs, cap=cap,
                 merge=cfg.fusion.brick_merge,
                 cap_act=cfg.fusion.brick_cap_active or None)
+        if debug and self._bgrid is None:
+            self._check_flat()
         self.last_fuse_stats = stats
         self.overflow_drops += stats.overflow + stats.overflow_active + stats.overflow_mixed
         need = stats.n_full * 1.3
@@ -434,8 +489,8 @@ class Reconstruction:
 
     def _chunk_supported(self) -> bool:
         cfg = self.config
-        return (self._bgrid is not None and cfg.tracking.jacobian == "analytic"
-                and not cfg.use_groundtruth)
+        return (self._bgrid is not None and not self.packed
+                and cfg.tracking.jacobian == "analytic" and not cfg.use_groundtruth)
 
     def _stage(self, frames, rgb: bool) -> torch.Tensor:
         """A chunk's (N, ...) frames as the tensor its steps copy from: left
@@ -491,9 +546,9 @@ class Reconstruction:
         cfg = self.config
         if (not self._chunk_supported() or self.frame_num < 1):
             raise ValueError(
-                "process_chunk needs mode='brickmajor', jacobian='analytic', tracked "
-                "(not groundtruth) poses and one process_frame call first (frame 0 "
-                "bootstraps the grid)")
+                "process_chunk needs mode='brickmajor' (not 'packed'), "
+                "jacobian='analytic', tracked (not groundtruth) poses and one "
+                "process_frame call first (frame 0 bootstraps the grid)")
         depths = self._stage(depths, rgb=False)
         n = depths.shape[0]
         has_color = cfg.fusion.fuse_color and rgbs is not None
@@ -512,9 +567,13 @@ class Reconstruction:
         out = steps.replay(prepared, depths, rgbs, colors, self.pose, self._pose_prev)
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
+        if steps.debug:  # the first frame of the chunk that broke an invariant
+            codes = out[:, chunked.REC_FAULT].contiguous().view(torch.int32).tolist()
+            for i, code in enumerate(codes):
+                debug_nans.check(code, f"frame {self.frame_num + 1 + i} (chunk of {n})")
         rej = out[:, chunked.REC_REJ] > 0
         iters = out[:, chunked.REC_ITERS].to(torch.int64)
-        counts = out[:, chunked.REC_COUNTS:].to(torch.int64).tolist()
+        counts = out[:, chunked.REC_COUNTS:chunked.REC_FAULT].to(torch.int64).tolist()
         self.pose = Pose(steps.R.clone(), steps.t.clone())
         self._pose_prev = (None if bool(rej[-1])
                            else Pose(steps.prev_R.clone(), steps.prev_t.clone()))
@@ -742,7 +801,7 @@ class Reconstruction:
         so each such frame of it exports the chunk's final grid)."""
         cfg = self.config
         if chunk > 1 and not self._chunk_supported():
-            warnings.warn("chunked processing needs mode='brickmajor', "
+            warnings.warn("chunked processing needs mode='brickmajor' (not 'packed'), "
                           "jacobian='analytic' and tracked (not groundtruth) poses; "
                           "running per frame", RuntimeWarning, stacklevel=2)
             chunk = 0
@@ -825,6 +884,8 @@ class Reconstruction:
         from tracking_sdf_tpu_torch.pipeline.checkpoint import load_checkpoint
 
         grid, pose, frame_num, _, pose_prev = load_checkpoint(path, device=self.device)
+        if debug_nans.enabled():  # the grid is checked by its setter
+            self._check_invariants(None, pose, f"the checkpoint {path}")
         # under a mesh every rank reads the whole grid and keeps its slab
         if self._writer is not None and not self._writer.started:
             self._writer.set_append(True)

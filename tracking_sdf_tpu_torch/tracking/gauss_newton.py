@@ -97,6 +97,13 @@ class TrackResult:
         return self.read().mean_abs_residual
 
 
+def strided_points(points_img: torch.Tensor, stride: int) -> torch.Tensor:
+    """Flatten an organized (H, W, 3) point image to the reference's strided
+    pixel lattice u, v in {0, stride, 2*stride, ...}: (N, 3) with the NaN
+    holes kept (masked downstream)."""
+    return points_img[::stride, ::stride, :].reshape(-1, 3)
+
+
 def _sanitize(points_cam: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     valid = torch.isfinite(points_cam).all(dim=-1)
     return torch.where(valid[:, None], points_cam,

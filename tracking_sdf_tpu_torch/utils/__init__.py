@@ -1,1 +1,4 @@
-"""Timing and tracing helpers."""
+"""Timing and tracing helpers, and the --debug-nans switch."""
+from tracking_sdf_tpu_torch.utils.profiling import Timer, device_timer, trace
+
+__all__ = ["Timer", "device_timer", "trace"]
