@@ -141,7 +141,6 @@ Phases, each of which fails the run (non-zero exit) on a fault:
          gn_step launched 20 times a tracked frame, brick_fuse_rows never;
          K1's dense reduction and step against their plain versions on that
          run's final 64^3 grid at the preset's stride (as phase 2 does);
-       the full 2-D bilateral filter alone at 640x480 (ms, device ops);
        tum128 as it is per frame on phase 5's scene (|t err| within half a
          voxel of JAX_T_ERR_MM; preprocess, track and fuse ms), and through
          cli.main over phase 7's 120 frames (--native-loader when zlib.h is
@@ -252,6 +251,26 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      Its numbers go out as {"phase11": ...}; the kernels' line gains
      gn_step_brick_f32 and brick_fuse_rows_f32 (launches from the packed
      runs).
+ 12. depth preprocessing (csrc/preprocess.cu): K3's 1-D bilateral pass (both
+     axes and the two-pass filter), K3's 2-D form and K4 (backprojection and
+     normals from depth, and normals from a point image) against their plain
+     versions at 640x480 on the scene's second frame and on a copy with NaN
+     speckle, zero and negative depth and an all-NaN row: max abs error of
+     depth, points and normals (1e-6 m, 1e-6 m, 1e-5), NaN-mask mismatches
+     (at most 1e-4 of the pixels) and finite values that differ bit for bit;
+     each kernel timed four ways (device from the profiler, events over 100
+     launches, the wrapper, the plain version with its device ops) beside
+     its bound from this run's data (bytes read and written once; the
+     filters' operations over their finite taps); the whole
+     preprocess_frame, separable and full, kernels against plain, in device
+     ms, device ops and host ms a call. Every main path above also checks,
+     from its counters (counted per replay in a chunk, per rank in the
+     two-rank group), that K4 ran once per processed frame and K3 twice
+     (separable), once (full) or never (no filter), and the profiled chunks
+     that their kernels ran as often. Its numbers go out as {"phase12":
+     ...}; the kernels' line gains bilateral_pass, bilateral_2d and normals
+     (launches per processed frame of the paths that ran them; library_ms
+     null: no single PyTorch call computes either function).
 The last two lines are the kernels' JSON record (bound_ms from this run's
 inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
 at 67 TFLOP/s, whichever is longer) and {"ok": true, "device": {...}}.
@@ -293,7 +312,8 @@ TIMED_LAUNCHES = 100
 CHUNKS = {"tum256": ((2, "calibrated"), (4, "timed"), (1, "calibrated"), (3, "profiled")),
           "tum512": ((3, "calibrated"), (1, "timed"), (1, "profiled"))}
 COARSE_ITERATIONS = 10  # GN launches of a coarse pyramid level (track_frame_pyramid)
-KERNEL_NAMES = ("gn_step_kernel", "brick_fuse_rows_kernel", "brick_merge_rows_kernel")
+KERNEL_NAMES = ("gn_step_kernel", "brick_fuse_rows_kernel", "brick_merge_rows_kernel",
+                "bilateral_pass_kernel", "bilateral_2d_kernel", "normals_kernel")
 ABS_TOL_MERGE = 1e-5  # K2 dense form: same float32 formula per voxel
 # K2's dense form before its redesign (one voxel a thread, one block a
 # brick): device ms on kernel_merge's inputs with color (NVIDIA H100 80GB
@@ -487,6 +507,7 @@ def counters():
     from tracking_sdf_tpu_torch.fusion import brick_fuse as k2f
     from tracking_sdf_tpu_torch.fusion import brick_merge as k2
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+    from tracking_sdf_tpu_torch.tracking import preprocess as k34
 
     return {"gn_reduce": k1.launches, "gn_reduce_brick": k1.launches_brick,
             "gn_reduce_slab": k1.launches_slab,
@@ -495,18 +516,40 @@ def counters():
             "gn_finish": k1.launches_finish,
             "brick_merge": k2.launches, "brick_merge_rows": k2.launches_rows,
             "brick_fuse_rows": k2f.launches, "brick_fuse_rows_sat": k2f.launches_sat,
-            "brick_fuse_rows_slab": k2f.launches_slab}
+            "brick_fuse_rows_slab": k2f.launches_slab,
+            "bilateral_pass": k34.launches_pass, "bilateral_2d": k34.launches_2d,
+            "normals": k34.launches_normals}
 
 
 def reset_counters():
     from tracking_sdf_tpu_torch.fusion import brick_fuse as k2f
     from tracking_sdf_tpu_torch.fusion import brick_merge as k2
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+    from tracking_sdf_tpu_torch.tracking import preprocess as k34
 
     k1.launches = k1.launches_brick = k1.launches_step = k1.launches_step_brick = 0
     k1.launches_slab = k1.launches_slab_brick = k1.launches_finish = 0
     k2.launches = k2.launches_rows = k2f.launches = k2f.launches_sat = 0
     k2f.launches_slab = 0
+    k34.launches_pass = k34.launches_2d = k34.launches_normals = 0
+
+
+PREPROCESS_COUNTERS = ("bilateral_pass", "bilateral_2d", "normals")
+
+
+def filter_mode(cfg):
+    """The bilateral filter a configuration runs: "separable", "full" or None."""
+    return cfg.bilateral_mode if cfg.bilateral_filter else None
+
+
+def check_preprocess(label, launches, frames: int, mode) -> None:
+    """Every one of ``frames`` processed frames went through K4 once and K3
+    as the filter ``mode`` says: twice (separable), once (full) or never."""
+    want = {"bilateral_pass": 2 * frames if mode == "separable" else 0,
+            "bilateral_2d": frames if mode == "full" else 0, "normals": frames}
+    got = {k: launches[k] for k in want}
+    check(got == want, f"{label}: preprocessing launched {got} over {frames} frames, "
+          f"expected {want}")
 
 
 def gn_compare(label, Dm, pose, pts1, p, strides=(3, 6)):
@@ -1009,7 +1052,7 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
     rec = dict(ms_per_frame=statistics.median(wall[1:]), t_err_mm=t_err * 1e3,
                gn_iterations=sum(s.gn_iterations for s in tracked), launches=launches,
                tracked=len(tracked), fused=sum(not s.rejected for s in recon.stats),
-               peak_gib=peak_gb, overflow_drops=recon.overflow_drops, **med)
+               processed=n, peak_gib=peak_gb, overflow_drops=recon.overflow_drops, **med)
     # what the chunk phase is held against: per frame, and the final rows
     per_frame = dict(stats=recon.stats, poses=poses_out, fuse=fuse, traj_path=traj_path,
                      ms_per_frame=rec["ms_per_frame"])
@@ -1025,6 +1068,7 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
     kernels = (("gn_step", "brick_merge") if name == "slice"
                else ("gn_step_brick", "brick_fuse_rows"))
     check(all(launches[k] > 0 for k in kernels), f"{name}: a kernel never ran: {launches}")
+    check_preprocess(name, launches, n, filter_mode(cfg))
     check(not any(s.rejected for s in recon.stats), f"{name}: a frame was rejected")
     if name != "slice":
         check(launches["brick_fuse_rows"] == rec["fused"]
@@ -1226,10 +1270,13 @@ def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
           and launches["brick_fuse_rows"] == fused and launches["brick_merge_rows"] == 0,
           f"{name} chunked: expected gn_step_brick {per_step} per tracked frame, "
           f"brick_fuse_rows once per fused frame and brick_merge_rows never: {launches}")
+    check_preprocess(f"{name} chunked", launches, n, filter_mode(cfg))
     seen = prof["kernels"]
     check(seen["gn_step_kernel"] == per_step * prof["frames"]
           and seen["brick_fuse_rows_kernel"] == prof["frames"]
-          and seen["brick_merge_rows_kernel"] == 0,
+          and seen["brick_merge_rows_kernel"] == 0
+          and seen["normals_kernel"] == prof["frames"]
+          and seen["bilateral_pass_kernel"] == 2 * prof["frames"],
           f"{name}: the profiler counted {seen} over a chunk of {prof['frames']} frames")
     t_err = (recon.pose.t - poses[n - 1].t).norm().item()
     check(t_err < T_ERR_MAX, f"{name} chunked: |t err| {t_err:.4f} m >= {T_ERR_MAX} m")
@@ -1240,7 +1287,8 @@ def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
                profiler_kernels=seen, capture_ms=capture,
                calibration_ms=[round(x, 1) for x in steps.calibration_ms],
                peak_gib=peak_gib, launches=launches, tracked=tracked, fused=fused,
-               t_err_mm=t_err * 1e3, rows_differ=rows_differ, full_drop=full_drop)
+               processed=n, t_err_mm=t_err * 1e3, rows_differ=rows_differ,
+               full_drop=full_drop)
     print(f"main path {name} chunked (chunks {sizes}): {rec['ms_per_frame']:.3f} ms/frame "
           f"wall over a chunk of {timed['frames']} (replays and the one read) against "
           f"{ref['ms_per_frame']:.2f} ms/frame per frame; under replay device "
@@ -1409,7 +1457,10 @@ def cli_run(label, argv, work, chunk=0):
     finally:
         runner.Reconstruction = base
     check(rc == 0, f"{label}: the CLI exited with {rc}")
+    recon = made[-1]
+    check_preprocess(f"cli {label}", launches, len(recon.stats), filter_mode(recon.config))
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
+    summary["processed"] = len(recon.stats)
     with open(log) as f:
         rows = [json.loads(x) for x in f]
     rejected = sum(r["rejected"] for r in rows)
@@ -1486,7 +1537,8 @@ def dataset_phase(dev, work, chunk_ms):
               f"{name} dataset: expected gn_step_brick {per_step} per tracked frame, "
               f"brick_fuse_rows once per fused frame, brick_merge_rows never: {launches}")
         records[f"{name}_dataset"] = dict(
-            launches=launches, tracked=tracked, fused=fused, ate_mm=ate_mm,
+            launches=launches, tracked=tracked, fused=fused, processed=s["processed"],
+            ate_mm=ate_mm,
             ate_rmse_m=s["ate_rmse_m"], run_s=s["run_s"],
             t_err_mm=t_err, fps=s["run_frames"] / s["run_s"],
             steady_ms=s["steady_ms"],
@@ -1887,6 +1939,7 @@ def cli_render_phase(work, ref):
     cfg = preset("tum256")
     per_step = ((len(cfg.pyramid_levels) - 1) * COARSE_ITERATIONS + cfg.tracking.max_iterations)
     rec = dict(launches=launches, tracked=DATASET_FRAMES - 1, fused=DATASET_FRAMES - rejected,
+               processed=s["processed"],
                ate_rmse_m=s["ate_rmse_m"], run_s=s["run_s"], wall_s=wall_s,
                plain_run_s=s0["run_s"], plain_wall_s=plain_wall_s,
                steady_ms=s["steady_ms"], plain_steady_ms=s0["steady_ms"],
@@ -2029,8 +2082,9 @@ def bench_path(label, cfg, cam, depths, poses, rgb, dev, n_tracked):
     t_err = (recon.pose.t - poses[n_tracked].t).norm().item()
     med = {k: statistics.median(getattr(s, k) for s in tracked)
            for k in ("preprocess_ms", "track_ms", "fuse_ms")}
+    check_preprocess(label, launches, n_tracked + 1, filter_mode(cfg))
     rec = dict(ms_per_frame=statistics.median(wall[1:]), t_err_mm=t_err * 1e3,
-               launches=launches, tracked=len(tracked),
+               launches=launches, tracked=len(tracked), processed=n_tracked + 1,
                fused=sum(not s.rejected for s in recon.stats),
                gn_iterations=sum(s.gn_iterations for s in tracked),
                peak_gib=peak_gib_above(mark), **med)
@@ -2097,12 +2151,11 @@ def central_on_cpu(cfg, cam, depths, poses, rgb, n, pose_card):
 
 
 def dense_paths(cam, depths, poses, rgb, dev, work):
-    """The dense presets: synthetic64 through the CLI, the 2-D filter alone,
-    tum128 per frame (analytic and central) and over phase 7's frames, and
+    """The dense presets: synthetic64 through the CLI, tum128 per frame (analytic and central) and over phase 7's frames, and
     tum256 --fusion-mode dense over them. Returns their records."""
     from tracking_sdf_tpu_torch import cli
     from tracking_sdf_tpu_torch.config import preset
-    from tracking_sdf_tpu_torch.tracking.preprocess import bilateral_filter, preprocess_frame
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 
     recs = {}
     ply = os.path.join(work, "synthetic64.ply")
@@ -2115,7 +2168,8 @@ def dense_paths(cam, depths, poses, rgb, dev, work):
     check(s["frames"] == 20 and rejected == 0 and faces > 1000
           and launches["gn_step"] == 19 * cfg.tracking.max_iterations
           and launches["brick_fuse_rows"] == 0, f"synthetic64: {s}, launches {launches}")
-    recs["synthetic64"] = dict(launches=launches, tracked=19, fused=20, faces=faces,
+    recs["synthetic64"] = dict(launches=launches, tracked=19, fused=20, processed=20,
+                               faces=faces,
                                ate_mm=s["ate_rmse_m"] * 1e3, steady_ms=s["steady_ms"])
     # K1's dense form at this path's shapes: the final 64^3 grid, queried
     # from the last tracked pose with the frame before's points (a step with
@@ -2125,14 +2179,6 @@ def dense_paths(cam, depths, poses, rgb, dev, work):
                               bilateral_mode=cfg.bilateral_mode)
     recs["k1"] = {"synthetic64": k1_at_path("synthetic64", recon.grid, recon.pose, pts, cfg)}
     del recon, frames
-
-    d = depths[1]
-    ms = cuda_time_ms(lambda: bilateral_filter(d))
-    dev_ms, ops = all_device_ms(lambda: bilateral_filter(d))
-    print(f"full 2-D bilateral filter at {d.shape[1]}x{d.shape[0]} (11x11 taps at once): "
-          f"{ms:.3f} ms a call (median of CUDA events), device {dev_ms:.3f} ms in {ops:.0f} "
-          f"device ops")
-    recs["bilateral"] = dict(ms=ms, device_ms=dev_ms, device_ops=ops)
 
     n = TRACKED["tum256"]
     for label, jacobian in (("tum128", "analytic"), ("tum128_central", "central")):
@@ -2178,7 +2224,8 @@ def dense_paths(cam, depths, poses, rgb, dev, work):
               and launches["gn_step_brick"] == launches["brick_fuse_rows"] == 0,
               f"{label}: {s}, launches {launches}")
         recs[label] = dict(launches=launches, tracked=DATASET_FRAMES - 1,
-                           fused=DATASET_FRAMES, ate_mm=s["ate_rmse_m"] * 1e3,
+                           fused=DATASET_FRAMES, processed=DATASET_FRAMES,
+                           ate_mm=s["ate_rmse_m"] * 1e3,
                            steady_ms=s["steady_ms"], track_ms=s["track_ms_mean"],
                            fuse_ms=s["fuse_ms_mean"], peak_gib=peak, run_s=s["run_s"])
         del recon
@@ -2279,6 +2326,8 @@ def sat_runs(name, cam, depths, poses, rgb, dev):
         check(l_on["brick_fuse_rows_sat"] == n and l_on["brick_fuse_rows"] == 0
               and l_onc["brick_fuse_rows_sat"] == n,
               f"{name} sat_skip: the sat form must launch once per fused frame: {l_on}, {l_onc}")
+        check_preprocess(f"{name} sat_skip per frame", l_on, n, filter_mode(base))
+        check_preprocess(f"{name} sat_skip chunked", l_onc, n, filter_mode(base))
         # the per-frame loop adapts its FULL cap, the chunk holds the maximum:
         # equal unless the per-frame run dropped FULL bricks
         full_drop = any(s.overflow for s in f_on)
@@ -2297,7 +2346,7 @@ def sat_runs(name, cam, depths, poses, rgb, dev):
         torch.cuda.empty_cache()
     return dict(recs, launches={k: recs["launches_NB"][k] + recs["launches_preset"][k]
                                 for k in recs["launches_NB"]},
-                fused=2 * n, tracked=2 * (n - 1))
+                fused=2 * n, tracked=2 * (n - 1), processed=2 * n)
 
 
 def band_leap_margin(grid, pose, p, cam, rcfg):
@@ -2869,6 +2918,8 @@ def one_rank_mesh(cam, depths, poses, rgb, dev, work, mesh):
               f"one-rank mesh: expected the slab forms ({per_step} K1 slab reduces and "
               f"gn_finish launches a tracked frame, K2 once a fused frame) and no "
               f"single-device form: {got}")
+    check_preprocess("one-rank mesh per frame", launches, n, filter_mode(cfg))
+    check_preprocess("one-rank mesh chunked", chunk_launches, tracked, filter_mode(cfg))
     return dict(final_pose=per_frame[-1],
                 ms_per_frame=statistics.median(wall[1:]), chunk_ms=chunk_ms,
                 replay_ms_per_frame=replay_ms,
@@ -2965,6 +3016,10 @@ def two_rank_group(cam, depths, poses, rgb, dev, work, one_rank):
               f"ms a frame; bricks dropped {rec['overflow']}")
         check(same, f"two-rank group ({name}): the ranks disagree")
         check(not a["rejected"].any(), f"two-rank group ({name}): a frame was rejected")
+        for r, x in enumerate((a, b)):
+            check_preprocess(f"two-rank group ({name}) rank {r}",
+                             dict(zip(PREPROCESS_COUNTERS, x["preprocess_launches"].tolist())),
+                             tr + 1, filter_mode(path_config(name, None)))
         check(abs(t_err - ref) <= 0.5 * voxel_mm,
               f"two-rank group ({name}): |t err| {t_err:.2f} mm not within half a voxel of "
               f"{ref} mm")
@@ -3118,7 +3173,8 @@ def multi_device_phase(cam, scene, depths, poses, rgb, dev, work):
     finally:
         dist.destroy_process_group()
     launches = one.pop("launches")
-    path = dict(launches=launches, tracked=2 * one["tracked"], fused=2 * one["tracked"] + 1)
+    path = dict(launches=launches, tracked=2 * one["tracked"], fused=2 * one["tracked"] + 1,
+                processed=2 * one["tracked"] + 1)
     record = dict(compute_mode=mode, one_rank=one, group=group, cli=cli)
     return record, dict(k1=k1, k2=k2, finish=finish), path
 
@@ -3209,11 +3265,14 @@ def packed_phase(work):
               f"the JAX package's {ref} mm")
         check(launches["gn_step_brick"] == per_step * tracked
               and launches["brick_fuse_rows"] == fused
-              and sum(launches.values()) == per_step * tracked + fused,
-              f"{name} packed: expected gn_step_brick {per_step} per tracked frame and "
-              f"brick_fuse_rows once per fused frame, nothing else: {launches}")
+              and sum(v for k, v in launches.items() if k not in PREPROCESS_COUNTERS)
+              == per_step * tracked + fused,
+              f"{name} packed: expected gn_step_brick {per_step} per tracked frame, "
+              f"brick_fuse_rows once per fused frame and beside preprocessing nothing "
+              f"else: {launches}")
         records[f"{name}_packed"] = dict(
-            launches=launches, tracked=tracked, fused=fused, ate_mm=ate_mm,
+            launches=launches, tracked=tracked, fused=fused, processed=s["processed"],
+            ate_mm=ate_mm,
             jax_ate_mm=ref, steady_ms=s["steady_ms"], peak_gib=peak, rows_gb=rows_gb)
         del recon, bg
         torch.cuda.empty_cache()
@@ -3432,6 +3491,172 @@ def surface_phase(cam, scene, depths, poses, rgb, dev, work):
     return record, dict(k1=k1, k2=k2), paths
 
 
+# --- phase 12: depth preprocessing (K3, K4) -----------------------------------
+
+# K3 depth and K4 points in m, K4 normals (unit vectors): aim bitwise (the
+# kernels round as the plain ops do), allow float32 rounding
+K3_TOL, POINTS_TOL, NORMALS_TOL = 1e-6, 1e-6, 1e-5
+NAN_MASK_SHARE = 1e-4  # pixels whose NaN mask may differ (a threshold within rounding)
+# float operations: a K3 tap with a finite neighbour (difference, square,
+# scale, expf counted as one, spatial weight, w*d, two sums); a K4 pixel
+# (backprojection 6, two tangents and their tests 19, the box over 8
+# channels in two passes of 9 adds 144, means 6, cross 9, norm 6,
+# normalisation 3, orientation 5)
+K3_FLOP_PER_TAP = 8
+K4_FLOP_PER_PIXEL = 198
+PREPROCESS_TPU = {  # the JAX functions each kernel replaces (no Pallas original)
+    "bilateral_pass": "tracking_sdf_tpu/tracking/preprocess.py:82",
+    "bilateral_2d": "tracking_sdf_tpu/tracking/preprocess.py:37",
+    "normals": "tracking_sdf_tpu/tracking/preprocess.py:124"}
+
+
+def speckled(depth, seed):
+    """``depth`` with NaN speckle, zero and negative depth and an all-NaN row."""
+    gen = torch.Generator(device=depth.device).manual_seed(seed)
+    d = depth + 0.004 * torch.randn(depth.shape, generator=gen, device=depth.device)
+    u = torch.rand(depth.shape, generator=gen, device=depth.device)
+    d = torch.where(u < 0.05, float("nan"), d)
+    d = torch.where((u >= 0.05) & (u < 0.06), 0.0, d)
+    d = torch.where((u >= 0.06) & (u < 0.07), -1.0, d)
+    d[200] = float("nan")
+    return d.contiguous()
+
+
+def image_compare(got, want):
+    """(max abs err where both are finite, pixels whose NaN mask differs,
+    finite values that differ bit for bit)."""
+    ng, nw = torch.isnan(got), torch.isnan(want)
+    both = ~ng & ~nw
+    err = float((got - want)[both].abs().max()) if bool(both.any()) else 0.0
+    bits = int((got[both].view(torch.int32) != want[both].view(torch.int32)).sum())
+    if got.dim() == 3:
+        ng, nw = ng.any(-1), nw.any(-1)
+    return err, int((ng != nw).sum()), bits
+
+
+def finite_taps(img, radius, axes):
+    """Taps with a finite centre and a finite neighbour inside the image, for
+    a 1-D pass along ``axes[0]`` or the 2-D window (``axes`` (0, 1))."""
+    from tracking_sdf_tpu_torch.tracking.preprocess import _shifted
+
+    fin = torch.isfinite(img)
+    offs = range(-radius, radius + 1)
+    shifts = ([(d, 0) if axes[0] == 0 else (0, d) for d in offs] if len(axes) == 1
+              else [(dy, dx) for dy in offs for dx in offs])
+    return sum(int((fin & _shifted(fin, dy, dx, False)).sum()) for dy, dx in shifts)
+
+
+def preprocess_phase(cam, depths):
+    """Phase 12: K3 (the 1-D pass, the 2-D form) and K4 against their plain
+    versions at 640x480 on the scene's second frame and on a speckled copy,
+    with errors, NaN-mask mismatches and bitwise differences; each kernel
+    timed four ways (device from the profiler, events over 100 launches,
+    the wrapper, the plain version) beside its bound from this run's data;
+    the whole preprocess_frame, kernels against plain, in device ms and
+    ops. Returns {kernel: record} and the whole frame's record."""
+    from tracking_sdf_tpu_torch.core.camera import backproject
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+
+    print(f"phase 12: depth preprocessing (K3 bilateral, K4 normals) on {gpu_line()}")
+    clean = depths[1].contiguous()
+    h, w = clean.shape
+    px = h * w
+    recs = {}
+    for label, d in (("scene", clean), ("speckled", speckled(clean, 12))):
+        p1 = pre.bilateral_pass(d, 0)
+        p1_ref = pre.bilateral_pass_reference(d, 0)
+        pts, nrm = pre.preprocess_frame(d, cam=cam, bilateral=False)
+        pts_ref = backproject(cam, d)
+        outs = {
+            "bilateral_pass": [("pass 1", p1, p1_ref, K3_TOL),
+                               ("pass 2", pre.bilateral_pass(p1_ref, 1),
+                                pre.bilateral_pass_reference(p1_ref, 1), K3_TOL),
+                               ("separable", pre.bilateral_filter_separable(d),
+                                pre.bilateral_filter_separable_reference(d), K3_TOL)],
+            "bilateral_2d": [("2-D", pre.bilateral_filter(d), pre.bilateral_filter_reference(d),
+                              K3_TOL)],
+            "normals": [("points", pts, pts_ref, POINTS_TOL),
+                        ("normals", nrm, pre.estimate_normals_reference(pts_ref), NORMALS_TOL),
+                        ("normals from points", pre.estimate_normals(pts_ref),
+                         pre.estimate_normals_reference(pts_ref), NORMALS_TOL)]}
+        torch.cuda.synchronize()
+        for name, cases in outs.items():
+            rec = recs.setdefault(name, dict(max_abs_err=0.0, nan_mask_mismatch=0,
+                                             bits_differ=0))
+            for what, got, want, tol in cases:
+                err, mism, bits = image_compare(got, want)
+                print(f"  {name} {what} ({label}, {w}x{h}): max abs err {err:.3e} (tol "
+                      f"{tol:g}), NaN-mask mismatches {mism} (at most "
+                      f"{int(NAN_MASK_SHARE * px)}), finite values differing bit for bit "
+                      f"{bits}, finite {int(torch.isfinite(got).sum())}")
+                check(err <= tol and mism <= NAN_MASK_SHARE * px,
+                      f"{name} {what} ({label}) disagrees with its plain version: {err}, "
+                      f"{mism} NaN-mask mismatches")
+                rec.update(max_abs_err=max(rec["max_abs_err"], err),
+                           nan_mask_mismatch=rec["nan_mask_mismatch"] + mism,
+                           bits_differ=rec["bits_differ"] + bits)
+
+    # times at the main path's shapes: the scene's frame
+    d = clean
+    calls = {
+        "bilateral_pass": (lambda: pre.bilateral_pass(d, 0),
+                           lambda: pre.bilateral_pass_reference(d, 0), "bilateral_pass_kernel"),
+        "bilateral_2d": (lambda: pre.bilateral_filter(d),
+                         lambda: pre.bilateral_filter_reference(d), "bilateral_2d_kernel"),
+        "normals": (lambda: pre.preprocess_frame(d, cam=cam, bilateral=False),
+                    lambda: pre.estimate_normals_reference(backproject(cam, d)),
+                    "normals_kernel")}
+    taps = {"bilateral_pass": finite_taps(d, 5, (0,)), "bilateral_2d": finite_taps(d, 5, (0, 1))}
+    work = {"bilateral_pass": (8 * px + 11 * 4, K3_FLOP_PER_TAP * taps["bilateral_pass"]),
+            "bilateral_2d": (8 * px + 121 * 4, K3_FLOP_PER_TAP * taps["bilateral_2d"]),
+            "normals": (px * (4 + 12 + 12), K4_FLOP_PER_PIXEL * px)}
+    for name, (kernel, plain, key) in calls.items():
+        ms = events_ms(kernel)
+        device_ms = kernel_device_ms(kernel, (key,))
+        wrapper_ms = cuda_time_ms(kernel)
+        plain_ms = cuda_time_ms(plain)
+        plain_device_ms, plain_ops = all_device_ms(plain)
+        nbytes, flops = work[name]
+        bms, by = bound(nbytes, flops)
+        share = bms / device_ms if device_ms else float("nan")
+        print(f"{name}: kernel {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device "
+              f"{device_ms} ms, wrapper {wrapper_ms:.4f} ms per call, plain {plain_ms:.4f} ms "
+              f"({plain_ops:.0f} device ops, {plain_device_ms:.4f} device ms); bound "
+              f"{bms:.6f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP"
+              + (f" over {taps[name]} finite taps" if name in taps else "")
+              + f"), {share:.1%} of it")
+        recs[name].update(ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                          plain_device_ms=plain_device_ms, plain_device_ops=plain_ops,
+                          bound_ms=bms, bound_by=by, bound_share=share)
+
+    # the whole preprocess_frame: the kernels against the plain versions
+    frame = {}
+    for mode, plain_filter in (("separable", pre.bilateral_filter_separable_reference),
+                               ("full", pre.bilateral_filter_reference)):
+        def kernels():
+            return pre.preprocess_frame(d, cam=cam, bilateral_mode=mode)
+
+        def plain():
+            p = backproject(cam, plain_filter(d))
+            return p, pre.estimate_normals_reference(p)
+
+        reset_counters()
+        kernels()
+        launches = counters()
+        k_ms, k_ops = all_device_ms(kernels)
+        p_ms, p_ops = all_device_ms(plain)
+        k_host, p_host = host_ms(kernels), host_ms(plain)
+        print(f"preprocess_frame ({mode}, {w}x{h}): kernels {k_ms:.4f} device ms in "
+              f"{k_ops:.1f} device ops (the profiler may miss launches), {k_host:.3f} ms on "
+              f"the host clock a call; plain {p_ms:.4f} device ms in {p_ops:.0f} ops, "
+              f"{p_host:.3f} ms")
+        check_preprocess(f"preprocess_frame ({mode})", launches, 1, mode)
+        frame[mode] = dict(device_ms=k_ms, device_ops=k_ops, host_ms=k_host,
+                           plain_device_ms=p_ms, plain_device_ops=p_ops, plain_host_ms=p_host)
+    torch.cuda.empty_cache()
+    return recs, frame
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs "
@@ -3530,6 +3755,7 @@ def main() -> int:
                                                                  rgb, dev, work)
         phase11, f32, packed_paths = surface_phase(cam, scene, depths, poses, rgb, dev, work)
         paths.update(packed_paths)
+        k34, frame12 = preprocess_phase(cam, depths)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3558,6 +3784,16 @@ def main() -> int:
         return dict(rec, max_abs_err=max([rec["max_abs_err"]]
                                           + [r["max_abs_err"] for r in more.values()]),
                     **more)
+
+    def preprocess_entry(name):
+        """K3's or K4's record; launches over every main path that ran it,
+        per processed frame of those paths."""
+        ran = [r for r in paths.values() if r["launches"][name]]
+        n = sum(r["launches"][name] for r in ran)
+        return {**dict(name=name, route="cuda", source=src("preprocess.cu"),
+                       replaces=PREPROCESS_TPU[name], launches=n,
+                       launches_per_frame=n / sum(r["processed"] for r in ran),
+                       library_ms=None), **k34[name]}
 
     kernels = [
         entry("gn_reduce", "gn_reduce.cu", gn_tpu, dense_paths_, "tracked",
@@ -3594,11 +3830,14 @@ def main() -> int:
                    max_abs_err=max(r["max_abs_err"] for k in f32["k2"].values()
                                    for r in k.values())),
               counter="brick_fuse_rows"),
+        # no single PyTorch call computes a bilateral filter or organized normals
+        *(preprocess_entry(name) for name in PREPROCESS_COUNTERS),
     ]
     print(json.dumps({"phase8": phase8}))
     print(json.dumps({"phase9": phase9}))
     print(json.dumps({"phase10": phase10}))
     print(json.dumps({"phase11": phase11}))
+    print(json.dumps({"phase12": {"kernels": k34, "preprocess_frame": frame12}}))
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,7 +11,10 @@ step's slab reduce and finish on one rank's whole grid bitwise against
 gn_step (the same per-query code, partial order and finish), K2's dense
 form, its row form and its fused form (brick_fuse_rows) bitwise on every
 stored non-NaN value with equal NaN masks (the kernels round each step as
-PyTorch's eager ops do).
+PyTorch's eager ops do), K3's filters and K4's points within 1e-6 m and
+K4's normals within 1e-5 with NaN masks equal but for 1e-4 of the pixels
+(a threshold test within float32 rounding), and preprocess_frame captured
+in a CUDA graph bitwise against the eager call.
 """
 import pytest
 import torch
@@ -122,6 +125,28 @@ def _step_view(dev, form):
     view = brick_masked_view(brick_grid_from_dense(dense, (8, 8, 8), dtype, dtype),
                              PARAMS, (8, 8, 8))
     return view, pts, pose
+
+
+@pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
+def test_gn_query_terms_are_the_plain_terms_bitwise(dev, form):
+    """K1 on one query at a time: its 27 terms, valid count and |r| are the
+    plain version's per-query J_i J_j, J_i r and |r| bit for bit (the kernel
+    rounds each step as the eager ops do), so K1 and its plain version
+    differ only in the order of the sums over queries."""
+    from tracking_sdf_tpu_torch.tracking.gauss_newton import pixel_residuals_analytic
+
+    view, pts, pose = _step_view(dev, form)
+    phi, J, mask = pixel_residuals_analytic(view, pose, pts, params=PARAMS)
+    idx = mask.nonzero().flatten()[:300]
+    assert idx.numel() == 300
+    iu = k1._triu(dev)
+    want = torch.cat([J[idx][:, iu[0]] * J[idx][:, iu[1]], J[idx] * phi[idx, None],
+                      torch.ones(300, 1, device=dev), phi[idx, None].abs()], 1)
+    got = torch.stack([k1.gn_reduce(view, pose, pts[i:i + 1], PARAMS) for i in idx.tolist()])
+    # equal values (the launch sums the query's terms with the other lanes'
+    # zeros, which turns a -0 term into +0)
+    differ = (got != want).any(1)
+    assert not bool(differ.any()), (int(differ.sum()), got[differ][:2], want[differ][:2])
 
 
 @pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
@@ -884,3 +909,127 @@ def test_debug_nans_inside_a_captured_chunk_raises_after_the_replay(dev, monkeyp
     monkeypatch.setattr(chunked.ChunkSteps, "replay", counted)
     with pytest.raises(FloatingPointError, match=r"frame 3 \(chunk of 4\).*NaN in D"):
         run(True)
+
+
+# --- K3 and K4: depth preprocessing -----------------------------------------------
+
+K3_TOL, POINTS_TOL, NORMALS_TOL = 1e-6, 1e-6, 1e-5  # m, m, unit vectors
+NAN_MASK_SHARE = 1e-4  # pixels whose NaN mask may differ (a threshold within rounding)
+
+
+def _preprocess_depth(dev, case):
+    """The smoke's scene (sphere, box, wall; ros_default_camera, the first
+    pose) rendered at 480x640, with NaN speckle, depth jumps, zero and
+    negative depth and an all-NaN row, or cut to a ragged size."""
+    import numpy as np
+
+    from tracking_sdf_tpu_torch.core.camera import ros_default_camera
+
+    cam = ros_default_camera()
+    scene = _Union(SphereScene(center=(0.3, 1.2, 0.9), radius=0.45),
+                   CuboidScene(min_corner=(-1.0, 1.0, 0.2), max_corner=(-0.3, 1.9, 0.9)),
+                   CuboidScene(min_corner=(-8.0, 2.6, -8.0), max_corner=(8.0, 3.0, 8.0)))
+    depth = render_scene_depth(scene, cam, look_at((0.0, -0.8, 0.8), (0.0, 1.2, 0.7),
+                                                   device="cpu")).numpy()
+    rng = np.random.default_rng(7)
+    if case != "scene":
+        depth = depth + rng.normal(scale=0.004, size=depth.shape).astype(np.float32)
+        depth[rng.random(depth.shape) < 0.05] = np.nan
+        depth[rng.random(depth.shape) < 0.01] = 0.0
+        depth[rng.random(depth.shape) < 0.01] = -1.0
+        depth[200] = np.nan
+    if case == "all_nan":
+        depth[:] = np.nan
+    shape = {"ragged": (37, 53), "tiny": (5, 7)}.get(case)
+    if shape is not None:
+        depth = depth[220:220 + shape[0], 300:300 + shape[1]]
+    depth = torch.from_numpy(np.ascontiguousarray(depth, dtype=np.float32)).to(dev)
+    return cam, depth
+
+
+def _same_within(got, want, tol, what):
+    """Equal NaN masks but for NAN_MASK_SHARE of the pixels, values within tol
+    where both are finite; returns (max abs err, pixels whose mask differs)."""
+    ng, nw = torch.isnan(got), torch.isnan(want)
+    if got.dim() == 3:
+        ng, nw = ng.any(-1), nw.any(-1)
+    differ = int((ng != nw).sum())
+    both = ~ng & ~nw
+    err = float((got - want)[both].abs().max()) if bool(both.any()) else 0.0
+    assert differ <= NAN_MASK_SHARE * ng.numel(), (what, differ)
+    assert err <= tol, (what, err)
+    return err, differ
+
+
+@pytest.mark.parametrize("case", ["scene", "speckle", "ragged", "tiny", "all_nan"])
+def test_preprocess_kernels_match_plain(dev, case):
+    """K3 in both forms and K4 (from depth, and from a point image) against
+    their plain versions on the same card tensors, each launch counted."""
+    from tracking_sdf_tpu_torch.core.camera import backproject
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+
+    cam, depth = _preprocess_depth(dev, case)
+    before = (pre.launches_pass, pre.launches_2d, pre.launches_normals)
+    sep = pre.bilateral_filter_separable(depth)
+    full = pre.bilateral_filter(depth)
+    pts, nrm = pre.preprocess_frame(depth, cam=cam, bilateral=False)
+    nrm_pts = pre.estimate_normals(pts)
+    torch.cuda.synchronize()
+    assert (pre.launches_pass, pre.launches_2d, pre.launches_normals) == (
+        before[0] + 2, before[1] + 1, before[2] + 2)
+    _same_within(sep, pre.bilateral_filter_separable_reference(depth), K3_TOL, "separable")
+    _same_within(full, pre.bilateral_filter_reference(depth), K3_TOL, "2-D")
+    pts_ref = backproject(cam, depth)
+    _same_within(pts, pts_ref, POINTS_TOL, "points")
+    nrm_ref = pre.estimate_normals_reference(pts_ref)
+    _same_within(nrm, nrm_ref, NORMALS_TOL, "normals")
+    _same_within(nrm_pts, nrm_ref, NORMALS_TOL, "normals from points")
+    if case == "all_nan":
+        assert all(bool(torch.isnan(x).all()) for x in (sep, full, pts, nrm))
+    elif case in ("scene", "speckle"):
+        assert float(torch.isfinite(nrm).all(-1).float().mean()) > 0.5
+
+
+def test_preprocess_kernels_reject_bad_input(dev):
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+
+    cam, depth = _preprocess_depth(dev, "ragged")
+    for bad in (depth.double(), depth[None], depth.t()):
+        for fn in (pre.bilateral_filter, pre.bilateral_filter_separable):
+            with pytest.raises(ValueError):
+                fn(bad)
+        with pytest.raises(ValueError):
+            pre.preprocess_frame(bad, cam=cam, bilateral=False)
+    with pytest.raises(ValueError):
+        pre.estimate_normals(torch.zeros(8, 8, 3, device=dev).transpose(0, 1))
+    with pytest.raises(ValueError):
+        pre.bilateral_filter(depth, radius=pre.MAX_RADIUS_2D + 1)
+
+
+@pytest.mark.parametrize("mode", ["separable", "full"])
+def test_preprocess_captured_equals_eager(dev, mode):
+    """preprocess_frame captured in a CUDA graph (no host sync inside) and
+    replayed on a new frame is bitwise the eager call."""
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+
+    cam, depth = _preprocess_depth(dev, "speckle")
+    _, other = _preprocess_depth(dev, "scene")
+    buf = torch.full_like(depth, float("nan"))
+    pre.preprocess_frame(buf, cam=cam, bilateral_mode=mode)  # warm-up: build, weights
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.graph(graph):
+            out = pre.preprocess_frame(buf, cam=cam, bilateral_mode=mode)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for frame in (depth, other):
+        buf.copy_(frame)
+        graph.replay()
+        want = pre.preprocess_frame(frame, cam=cam, bilateral_mode=mode)
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert torch.equal(torch.isnan(a), torch.isnan(b))
+            assert torch.equal(torch.nan_to_num(a).view(torch.int32),
+                               torch.nan_to_num(b).view(torch.int32))

@@ -22,7 +22,7 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("gn_reduce.cu", "brick_merge.cu", "brick_fuse.cu")
+SOURCES = ("gn_reduce.cu", "brick_merge.cu", "brick_fuse.cu", "preprocess.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -54,6 +54,13 @@ _SIGNATURES = {
     # eps, w_delta, w_inv, max_weight, stream
     "tsdf_brick_fuse_rows": [_P] * 3 + [_I] * 3 + [_P] + [_I] * 8 + [_P] + [_I] * 3
                             + [_P, _P, _P] + [_I] * 4 + [_F] * 15 + [_P],
+    # in, out, h, w, axis, radius, sw, inv2sr, stream
+    "tsdf_bilateral_pass": [_P, _P] + [_I] * 4 + [_P, _F, _P],
+    # in, out, h, w, radius, sw, inv2sr, stream
+    "tsdf_bilateral_2d": [_P, _P] + [_I] * 3 + [_P, _F, _P],
+    # depth (or NULL), points, normals, h, w, inv_fx, inv_fy, cx, cy, factor,
+    # radius, stream
+    "tsdf_normals": [_P] * 3 + [_I] * 2 + [_F] * 5 + [_I, _P],
 }
 
 _lib = None

@@ -18,7 +18,7 @@ SPEC.json (written by the launcher):
                 or absent, "mesh": bool, "checkpoint": bool}
 Every rank writes OUT/{name}_{rank}.npz and its trajectory OUT/{name}_traj_{rank}.txt:
 the tracked poses, per-frame stats and times, the collectives (count,
-seconds), with rank 0 also writing the gathered brick rows, the sharded and
+seconds), the preprocessing kernels' launches, with rank 0 also writing the gathered brick rows, the sharded and
 the single-device render of the gathered grid, and every rank its own mesh
 slab. It imports no JAX.
 """
@@ -78,6 +78,7 @@ def run_one(run: dict, mesh, cam, inputs, out_dir: str) -> dict:
     from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
     from tracking_sdf_tpu_torch.render.marching_cubes import marching_cubes_sharded
     from tracking_sdf_tpu_torch.render.raycast import raycast
+    from tracking_sdf_tpu_torch.tracking import preprocess
     from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 
     dev, name, rank = mesh.device, run["name"], mesh.rank
@@ -124,6 +125,8 @@ def run_one(run: dict, mesh, cam, inputs, out_dir: str) -> dict:
 
     recon = Reconstruction(cam, cfg, initial_pose=poses[0], mesh=mesh)
     c0, s0 = mesh.collectives, mesh.collective_s
+    counts = ("launches_pass", "launches_2d", "launches_normals")
+    p0 = [getattr(preprocess, c) for c in counts]
     chunks = run.get("chunk")
     wall = []
     t_start = time.perf_counter()
@@ -154,7 +157,10 @@ def run_one(run: dict, mesh, cam, inputs, out_dir: str) -> dict:
         ms_per_frame=np.asarray(wall), run_s=np.float64(run_s),
         collectives=np.int64(mesh.collectives - c0),
         collective_s=np.float64(mesh.collective_s - s0),
-        overflow=np.int64(recon.overflow_drops))
+        overflow=np.int64(recon.overflow_drops),
+        # K3's 1-D pass, its 2-D form and K4 over the run's frames
+        preprocess_launches=np.asarray([getattr(preprocess, c) - b
+                                        for c, b in zip(counts, p0)]))
     whole = gather_brick_grid(recon.brick_grid, mesh)
     if rank == 0:
         rec.update(D=whole.D.float().cpu().numpy(), W=whole.W.float().cpu().numpy(),

@@ -54,7 +54,7 @@ import torch
 from tracking_sdf_tpu_torch.core.lie import Pose, pose_compose, pose_inverse
 from tracking_sdf_tpu_torch.fusion import brick_fuse, brick_merge
 from tracking_sdf_tpu_torch.fusion.brickmajor import BrickGrid
-from tracking_sdf_tpu_torch.tracking import gn_reduce
+from tracking_sdf_tpu_torch.tracking import gn_reduce, preprocess
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 from tracking_sdf_tpu_torch.utils import debug_nans
 
@@ -76,7 +76,8 @@ _COUNTERS = ((gn_reduce, "launches"), (gn_reduce, "launches_brick"),
              (gn_reduce, "launches_finish"),
              (brick_merge, "launches"), (brick_merge, "launches_rows"),
              (brick_fuse, "launches"), (brick_fuse, "launches_sat"),
-             (brick_fuse, "launches_slab"))
+             (brick_fuse, "launches_slab"), (preprocess, "launches_pass"),
+             (preprocess, "launches_2d"), (preprocess, "launches_normals"))
 
 
 def launch_counts() -> Tuple[int, ...]:

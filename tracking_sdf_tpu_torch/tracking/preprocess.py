@@ -1,10 +1,17 @@
 """Depth preprocessing: bilateral smoothing and organized normals
 (counterpart of tracking_sdf_tpu.tracking.preprocess).
 
-Stencils over shifted copies of the image; invalidity is NaN. Both bilateral
-filters are ported: the full 2-D kernel (``bilateral_mode="full"``, the
-default and the reference's) and the separable passes that the tum256 and
-tum512 presets run.
+Both bilateral filters are ported: the full 2-D kernel
+(``bilateral_mode="full"``, the default and the reference's) and the
+separable passes that the tum256 and tum512 presets run. Invalidity is NaN.
+
+On a CUDA tensor each public function launches a hand-written kernel
+(``csrc/preprocess.cu``): K3 ``tsdf_bilateral_pass`` (one launch a 1-D pass,
+two for the separable filter), K3 ``tsdf_bilateral_2d`` (the 2-D filter) and
+K4 ``tsdf_normals`` (backprojection and normals in one launch; from a point
+image in ``estimate_normals``). A CPU tensor takes the plain version, the
+``*_reference`` function of the same name: stencils over shifted copies of
+the image, in the order the kernels follow.
 """
 from __future__ import annotations
 
@@ -12,9 +19,21 @@ import functools
 import math
 from typing import Tuple
 
+import numpy as np
 import torch
 
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera, backproject
+from tracking_sdf_tpu_torch.kernels import _build
+
+# kernel launches on CUDA tensors
+launches_pass = 0  # K3, one 1-D bilateral pass
+launches_2d = 0  # K3, the 2-D bilateral filter
+launches_normals = 0  # K4, (backprojection and) normals
+
+MAX_RADIUS_2D = 16  # the 2-D kernel's shared tile (csrc/preprocess.cu)
+MAX_BOX_RADIUS = 5  # K4's shared memory stays under 48 KB
+# estimate_normals' defaults, which preprocess_frame uses
+DEPTH_CHANGE_FACTOR, SMOOTHING_RADIUS = 0.02, 4
 
 
 def _shifted(img: torch.Tensor, dy: int, dx: int, fill: float) -> torch.Tensor:
@@ -38,19 +57,27 @@ def _spatial_weights(radius: int, sigma_spatial: float, device: torch.device) ->
                          for dy in taps], dtype=torch.float32, device=device)
 
 
-def bilateral_filter(
+@functools.lru_cache(maxsize=None)
+def _spatial_weights_1d(radius: int, sigma_spatial: float,
+                        device: torch.device) -> torch.Tensor:
+    """The separable passes' (2r+1,) weights exp(-d² / (2 σs²)) as float32: the
+    plain pass's Python scalars as PyTorch rounds them."""
+    inv2ss = 1.0 / (2.0 * sigma_spatial ** 2)
+    return torch.tensor([math.exp(-(d * d) * inv2ss) for d in range(-radius, radius + 1)],
+                        dtype=torch.float32, device=device)
+
+
+def bilateral_filter_reference(
     depth: torch.Tensor,
     radius: int = 5,
     sigma_spatial: float = 3.0,
     sigma_range: float = 0.03,
 ) -> torch.Tensor:
-    """The full 2-D (2r+1)^2 bilateral kernel: edge-preserving depth
-    smoothing with NaN neighbours excluded; NaN holes stay NaN.
+    """Plain version of ``bilateral_filter``.
 
-    All taps are built at once (pad with NaN, two ``unfold``s, one reduction
-    over the window): ~10 launches a frame at (2r+1)^2·H·W floats of
-    temporaries, where the JAX package's loop over taps sums them one by one
-    (the same terms, summed in another order)."""
+    The taps' weights are built at once (pad with NaN, two ``unfold``s) and
+    summed one tap at a time from zero in the JAX package's row-major (dy,
+    dx) order, which the kernel follows."""
     k = 2 * radius + 1
     center_valid = torch.isfinite(depth)
     d0 = torch.where(center_valid, depth, 0.0)
@@ -62,45 +89,53 @@ def bilateral_filter(
     ok = torch.isfinite(dn)
     dn0 = torch.where(ok, dn, 0.0)
     w = torch.where(ok, sw * torch.exp(-((dn0 - d0[..., None, None]) ** 2) * inv2sr), 0.0)
-    num = (w * dn0).sum(dim=(-2, -1))
-    den = w.sum(dim=(-2, -1))
+    wd = w * dn0
+    num = torch.zeros_like(d0)
+    den = torch.zeros_like(d0)
+    for i in range(k):
+        for j in range(k):
+            num = num + wd[..., i, j]
+            den = den + w[..., i, j]
     out = num / torch.clamp(den, min=1e-12)
     return torch.where(center_valid & (den > 0), out, float("nan"))
 
 
-def bilateral_filter_separable(
+def bilateral_pass_reference(img: torch.Tensor, axis: int, radius: int = 5,
+                             sigma_spatial: float = 3.0,
+                             sigma_range: float = 0.03) -> torch.Tensor:
+    """Plain version of one 1-D bilateral pass along ``axis`` (K3's
+    ``tsdf_bilateral_pass``): NaN neighbours excluded, NaN where the centre
+    is not finite."""
+    inv2ss = 1.0 / (2.0 * sigma_spatial ** 2)
+    inv2sr = 1.0 / (2.0 * sigma_range ** 2)
+    zero = torch.zeros((), dtype=img.dtype, device=img.device)
+    fin = torch.isfinite(img)
+    d0 = torch.where(fin, img, zero)
+    num = torch.zeros_like(d0)
+    den = torch.zeros_like(d0)
+    for d in range(-radius, radius + 1):
+        sw = math.exp(-(d * d) * inv2ss)
+        dy, dx = (d, 0) if axis == 0 else (0, d)
+        dn = _shifted(img, dy, dx, float("nan"))
+        ok = torch.isfinite(dn)
+        dn0 = torch.where(ok, dn, zero)
+        w = torch.where(ok, sw * torch.exp(-((dn0 - d0) ** 2) * inv2sr), zero)
+        num = num + w * dn0
+        den = den + w
+    out = num / torch.clamp(den, min=1e-12)
+    return torch.where(fin & (den > 0), out, torch.full_like(out, float("nan")))
+
+
+def bilateral_filter_separable_reference(
     depth: torch.Tensor,
     radius: int = 5,
     sigma_spatial: float = 3.0,
     sigma_range: float = 0.03,
 ) -> torch.Tensor:
-    """Vertical-then-horizontal 1-D bilateral passes; the range weight of
-    pass 2 compares against the pass-1 output. NaN holes stay NaN; NaN
-    neighbours are excluded per pass."""
-    center_valid = torch.isfinite(depth)
-    inv2ss = 1.0 / (2.0 * sigma_spatial ** 2)
-    inv2sr = 1.0 / (2.0 * sigma_range ** 2)
-    zero = torch.zeros((), dtype=depth.dtype, device=depth.device)
-
-    def pass1d(img, axis):
-        fin = torch.isfinite(img)
-        d0 = torch.where(fin, img, zero)
-        num = torch.zeros_like(d0)
-        den = torch.zeros_like(d0)
-        for d in range(-radius, radius + 1):
-            sw = math.exp(-(d * d) * inv2ss)
-            dy, dx = (d, 0) if axis == 0 else (0, d)
-            dn = _shifted(img, dy, dx, float("nan"))
-            ok = torch.isfinite(dn)
-            dn0 = torch.where(ok, dn, zero)
-            w = torch.where(ok, sw * torch.exp(-((dn0 - d0) ** 2) * inv2sr), zero)
-            num = num + w * dn0
-            den = den + w
-        out = num / torch.clamp(den, min=1e-12)
-        return torch.where(fin & (den > 0), out, torch.full_like(out, float("nan")))
-
-    out = pass1d(pass1d(depth, 0), 1)
-    return torch.where(center_valid, out, torch.full_like(out, float("nan")))
+    """Plain version of ``bilateral_filter_separable``."""
+    out = bilateral_pass_reference(depth, 0, radius, sigma_spatial, sigma_range)
+    out = bilateral_pass_reference(out, 1, radius, sigma_spatial, sigma_range)
+    return torch.where(torch.isfinite(depth), out, torch.full_like(out, float("nan")))
 
 
 def _masked_box(img: torch.Tensor, valid: torch.Tensor, radius: int):
@@ -118,14 +153,12 @@ def _masked_box(img: torch.Tensor, valid: torch.Tensor, radius: int):
     return x / torch.clamp(v, min=1e-12), v > 0
 
 
-def estimate_normals(
+def estimate_normals_reference(
     points_cam: torch.Tensor,  # (H, W, 3) organized camera-frame points
-    max_depth_change_factor: float = 0.02,
-    smoothing_radius: int = 4,
+    max_depth_change_factor: float = DEPTH_CHANGE_FACTOR,
+    smoothing_radius: int = SMOOTHING_RADIUS,
 ) -> torch.Tensor:
-    """Organized normals, AVERAGE_3D_GRADIENT style: masked-box-smoothed
-    tangents along u and v, n = normalize(t_u x t_v), oriented toward the
-    camera (n . p < 0), NaN where invalid."""
+    """Plain version of ``estimate_normals``."""
     z = points_cam[..., 2]
     z_ok = torch.isfinite(z)
 
@@ -156,6 +189,144 @@ def estimate_normals(
     return torch.where(ok[..., None], n, torch.full_like(n, float("nan")))
 
 
+# --- the kernels' wrappers -----------------------------------------------------
+
+def _on_card(x: torch.Tensor, what: str) -> bool:
+    """False for a CPU tensor (the plain version runs), True for a CUDA one."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return True
+
+
+def _check_image(x: torch.Tensor, what: str, channels: int = 0) -> None:
+    want = "(H, W)" if not channels else f"(H, W, {channels})"
+    if (x.dtype != torch.float32 or x.dim() != (3 if channels else 2)
+            or (channels and x.shape[2] != channels) or not x.is_contiguous()):
+        raise ValueError(f"{what}: needs a contiguous float32 {want} tensor, got "
+                         f"{tuple(x.shape)} {x.dtype}, contiguous {x.is_contiguous()}")
+
+
+def _card_reciprocal(x: float) -> float:
+    """1 / x as PyTorch on the card divides a tensor by the Python scalar x:
+    a product with the reciprocal, taken in double and rounded to float32."""
+    return float(np.float32(1.0 / x))
+
+
+def bilateral_pass(img: torch.Tensor, axis: int, radius: int = 5,
+                   sigma_spatial: float = 3.0, sigma_range: float = 0.03) -> torch.Tensor:
+    """One 1-D bilateral pass along ``axis``. A CPU tensor takes the plain
+    version; a CUDA tensor (contiguous float32 (H, W)) launches K3's pass."""
+    global launches_pass
+    if not _on_card(img, "bilateral_pass"):
+        return bilateral_pass_reference(img, axis, radius, sigma_spatial, sigma_range)
+    _check_image(img, "bilateral_pass")
+    if axis not in (0, 1) or radius < 0:
+        raise ValueError(f"bilateral_pass: axis {axis}, radius {radius}")
+    h, w = img.shape
+    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    if out.numel() == 0:
+        return out
+    sw = _spatial_weights_1d(radius, sigma_spatial, img.device)
+    rc = _build.library().tsdf_bilateral_pass(
+        img.data_ptr(), out.data_ptr(), h, w, axis, radius, sw.data_ptr(),
+        1.0 / (2.0 * sigma_range ** 2), _build.stream_ptr(img.device))
+    _build.check(rc, "bilateral_pass")
+    launches_pass += 1
+    return out
+
+
+def bilateral_filter(
+    depth: torch.Tensor,
+    radius: int = 5,
+    sigma_spatial: float = 3.0,
+    sigma_range: float = 0.03,
+) -> torch.Tensor:
+    """The full 2-D (2r+1)^2 bilateral kernel: edge-preserving depth
+    smoothing with NaN neighbours excluded; NaN holes stay NaN.
+
+    A CPU tensor takes the plain version; a CUDA tensor (contiguous float32
+    (H, W)) launches K3's 2-D form once."""
+    global launches_2d
+    if not _on_card(depth, "bilateral_filter"):
+        return bilateral_filter_reference(depth, radius, sigma_spatial, sigma_range)
+    _check_image(depth, "bilateral_filter")
+    if not 0 <= radius <= MAX_RADIUS_2D:
+        raise ValueError(f"bilateral_filter: radius {radius} not in [0, {MAX_RADIUS_2D}]")
+    h, w = depth.shape
+    out = torch.empty((h, w), dtype=torch.float32, device=depth.device)
+    if out.numel() == 0:
+        return out
+    sw = _spatial_weights(radius, sigma_spatial, depth.device)
+    rc = _build.library().tsdf_bilateral_2d(
+        depth.data_ptr(), out.data_ptr(), h, w, radius, sw.data_ptr(),
+        1.0 / (2.0 * sigma_range ** 2), _build.stream_ptr(depth.device))
+    _build.check(rc, "bilateral_filter")
+    launches_2d += 1
+    return out
+
+
+def bilateral_filter_separable(
+    depth: torch.Tensor,
+    radius: int = 5,
+    sigma_spatial: float = 3.0,
+    sigma_range: float = 0.03,
+) -> torch.Tensor:
+    """Vertical-then-horizontal 1-D bilateral passes; the range weight of
+    pass 2 compares against the pass-1 output. NaN holes stay NaN; NaN
+    neighbours are excluded per pass.
+
+    A CPU tensor takes the plain version; a CUDA tensor (contiguous float32
+    (H, W)) launches K3's 1-D pass twice."""
+    if not _on_card(depth, "bilateral_filter_separable"):
+        return bilateral_filter_separable_reference(depth, radius, sigma_spatial,
+                                                    sigma_range)
+    # pass 1 is NaN wherever the depth is not finite, so the plain version's
+    # last mask changes nothing here
+    out = bilateral_pass(depth, 0, radius, sigma_spatial, sigma_range)
+    return bilateral_pass(out, 1, radius, sigma_spatial, sigma_range)
+
+
+def _normals(depth, points, cam, factor: float, radius: int, what: str):
+    """K4: from ``depth`` (writing ``points``) or, with depth None, from
+    ``points``; returns the normals."""
+    global launches_normals
+    if not 0 <= radius <= MAX_BOX_RADIUS:
+        raise ValueError(f"{what}: smoothing radius {radius} not in [0, {MAX_BOX_RADIUS}]")
+    h, w = points.shape[:2]
+    normals = torch.empty((h, w, 3), dtype=torch.float32, device=points.device)
+    if normals.numel() == 0:
+        return normals
+    scalars = ((0.0, 0.0, 0.0, 0.0) if cam is None else
+               (_card_reciprocal(cam.fx), _card_reciprocal(cam.fy), cam.cx, cam.cy))
+    rc = _build.library().tsdf_normals(
+        None if depth is None else depth.data_ptr(), points.data_ptr(), normals.data_ptr(),
+        h, w, *scalars, factor, radius, _build.stream_ptr(points.device))
+    _build.check(rc, what)
+    launches_normals += 1
+    return normals
+
+
+def estimate_normals(
+    points_cam: torch.Tensor,  # (H, W, 3) organized camera-frame points
+    max_depth_change_factor: float = DEPTH_CHANGE_FACTOR,
+    smoothing_radius: int = SMOOTHING_RADIUS,
+) -> torch.Tensor:
+    """Organized normals, AVERAGE_3D_GRADIENT style: masked-box-smoothed
+    tangents along u and v, n = normalize(t_u x t_v), oriented toward the
+    camera (n . p < 0), NaN where invalid.
+
+    A CPU tensor takes the plain version; a CUDA tensor (contiguous float32
+    (H, W, 3)) launches K4 once."""
+    if not _on_card(points_cam, "estimate_normals"):
+        return estimate_normals_reference(points_cam, max_depth_change_factor,
+                                          smoothing_radius)
+    _check_image(points_cam, "estimate_normals", channels=3)
+    return _normals(None, points_cam, None, max_depth_change_factor, smoothing_radius,
+                    "estimate_normals")
+
+
 def preprocess_frame(
     depth: torch.Tensor,
     *,
@@ -164,7 +335,11 @@ def preprocess_frame(
     bilateral_mode: str = "full",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """depth (H, W) -> (points_cam, normals_cam), both (H, W, 3).
-    ``bilateral_mode``: "full" (the 2-D kernel) or "separable"."""
+    ``bilateral_mode``: "full" (the 2-D kernel) or "separable".
+
+    A CPU tensor takes the plain versions. A CUDA tensor (contiguous float32)
+    launches K3 once ("full") or twice ("separable"), or not at all without
+    ``bilateral``, then K4 once for the points and the normals."""
     if bilateral:
         if bilateral_mode == "full":
             depth = bilateral_filter(depth)
@@ -172,5 +347,10 @@ def preprocess_frame(
             depth = bilateral_filter_separable(depth)
         else:
             raise ValueError(f"unknown bilateral_mode: {bilateral_mode}")
-    points = backproject(cam, depth)
-    return points, estimate_normals(points)
+    if not _on_card(depth, "preprocess_frame"):
+        points = backproject(cam, depth)
+        return points, estimate_normals_reference(points)
+    _check_image(depth, "preprocess_frame")
+    points = torch.empty((*depth.shape, 3), dtype=torch.float32, device=depth.device)
+    return points, _normals(depth, points, cam, DEPTH_CHANGE_FACTOR, SMOOTHING_RADIUS,
+                            "preprocess_frame")
