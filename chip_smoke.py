@@ -271,6 +271,35 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      ...}; the kernels' line gains bilateral_pass, bilateral_2d and normals
      (launches per processed frame of the paths that ran them; library_ms
      null: no single PyTorch call computes either function).
+ 13. brick classification, compaction and the pixel table
+     (csrc/brick_classify.cu): on the scene's second frame, preprocessed
+     as each preset does, from the pose the per-frame run fused it at, at
+     tum256 (flat) and tum512 (hierarchical): K5 frame_tables (the zeta /
+     eta mip and the color pixel table in one launch, and the geometry
+     table alone), K6 classify_bricks in its flat form (every brick), its
+     super form with phase 9's sat_skip bitset (and "all children
+     saturated") and its children form (the children of the first
+     cap_mixed mixed supers), each on the plain mip; then
+     classify_compact_rows (K5, K6, K7) against
+     classify_compact_rows_reference at the preset's caps (tum512's FREE cap
+     overflows), with the caps cut to a quarter, with the sat bitset and on
+     the slab of the second half of the brick layers (i_offset m / 2): every
+     class byte, id, count, mip cell and table value bit for bit, and 3 / 5
+     launches a call. Each kernel form timed four ways (events over 100
+     launches, device from the profiler, the wrapper, the plain version)
+     beside its bound from this run's data (K5: points, normals and rgb
+     read, table and mip written; K6: its class bytes and the mip, or
+     K6_FLOP_PER_BRICK operations a brick; K7: its flags read, its lists
+     written); classify_compact_rows with the pixel table, kernels against
+     plain, in device ms, ops and host ms a call. Every main path above also
+     checks, from its counters (per replay in a chunk, per rank in the
+     two-rank group), that a fused frame ran K5 once and K6 and K7 once
+     (flat) or twice (hierarchical), K5 and K6 once on the flat bricked
+     layout, none on the dense path, and the profiled chunks that their
+     kernels ran as often. Its numbers go out as {"phase13": ...}; the
+     kernels' line gains frame_tables, classify_bricks and compact_lists
+     (launches per fused frame of the paths that ran them; library_ms null:
+     no single PyTorch call classifies bricks or builds the mip).
 The last two lines are the kernels' JSON record (bound_ms from this run's
 inputs: bytes each read or written once at 3.35 TB/s, or float32 operations
 at 67 TFLOP/s, whichever is longer) and {"ok": true, "device": {...}}.
@@ -313,7 +342,9 @@ CHUNKS = {"tum256": ((2, "calibrated"), (4, "timed"), (1, "calibrated"), (3, "pr
           "tum512": ((3, "calibrated"), (1, "timed"), (1, "profiled"))}
 COARSE_ITERATIONS = 10  # GN launches of a coarse pyramid level (track_frame_pyramid)
 KERNEL_NAMES = ("gn_step_kernel", "brick_fuse_rows_kernel", "brick_merge_rows_kernel",
-                "bilateral_pass_kernel", "bilateral_2d_kernel", "normals_kernel")
+                "bilateral_pass_kernel", "bilateral_2d_kernel", "normals_kernel",
+                "frame_tables_kernel", "classify_bricks_kernel", "compact_lists_kernel",
+                "compact_lists_hier_kernel")
 ABS_TOL_MERGE = 1e-5  # K2 dense form: same float32 formula per voxel
 # K2's dense form before its redesign (one voxel a thread, one block a
 # brick): device ms on kernel_merge's inputs with color (NVIDIA H100 80GB
@@ -504,6 +535,7 @@ def path_config(name, trajectory_path):
 
 
 def counters():
+    from tracking_sdf_tpu_torch.fusion import brick_classify as k567
     from tracking_sdf_tpu_torch.fusion import brick_fuse as k2f
     from tracking_sdf_tpu_torch.fusion import brick_merge as k2
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
@@ -518,10 +550,12 @@ def counters():
             "brick_fuse_rows": k2f.launches, "brick_fuse_rows_sat": k2f.launches_sat,
             "brick_fuse_rows_slab": k2f.launches_slab,
             "bilateral_pass": k34.launches_pass, "bilateral_2d": k34.launches_2d,
-            "normals": k34.launches_normals}
+            "normals": k34.launches_normals, "frame_tables": k567.launches_tables,
+            "classify_bricks": k567.launches_classify, "compact_lists": k567.launches_compact}
 
 
 def reset_counters():
+    from tracking_sdf_tpu_torch.fusion import brick_classify as k567
     from tracking_sdf_tpu_torch.fusion import brick_fuse as k2f
     from tracking_sdf_tpu_torch.fusion import brick_merge as k2
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
@@ -532,6 +566,7 @@ def reset_counters():
     k2.launches = k2.launches_rows = k2f.launches = k2f.launches_sat = 0
     k2f.launches_slab = 0
     k34.launches_pass = k34.launches_2d = k34.launches_normals = 0
+    k567.launches_tables = k567.launches_classify = k567.launches_compact = 0
 
 
 PREPROCESS_COUNTERS = ("bilateral_pass", "bilateral_2d", "normals")
@@ -549,6 +584,42 @@ def check_preprocess(label, launches, frames: int, mode) -> None:
             "bilateral_2d": frames if mode == "full" else 0, "normals": frames}
     got = {k: launches[k] for k in want}
     check(got == want, f"{label}: preprocessing launched {got} over {frames} frames, "
+          f"expected {want}")
+
+
+CLASSIFY_COUNTERS = ("frame_tables", "classify_bricks", "compact_lists")
+# K5, K6 and K7 launches a fused frame, by the classification a
+# configuration runs (classify_form)
+CLASSIFY_PER_FRAME = {None: (0, 0, 0), "bricked": (1, 1, 0), "flat": (1, 1, 1),
+                      "hier": (1, 2, 2)}
+
+
+def classify_form(cfg):
+    """How a configuration classifies a fused frame: "flat" (K5, K6, K7),
+    "hier" (K5, K6 super and children, K7 flat over the supers and
+    hierarchical), "bricked" (the flat bricked layout: K5, K6, and the list
+    read on the host) or None (dense fusion)."""
+    f = cfg.fusion
+    if f.mode == "dense":
+        return None
+    if f.mode == "bricked":
+        return "bricked"
+    return "hier" if f.mode == "brickmajor" and f.hier_classify > 1 else "flat"
+
+
+def check_classify(label, launches, cfg, fused=None) -> None:
+    """Every fused frame went through K5-K7 as ``cfg`` classifies it
+    (CLASSIFY_PER_FRAME); ``fused`` defaults to K2's row-form launches, one
+    a fused brick-major frame (the flat bricked layout needs it given)."""
+    form = classify_form(cfg)
+    if fused is None:
+        check(form != "bricked", f"{label}: the fused frames of a bricked run are needed")
+        fused = sum(launches[k] for k in ("brick_fuse_rows", "brick_fuse_rows_sat",
+                                          "brick_fuse_rows_slab"))
+    want = {k: n * fused for k, n in zip(CLASSIFY_COUNTERS, CLASSIFY_PER_FRAME[form])}
+    got = {k: launches[k] for k in want}
+    check(got == want and (form is None or fused > 0),
+          f"{label}: classification launched {got} over {fused} fused frames ({form}), "
           f"expected {want}")
 
 
@@ -1069,6 +1140,7 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
                else ("gn_step_brick", "brick_fuse_rows"))
     check(all(launches[k] > 0 for k in kernels), f"{name}: a kernel never ran: {launches}")
     check_preprocess(name, launches, n, filter_mode(cfg))
+    check_classify(name, launches, cfg, rec["fused"])
     check(not any(s.rejected for s in recon.stats), f"{name}: a frame was rejected")
     if name != "slice":
         check(launches["brick_fuse_rows"] == rec["fused"]
@@ -1271,12 +1343,18 @@ def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
           f"{name} chunked: expected gn_step_brick {per_step} per tracked frame, "
           f"brick_fuse_rows once per fused frame and brick_merge_rows never: {launches}")
     check_preprocess(f"{name} chunked", launches, n, filter_mode(cfg))
+    check_classify(f"{name} chunked", launches, cfg, fused)
     seen = prof["kernels"]
+    k5, k6, k7 = CLASSIFY_PER_FRAME[classify_form(cfg)]
     check(seen["gn_step_kernel"] == per_step * prof["frames"]
           and seen["brick_fuse_rows_kernel"] == prof["frames"]
           and seen["brick_merge_rows_kernel"] == 0
           and seen["normals_kernel"] == prof["frames"]
-          and seen["bilateral_pass_kernel"] == 2 * prof["frames"],
+          and seen["bilateral_pass_kernel"] == 2 * prof["frames"]
+          and seen["frame_tables_kernel"] == k5 * prof["frames"]
+          and seen["classify_bricks_kernel"] == k6 * prof["frames"]
+          and seen["compact_lists_kernel"] + seen["compact_lists_hier_kernel"]
+          == k7 * prof["frames"],
           f"{name}: the profiler counted {seen} over a chunk of {prof['frames']} frames")
     t_err = (recon.pose.t - poses[n - 1].t).norm().item()
     check(t_err < T_ERR_MAX, f"{name} chunked: |t err| {t_err:.4f} m >= {T_ERR_MAX} m")
@@ -1459,6 +1537,7 @@ def cli_run(label, argv, work, chunk=0):
     check(rc == 0, f"{label}: the CLI exited with {rc}")
     recon = made[-1]
     check_preprocess(f"cli {label}", launches, len(recon.stats), filter_mode(recon.config))
+    check_classify(f"cli {label}", launches, recon.config)
     summary = json.loads(out.getvalue().strip().splitlines()[-1])
     summary["processed"] = len(recon.stats)
     with open(log) as f:
@@ -1973,6 +2052,7 @@ def cli_render_phase(work, ref):
 # --- phase 9: the reference-exact path and the remaining single-device modes -
 
 SAT_MAX_WEIGHT = 4.0  # below the runs' frame counts, so that FREE bricks saturate
+SAT_BITS = {}  # sat_runs' bitset after its per-frame run with every FREE brick kept
 SKIP_DIFFER_MAX, SKIP_DEPTH_SHARE = 0.01, 0.98  # tests/test_torch_raycast_skip.py
 TAIL_TOL = 1e-5
 
@@ -2083,6 +2163,7 @@ def bench_path(label, cfg, cam, depths, poses, rgb, dev, n_tracked):
     med = {k: statistics.median(getattr(s, k) for s in tracked)
            for k in ("preprocess_ms", "track_ms", "fuse_ms")}
     check_preprocess(label, launches, n_tracked + 1, filter_mode(cfg))
+    check_classify(label, launches, recon.config, sum(not s.rejected for s in recon.stats))
     rec = dict(ms_per_frame=statistics.median(wall[1:]), t_err_mm=t_err * 1e3,
                launches=launches, tracked=len(tracked), processed=n_tracked + 1,
                fused=sum(not s.rejected for s in recon.stats),
@@ -2313,6 +2394,8 @@ def sat_runs(name, cam, depths, poses, rgb, dev):
     for cap_free, tag in ((nb, "NB"), (base.fusion.brick_cap_free, "preset")):
         off, f_off, _ = run(False, cap_free, False)
         on, f_on, l_on = run(True, cap_free, False)
+        if tag == "NB":  # phase 13 classifies with these bits
+            SAT_BITS[name] = on._sat.clone()
         onc, f_onc, l_onc = run(True, cap_free, True)
         equal = same_rows(off.brick_grid, on.brick_grid)
         equal_c = same_rows(on.brick_grid, onc.brick_grid)
@@ -2328,6 +2411,8 @@ def sat_runs(name, cam, depths, poses, rgb, dev):
               f"{name} sat_skip: the sat form must launch once per fused frame: {l_on}, {l_onc}")
         check_preprocess(f"{name} sat_skip per frame", l_on, n, filter_mode(base))
         check_preprocess(f"{name} sat_skip chunked", l_onc, n, filter_mode(base))
+        check_classify(f"{name} sat_skip per frame", l_on, base)
+        check_classify(f"{name} sat_skip chunked", l_onc, base)
         # the per-frame loop adapts its FULL cap, the chunk holds the maximum:
         # equal unless the per-frame run dropped FULL bricks
         full_drop = any(s.overflow for s in f_on)
@@ -2920,6 +3005,8 @@ def one_rank_mesh(cam, depths, poses, rgb, dev, work, mesh):
               f"single-device form: {got}")
     check_preprocess("one-rank mesh per frame", launches, n, filter_mode(cfg))
     check_preprocess("one-rank mesh chunked", chunk_launches, tracked, filter_mode(cfg))
+    check_classify("one-rank mesh per frame", launches, cfg)
+    check_classify("one-rank mesh chunked", chunk_launches, cfg)
     return dict(final_pose=per_frame[-1],
                 ms_per_frame=statistics.median(wall[1:]), chunk_ms=chunk_ms,
                 replay_ms_per_frame=replay_ms,
@@ -3020,6 +3107,9 @@ def two_rank_group(cam, depths, poses, rgb, dev, work, one_rank):
             check_preprocess(f"two-rank group ({name}) rank {r}",
                              dict(zip(PREPROCESS_COUNTERS, x["preprocess_launches"].tolist())),
                              tr + 1, filter_mode(path_config(name, None)))
+            check_classify(f"two-rank group ({name}) rank {r}",
+                           dict(zip(CLASSIFY_COUNTERS, x["classify_launches"].tolist())),
+                           path_config(name, None), tr + 1)
         check(abs(t_err - ref) <= 0.5 * voxel_mm,
               f"two-rank group ({name}): |t err| {t_err:.2f} mm not within half a voxel of "
               f"{ref} mm")
@@ -3265,11 +3355,12 @@ def packed_phase(work):
               f"the JAX package's {ref} mm")
         check(launches["gn_step_brick"] == per_step * tracked
               and launches["brick_fuse_rows"] == fused
-              and sum(v for k, v in launches.items() if k not in PREPROCESS_COUNTERS)
+              and sum(v for k, v in launches.items()
+                      if k not in PREPROCESS_COUNTERS + CLASSIFY_COUNTERS)
               == per_step * tracked + fused,
               f"{name} packed: expected gn_step_brick {per_step} per tracked frame, "
-              f"brick_fuse_rows once per fused frame and beside preprocessing nothing "
-              f"else: {launches}")
+              f"brick_fuse_rows once per fused frame and beside preprocessing and "
+              f"classification nothing else: {launches}")
         records[f"{name}_packed"] = dict(
             launches=launches, tracked=tracked, fused=fused, processed=s["processed"],
             ate_mm=ate_mm,
@@ -3657,6 +3748,249 @@ def preprocess_phase(cam, depths):
     return recs, frame
 
 
+# --- phase 13: brick classification, compaction and the pixel table (K5-K7) ---
+
+CLASSIFY_TPU = {  # the JAX functions each kernel replaces (no Pallas original)
+    "frame_tables": "tracking_sdf_tpu/fusion/brick.py:187",  # _zeta_mip; _pixel_table :625
+    "classify_bricks": "tracking_sdf_tpu/fusion/brick.py:587",  # classify_bricks; :377 descent
+    "compact_lists": "tracking_sdf_tpu/fusion/brick.py:123"}  # _compact_vals; :377 lists
+# the form whose times head each kernel's record: tum256's main-path launch
+CLASSIFY_HEADLINE = {"frame_tables": "tum256 mip and color table",
+                     "classify_bricks": "tum256 flat", "compact_lists": "tum256 flat"}
+# float operations a pixel of K5 (validity, table row and color 12, the ray,
+# footprint and both bounds 24) and a brick of K6 (the axis ends 21, their
+# products 18, each of 8 corners 9 adds, u and v 8 and 6 min / max, the
+# window query 42)
+K5_FLOP_PER_PIXEL = 36
+K6_FLOP_PER_BRICK = 265
+
+
+def _diff(a, b):
+    """(values that differ bit for bit, max abs difference) of two tensors
+    of one dtype and shape (NaN payloads compared as NaN)."""
+    check(a.shape == b.shape and a.dtype == b.dtype,
+          f"shapes / dtypes {tuple(a.shape)} {a.dtype}, {tuple(b.shape)} {b.dtype}")
+    if a.is_floating_point():
+        na, nb = torch.isnan(a), torch.isnan(b)
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        differ = int(((a.view(torch.int32) != b.view(torch.int32)) | (na != nb)).sum())
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        err = float((a[fin] - b[fin]).abs().max()) if bool(fin.any()) else 0.0
+        return differ, err
+    differ = int((a != b).sum())
+    return differ, float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
+
+
+def classify_phase(cam, depths, poses, rgb, dev, tracked_pose):
+    """Phase 13: K5, K6 (flat, super, children) and K7 (flat, hierarchical)
+    against their plain versions at full width on the scene's second frame
+    from the per-frame run's tracked pose, bit for bit: tum256 (flat) and
+    tum512 (hierarchical, its FREE cap overflowing), each at the preset's
+    caps, with the caps tightened once more, with sat_runs' bitset, and in
+    the slab form at half the layers; each kernel form timed four ways beside
+    its bound from this run's data; classify_compact_rows with the pixel
+    table, kernels against plain, in device ms, ops and host ms a call.
+    Returns {kernel: record} and the stage's records."""
+    from tracking_sdf_tpu_torch.fusion import brick
+    from tracking_sdf_tpu_torch.fusion import brick_classify as k567
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        classify_compact_rows, classify_compact_rows_reference)
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+
+    print(f"phase 13: brick classification, compaction and the pixel table (K5, K6, K7) on "
+          f"{gpu_line()}")
+    recs = {k: dict(max_abs_err=0.0, values_differ=0) for k in CLASSIFY_COUNTERS}
+    stage = {}
+
+    def agree(kernel, what, pairs):
+        for got, want in pairs:
+            differ, err = _diff(got, want)
+            print(f"  {kernel} {what}: {differ} values differ (tol 0), max abs err {err:.3e}")
+            check(differ == 0, f"{kernel} {what} disagrees with its plain version: {differ} "
+                  "values")
+            r = recs[kernel]
+            r.update(max_abs_err=max(r["max_abs_err"], err),
+                     values_differ=r["values_differ"] + differ)
+
+    for name in CHUNKS:
+        cfg = path_config(name, None)
+        f, p = cfg.fusion, cfg.grid
+        bs, cap, cap_free, fac = f.brick_shape, f.brick_cap, f.brick_cap_free, f.hier_classify
+        pts, nrm = preprocess_frame(depths[1], cam=cam, bilateral=cfg.bilateral_filter,
+                                    bilateral_mode=cfg.bilateral_mode)
+        pose = tracked_pose[name]
+        share = brick.share_classify_margin(p, f)
+        hw = tuple(pts.shape[:2])
+        nb3 = tuple(p.m // b for b in bs)
+        NB = nb3[0] * nb3[1] * nb3[2]
+
+        # K5: the mip and the table (color) in one launch, and each alone
+        mip_ref = brick._zeta_mip_reference(pts, nrm, cam, p.delta, f.distance, share)
+        pix_ref = brick._pixel_table_reference(pts, nrm, rgb, True, f.distance)
+        mip, pix = brick.frame_tables(pts, nrm, rgb, True, cam, p.delta, f.distance, share)
+        names = ("zeta", "zeta_down", "eta", "eta_down")
+        agree("frame_tables", f"({name}, mip and table)",
+              [(getattr(mip, k), getattr(mip_ref, k)) for k in names] + [(pix, pix_ref)])
+        agree("frame_tables", f"({name}, geometry table alone)",
+              [(brick._pixel_table(pts, nrm, None, False, f.distance),
+                brick._pixel_table_reference(pts, nrm, None, False, f.distance))])
+
+        # K6's forms on the plain mip
+        R, base = brick._card_pose(pose)
+        geo = dict(params=p, cam=cam, hw=hw)
+        flat_ref = brick.classify_bricks_reference(p, pose, pts, nrm, cam, bs, f.distance,
+                                                   mip=mip_ref).reshape(-1)
+        flat, _ = k567.classify_bricks(mip_ref, R, base, bs=bs, grid=nb3, **geo)
+        agree("classify_bricks", f"({name}, flat, {NB} bricks)", [(flat.int(), flat_ref)])
+        if fac > 1:
+            ns3 = tuple(n // fac for n in nb3)
+            sbs = tuple(b * fac for b in bs)
+            sref = brick.classify_bricks_reference(p, pose, pts, nrm, cam, sbs, f.distance,
+                                                   mip=mip_ref).reshape(-1)
+            sat = SAT_BITS[name]
+            scls, sat_super = k567.classify_bricks(mip_ref, R, base, bs=sbs, grid=ns3,
+                                                   sat=sat, factor=fac, **geo)
+            sat_ref = (sat.view(ns3[0], fac, ns3[1], fac, ns3[2], fac).permute(0, 2, 4, 1, 3, 5)
+                       .reshape(-1, fac ** 3).all(1))
+            agree("classify_bricks", f"({name}, super, {sref.numel()} supers, sat)",
+                  [(scls.int(), sref), (sat_super, sat_ref)])
+            mixed = brick._compact_ids(sref == 2, f.cap_mixed, sref.numel()).int()
+            fcls, gid = k567.classify_children(mip_ref, R, base, mixed, bs=bs, grid=nb3,
+                                               factor=fac, **geo)
+            ok = gid < NB
+            agree("classify_bricks", f"({name}, children of {int((mixed < sref.numel()).sum())}"
+                  " mixed supers)", [(fcls[ok].int(), flat_ref[gid[ok].long()]),
+                                     (fcls[~ok].int(), torch.zeros_like(fcls[~ok].int()))])
+
+        # the whole stage (K7 inside) at the preset's caps, tightened, with
+        # sat, and on the slab of the second half of the brick layers
+        cases = [("preset caps", f, cap, cap_free, None, None, 0),
+                 ("caps / 4", f._replace(cap_mixed=f.cap_mixed // 4), cap // 4,
+                  cap_free // 4, None, None, 0),
+                 ("sat", f, cap, cap_free, SAT_BITS[name], None, 0),
+                 ("slab", f, cap // 2, cap_free // 2, None, nb3[0] // 2, p.m // 2)]
+        for what, fc, c, cf, sat, nbi, i0 in cases:
+            kw = dict(cam=cam, cfg=fc, bs=bs, cap=c, cap_free=cf, sat=sat, nbi=nbi,
+                      i_offset=i0)
+            reset_counters()
+            got = classify_compact_rows(p, pose, pts, nrm, **kw)
+            launches = counters()
+            want = classify_compact_rows_reference(p, pose, pts, nrm, **kw)
+            n_k = 2 if fac > 1 else 1
+            check(tuple(launches[k] for k in CLASSIFY_COUNTERS) == (1, n_k, n_k),
+                  f"classify_compact_rows ({name}, {what}) launched {launches}")
+            counts = want[1].tolist()
+            agree("compact_lists", f"({name}, {what}: cap {c}, cap_free {cf}; n_full, n_free, "
+                  f"FREE dropped, mixed dropped {counts})", list(zip(got, want)))
+            stage.setdefault(name, {})[what] = counts
+            if what == "preset caps":
+                check(name != "tum512" or counts[2] > 0, "tum512: the FREE cap did not overflow")
+
+        # times at the main path's shapes: the preset's caps, no sat
+        ms3 = tuple(n // fac for n in nb3) if fac > 1 else None
+        cap_sfree = max(cap_free // fac ** 3, 1) if fac > 1 else 0
+        if fac > 1:
+            scls, _ = k567.classify_bricks(mip, R, base, bs=tuple(b * fac for b in bs),
+                                           grid=ms3, factor=fac, **geo)
+            sup, sup_counts = k567.compact_lists(scls, None, f.cap_mixed, cap_sfree,
+                                                 scls.numel())
+            fcls, gid = k567.classify_children(mip, R, base, sup[:f.cap_mixed], bs=bs,
+                                               grid=nb3, factor=fac, **geo)
+        n_pix = hw[0] * hw[1]
+        total = mip.zeta.numel()
+        mip_bytes = 4 * 4 * total
+        forms = {
+            ("frame_tables", "mip and color table"): (
+                lambda: brick.frame_tables(pts, nrm, rgb, True, cam, p.delta, f.distance, share),
+                lambda: (brick._zeta_mip_reference(pts, nrm, cam, p.delta, f.distance, share),
+                         brick._pixel_table_reference(pts, nrm, rgb, True, f.distance)),
+                ("frame_tables_kernel",), n_pix * (36 + 32) + mip_bytes,
+                K5_FLOP_PER_PIXEL * n_pix)}
+        if fac > 1:
+            n_child = f.cap_mixed * fac ** 3
+            forms.update({
+                ("classify_bricks", "super"): (
+                    lambda: k567.classify_bricks(mip, R, base, bs=tuple(b * fac for b in bs),
+                                                 grid=ms3, factor=fac, **geo),
+                    lambda: brick.classify_bricks_reference(
+                        p, pose, pts, nrm, cam, tuple(b * fac for b in bs), f.distance,
+                        mip=mip),
+                    ("classify_bricks_kernel",), scls.numel() + mip_bytes + 48,
+                    K6_FLOP_PER_BRICK * scls.numel()),
+                ("compact_lists", "flat over the supers"): (
+                    lambda: k567.compact_lists(scls, None, f.cap_mixed, cap_sfree, scls.numel()),
+                    lambda: (brick._compact_ids(scls == 2, f.cap_mixed, scls.numel()),
+                             brick._compact_ids(scls == 1, cap_sfree, scls.numel())),
+                    ("compact_lists_kernel",),
+                    scls.numel() + 4 * (f.cap_mixed + cap_sfree) + 32, 0),
+                ("classify_bricks", "children"): (
+                    lambda: k567.classify_children(mip, R, base, sup[:f.cap_mixed], bs=bs,
+                                                   grid=nb3, factor=fac, **geo),
+                    None, ("classify_bricks_kernel",),
+                    4 * f.cap_mixed + 5 * n_child + mip_bytes + 48,
+                    K6_FLOP_PER_BRICK * int((sup[:f.cap_mixed] < scls.numel()).sum())
+                    * fac ** 3),
+                ("compact_lists", "hierarchical"): (
+                    lambda: k567.compact_lists_hier(fcls, gid, None, sup[f.cap_mixed:],
+                                                    sup_counts, cap=cap, cap_free=cap_free,
+                                                    cap_mixed=f.cap_mixed, grid=nb3,
+                                                    factor=fac),
+                    None, ("compact_lists_hier_kernel",),
+                    5 * n_child + 4 * cap_sfree + 32 + 4 * (cap + cap_free) + 32, 0)})
+        else:
+            forms.update({
+                ("classify_bricks", "flat"): (
+                    lambda: k567.classify_bricks(mip, R, base, bs=bs, grid=nb3, **geo),
+                    lambda: brick.classify_bricks_reference(p, pose, pts, nrm, cam, bs,
+                                                            f.distance, mip=mip),
+                    ("classify_bricks_kernel",), NB + mip_bytes + 48, K6_FLOP_PER_BRICK * NB),
+                ("compact_lists", "flat"): (
+                    lambda: k567.compact_lists(flat, None, cap, cap_free, NB),
+                    lambda: (brick._compact_ids(flat == 2, cap, NB),
+                             brick._compact_ids(flat == 1, cap_free, NB)),
+                    ("compact_lists_kernel",), NB + 4 * (cap + cap_free) + 32, 0)})
+        for (kernel, form), (fn, plain, keys, nbytes, flops) in forms.items():
+            ms = events_ms(fn)
+            # the profiler has missed every launch of a session: ask twice
+            device_ms = kernel_device_ms(fn, keys) or kernel_device_ms(fn, keys)
+            wrapper_ms = cuda_time_ms(fn)
+            plain_ms = cuda_time_ms(plain) if plain else None
+            bms, by = bound(nbytes, flops)
+            share_b = bms / device_ms if device_ms else float("nan")
+            print(f"{kernel} ({name}, {form}): kernel {ms:.4f} ms ({TIMED_LAUNCHES} "
+                  f"back-to-back), device {device_ms} ms, wrapper {wrapper_ms:.4f} ms per "
+                  f"call, plain {plain_ms} ms; bound {bms:.6f} ms ({by}: {nbytes / 1e6:.3f} "
+                  f"MB, {flops / 1e6:.2f} MFLOP), {share_b:.1%} of it")
+            recs[kernel][f"{name} {form}"] = dict(
+                ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
+                bound_ms=bms, bound_by=by, bound_share=share_b)
+
+        # the stage: classify_compact_rows and the pixel table, kernels
+        # against plain
+        kw = dict(cam=cam, cfg=f, bs=bs, cap=cap, cap_free=cap_free)
+
+        def kernels():
+            m_, x = brick.frame_tables(pts, nrm, rgb, True, cam, p.delta, f.distance, share)
+            return classify_compact_rows(p, pose, pts, nrm, mip=m_, **kw), x
+
+        def plain():
+            return (classify_compact_rows_reference(p, pose, pts, nrm, **kw),
+                    brick._pixel_table_reference(pts, nrm, rgb, True, f.distance))
+
+        k_ms, k_ops = all_device_ms(kernels)
+        p_ms, p_ops = all_device_ms(plain)
+        k_host, p_host = host_ms(kernels), host_ms(plain)
+        print(f"classify_compact_rows + pixel table ({name}): kernels {k_ms:.4f} device ms in "
+              f"{k_ops:.1f} device ops (the profiler may miss launches), {k_host:.3f} ms on the "
+              f"host clock a call; plain {p_ms:.4f} device ms in {p_ops:.0f} ops, "
+              f"{p_host:.3f} ms")
+        stage.setdefault(name, {}).update(device_ms=k_ms, device_ops=k_ops, host_ms=k_host,
+                                          plain_device_ms=p_ms, plain_device_ops=p_ops,
+                                          plain_host_ms=p_host)
+    torch.cuda.empty_cache()
+    return recs, stage
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this smoke runs "
@@ -3715,6 +4049,8 @@ def main() -> int:
     free_cap_cost(cam, depths, poses, rgb, dev, paths["tum512"])
     tum_decode_on_card(depths[1], dev)
     finals = {}  # the presets' final rows and tracked pose, for phase 8
+    # the pose each preset's per-frame run fused the second frame at, for phase 13
+    tracked_pose = {name: Pose(*runs[name][1]["poses"][1]) for name in CHUNKS}
     for name in CHUNKS:
         paths[f"{name}_chunk"] = run_chunk_path(
             name, cam, depths, poses, rgb, dev,
@@ -3756,6 +4092,7 @@ def main() -> int:
         phase11, f32, packed_paths = surface_phase(cam, scene, depths, poses, rgb, dev, work)
         paths.update(packed_paths)
         k34, frame12 = preprocess_phase(cam, depths)
+        k567, stage13 = classify_phase(cam, depths, poses, rgb, dev, tracked_pose)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3795,6 +4132,17 @@ def main() -> int:
                        launches_per_frame=n / sum(r["processed"] for r in ran),
                        library_ms=None), **k34[name]}
 
+    def classify_entry(name):
+        """K5's, K6's or K7's record; launches over every main path that ran
+        it, per fused frame of those paths (K6 and K7 run twice a
+        hierarchical frame, K7 never on the flat bricked layout)."""
+        ran = [r for r in paths.values() if r["launches"][name]]
+        n = sum(r["launches"][name] for r in ran)
+        return {**dict(name=name, route="cuda", source=src("brick_classify.cu"),
+                       replaces=CLASSIFY_TPU[name], launches=n,
+                       launches_per_frame=n / sum(r["fused"] for r in ran),
+                       library_ms=None), **k567[name], **k567[name][CLASSIFY_HEADLINE[name]]}
+
     kernels = [
         entry("gn_reduce", "gn_reduce.cu", gn_tpu, dense_paths_, "tracked",
               at_paths("gn_reduce", k1_dense)),
@@ -3832,12 +4180,15 @@ def main() -> int:
               counter="brick_fuse_rows"),
         # no single PyTorch call computes a bilateral filter or organized normals
         *(preprocess_entry(name) for name in PREPROCESS_COUNTERS),
+        # no single PyTorch call classifies bricks or builds the mip
+        *(classify_entry(name) for name in CLASSIFY_COUNTERS),
     ]
     print(json.dumps({"phase8": phase8}))
     print(json.dumps({"phase9": phase9}))
     print(json.dumps({"phase10": phase10}))
     print(json.dumps({"phase11": phase11}))
     print(json.dumps({"phase12": {"kernels": k34, "preprocess_frame": frame12}}))
+    print(json.dumps({"phase13": {"kernels": k567, "stage": stage13}}))
     print(gpu)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -22,7 +22,10 @@ For each preset, as it is, over chip_smoke.py's scene and trajectory at
      points and pose, at the cap the runner used, from a copy of the brick
      rows saved before that frame (restored before every call, outside the
      timed window), timed unprofiled (median of 5) and profiled once, with
-     the same records as 3. and the peak device memory of one call;
+     the same records as 3. and the peak device memory of one call; then
+     its stages alone, each through its public name on the same inputs:
+     classify_compact_rows (with the zeta mip it makes), the pixel table
+     (_pixel_table) and K2's brick_fuse_rows: host ms, device ms and ops;
   5. the chunked path (where the checkout has Reconstruction.process_chunk)
      over the same frames: frames 1-2 as a first chunk (capture and phase
      calibration), the rest as one chunk of CUDA-graph replays, timed on the
@@ -33,7 +36,8 @@ Peak device memory is also read over the timed run of 1.
 Prints one JSON line per preset and writes them all to OUT/profile_LABEL.json
 (OUT defaults to build/profile/ beside this script). It drives public entry
 points (Reconstruction, preprocess_frame, brick_masked_view,
-track_frame_pyramid, fuse_frame_brickmajor) and two attributes of the
+track_frame_pyramid, fuse_frame_brickmajor, classify_compact_rows,
+_pixel_table, brick_fuse_rows) and two attributes of the
 runner (its cap levels and index), so it also times an older checkout of the
 port that has a config module.
 Without a CUDA device it exits non-zero.
@@ -219,11 +223,54 @@ def run_preset(name, label, gpu):
           f"(the timed run's peak {peak_mib:.0f} MiB)")
     for t in fp["top"]:
         print(f"    {t['ms']:8.3f} ms {t['count']:5d}x {t['name']}")
+    rec.update(fuse_stages(cfg, cam, pose_fused, pts, nrm, rgb_last, bg, cap, restore, label,
+                           name))
     del bg, rows_before
     torch.cuda.empty_cache()
     if hasattr(Reconstruction, "process_chunk"):
         rec.update(chunked(cfg, cam, depths, poses, rgb, dev, name, label))
     return rec
+
+
+def fuse_stages(cfg, cam, pose, pts, nrm, rgb, bg, cap, restore, label, name):
+    """4, by stage: classify_compact_rows (with its mip), the pixel table and
+    brick_fuse_rows, each called alone through its public name on the inputs
+    of 4, timed unprofiled (median of 5) and profiled once: host ms, device
+    ms and ops a call. The rows are restored before each K2 call."""
+    from tracking_sdf_tpu_torch.fusion.brick import _pixel_table
+    from tracking_sdf_tpu_torch.fusion.brick_fuse import brick_fuse_rows
+    from tracking_sdf_tpu_torch.fusion.brickmajor import classify_compact_rows
+
+    f = cfg.fusion
+    bs, color = f.brick_shape, rgb is not None
+    kw = dict(cam=cam, cfg=f, bs=bs, cap=cap, cap_free=f.brick_cap_free or cap)
+    ids, _ = classify_compact_rows(cfg.grid, pose, pts, nrm, **kw)
+    pix = _pixel_table(pts, nrm, rgb, color, f.distance)
+    stages = {
+        "classify": (lambda: classify_compact_rows(cfg.grid, pose, pts, nrm, **kw), None),
+        "pixel_table": (lambda: _pixel_table(pts, nrm, rgb, color, f.distance), None),
+        "brick_fuse_rows": (lambda: brick_fuse_rows(
+            bg.D, bg.W, bg.C, ids, pix, pose, cap=cap, hw=tuple(pts.shape[:2]),
+            params=cfg.grid, cam=cam, cfg=f, bs=bs), restore)}
+    out = {}
+    for key, (fn, before) in stages.items():
+        times = []
+        for _ in range(6):
+            if before:
+                before()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        if before:
+            before()
+        sp = profile(fn)
+        out.update({f"{key}_alone_ms": statistics.median(times[1:]),
+                    f"{key}_device_ms": sp["device_ms"], f"{key}_device_ops": sp["device_ops"]})
+        print(f"{label} {name}: {key} alone {out[f'{key}_alone_ms']:.3f} ms, device "
+              f"{sp['device_ms']:.4f} ms in {sp['device_ops']} ops")
+    return out
 
 
 def chunked(cfg, cam, depths, poses, rgb, dev, name, label):

@@ -1033,3 +1033,298 @@ def test_preprocess_captured_equals_eager(dev, mode):
             assert torch.equal(torch.isnan(a), torch.isnan(b))
             assert torch.equal(torch.nan_to_num(a).view(torch.int32),
                                torch.nan_to_num(b).view(torch.int32))
+
+
+# --- K5, K6, K7: the mip, the pixel table, classification and compaction ----
+
+CLASSIFY_SIZES = {"scene": (72, 96), "speckle": (72, 96), "ragged": (37, 53), "tiny": (7, 9),
+                  "all_nan": (37, 53)}
+
+
+def _classify_frame(dev, case, inside=False):
+    """Points and normals of the sphere, box and wall of _scene_points at the
+    case's size, with NaN speckle and an all-NaN row ("speckle", "ragged",
+    "tiny"), or all NaN; seen from outside the m=64 grid or from inside it
+    (part of the grid behind the camera and off the image)."""
+    h, w = CLASSIFY_SIZES[case]
+    cam = PinholeCamera(fx=0.83 * w, fy=0.83 * w, cx=(w - 1) / 2, cy=(h - 1) / 2,
+                        width=w, height=h)
+    pose = (look_at((0.1, -0.45, 0.1), (0.3, 1.0, 0.25), device=dev) if inside
+            else look_at((0.3, -2.4, 0.15), (0.0, 0.0, 0.0), device=dev))
+    parts = (SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
+             CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)),
+             CuboidScene(min_corner=(-4.0, 0.8, -4.0), max_corner=(4.0, 1.2, 4.0)))
+    depth = render_scene_depth(_Union(*parts), cam, pose)
+    gen = torch.Generator(device=dev).manual_seed(h * w)
+    if case in ("speckle", "ragged", "tiny"):
+        depth = torch.where(torch.rand(depth.shape, generator=gen, device=dev) < 0.08,
+                            float("nan"), depth)
+        depth[h // 3] = float("nan")
+    if case == "all_nan":
+        depth = torch.full_like(depth, float("nan"))
+    pts, nrm = preprocess_frame(depth.contiguous(), cam=cam, bilateral=False)
+    rgb = torch.rand(h, w, 3, generator=gen, device=dev)
+    return cam, pose, pts, nrm, rgb
+
+
+def _bits_equal(a, b):
+    """Same shape, dtype and bits (NaN payloads compared as NaN)."""
+    assert a.shape == b.shape and a.dtype == b.dtype
+    if a.is_floating_point():
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        a, b = torch.nan_to_num(a), torch.nan_to_num(b)
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def _k567():
+    from tracking_sdf_tpu_torch.fusion import brick_classify as k567
+    return k567
+
+
+def test_card_divides_by_a_python_scalar_as_its_reciprocal(dev):
+    """The rounding that K5 and K6 follow: a float32 tensor divided by a
+    Python scalar on the card is the product with card_reciprocal (1 / x in
+    double, rounded to float32), also where that differs from the float32
+    reciprocal of float32 x."""
+    import numpy as np
+
+    x = torch.linspace(-700.0, 700.0, 200003, device=dev)
+    scalars = (517.3, 516.5, 525.0, 24.0, 535.4, 481.2, 517.306408)
+    assert sum(np.float32(1.0 / s) != np.float32(1.0) / np.float32(s) for s in scalars) == 3
+    for s in scalars:
+        want = x * _k567().card_reciprocal(s)
+        assert torch.equal((x / s).view(torch.int32), want.view(torch.int32)), s
+
+
+@pytest.mark.parametrize("share", [0.0, 0.0625])
+@pytest.mark.parametrize("distance", ["point_to_plane", "point_to_point"])
+@pytest.mark.parametrize("case", list(CLASSIFY_SIZES))
+def test_frame_tables_match_plain(dev, case, distance, share):
+    """K5 (mip and table in one launch, and each alone) bitwise against
+    _zeta_mip_reference and _pixel_table_reference on the same card tensors."""
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    k567 = _k567()
+    cam, _, pts, nrm, rgb = _classify_frame(dev, case)
+    want_mip = brick._zeta_mip_reference(pts, nrm, cam, PARAMS.delta, distance, share)
+    before = k567.launches_tables
+    for color in (False, True):
+        want_pix = brick._pixel_table_reference(pts, nrm, rgb, color, distance)
+        mip, pix = brick.frame_tables(pts, nrm, rgb, color, cam, PARAMS.delta, distance, share)
+        alone = brick._pixel_table(pts, nrm, rgb if color else None, color, distance)
+        assert _bits_equal(pix, want_pix) and _bits_equal(alone, want_pix)
+        for got in (mip, brick._zeta_mip(pts, nrm, cam, PARAMS.delta, distance, share)):
+            assert got.offsets == want_mip.offsets and got.dims == want_mip.dims
+            for name in ("zeta", "zeta_down", "eta", "eta_down"):
+                assert _bits_equal(getattr(got, name), getattr(want_mip, name)), name
+    assert k567.launches_tables == before + 6
+    if case == "all_nan":
+        assert bool((want_mip.zeta == -float("inf")).all())
+
+
+def _super_classes(pose, pts, nrm, cam, cfg, f, nbi=None, i_offset=0, mip=None):
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    return brick.classify_bricks_reference(
+        PARAMS, pose, pts, nrm, cam, (8 * f,) * 3, cfg.distance, mip=mip,
+        nbi=None if nbi is None else nbi // f, i_offset=i_offset).reshape(-1)
+
+
+@pytest.mark.parametrize("inside", [False, True])
+@pytest.mark.parametrize("case", ["scene", "speckle", "tiny", "all_nan"])
+def test_classify_kernel_forms_match_plain(dev, case, inside):
+    """K6's flat, super and children forms on the plain mip: the classes of
+    classify_bricks_reference, bit for bit, on the whole grid and on a slab
+    (i_offset > 0); the super form's "all children saturated"; the children's
+    global ids (NB on padding slots)."""
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    k567 = _k567()
+    cam, pose, pts, nrm, _ = _classify_frame(dev, case, inside)
+    cfg = FusionConfig(mode="brickmajor", distance="point_to_plane", pixel_share=4,
+                       pixel_share_j=4)
+    share = brick.share_classify_margin(PARAMS, cfg)
+    mip = brick._zeta_mip_reference(pts, nrm, cam, PARAMS.delta, cfg.distance, share)
+    R, base = brick._card_pose(pose)
+    hw = tuple(pts.shape[:2])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for nbi, i_offset in ((8, 0), (4, 32)):
+        want = brick.classify_bricks_reference(PARAMS, pose, pts, nrm, cam, (8, 8, 8),
+                                               cfg.distance, mip=mip, nbi=nbi,
+                                               i_offset=i_offset).reshape(-1)
+        got, _ = k567.classify_bricks(mip, R, base, params=PARAMS, cam=cam, hw=hw,
+                                      bs=(8, 8, 8), grid=(nbi, 8, 8), i_offset=i_offset)
+        assert torch.equal(got.to(torch.int32), want)
+        nb = want.numel()
+        for f in (2, 4):
+            ns3 = (nbi // f, 8 // f, 8 // f)
+            swant = _super_classes(pose, pts, nrm, cam, cfg, f, nbi, i_offset, mip)
+            sat = torch.rand(nb, generator=gen, device=dev) < 0.7
+            sat.view(ns3[0], f, ns3[1], f, ns3[2], f)[0, :, 0, :, 0, :] = True
+            sgot, sat_super = k567.classify_bricks(
+                mip, R, base, params=PARAMS, cam=cam, hw=hw, bs=(8 * f,) * 3, grid=ns3,
+                i_offset=i_offset, sat=sat, factor=f)
+            assert torch.equal(sgot.to(torch.int32), swant)
+            all_sat = (sat.view(ns3[0], f, ns3[1], f, ns3[2], f).permute(0, 2, 4, 1, 3, 5)
+                       .reshape(-1, f ** 3).all(1))
+            assert torch.equal(sat_super, all_sat) and bool(all_sat[0])
+            # every super listed, then two padding slots
+            ns = swant.numel()
+            mixed = torch.cat([torch.arange(ns, device=dev, dtype=torch.int32),
+                               torch.full((2,), ns, device=dev, dtype=torch.int32)])
+            fcls, gid = k567.classify_children(mip, R, base, mixed, params=PARAMS, cam=cam,
+                                               hw=hw, bs=(8, 8, 8), grid=(nbi, 8, 8),
+                                               i_offset=i_offset, factor=f)
+            s = torch.arange(ns, device=dev)
+            c = torch.arange(f ** 3, device=dev)
+            ib = (s // (ns3[1] * ns3[2]))[:, None] * f + c // (f * f)
+            jb = ((s // ns3[2]) % ns3[1])[:, None] * f + (c // f) % f
+            kb = (s % ns3[2])[:, None] * f + c % f
+            gwant = torch.cat([((ib * 8 + jb) * 8 + kb).reshape(-1),
+                               torch.full((2 * f ** 3,), nb, device=dev)])
+            assert torch.equal(gid.long(), gwant)
+            assert torch.equal(fcls[:ns * f ** 3].to(torch.int32), want[gwant[:ns * f ** 3]])
+            assert not bool(fcls[ns * f ** 3:].any())
+    if case == "all_nan":
+        assert not bool((want == 1).any())
+
+
+@pytest.mark.parametrize("sat_case", ["none", "partly"])
+@pytest.mark.parametrize("caps", ["wide", "tight"])
+@pytest.mark.parametrize("slab", [False, True])
+@pytest.mark.parametrize("hier", [0, 2, 4])
+def test_classify_compact_kernels_match_plain(dev, hier, slab, caps, sat_case):
+    """classify_compact_rows on the card (K5, K6, K7: 3 launches flat, 5
+    hierarchical) against classify_compact_rows_reference on the same card
+    tensors: ids and counts bit for bit, with caps that bind nowhere and with
+    tight caps that overflow FULL, FREE and mixed, with sat partly set (one
+    FREE super's children all set), on the whole grid and on a slab."""
+    from tracking_sdf_tpu_torch.fusion import brick
+    from tracking_sdf_tpu_torch.fusion.brickmajor import classify_compact_rows_reference
+
+    k567 = _k567()
+    nbi, i_offset = (4, 32) if slab else (8, 0)
+    nb = nbi * 64
+    cap, cap_free, cap_mixed = (nb, nb, nb) if caps == "wide" else (20, 12, 3)
+    cfg = FusionConfig(mode="brickmajor", distance="point_to_plane", pixel_share=4,
+                       pixel_share_j=4, hier_classify=hier, cap_mixed=cap_mixed)
+    drops = 0
+    for case, inside in (("scene", False), ("speckle", True), ("tiny", False),
+                         ("all_nan", False)):
+        cam, pose, pts, nrm, _ = _classify_frame(dev, case, inside)
+        sat = None
+        if sat_case == "partly":
+            gen = torch.Generator(device=dev).manual_seed(11)
+            sat = torch.rand(nb, generator=gen, device=dev) < 0.3
+            if hier:  # all children of the first FREE super
+                scls = _super_classes(pose, pts, nrm, cam, cfg, hier, nbi, i_offset)
+                free = torch.nonzero(scls == 1).reshape(-1)
+                if free.numel():
+                    f, s = hier, int(free[0])
+                    n3 = (nbi // f, 8 // f, 8 // f)
+                    v = sat.view(n3[0], f, n3[1], f, n3[2], f)
+                    v[s // (n3[1] * n3[2]), :, (s // n3[2]) % n3[1], :, s % n3[2], :] = True
+        kw = dict(cam=cam, cfg=cfg, bs=(8, 8, 8), cap=cap, cap_free=cap_free,
+                  nbi=nbi if slab else None, i_offset=i_offset)
+        want = classify_compact_rows_reference(PARAMS, pose, pts, nrm, sat=sat, **kw)
+        before = (k567.launches_tables, k567.launches_classify, k567.launches_compact)
+        got = classify_compact_rows(PARAMS, pose, pts, nrm, sat=sat, **kw)
+        n = 2 if hier else 1
+        assert (k567.launches_tables, k567.launches_classify, k567.launches_compact) == (
+            before[0] + 1, before[1] + n, before[2] + n)
+        assert got[0].dtype == torch.int32 and got[1].dtype == torch.int64
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (case, got[1],
+                                                                                 want[1])
+        drops += int(want[1][2]) + int(want[1][3]) + max(int(want[1][0]) - cap, 0)
+        if hier:
+            hwant = brick.classify_compact_hier_reference(
+                PARAMS, pose, pts, nrm, cam, (8, 8, 8), cfg.distance, cap, cap_free, hier,
+                cap_mixed, brick.share_classify_margin(PARAMS, cfg), sat, nbi, i_offset)
+            hgot = brick.classify_compact_hier(
+                PARAMS, pose, pts, nrm, cam, (8, 8, 8), cfg.distance, cap, cap_free, hier,
+                cap_mixed, brick.share_classify_margin(PARAMS, cfg), sat, nbi, i_offset)
+            for a, b in zip(hgot, hwant):
+                assert torch.equal(a, b)
+    assert (drops > 0) == (caps == "tight")
+
+
+@pytest.mark.parametrize("hier", [0, 4])
+def test_classify_compact_captured_equals_eager(dev, hier):
+    """frame_tables and classify_compact_rows captured in a CUDA graph (no
+    host sync inside) and replayed on new frames: bitwise the eager calls."""
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    cfg = FusionConfig(mode="brickmajor", distance="point_to_plane", pixel_share=4,
+                       pixel_share_j=4, hier_classify=hier, cap_mixed=3)
+    frames = [_classify_frame(dev, "scene"), _classify_frame(dev, "speckle", inside=True)]
+    cam = frames[0][0]
+    pts, nrm, rgb = (torch.empty_like(x) for x in frames[0][2:])
+    R, t = (torch.empty_like(x) for x in (frames[0][1].R, frames[0][1].t))
+    from tracking_sdf_tpu_torch.core.lie import Pose
+
+    sat = torch.zeros(512, dtype=torch.bool, device=dev)
+    sat[::3] = True
+    kw = dict(cam=cam, cfg=cfg, bs=(8, 8, 8), cap=40, cap_free=24, sat=sat)
+    share = brick.share_classify_margin(PARAMS, cfg)
+
+    def step():
+        mip, pix = brick.frame_tables(pts, nrm, rgb, True, cam, PARAMS.delta, cfg.distance,
+                                      share)
+        return classify_compact_rows(PARAMS, Pose(R, t), pts, nrm, mip=mip, **kw) + (pix,)
+
+    for x in (pts, nrm, rgb):
+        x.fill_(float("nan"))
+    R.copy_(frames[0][1].R)
+    t.copy_(frames[0][1].t)
+    step()  # warm-up: the library, the ticket word
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.graph(graph):
+            out = step()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for _, pose, p, n, c in frames:
+        for dst, src in ((pts, p), (nrm, n), (rgb, c), (R, pose.R), (t, pose.t)):
+            dst.copy_(src)
+        graph.replay()
+        want = step()
+        torch.cuda.synchronize()
+        for a, b in zip(out, want):
+            assert _bits_equal(a, b)
+        assert int(want[1][0]) > 0
+
+
+def test_classify_kernels_reject_bad_input(dev):
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    k567 = _k567()
+    cam, pose, pts, nrm, rgb = _classify_frame(dev, "ragged")
+    with pytest.raises(ValueError):
+        k567.frame_tables(pts.double(), nrm, None, cam=cam, delta=0.1)
+    with pytest.raises(ValueError):
+        k567.frame_tables(pts.transpose(0, 1), nrm.transpose(0, 1), None, cam=cam, delta=0.1)
+    with pytest.raises(ValueError):
+        k567.frame_tables(pts, nrm, None, cam=cam, delta=0.1, fuse_color=True)
+    with pytest.raises(ValueError):
+        k567.frame_tables(pts, nrm, None, mip=True, table=False)  # no camera
+    mip, _ = k567.frame_tables(pts, nrm, None, cam=cam, delta=0.1, table=False)
+    R, base = brick._card_pose(pose)
+    geo = dict(params=PARAMS, cam=cam, hw=(37, 53), bs=(8, 8, 8), grid=(8, 8, 8))
+    with pytest.raises(ValueError):
+        k567.classify_bricks(mip, R.double(), base, **geo)
+    with pytest.raises(ValueError):
+        k567.classify_bricks(mip, R, base, sat=torch.zeros(7, dtype=torch.bool, device=dev),
+                             **geo)
+    with pytest.raises(ValueError):
+        k567.classify_children(mip, R, base, torch.zeros(4, dtype=torch.int64, device=dev),
+                               factor=2, **geo)
+    cls, _ = k567.classify_bricks(mip, R, base, **geo)
+    with pytest.raises(ValueError):
+        k567.compact_lists(cls.to(torch.int32), None, 8, 8, 512)
+    with pytest.raises(ValueError):
+        k567.compact_lists(cls, torch.zeros(3, dtype=torch.bool, device=dev), 8, 8, 512)
+    with pytest.raises(ValueError):
+        k567.compact_lists(cls.cpu(), None, 8, 8, 512)

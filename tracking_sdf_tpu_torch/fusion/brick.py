@@ -19,6 +19,12 @@ three tails merges into the grid (``FusionConfig.brick_merge``):
             ``cap_free`` FREE bricks.
 Bricks past a cap are dropped for the frame and reported in FuseStats, never
 silently.
+
+The zeta / eta mip and the pixel table (``frame_tables``), the classes
+(``classify_bricks``) and the hierarchical lists (``classify_compact_hier``)
+dispatch on the tensors' device: a CPU tensor takes the plain
+``*_reference`` version, a CUDA tensor the hand-written kernels K5, K6 and K7
+of ``fusion.brick_classify``, any other device raises.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ import torch
 from tracking_sdf_tpu_torch.config import FusionConfig, GridParams
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose
+from tracking_sdf_tpu_torch.fusion import brick_classify as k567
+from tracking_sdf_tpu_torch.fusion.brick_classify import ZetaMip
 from tracking_sdf_tpu_torch.fusion.brick_merge import (
     FREE, FULL, brick_merge, brick_merge_reference)
 from tracking_sdf_tpu_torch.fusion.fuse import (
@@ -56,20 +64,6 @@ class FuseStats:
     # brick-major sat_skip: bricks marked saturated after the frame (their
     # FREE update is a proven bitwise no-op; left out of FREE compaction)
     n_sat: int = 0
-
-
-@dataclasses.dataclass
-class ZetaMip:
-    """Min-mip of zeta and max-mip of eta, each level flattened row-major and
-    concatenated, plus each level's row-below companion (cell (v+1, u); the
-    last row holds the neutral value). ``offsets``/``dims`` locate a level."""
-
-    zeta: torch.Tensor
-    zeta_down: torch.Tensor
-    eta: torch.Tensor
-    eta_down: torch.Tensor
-    offsets: List[int]
-    dims: List[Tuple[int, int]]
 
 
 @functools.lru_cache(maxsize=None)
@@ -131,8 +125,29 @@ def _flatten_pair(levels: List[torch.Tensor], neutral: float):
             torch.cat([d.reshape(-1) for d in downs]))
 
 
+def _on_card(x: torch.Tensor, what: str) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU one (the plain
+    versions); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {x.device}")
+    return True
+
+
 def _zeta_mip(points_cam, normals_cam, cam, delta, distance="point_to_plane",
               share_margin=0.0) -> ZetaMip:
+    """The zeta / eta mip of ``_zeta_mip_reference``: on the card one K5
+    launch (brick_classify.frame_tables)."""
+    if not _on_card(points_cam, "_zeta_mip"):
+        return _zeta_mip_reference(points_cam, normals_cam, cam, delta, distance,
+                                   share_margin)
+    return k567.frame_tables(points_cam, normals_cam, None, cam=cam, delta=delta,
+                             distance=distance, share_margin=share_margin, table=False)[0]
+
+
+def _zeta_mip_reference(points_cam, normals_cam, cam, delta, distance="point_to_plane",
+                        share_margin=0.0) -> ZetaMip:
     """Conservative free-space (zeta, min-mip) and occluded-space (eta,
     max-mip) depth bounds per pixel; invalid pixels get -inf for both."""
     h, w = points_cam.shape[:2]
@@ -280,15 +295,40 @@ def _class_from_corners(cx_, cy_, cz_, mip: ZetaMip, cam: PinholeCamera, hw):
     return torch.where(out | occluded, 0, cls).to(torch.int32)
 
 
+def _card_pose(pose: Pose) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R, -(Rᵀ t)) for K6: the base of the corners is the plain version's
+    own torch expression."""
+    return pose.R.contiguous(), (-(pose.R.T @ pose.t)).contiguous()
+
+
 def classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
                     distance="point_to_plane", share_margin=0.0,
                     mip: Optional[ZetaMip] = None, nbi: Optional[int] = None,
                     i_offset: int = 0) -> torch.Tensor:
     """Brick classes (nbi, nbj, nbk) int32: 0 OUT, 1 FREE, 2 FULL (``nbi`` /
-    ``i_offset``: an i-slab, as _brick_corners_cam)."""
+    ``i_offset``: an i-slab, as _brick_corners_cam). On the card K6's flat
+    form (and K5 for the mip unless ``mip`` is given)."""
+    if not _on_card(points_cam, "classify_bricks"):
+        return classify_bricks_reference(params, pose, points_cam, normals_cam, cam, bs,
+                                         distance, share_margin, mip, nbi, i_offset)
     if mip is None:
-        mip = _zeta_mip(points_cam, normals_cam, cam, params.delta, distance,
-                        share_margin)
+        mip = _zeta_mip(points_cam, normals_cam, cam, params.delta, distance, share_margin)
+    m = params.m
+    nb3 = (m // bs[0] if nbi is None else nbi, m // bs[1], m // bs[2])
+    cls, _ = k567.classify_bricks(mip, *_card_pose(pose), params=params, cam=cam,
+                                  hw=tuple(points_cam.shape[:2]), bs=bs, grid=nb3,
+                                  i_offset=i_offset)
+    return cls.to(torch.int32).reshape(nb3)
+
+
+def classify_bricks_reference(params, pose, points_cam, normals_cam, cam, bs,
+                              distance="point_to_plane", share_margin=0.0,
+                              mip: Optional[ZetaMip] = None, nbi: Optional[int] = None,
+                              i_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of ``classify_bricks``."""
+    if mip is None:
+        mip = _zeta_mip_reference(points_cam, normals_cam, cam, params.delta, distance,
+                                  share_margin)
     cx_, cy_, cz_ = _brick_corners_cam(params, pose, bs, nbi, i_offset)
     return _class_from_corners(cx_, cy_, cz_, mip, cam, points_cam.shape[:2])
 
@@ -319,11 +359,65 @@ def _compact_ids(flags: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
     return _compact_vals(flags, torch.arange(n, device=flags.device), cap, fill)
 
 
+def classify_compact_card(params, pose, points_cam, normals_cam, cam, bs, distance, cap,
+                          cap_free, factor, cap_mixed, share_margin=0.0,
+                          sat: Optional[torch.Tensor] = None, nbi: Optional[int] = None,
+                          i_offset: int = 0, mip: Optional[ZetaMip] = None
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Classification and FULL / FREE compaction on the card, flat (``factor``
+    1: K6 flat, K7 flat) or hierarchical (K6 super, K7 flat over the supers,
+    K6 children, K7 hierarchical), after K5 for the mip unless ``mip`` is
+    given. Returns (ids, counts) as brickmajor.classify_compact_rows does."""
+    h, w_img = points_cam.shape[:2]
+    m = params.m
+    bi, bj, bk = bs
+    nb3 = (m // bi if nbi is None else nbi, m // bj, m // bk)
+    NB = nb3[0] * nb3[1] * nb3[2]
+    if mip is None:
+        mip = _zeta_mip(points_cam, normals_cam, cam, params.delta, distance, share_margin)
+    R, base = _card_pose(pose)
+    geo = dict(params=params, cam=cam, hw=(h, w_img), i_offset=i_offset)
+    if factor <= 1:
+        cls, _ = k567.classify_bricks(mip, R, base, bs=bs, grid=nb3, **geo)
+        return k567.compact_lists(cls, sat, cap, cap_free, NB)
+    f = factor
+    ns3 = tuple(n // f for n in nb3)
+    scls, sat_super = k567.classify_bricks(mip, R, base, bs=(bi * f, bj * f, bk * f),
+                                           grid=ns3, sat=sat, factor=f, **geo)
+    sup, sup_counts = k567.compact_lists(scls, sat_super, cap_mixed,
+                                         max(cap_free // f ** 3, 1), ns3[0] * ns3[1] * ns3[2])
+    fcls, gid = k567.classify_children(mip, R, base, sup[:cap_mixed], bs=bs, grid=nb3,
+                                       factor=f, **geo)
+    return k567.compact_lists_hier(fcls, gid, sat, sup[cap_mixed:], sup_counts, cap=cap,
+                                   cap_free=cap_free, cap_mixed=cap_mixed, grid=nb3, factor=f)
+
+
 def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
                           distance, cap, cap_free, factor, cap_mixed,
                           share_margin=0.0, sat: Optional[torch.Tensor] = None,
-                          nbi: Optional[int] = None, i_offset: int = 0):
-    """Hierarchical classification and FULL/FREE compaction.
+                          nbi: Optional[int] = None, i_offset: int = 0,
+                          mip: Optional[ZetaMip] = None):
+    """Hierarchical classification and FULL/FREE compaction
+    (``classify_compact_hier_reference``). On the card five launches
+    (``classify_compact_card``); the ids come back int64, as the plain
+    version's."""
+    if not _on_card(points_cam, "classify_compact_hier"):
+        return classify_compact_hier_reference(
+            params, pose, points_cam, normals_cam, cam, bs, distance, cap, cap_free, factor,
+            cap_mixed, share_margin, sat, nbi, i_offset, mip)
+    ids, counts = classify_compact_card(params, pose, points_cam, normals_cam, cam, bs,
+                                        distance, cap, cap_free, factor, cap_mixed,
+                                        share_margin, sat, nbi, i_offset, mip)
+    ids = ids.to(torch.int64)
+    return ids[:cap], ids[cap:], counts[0], counts[1], counts[3], counts[2]
+
+
+def classify_compact_hier_reference(params, pose, points_cam, normals_cam, cam, bs,
+                                    distance, cap, cap_free, factor, cap_mixed,
+                                    share_margin=0.0, sat: Optional[torch.Tensor] = None,
+                                    nbi: Optional[int] = None, i_offset: int = 0,
+                                    mip: Optional[ZetaMip] = None):
+    """Hierarchical classification and FULL/FREE compaction, plain PyTorch.
 
     Super-bricks of ``factor``^3 bricks are classified first; only MIXED
     (class-FULL) supers descend to per-brick proofs, over ``cap_mixed``
@@ -345,7 +439,8 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
     candidates kept; overflow_free keeps its count over whole supers.
 
     ``nbi`` / ``i_offset``: an i-slab of nbi brick layers starting at global
-    voxel i = i_offset; the ids are then local to the slab."""
+    voxel i = i_offset; the ids are then local to the slab. ``mip``: the
+    frame's mip, made here when None."""
     h, w_img = points_cam.shape[:2]
     bi, bj, bk = bs
     m = params.m
@@ -357,13 +452,14 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
     nsj, nsk = nbj // f, nbk // f
     NS = (nbi // f) * nsj * nsk
     dev = points_cam.device
-    mip = _zeta_mip(points_cam, normals_cam, cam, params.delta, distance,
-                    share_margin)
+    if mip is None:
+        mip = _zeta_mip_reference(points_cam, normals_cam, cam, params.delta, distance,
+                                  share_margin)
 
     # ---- level 1: super-bricks
-    scls = classify_bricks(params, pose, points_cam, normals_cam, cam,
-                           (bi * f, bj * f, bk * f), distance, mip=mip,
-                           nbi=nbi // f, i_offset=i_offset).reshape(-1)
+    scls = classify_bricks_reference(params, pose, points_cam, normals_cam, cam,
+                                     (bi * f, bj * f, bk * f), distance, mip=mip,
+                                     nbi=nbi // f, i_offset=i_offset).reshape(-1)
     n_mixed = (scls == FULL).sum()
     mixed_ids = _compact_ids(scls == FULL, cap_mixed, NS)
     valid_s = mixed_ids < NS
@@ -441,6 +537,30 @@ def classify_compact_hier(params, pose, points_cam, normals_cam, cam, bs,
 
 def _pixel_table(points_cam, normals_cam, rgb, fuse_color,
                  distance="point_to_plane") -> torch.Tensor:
+    """The pixel table of ``_pixel_table_reference``: on the card one K5
+    launch (brick_classify.frame_tables)."""
+    if not _on_card(points_cam, "_pixel_table"):
+        return _pixel_table_reference(points_cam, normals_cam, rgb, fuse_color, distance)
+    return k567.frame_tables(points_cam, normals_cam, rgb, distance=distance, mip=False,
+                             fuse_color=fuse_color)[1]
+
+
+def frame_tables(points_cam, normals_cam, rgb, fuse_color, cam, delta,
+                 distance="point_to_plane", share_margin=0.0
+                 ) -> Tuple[ZetaMip, torch.Tensor]:
+    """(``_zeta_mip``, ``_pixel_table``) of one frame: on the card in one K5
+    launch."""
+    if not _on_card(points_cam, "frame_tables"):
+        return (_zeta_mip_reference(points_cam, normals_cam, cam, delta, distance,
+                                    share_margin),
+                _pixel_table_reference(points_cam, normals_cam, rgb, fuse_color, distance))
+    return k567.frame_tables(points_cam, normals_cam, rgb, cam=cam, delta=delta,
+                             distance=distance, share_margin=share_margin,
+                             fuse_color=fuse_color)
+
+
+def _pixel_table_reference(points_cam, normals_cam, rgb, fuse_color,
+                           distance="point_to_plane") -> torch.Tensor:
     """(H*W, C) rows: [nx, ny, nz, s (, cos, cos·r, cos·g, cos·b)].
 
     s is y·n (point-to-plane, d = -(s - p·n)) or z_y (point-to-point,
@@ -586,12 +706,13 @@ def fuse_frame_bricked(
     fuse_color = cfg.fuse_color and rgb is not None
     dev = grid.D.device
 
+    share_m = share_classify_margin(params, cfg)
+    mip, pix = frame_tables(points_cam, normals_cam, rgb, fuse_color, cam, params.delta,
+                            cfg.distance, share_m)
     brick_class = classify_bricks(
-        params, pose, points_cam, normals_cam, cam, bs, cfg.distance,
-        share_margin=share_classify_margin(params, cfg), nbi=nbi,
-        i_offset=i_offset).reshape(-1)
+        params, pose, points_cam, normals_cam, cam, bs, cfg.distance, share_margin=share_m,
+        mip=mip, nbi=nbi, i_offset=i_offset).reshape(-1)
     full_ids, n_full = _first_ids(brick_class == FULL, cap)
-    pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
     upd = torch.stack(_full_brick_updates(full_ids, pix, pose, params, cam, cfg,
                                           bs, (h, w_img), fuse_color, nbi, i_offset),
                       dim=-1)

@@ -11,9 +11,11 @@ in one uint16-lane leaf ``C`` of shape (NB, 3·LV + LW): per row the blocks
 of the value dtype, LW likewise for the weight dtype). PyTorch has no uint16
 arithmetic, so the port holds those lanes as int16: the bits are the same.
 
-A frame classifies the bricks (flat or hierarchical) and compacts the FULL
-and FREE ids under their caps (``classify_compact_rows``); then one launch
-of ``brick_fuse.brick_fuse_rows`` computes the FULL bricks' per-voxel update
+A frame makes its zeta / eta mip and pixel table (``brick.frame_tables``),
+classifies the bricks (flat or hierarchical) and compacts the FULL and FREE
+ids under their caps (``classify_compact_rows``): on the card K5, K6 and K7
+of ``fusion.brick_classify``, 3 launches flat and 5 hierarchical; then one
+launch of ``brick_fuse.brick_fuse_rows`` computes the FULL bricks' per-voxel update
 sums and merges them and the FREE rows in one pass (the JAX package's
 ``free_fold``, which is bitwise equal to its unfolded merge). Values and
 weights may be stored as bfloat16; all arithmetic is float32, rounded to the
@@ -40,8 +42,9 @@ from tracking_sdf_tpu_torch.config import FusionConfig, GridParams
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.fusion.brick import (
-    FREE, FULL, FuseStats, _compact_ids, _pixel_table, classify_bricks,
-    classify_compact_hier, share_classify_margin)
+    FREE, FULL, FuseStats, ZetaMip, _compact_ids, _on_card, classify_bricks_reference,
+    classify_compact_card, classify_compact_hier_reference, frame_tables,
+    share_classify_margin)
 from tracking_sdf_tpu_torch.fusion.brick_fuse import brick_fuse_rows
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
 from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView
@@ -209,36 +212,69 @@ def brick_grid_to_numpy(bgrid: BrickGrid) -> Dict[str, np.ndarray]:
             "C": bgrid.C.detach().cpu().numpy().view(np.uint16)}
 
 
+def _hier_factor(cfg: FusionConfig, nb3) -> int:
+    """The super-brick factor of the hierarchical classification, or 1 (flat)
+    where it is off or does not divide the brick grid."""
+    hier = cfg.hier_classify
+    return hier if hier > 1 and all(n % hier == 0 for n in nb3) else 1
+
+
 def classify_compact_rows(params: GridParams, pose: Pose, points_cam: torch.Tensor,
                           normals_cam: torch.Tensor, *, cam: PinholeCamera,
                           cfg: FusionConfig, bs: Tuple[int, int, int], cap: int,
                           cap_free: int, sat: Optional[torch.Tensor] = None,
-                          nbi: Optional[int] = None, i_offset: int = 0
+                          nbi: Optional[int] = None, i_offset: int = 0,
+                          mip: Optional[ZetaMip] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """A frame's FULL and FREE brick lists, classified flat or hierarchically
     (``cfg.hier_classify``), without a host sync. Bricks set in ``sat`` are
     not FREE candidates. ``nbi`` / ``i_offset``: the bricks of an i-slab of
     nbi brick layers starting at global voxel i = i_offset (ids local to it).
+    ``mip``: the frame's zeta / eta mip (``brick.frame_tables``), made here
+    when None.
 
     Returns (ids, counts): ids (cap + cap_free,) int32, the first ``cap``
     FULL ids then the first ``cap_free`` FREE ids, each padded with NB;
     counts (4,) int64 on the device: n_full, n_free, FREE bricks dropped,
-    mixed super-bricks dropped."""
+    mixed super-bricks dropped. On the card K6 and K7 (after K5 for the mip
+    unless given): 2 launches flat, 4 hierarchical
+    (``brick.classify_compact_card``); a CPU tensor takes
+    ``classify_compact_rows_reference``."""
+    if not _on_card(points_cam, "classify_compact_rows"):
+        return classify_compact_rows_reference(
+            params, pose, points_cam, normals_cam, cam=cam, cfg=cfg, bs=bs, cap=cap,
+            cap_free=cap_free, sat=sat, nbi=nbi, i_offset=i_offset, mip=mip)
+    m = params.m
+    nb3 = (m // bs[0] if nbi is None else nbi, m // bs[1], m // bs[2])
+    return classify_compact_card(params, pose, points_cam, normals_cam, cam, bs, cfg.distance,
+                                 cap, cap_free, _hier_factor(cfg, nb3), cfg.cap_mixed,
+                                 share_classify_margin(params, cfg), sat, nb3[0], i_offset, mip)
+
+
+def classify_compact_rows_reference(params: GridParams, pose: Pose,
+                                    points_cam: torch.Tensor, normals_cam: torch.Tensor, *,
+                                    cam: PinholeCamera, cfg: FusionConfig,
+                                    bs: Tuple[int, int, int], cap: int, cap_free: int,
+                                    sat: Optional[torch.Tensor] = None,
+                                    nbi: Optional[int] = None, i_offset: int = 0,
+                                    mip: Optional[ZetaMip] = None
+                                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of ``classify_compact_rows``."""
     m = params.m
     bi, bj, bk = bs
     nb3 = (m // bi if nbi is None else nbi, m // bj, m // bk)
     NB = nb3[0] * nb3[1] * nb3[2]
     share_m = share_classify_margin(params, cfg)
-    hier = cfg.hier_classify
-    if hier > 1 and all(n % hier == 0 for n in nb3):
-        full_ids, fr_ids, n_full, n_free, ovf_mixed, ovf_free = classify_compact_hier(
+    hier = _hier_factor(cfg, nb3)
+    if hier > 1:
+        full_ids, fr_ids, n_full, n_free, ovf_mixed, ovf_free = classify_compact_hier_reference(
             params, pose, points_cam, normals_cam, cam, bs, cfg.distance, cap,
             cap_free, hier, cfg.cap_mixed, share_margin=share_m, sat=sat,
-            nbi=nb3[0], i_offset=i_offset)
+            nbi=nb3[0], i_offset=i_offset, mip=mip)
     else:
-        cls = classify_bricks(params, pose, points_cam, normals_cam, cam, bs,
-                              cfg.distance, share_margin=share_m, nbi=nb3[0],
-                              i_offset=i_offset).reshape(-1)
+        cls = classify_bricks_reference(params, pose, points_cam, normals_cam, cam, bs,
+                                        cfg.distance, share_margin=share_m, mip=mip,
+                                        nbi=nb3[0], i_offset=i_offset).reshape(-1)
         free = cls == FREE
         if sat is not None:
             free = free & ~sat
@@ -270,12 +306,14 @@ def fuse_frame_brickmajor_core(
     debug: bool = False,
 ) -> torch.Tensor:
     """Fuse one frame into ``bgrid`` in place and read nothing back: the one
-    place that owns the sequence classify_compact_rows -> _pixel_table ->
-    brick_fuse_rows, for the per-frame path, the chunked one and the sharded
-    one. ``sat``: the (NB,) bool sat_skip bitset, updated in place (module
-    docstring). ``nbi_local`` / ``i_offset``: ``bgrid`` holds the rows of
-    an i-slab of nbi_local brick layers starting at global voxel i =
-    i_offset (parallel.sharded; default the whole grid).
+    place that owns the sequence frame_tables (the mip and the pixel table)
+    -> classify_compact_rows -> brick_fuse_rows, for the per-frame path, the
+    chunked one and the sharded one: on the card K5, K6 and K7 (3 launches
+    flat, 5 hierarchical), then K2. ``sat``: the (NB,) bool sat_skip
+    bitset, updated in place (module docstring). ``nbi_local`` /
+    ``i_offset``: ``bgrid`` holds the rows of an i-slab of nbi_local brick
+    layers starting at global voxel i = i_offset (parallel.sharded; default
+    the whole grid).
 
     Geometry is exactly the dense path's math; color is fused in FULL bricks
     only. FULL bricks past ``cap`` and FREE bricks past ``cap_free`` (default
@@ -300,10 +338,11 @@ def fuse_frame_brickmajor_core(
     if cap_free is None:
         cap_free = cap
     fuse_color = cfg.fuse_color and rgb is not None
+    mip, pix = frame_tables(points_cam, normals_cam, rgb, fuse_color, cam, params.delta,
+                            cfg.distance, share_classify_margin(params, cfg))
     ids, counts = classify_compact_rows(params, pose, points_cam, normals_cam, cam=cam,
                                         cfg=cfg, bs=bs, cap=cap, cap_free=cap_free, sat=sat,
-                                        nbi=nbi, i_offset=i_offset)
-    pix = _pixel_table(points_cam, normals_cam, rgb, fuse_color, cfg.distance)
+                                        nbi=nbi, i_offset=i_offset, mip=mip)
     brick_fuse_rows(bgrid.D, bgrid.W, bgrid.C, ids, pix, pose, cap=cap,
                     hw=tuple(points_cam.shape[:2]), params=params, cam=cam, cfg=cfg,
                     bs=bs, sat=sat, i_offset=i_offset, nbi=nbi_local)

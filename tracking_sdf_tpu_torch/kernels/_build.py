@@ -22,7 +22,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-SOURCES = ("gn_reduce.cu", "brick_merge.cu", "brick_fuse.cu", "preprocess.cu")
+SOURCES = ("gn_reduce.cu", "brick_merge.cu", "brick_fuse.cu", "preprocess.cu",
+           "brick_classify.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -61,6 +62,19 @@ _SIGNATURES = {
     # depth (or NULL), points, normals, h, w, inv_fx, inv_fy, cx, cy, factor,
     # radius, stream
     "tsdf_normals": [_P] * 3 + [_I] * 2 + [_F] * 5 + [_I, _P],
+    # pts, nrm, rgb, pix, mip, ticket, levels, h, w, mode, point_to_plane,
+    # channels, cx, cy, inv_fx, inv_fy, delta, share_margin, stream
+    "tsdf_frame_tables": [_P] * 7 + [_I] * 5 + [_F] * 6 + [_P],
+    # form, zeta, zeta_down, eta, eta_down, levels, R, base, sat, mixed_ids,
+    # cls, sat_super, gid, nbi, nbj, nbk, bi, bj, bk, i_offset, f, n_slots,
+    # ns, nsj, nsk, nb, img_h, img_w, si, sj, sk, ox, oy, oz, fx, fy, cx, cy,
+    # inv_span, stream
+    "tsdf_classify_bricks": [_I] + [_P] * 12 + [_I] * 15 + [_F] * 11 + [_P],
+    # cls, skip, n, cap_a, cap_b, fill, ids, counts, stream
+    "tsdf_compact_lists": [_P, _P] + [_I] * 4 + [_P] * 3,
+    # fcls, gid, sat, sf_ids, super_counts, ids, counts, n, cap, cap_free,
+    # cap_sfree, cap_mixed, f, nsj, nsk, nbj, nbk, nb, ns, stream
+    "tsdf_compact_lists_hier": [_P] * 7 + [_I] * 12 + [_P],
 }
 
 _lib = None

@@ -72,6 +72,7 @@ def _sync(dev) -> None:
 
 def run_one(run: dict, mesh, cam, inputs, out_dir: str) -> dict:
     from tracking_sdf_tpu_torch.core.lie import Pose, pose_compose, se3_exp
+    from tracking_sdf_tpu_torch.fusion import brick_classify
     from tracking_sdf_tpu_torch.fusion import brickmajor as tbm
     from tracking_sdf_tpu_torch.parallel import sharded
     from tracking_sdf_tpu_torch.parallel.mesh import gather_brick_grid
@@ -126,7 +127,9 @@ def run_one(run: dict, mesh, cam, inputs, out_dir: str) -> dict:
     recon = Reconstruction(cam, cfg, initial_pose=poses[0], mesh=mesh)
     c0, s0 = mesh.collectives, mesh.collective_s
     counts = ("launches_pass", "launches_2d", "launches_normals")
+    k567_counts = ("launches_tables", "launches_classify", "launches_compact")
     p0 = [getattr(preprocess, c) for c in counts]
+    c0_k567 = [getattr(brick_classify, c) for c in k567_counts]
     chunks = run.get("chunk")
     wall = []
     t_start = time.perf_counter()
@@ -160,7 +163,10 @@ def run_one(run: dict, mesh, cam, inputs, out_dir: str) -> dict:
         overflow=np.int64(recon.overflow_drops),
         # K3's 1-D pass, its 2-D form and K4 over the run's frames
         preprocess_launches=np.asarray([getattr(preprocess, c) - b
-                                        for c, b in zip(counts, p0)]))
+                                        for c, b in zip(counts, p0)]),
+        # K5, K6 and K7 over the run's fused frames
+        classify_launches=np.asarray([getattr(brick_classify, c) - b
+                                      for c, b in zip(k567_counts, c0_k567)]))
     whole = gather_brick_grid(recon.brick_grid, mesh)
     if rank == 0:
         rec.update(D=whole.D.float().cpu().numpy(), W=whole.W.float().cpu().numpy(),

@@ -52,7 +52,7 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from tracking_sdf_tpu_torch.core.lie import Pose, pose_compose, pose_inverse
-from tracking_sdf_tpu_torch.fusion import brick_fuse, brick_merge
+from tracking_sdf_tpu_torch.fusion import brick_classify, brick_fuse, brick_merge
 from tracking_sdf_tpu_torch.fusion.brickmajor import BrickGrid
 from tracking_sdf_tpu_torch.tracking import gn_reduce, preprocess
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
@@ -77,7 +77,9 @@ _COUNTERS = ((gn_reduce, "launches"), (gn_reduce, "launches_brick"),
              (brick_merge, "launches"), (brick_merge, "launches_rows"),
              (brick_fuse, "launches"), (brick_fuse, "launches_sat"),
              (brick_fuse, "launches_slab"), (preprocess, "launches_pass"),
-             (preprocess, "launches_2d"), (preprocess, "launches_normals"))
+             (preprocess, "launches_2d"), (preprocess, "launches_normals"),
+             (brick_classify, "launches_tables"), (brick_classify, "launches_classify"),
+             (brick_classify, "launches_compact"))
 
 
 def launch_counts() -> Tuple[int, ...]:
