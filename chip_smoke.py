@@ -285,7 +285,8 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      overflows), with the caps cut to a quarter, with the sat bitset and on
      the slab of the second half of the brick layers (i_offset m / 2): every
      class byte, id, count, mip cell and table value bit for bit, and 3 / 5
-     launches a call. Each kernel form timed four ways (events over 100
+     launches a call; K5 also on copies of its inputs 4 bytes off a 16-byte
+     boundary (its scalar loads). Each kernel form timed four ways (events over 100
      launches, device from the profiler, the wrapper, the plain version)
      beside its bound from this run's data (K5: points, normals and rgb
      read, table and mip written; K6: its class bytes and the mip, or
@@ -3763,6 +3764,24 @@ CLASSIFY_HEADLINE = {"frame_tables": "tum256 mip and color table",
 # window query 42)
 K5_FLOP_PER_PIXEL = 36
 K6_FLOP_PER_BRICK = 265
+# K5's and K7's device ms before their redesign (one thread a pixel, the last
+# block's upper levels through L2; one block of 1024 threads) on these forms
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table): printed beside
+# this run's, never put in a record
+CLASSIFY_DEVICE_MS_FIRST = {"frame_tables mip and color table": 0.03034,
+                            "compact_lists flat": 0.01219,
+                            "compact_lists flat over the supers": 0.00271,
+                            "compact_lists hierarchical": 0.06728}
+
+
+def unaligned(x):
+    """A contiguous copy of x that starts 4 bytes past a 16-byte boundary
+    (K5's scalar loads)."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    check(y.is_contiguous() and y.data_ptr() % 16 == 4, "unaligned copy")
+    return y
 
 
 def _diff(a, b):
@@ -3834,6 +3853,10 @@ def classify_phase(cam, depths, poses, rgb, dev, tracked_pose):
         agree("frame_tables", f"({name}, geometry table alone)",
               [(brick._pixel_table(pts, nrm, None, False, f.distance),
                 brick._pixel_table_reference(pts, nrm, None, False, f.distance))])
+        off = [unaligned(x) for x in (pts, nrm, rgb)]
+        mip_u, pix_u = brick.frame_tables(*off, True, cam, p.delta, f.distance, share)
+        agree("frame_tables", f"({name}, mip and table, inputs 4 bytes off 16: scalar loads)",
+              [(getattr(mip_u, k), getattr(mip_ref, k)) for k in names] + [(pix_u, pix_ref)])
 
         # K6's forms on the plain mip
         R, base = brick._card_pose(pose)
@@ -3905,6 +3928,10 @@ def classify_phase(cam, depths, poses, rgb, dev, tracked_pose):
                 lambda: (brick._zeta_mip_reference(pts, nrm, cam, p.delta, f.distance, share),
                          brick._pixel_table_reference(pts, nrm, rgb, True, f.distance)),
                 ("frame_tables_kernel",), n_pix * (36 + 32) + mip_bytes,
+                K5_FLOP_PER_PIXEL * n_pix),
+            ("frame_tables", "mip and color table, unaligned"): (
+                lambda: brick.frame_tables(*off, True, cam, p.delta, f.distance, share),
+                None, ("frame_tables_kernel",), n_pix * (36 + 32) + mip_bytes,
                 K5_FLOP_PER_PIXEL * n_pix)}
         if fac > 1:
             n_child = f.cap_mixed * fac ** 3
@@ -3936,7 +3963,16 @@ def classify_phase(cam, depths, poses, rgb, dev, tracked_pose):
                                                     cap_mixed=f.cap_mixed, grid=nb3,
                                                     factor=fac),
                     None, ("compact_lists_hier_kernel",),
-                    5 * n_child + 4 * cap_sfree + 32 + 4 * (cap + cap_free) + 32, 0)})
+                    5 * n_child + 4 * cap_sfree + 32 + 4 * (cap + cap_free) + 32, 0),
+                # the same lists with sat_runs' bitset: the sat reads of the
+                # FREE children and of the kept FREE supers' children
+                ("compact_lists", "hierarchical, sat"): (
+                    lambda: k567.compact_lists_hier(fcls, gid, SAT_BITS[name], sup[f.cap_mixed:],
+                                                    sup_counts, cap=cap, cap_free=cap_free,
+                                                    cap_mixed=f.cap_mixed, grid=nb3,
+                                                    factor=fac),
+                    None, ("compact_lists_hier_kernel",),
+                    5 * n_child + 4 * cap_sfree + 32 + 4 * (cap + cap_free) + 32 + NB, 0)})
         else:
             forms.update({
                 ("classify_bricks", "flat"): (
@@ -3957,8 +3993,10 @@ def classify_phase(cam, depths, poses, rgb, dev, tracked_pose):
             plain_ms = cuda_time_ms(plain) if plain else None
             bms, by = bound(nbytes, flops)
             share_b = bms / device_ms if device_ms else float("nan")
+            first = CLASSIFY_DEVICE_MS_FIRST.get(f"{kernel} {form}")
+            was = f" (before the redesign {first} ms)" if first else ""
             print(f"{kernel} ({name}, {form}): kernel {ms:.4f} ms ({TIMED_LAUNCHES} "
-                  f"back-to-back), device {device_ms} ms, wrapper {wrapper_ms:.4f} ms per "
+                  f"back-to-back), device {device_ms} ms{was}, wrapper {wrapper_ms:.4f} ms per "
                   f"call, plain {plain_ms} ms; bound {bms:.6f} ms ({by}: {nbytes / 1e6:.3f} "
                   f"MB, {flops / 1e6:.2f} MFLOP), {share_b:.1%} of it")
             recs[kernel][f"{name} {form}"] = dict(

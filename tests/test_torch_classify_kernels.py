@@ -151,8 +151,17 @@ def test_classify_bricks_matches_jax(distance, h, w, view, speckle, slab):
         assert counts[1] > 0
 
 
-@pytest.mark.parametrize("cap", [1, 37, 200, 1000])
-@pytest.mark.parametrize("n", [512, 700])
+# the main path's sizes at the presets' caps: tum512's 4,096 supers (cap_mixed
+# 1,536, cap_sfree 128), tum256's 32,768 bricks (6,144 / 2,048), tum512's
+# 98,304 listed children (28,672 / 8,192); and n at K7's tile edges (2,048
+# flags a tile)
+MAIN_PATH_COMPACTION = [(4096, 1536), (4096, 128), (32768, 6144), (32768, 2048),
+                        (98304, 28672), (98304, 8192), (2047, 2048), (2048, 600),
+                        (2049, 2048), (4097, 1000), (6143, 6144)]
+
+
+@pytest.mark.parametrize("n,cap", [(n, c) for n in (512, 700) for c in (1, 37, 200, 1000)]
+                         + MAIN_PATH_COMPACTION)
 def test_compaction_matches_jax(n, cap):
     """_compact_vals / _compact_ids: the first cap set flags in order, the
     rest of the cap padded; overflow keeps the first ones."""
@@ -318,6 +327,97 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
                                 cap_mixed=8, grid=(8, 8, 8), factor=2)
     with pytest.raises(ValueError):
         k567._level_table((0,) * 30, ((1, 1),) * 30)
+    # K7 packs its counts in 31 bits and indexes with C ints
+    huge = torch.empty(2 ** 31, dtype=torch.uint8, device="meta")
+    with pytest.raises(ValueError, match="2\\^31"):
+        k567.compact_lists(huge, None, 8, 8, 0)
+    with pytest.raises(ValueError, match="2\\^31"):
+        k567.compact_lists(cls, None, 2 ** 30, 2 ** 30, 512)
+    with pytest.raises(ValueError, match="2\\^31"):
+        k567.compact_lists_hier(huge, torch.empty(2 ** 31, dtype=torch.int32, device="meta"),
+                                None, torch.zeros(1, dtype=torch.int32),
+                                torch.zeros(4, dtype=torch.int64), cap=8, cap_free=8,
+                                cap_mixed=2 ** 31, grid=(8, 8, 8), factor=1)
+    with pytest.raises(ValueError):
+        k567.compact_lists(cls, None, -1, 8, 512)
+
+
+def test_compact_scratch_grows_outside_a_capture_only(monkeypatch):
+    """K7's scratch: zeros, one status word a tile after the head, reused
+    while large enough, grown to the largest tile count asked for with the
+    older buffer kept alive (a captured graph may hold its address), and
+    never grown inside a CUDA graph capture."""
+    dev = torch.device("cpu")
+    monkeypatch.setattr(k567, "_SCRATCH", {})
+    a = k567.compact_scratch(dev, 3)
+    assert a.dtype == torch.int64 and a.numel() == k567.SCRATCH_HEAD + 3 and not a.any()
+    assert k567.compact_scratch(dev, 2) is a
+    b = k567.compact_scratch(dev, 48)
+    assert b.numel() == k567.SCRATCH_HEAD + 48 and k567._SCRATCH[dev] == [a, b]
+    monkeypatch.setattr(k567, "_capturing", lambda d: True)
+    assert k567.compact_scratch(dev, 48) is b
+    with pytest.raises(RuntimeError, match="capture"):
+        k567.compact_scratch(dev, 49)
+    assert [k567.compact_tiles(n) for n in (0, 1, 2047, 2048, 2049, 32768, 98304)] == [
+        1, 1, 1, 1, 2, 16, 48]
+
+
+def test_kernel_constants_match_the_source():
+    """The wrappers' copies of csrc/brick_classify.cu's constants."""
+    import re
+    from pathlib import Path
+
+    src = (Path(_build.CSRC) / "brick_classify.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kCompactThreads"] * const["kFlagsPerThread"] == k567.COMPACT_TILE
+    assert const["kScratchHead"] == k567.SCRATCH_HEAD
+    assert const["kMaxLevels"] == k567.MAX_LEVELS and const["kTile"] == k567.TILE
+
+
+class _FakeLibrary:
+    """Records each entry point's arguments and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.mark.parametrize("case", ["aligned", "w % 4", "offset"])
+def test_wrappers_take_vector_loads_only_when_aligned(case, monkeypatch):
+    """K5 asks for 16-byte loads only for w % 4 == 0 and 16-byte-aligned
+    points, normals and rgb; K7 only for aligned flags (and ids); K7 gets
+    its scratch with room for its tiles. The arguments are checked against
+    the C signatures' order through a stand-in library."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(k567, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(k567, "_SCRATCH", {})
+    h, w = (37, 53) if case == "w % 4" else (48, 64)
+    cam, _, pts, nrm, rgb = _frame(h, w)
+    p, n, c = _t(pts), _t(nrm), _t(rgb)
+    if case == "offset":
+        p = torch.cat([torch.zeros(1), p.reshape(-1)])[1:].view(h, w, 3)
+    assert p.is_contiguous() and k567.aligned16(p) == (case != "offset")
+    k567.frame_tables(p, n, c, cam=cam, delta=0.15, fuse_color=True)
+    name, args = lib.calls[-1]
+    assert name == "tsdf_frame_tables" and len(args) == len(_build._SIGNATURES[name])
+    assert args[12] == int(case == "aligned")  # vec, after channels
+    n_flags = 5000 if case == "aligned" else 4099
+    cls = torch.zeros(n_flags + 1, dtype=torch.uint8)
+    cls = cls[1:] if case == "offset" else cls[:n_flags]
+    k567.compact_lists(cls, None, 8, 8, n_flags)
+    name, args = lib.calls[-1]
+    assert name == "tsdf_compact_lists" and len(args) == len(_build._SIGNATURES[name])
+    assert args[9] >= k567.compact_tiles(n_flags) == 3 and args[10] == int(case != "offset")
+    k567.compact_lists_hier(cls[:4096], torch.zeros(4096, dtype=torch.int32), None,
+                            torch.zeros(2, dtype=torch.int32), torch.zeros(4, dtype=torch.int64),
+                            cap=8, cap_free=8, cap_mixed=64, grid=(16, 16, 16), factor=4)
+    name, args = lib.calls[-1]
+    assert name == "tsdf_compact_lists_hier" and len(args) == len(_build._SIGNATURES[name])
+    assert args[20] >= 3 and args[21] == int(case != "offset")
 
 
 def test_chunk_counts_the_classification_launches():

@@ -1328,3 +1328,267 @@ def test_classify_kernels_reject_bad_input(dev):
         k567.compact_lists(cls, torch.zeros(3, dtype=torch.bool, device=dev), 8, 8, 512)
     with pytest.raises(ValueError):
         k567.compact_lists(cls.cpu(), None, 8, 8, 512)
+
+
+# ---- K7 redesigned (multi-block look-back scan) and K5 (vector loads) ----
+
+def _plain_compact(cls, skip, cap_a, cap_b, fill):
+    """K7's flat form in plain PyTorch: brick._compact_ids of the FULL and
+    the not-skipped FREE flags, and the counts."""
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    full = cls == 2
+    free = cls == 1 if skip is None else (cls == 1) & ~skip
+    n_free = free.sum()
+    ids = torch.cat([brick._compact_ids(full, cap_a, fill),
+                     brick._compact_ids(free, cap_b, fill)]).to(torch.int32)
+    return ids, torch.stack([full.sum(), n_free, torch.clamp(n_free - cap_b, min=0),
+                             torch.zeros_like(n_free)])
+
+
+def _plain_compact_hier(fcls, gid, sat, sf_ids, super_counts, cap, cap_free, cap_mixed,
+                        grid, f):
+    """K7's hierarchical form in plain PyTorch: the compaction steps of
+    brick.classify_compact_hier_reference on the given children, kept FREE
+    supers and super counts."""
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    nbi, nbj, nbk = grid
+    NB, vol = nbi * nbj * nbk, f ** 3
+    nsj, nsk = nbj // f, nbk // f
+    NS = (nbi // f) * nsj * nsk
+    dev = fcls.device
+    full_ids = brick._compact_vals(fcls == 2, gid, cap, NB)
+    free_fine = fcls == 1
+    if sat is not None:
+        free_fine = free_fine & ~sat[gid.clamp(max=NB - 1).long()]
+    n_free_mixed = free_fine.sum()
+    fr_ids = brick._compact_vals(free_fine, gid, cap_free, NB)
+    cap_sfree = sf_ids.numel()
+    valid_sf = sf_ids < NS
+    s = torch.where(valid_sf, sf_ids, 0).long()
+    la = torch.arange(f, device=dev)
+    fi = (s // (nsj * nsk))[:, None] * f + la
+    fj = ((s // nsk) % nsj)[:, None] * f + la
+    fk = (s % nsk)[:, None] * f + la
+    g = (fi[:, :, None, None] * (nbj * nbk) + fj[:, None, :, None] * nbk
+         + fk[:, None, None, :]).reshape(cap_sfree, vol)
+    sf_gid = torch.where(valid_sf[:, None], g, NB).reshape(-1).to(torch.int32)
+    pos = n_free_mixed + torch.arange(cap_sfree * vol, device=dev)
+    kept = valid_sf[:, None].expand(cap_sfree, vol).reshape(-1)
+    keep = kept & (pos < cap_free)
+    n_sat = torch.zeros((), dtype=torch.int64, device=dev)
+    if sat is not None:
+        sat_child = sat[sf_gid.clamp(max=NB - 1).long()] & kept
+        keep = keep & ~sat_child
+        n_sat = sat_child.sum()
+    fr_ids = torch.cat([fr_ids, fr_ids.new_full((1,), NB)]).scatter_(
+        0, torch.where(keep, pos, cap_free), sf_gid)[:cap_free]
+    n_mixed, n_sf = super_counts[0], super_counts[1]
+    n_free = n_free_mixed + vol * n_sf - n_sat
+    ovf_free = (torch.clamp(n_free_mixed + vol * torch.clamp(n_sf, max=cap_sfree) - cap_free,
+                            min=0) + vol * torch.clamp(n_sf - cap_sfree, min=0))
+    ids = torch.cat([full_ids, fr_ids]).to(torch.int32)
+    return ids, torch.stack([(fcls == 2).sum(), n_free, ovf_free,
+                             torch.clamp(n_mixed - cap_mixed, min=0)])
+
+
+def _flag_sets(n, gen, dev):
+    """(name, classes) for n flags: random, all FULL, all FREE, none set."""
+    r = torch.rand(n, generator=gen, device=dev)
+    return (("random", torch.where(r < 0.3, 2, torch.where(r < 0.55, 1, 0)).to(torch.uint8)),
+            ("all FULL", torch.full((n,), 2, dtype=torch.uint8, device=dev)),
+            ("all FREE", torch.ones(n, dtype=torch.uint8, device=dev)),
+            ("none", torch.zeros(n, dtype=torch.uint8, device=dev)))
+
+
+def _caps(count, preset):
+    """Caps of 0, 1, exactly the count, one below it, and the preset's."""
+    return sorted({0, 1, count, max(count - 1, 0), preset})
+
+
+# 1, 31, one tile (2,048 flags) and one tile +- 1, several tiles, then the
+# presets' sizes: the supers (4,096), tum256's bricks (32,768), tum512's
+# listed children (98,304)
+COMPACT_N = (1, 31, 2047, 2048, 2049, 5 * 2048 + 7, 4096, 32768, 98304)
+
+
+@pytest.mark.parametrize("skip", [False, True])
+@pytest.mark.parametrize("n", COMPACT_N)
+def test_compact_lists_kernel_matches_plain(dev, n, skip):
+    """K7's flat form bitwise against the plain compaction: ids and counts
+    for every flag set and cap, with and without the skip bits, and the
+    launches counted."""
+    k567 = _k567()
+    gen = torch.Generator(device=dev).manual_seed(n)
+    sk = torch.rand(n, generator=gen, device=dev) < 0.4 if skip else None
+    for what, cls in _flag_sets(n, gen, dev):
+        full = int((cls == 2).sum())
+        free = int(((cls == 1) & (~sk if skip else True)).sum())
+        for cap_a, cap_b in zip(_caps(full, 6144), _caps(free, 2048)[::-1]):
+            want = _plain_compact(cls, sk, cap_a, cap_b, n)
+            before = k567.launches_compact
+            got = k567.compact_lists(cls, sk, cap_a, cap_b, n)
+            assert k567.launches_compact == before + 1
+            for a, b in zip(got, want):
+                assert torch.equal(a, b), (what, cap_a, cap_b)
+        for cap_a, cap_b in ((full, free), (max(full - 1, 0), max(free - 1, 0)), (0, 0),
+                             (1, 1)):
+            got = k567.compact_lists(cls, sk, cap_a, cap_b, n)
+            want = _plain_compact(cls, sk, cap_a, cap_b, n)
+            assert all(torch.equal(a, b) for a, b in zip(got, want)), (what, cap_a, cap_b)
+
+
+# (n = cap_mixed f^3, factor, fine grid): f = 1 for the small sizes, then
+# tile edges at f = 2, and tum512's supers of 4^3 at its cap_mixed 1,536
+HIER_CASES = ((1, 1, (8, 8, 8)), (31, 1, (8, 8, 8)), (2048, 2, (32, 32, 32)),
+              (2056, 2, (32, 32, 32)), (2040, 2, (32, 32, 32)), (4096, 4, (64, 64, 64)),
+              (32768, 4, (64, 64, 64)), (98304, 4, (64, 64, 64)))
+
+
+@pytest.mark.parametrize("sat", [False, True])
+@pytest.mark.parametrize("case", HIER_CASES, ids=lambda c: f"n{c[0]}-f{c[1]}")
+def test_compact_lists_hier_kernel_matches_plain(dev, case, sat):
+    """K7's hierarchical form bitwise against the plain compaction steps of
+    classify_compact_hier_reference: ids and counts for every flag set, caps
+    of 0, 1, exactly the counts and one below, tum512's caps, and with the
+    sat bits (saturated FREE children left out, saturated children of the
+    kept FREE supers left as holes)."""
+    k567 = _k567()
+    n, f, grid = case
+    vol = f ** 3
+    cap_mixed = n // vol
+    NB = grid[0] * grid[1] * grid[2]
+    NS = NB // vol
+    gen = torch.Generator(device=dev).manual_seed(n + f)
+    satb = torch.rand(NB, generator=gen, device=dev) < 0.3 if sat else None
+    cap_sfree = max(min(64, NS // 2), 1)
+    sf_ids = torch.argsort(torch.rand(NS, generator=gen, device=dev))[:cap_sfree]
+    sf_ids = sf_ids.to(torch.int32)
+    sf_ids[cap_sfree * 3 // 4:] = NS  # padding slots at the end
+    pad = n // 7  # padding slots of the children: class 0, id NB
+    for what, fcls in _flag_sets(n, gen, dev):
+        gid = torch.randint(0, NB, (n,), generator=gen, device=dev, dtype=torch.int32)
+        fcls = fcls.clone()
+        if pad:
+            gid[n - pad:] = NB
+            fcls[n - pad:] = 0
+        valid = int((sf_ids < NS).sum())
+        full = int((fcls == 2).sum())
+        free = fcls == 1
+        if sat:
+            free = free & ~satb[gid.clamp(max=NB - 1).long()]
+        nfm = int(free.sum())  # the FREE children of mixed supers, not saturated
+        for n_mixed, n_sf in ((cap_mixed, valid), (cap_mixed + 5, valid + 3)):
+            super_counts = torch.tensor([n_mixed, n_sf, 0, 0], dtype=torch.int64, device=dev)
+            for cap, cap_free in (*zip(_caps(full, 28672), _caps(nfm, 8192)),
+                                  (full, nfm + vol * valid), (full, nfm + 5)):
+                want = _plain_compact_hier(fcls, gid, satb, sf_ids, super_counts, cap,
+                                           cap_free, cap_mixed, grid, f)
+                got = k567.compact_lists_hier(fcls, gid, satb, sf_ids, super_counts, cap=cap,
+                                              cap_free=cap_free, cap_mixed=cap_mixed,
+                                              grid=grid, factor=f)
+                for a, b in zip(got, want):
+                    assert torch.equal(a, b), (what, n_mixed, n_sf, cap, cap_free)
+
+
+@pytest.mark.parametrize("hier", [0, 4])
+def test_classify_compact_graph_replays_reset_the_scratch(dev, hier):
+    """classify_compact_rows (K5, K6 and a multi-tile K7) captured once in a
+    CUDA graph at 256^3 and replayed 100 times, the pose and the sat bits
+    changed between replays (so the flags change): each replay bitwise the
+    eager call on the same inputs, so K7's tickets and status words return
+    to 0 after every launch."""
+    from tracking_sdf_tpu_torch.core.lie import Pose
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    params = GridParams(m=256, width=2.0, height=2.0, depth=2.0, origin=(-1.0, -1.0, -1.0),
+                        delta=0.15, epsilon=0.02)
+    cfg = FusionConfig(mode="brickmajor", distance="point_to_plane", pixel_share=4,
+                       pixel_share_j=4, hier_classify=hier, cap_mixed=256)
+    cam, pose0, pts, nrm, _ = _classify_frame(dev, "speckle")
+    R, t = pose0.R.clone(), pose0.t.clone()
+    nb = (256 // 8) ** 3
+    sat = torch.zeros(nb, dtype=torch.bool, device=dev)
+    kw = dict(cam=cam, cfg=cfg, bs=(8, 8, 8), cap=4096, cap_free=2048, sat=sat)
+    share = brick.share_classify_margin(params, cfg)
+
+    def step():
+        mip = brick._zeta_mip(pts, nrm, cam, params.delta, cfg.distance, share)
+        return classify_compact_rows(params, Pose(R, t), pts, nrm, mip=mip, **kw)
+
+    step()  # warm-up: the library, the ticket word, K7's scratch
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    seen = set()
+    for i in range(100):
+        twist = (torch.rand(6, generator=gen, device=dev) - 0.5) * torch.tensor(
+            [0.2, 0.2, 0.2, 0.1, 0.1, 0.1], device=dev)
+        dp = se3_exp(twist)
+        R.copy_(dp.R @ pose0.R)
+        t.copy_(dp.R @ pose0.t + dp.t)
+        sat.copy_(torch.rand(nb, generator=gen, device=dev) < 0.2 * (i % 3))
+        graph.replay()
+        want = step()
+        torch.cuda.synchronize()
+        assert torch.equal(out[0], want[0]) and torch.equal(out[1], want[1]), i
+        seen.add(tuple(want[1].tolist()))
+    assert len(seen) > 10  # the lists changed from replay to replay
+
+
+def _random_frame(dev, h, w, seed):
+    """Points in front of a camera with NaN speckle, normals mostly facing
+    it, rgb: made from a seed at any size."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    cam = PinholeCamera(fx=0.83 * w + 1, fy=0.83 * w + 1, cx=(w - 1) / 2, cy=(h - 1) / 2,
+                        width=w, height=h)
+    z = 0.5 + 2.5 * torch.rand(h, w, generator=gen, device=dev)
+    u = torch.arange(w, device=dev, dtype=torch.float32)[None, :]
+    v = torch.arange(h, device=dev, dtype=torch.float32)[:, None]
+    pts = torch.stack([(u - cam.cx) / cam.fx * z, (v - cam.cy) / cam.fy * z, z], -1)
+    nrm = torch.nn.functional.normalize(
+        torch.rand(h, w, 3, generator=gen, device=dev) - torch.tensor([0.5, 0.5, 1.2],
+                                                                      device=dev), dim=-1)
+    hole = torch.rand(h, w, generator=gen, device=dev) < 0.1
+    pts = torch.where(hole[..., None], float("nan"), pts)
+    rgb = torch.rand(h, w, 3, generator=gen, device=dev)
+    return cam, pts.contiguous(), nrm.contiguous(), rgb
+
+
+def _unaligned(x):
+    """A contiguous copy of x that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    y = buf[1:].view(x.shape)
+    y.copy_(x)
+    assert y.is_contiguous() and y.data_ptr() % 16 == 4
+    return y
+
+
+@pytest.mark.parametrize("hw", [(9, 17), (37, 53), (1, 1), (8, 8), (72, 96), (480, 640)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+def test_frame_tables_vector_and_scalar_loads_match_plain(dev, hw):
+    """K5 bitwise against _zeta_mip_reference and _pixel_table_reference at
+    widths with w % 4 != 0 (scalar loads), on 16-byte-aligned inputs and on
+    copies 4 bytes off (scalar loads again), at 1x1 and 8x8 (one mip level)
+    and at 640x480 (eight levels, the last block's shared-memory tail); both
+    distances, share margin on and off, mip and color table in one launch."""
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    k567 = _k567()
+    h, w = hw
+    cam, pts, nrm, rgb = _random_frame(dev, h, w, seed=h * w)
+    assert k567.aligned16(pts, nrm, rgb)
+    for distance in ("point_to_plane", "point_to_point"):
+        for share in (0.0, 0.0625):
+            want_mip = brick._zeta_mip_reference(pts, nrm, cam, PARAMS.delta, distance, share)
+            want_pix = brick._pixel_table_reference(pts, nrm, rgb, True, distance)
+            for p, n, c in ((pts, nrm, rgb), tuple(_unaligned(x) for x in (pts, nrm, rgb))):
+                mip, pix = brick.frame_tables(p, n, c, True, cam, PARAMS.delta, distance, share)
+                assert _bits_equal(pix, want_pix), (distance, share, p.data_ptr() % 16)
+                assert mip.offsets == want_mip.offsets and mip.dims == want_mip.dims
+                for name in ("zeta", "zeta_down", "eta", "eta_down"):
+                    assert _bits_equal(getattr(mip, name), getattr(want_mip, name)), (
+                        name, distance, share, p.data_ptr() % 16)

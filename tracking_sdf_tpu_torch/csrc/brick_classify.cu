@@ -1,22 +1,23 @@
 // K5, K6 and K7: a frame's brick classification, the compaction of its FULL
 // and FREE lists, and its pixel table, the fusion stage before K2.
-//   tsdf_frame_tables       K5: one thread a pixel. The pixel-table row and
-//                           the zeta (min) / eta (max) depth bounds; each
-//                           8x8 tile's bounds are level 0 of the mip, and
-//                           the last block to finish reduces the upper
-//                           levels from it;
+//   tsdf_frame_tables       K5: a 32x32-pixel region a block, 4 consecutive
+//                           pixels a thread. The pixel-table rows and the
+//                           zeta (min) / eta (max) depth bounds; the block
+//                           reduces its 4x4 tiles to mip levels 0, 1 and 2,
+//                           and the last block to finish reduces levels 3..
+//                           from level 2 in shared memory;
 //   tsdf_classify_bricks    K6: one thread a brick. OUT 0 / FREE 1 / FULL 2
 //                           from the 8 voxel-centre hull corners and a
 //                           4-cell window query of the mip; three forms:
 //                           flat (every brick of a slab), super (bricks x
 //                           factor, and "all children saturated"), children
 //                           (the factor^3 children of each listed super);
-//   tsdf_compact_lists      K7, flat form: one block; the stable first-cap
-//                           compaction of the FULL and FREE flags (bricks,
-//                           or mixed and FREE supers) and their counts;
-//   tsdf_compact_lists_hier K7, hierarchical form: one block; the FULL and
-//                           FREE children of the mixed supers, then the
-//                           children of the kept FREE supers, and the counts.
+//   tsdf_compact_lists      K7, flat form: the stable first-cap compaction of
+//                           the FULL and FREE flags (bricks, or mixed and
+//                           FREE supers) and their counts;
+//   tsdf_compact_lists_hier K7, hierarchical form: the FULL and FREE children
+//                           of the mixed supers, then the children of the
+//                           kept FREE supers, and the counts.
 //
 // No Pallas original: the JAX package leaves all of this to XLA's fusions
 // (tracking_sdf_tpu/fusion/brick.py: _zeta_mip :187, _query_zeta :282,
@@ -39,36 +40,56 @@
 // (x0 + x2) + x1, as torch.sum does there on the card. log2f is libdevice's, as
 // torch.log2 calls it (no fast math): one ulp picks another mip level at a
 // power of two. Masks select, never multiply. min and max let a NaN win, and
-// clamp keeps a NaN, as torch.amin / torch.clamp do. Host scalars arrive
-// rounded to float32 as PyTorch rounds a Python scalar.
+// clamp keeps a NaN, as torch.amin / torch.clamp do; each mip cell is the
+// min / max of its own 2x2 children (level 0: of its 8x8 pixels). Host
+// scalars arrive rounded to float32 as PyTorch rounds a Python scalar.
 //
-// What bounds them on the card. K5: bytes (points and normals, 3.7 MB each at
-// 640x480, and rgb with color; the table 4.9 / 9.8 MB out); the 6,409-cell mip
-// is 0.1 MB. It reads each pixel's 3-float point and normal as they lie, and
-// writes its table row as one or two 16-byte stores. The upper levels (1,609
-// cells at 640x480) are done by the last block to finish, counted by a ticket
-// (atomicInc wraps it back to 0, so a CUDA graph replays), rather than by a
-// second launch: one launch less on every frame, and the reduction is too
-// small to fill more than one block anyway. K6 and K7: a few hundred KB
-// (32,768 bricks flat at 256^3; 4,096 supers and at most 98,304 children at
-// 512^3), so latency: one thread a brick, and K7 as one block of 1024
-// threads, each a contiguous run of flags, with one block-wide exclusive scan
-// of the two counts packed in a 64-bit word. No atomics but the ticket, no
-// library kernels; the lists are a fixed function of the flags.
+// What bounds them on the card, and what the design does about it.
+// K5: bytes (points and normals, 3.7 MB each at 640x480, and rgb with color;
+// the table 4.9 / 9.8 MB out; the 6,409-cell mip 0.1 MB). A thread reads its
+// 4 pixels' points, normals and rgb as three 16-byte loads each (w % 4 == 0
+// and 16-byte-aligned bases, else the same values one float at a time), and
+// stages its table rows in shared memory, so that each warp stores 512
+// contiguous bytes of a region row (as 16-byte chunks). The block's own 16
+// level-0, 4 level-1 and 1 level-2 cells come from warp shuffles, so the
+// 1,609 upper cells at 640x480 shrink to the 300 of level 2, which the last
+// block to finish (an atomicInc ticket that wraps back to 0, so a CUDA graph
+// replays) loads into shared memory once to reduce levels 3.. there: no
+// level makes its own L2 round trip, and no second launch.
+// K6 and K7: a few hundred KB (32,768 bricks flat at 256^3; 4,096 supers and
+// at most 98,304 children at 512^3), so latency. K6: one thread a brick. K7:
+// a single-pass stable compaction over many blocks, a decoupled look-back
+// scan: each block takes a ticket; the first tickets are tiles of 2,048
+// flags (16 a thread, one 16-byte load, and the hierarchical form's ids as
+// four), ranked in the block by a scan of the two counts packed in 64 bits,
+// staged in shared memory in list order, then written out coalesced after
+// the tile has looked back over its predecessors' status words for its
+// prefix; the later tickets pad the lists past the counts (and place the
+// kept FREE supers' children), and the last block to finish writes the
+// counts and zeroes the status words. Integer atomics only (the tickets, the
+// status words, the saturated-children count), so the lists stay a fixed
+// function of the flags.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 
 namespace {
 
 constexpr int kTile = 8;         // mip base tile, pixels (brick._TILE)
-constexpr int kTablesX = 32;     // K5 block: 32 x 8 pixels, four tiles side by side
-constexpr int kTablesY = kTile;
+constexpr int kRegion = 32;      // K5 block: a 32 x 32-pixel region, 4 x 4 tiles
+constexpr int kPixels = 4;       // K5: consecutive pixels a thread
+constexpr int kTablesX = kRegion / kPixels;
+constexpr int kTablesY = kRegion;
 constexpr int kMaxLevels = 24;
 constexpr int kClassifyThreads = 256;
-constexpr int kCompactThreads = 1024;
+constexpr int kCompactThreads = 128;
+constexpr int kFlagsPerThread = 16;
+constexpr int kCompactTile = kCompactThreads * kFlagsPerThread;  // flags a tile
+constexpr int kFinishSpan = kCompactThreads * 4;  // list positions a padding block
+constexpr int kScratchHead = 2;  // K7 scratch: [ticket, done], [n_sat, 0], then a status word a tile
 constexpr uint8_t kFree = 1, kFull = 2;
 constexpr int kModeMip = 1, kModeTable = 2;
 constexpr int kFlat = 0, kSuper = 1, kChildren = 2;
@@ -101,10 +122,13 @@ __device__ __forceinline__ float sum3(float x0, float x1, float x2) {
   return __fadd_rn(__fadd_rn(x0, x2), x1);
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 // ---- K5 -------------------------------------------------------------------
 
 struct TableArgs {
   int h, w, mode, point_to_plane, channels, blocks;
+  int vec;                       // 16-byte loads: w % 4 == 0, aligned bases
   float cx, cy, inv_fx, inv_fy;  // inv_*: PyTorch's reciprocal of fx, fy
   float delta;                   // point-to-point: delta + share margin
   float share_margin;            // point-to-plane: 0 for none
@@ -129,103 +153,201 @@ __device__ __forceinline__ void put_cell(float* mip, int total, int off, int r, 
   }
 }
 
+// Level l's cell (r, c) where that level exists, with put_cell.
+__device__ __forceinline__ void put_level(float* mip, const Levels& L, int l, int r, int c,
+                                          float z, float e) {
+  if (l < L.n && r < L.dh[l] && c < L.dw[l])
+    put_cell(mip, L.total, L.off[l], r, c, L.dh[l], L.dw[l], z, e);
+}
+
+// The 3 floats of each of a thread's 4 pixels from `src` + 3 g (of which
+// `valid` lie in the image): three 16-byte loads, or one float at a time.
+__device__ __forceinline__ void load_pixels(const float* __restrict__ src, size_t g, bool vec,
+                                            int valid, float (&v)[3 * kPixels]) {
+  if (vec) {
+    const float4* q = reinterpret_cast<const float4*>(src + 3 * g);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float4 f = __ldg(q + k);
+      v[4 * k] = f.x;
+      v[4 * k + 1] = f.y;
+      v[4 * k + 2] = f.z;
+      v[4 * k + 3] = f.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 3 * kPixels; ++k) v[k] = k < 3 * valid ? __ldg(src + 3 * g + k) : 0.f;
+  }
+}
+
+// The staged table: 16-byte chunk c of a region row at chunk c ^ ((c / 8) %
+// 8), so that 8 threads storing one chunk each of their own pixels, or
+// reading 8 consecutive chunks, hit 8 different bank groups.
+__device__ __forceinline__ int swizzle(int c) { return c ^ ((c >> 3) & 7); }
+
+// One pixel (column x, row y): its table row (1 or 2 chunks), and its zeta /
+// eta.: its table row, and its zeta / eta.
+__device__ __forceinline__ void pixel(const TableArgs& a, float4* row, int x, int y,
+                                      const float* p, const float* n, const float* rgb,
+                                      float& zeta, float& eta) {
+  const float p0 = p[0], p1 = p[1], p2 = p[2];
+  const float n0 = n[0], n1 = n[1], n2 = n[2];
+  const bool fin = isfinite(p0) && isfinite(p1) && isfinite(n0) && isfinite(n1) && isfinite(n2);
+  // |n| of a valid pixel, 0 otherwise (the masked squares' sum)
+  const float norm =
+      fin ? __fsqrt_rn(sum3(__fmul_rn(n0, n0), __fmul_rn(n1, n1), __fmul_rn(n2, n2))) : 0.f;
+  if (a.mode & kModeTable) {
+    // [nx, ny, nz, s (, cos, cos r, cos g, cos b)]; an invalid pixel's s
+    // drives the distance to -inf
+    float s;
+    if (a.point_to_plane)
+      s = fin ? sum3(__fmul_rn(p0, n0), __fmul_rn(p1, n1), __fmul_rn(p2, n2)) : inf_f();
+    else
+      s = fin ? p2 : -inf_f();
+    row[0] = make_float4(fin ? n0 : 0.f, fin ? n1 : 0.f, fin ? n2 : 0.f, s);
+    if (a.channels == 8) {
+      const float cosv = norm > 0.f ? __fdiv_rn(fabsf(fin ? n2 : 0.f), norm) : 0.f;
+      row[1] = make_float4(cosv, __fmul_rn(cosv, rgb[0]), __fmul_rn(cosv, rgb[1]),
+                           __fmul_rn(cosv, rgb[2]));
+    }
+  }
+  if (!(a.mode & kModeMip)) return;
+  if (!a.point_to_plane) {
+    zeta = fin ? __fsub_rn(p2, a.delta) : -inf_f();
+    eta = fin ? __fadd_rn(p2, a.delta) : -inf_f();
+    return;
+  }
+  // the unit-z ray r = ((u - cx) / fx, (v - cy) / fy, 1)
+  const float rx = __fmul_rn(__fsub_rn(static_cast<float>(x), a.cx), a.inv_fx);
+  const float ry = __fmul_rn(__fsub_rn(static_cast<float>(y), a.cy), a.inv_fy);
+  const float rn = __fadd_rn(__fadd_rn(__fmul_rn(rx, n0), __fmul_rn(ry, n1)), n2);
+  const bool toward = fin && rn < 0.f;
+  const float am = clamp_min(-rn, 1e-6f);
+  const float e_minus = __fadd_rn(__fmul_rn(clamp_min(-n0, 0.f), a.inv_fx),
+                                  __fmul_rn(clamp_min(-n1, 0.f), a.inv_fy));
+  const float e_plus = __fadd_rn(__fmul_rn(clamp_min(n0, 0.f), a.inv_fx),
+                                 __fmul_rn(clamp_min(n1, 0.f), a.inv_fy));
+  const float d_eff =
+      a.share_margin != 0.f ? __fadd_rn(a.delta, __fmul_rn(a.share_margin, norm)) : a.delta;
+  const float za = __fmul_rn(p2, am);
+  zeta = toward ? __fdiv_rn(__fsub_rn(za, d_eff), __fadd_rn(am, e_minus)) : -inf_f();
+  eta = toward && am > e_plus
+            ? __fdiv_rn(__fadd_rn(za, d_eff), clamp_min(__fsub_rn(am, e_plus), 1e-9f))
+            : (fin ? inf_f() : -inf_f());
+}
+
+// blockDim (8, 32): thread (tx, ty) takes pixels 4 tx .. 4 tx + 3 of row ty
+// of the block's region; a warp holds 4 rows. The table rows are staged in
+// shared memory and stored a region row at a time, 32 consecutive chunks a
+// warp. Dynamic shared memory: the last block's levels 2 and 3 (zeta and eta
+// each), for levels 3.. .
 __global__ void __launch_bounds__(kTablesX * kTablesY)
 frame_tables_kernel(const float* __restrict__ pts, const float* __restrict__ nrm,
                     const float* __restrict__ rgb, float* __restrict__ pix,
                     float* __restrict__ mip, unsigned int* __restrict__ ticket, TableArgs a,
                     Levels L) {
-  const int x = blockIdx.x * kTablesX + threadIdx.x;
-  const int y = blockIdx.y * kTablesY + threadIdx.y;
+  const int x0 = blockIdx.x * kRegion + kPixels * threadIdx.x;
+  const int y = blockIdx.y * kRegion + threadIdx.y;
+  __shared__ float4 rows[kTablesY][kRegion * 2];  // the region's table, 1 or 2 chunks a pixel
+  const int cpp = a.channels / 4;
   float zeta = inf_f(), eta = -inf_f();  // the neutral values pad the image
-  if (x < a.w && y < a.h) {
-    const int g = y * a.w + x;
-    const float p0 = pts[3 * g], p1 = pts[3 * g + 1], p2 = pts[3 * g + 2];
-    const float n0 = nrm[3 * g], n1 = nrm[3 * g + 1], n2 = nrm[3 * g + 2];
-    const bool fin = isfinite(p0) && isfinite(p1) && isfinite(n0) && isfinite(n1)
-                     && isfinite(n2);
-    // |n| of a valid pixel, 0 otherwise (the masked squares' sum)
-    const float norm =
-        fin ? __fsqrt_rn(sum3(__fmul_rn(n0, n0), __fmul_rn(n1, n1), __fmul_rn(n2, n2))) : 0.f;
-    if (a.mode & kModeTable) {
-      // [nx, ny, nz, s (, cos, cos r, cos g, cos b)]; an invalid pixel's s
-      // drives the distance to -inf
-      float s;
-      if (a.point_to_plane)
-        s = fin ? sum3(__fmul_rn(p0, n0), __fmul_rn(p1, n1), __fmul_rn(p2, n2)) : inf_f();
-      else
-        s = fin ? p2 : -inf_f();
-      float4* row = reinterpret_cast<float4*>(pix + static_cast<size_t>(g) * a.channels);
-      row[0] = make_float4(fin ? n0 : 0.f, fin ? n1 : 0.f, fin ? n2 : 0.f, s);
-      if (a.channels == 8) {
-        const float cosv = norm > 0.f ? __fdiv_rn(fabsf(fin ? n2 : 0.f), norm) : 0.f;
-        row[1] = make_float4(cosv, __fmul_rn(cosv, rgb[3 * g]), __fmul_rn(cosv, rgb[3 * g + 1]),
-                             __fmul_rn(cosv, rgb[3 * g + 2]));
-      }
+  if (x0 < a.w && y < a.h) {
+    const int valid = min(kPixels, a.w - x0);
+    const size_t g = static_cast<size_t>(y) * a.w + x0;
+    const bool vec = a.vec;  // then valid == 4
+    float p[3 * kPixels], n[3 * kPixels], c[3 * kPixels];
+    load_pixels(pts, g, vec, valid, p);
+    load_pixels(nrm, g, vec, valid, n);
+    if ((a.mode & kModeTable) && a.channels == 8) load_pixels(rgb, g, vec, valid, c);
+#pragma unroll
+    for (int k = 0; k < kPixels; ++k) {
+      if (k >= valid) break;
+      float z = inf_f(), e = -inf_f();
+      float4 row[2];
+      pixel(a, row, x0 + k, y, p + 3 * k, n + 3 * k, c + 3 * k, z, e);
+      if (a.mode & kModeTable)
+        for (int j = 0; j < cpp; ++j)
+          rows[threadIdx.y][swizzle((kPixels * threadIdx.x + k) * cpp + j)] = row[j];
+      zeta = min_nan(zeta, z);
+      eta = max_nan(eta, e);
     }
-    if (a.mode & kModeMip) {
-      if (!a.point_to_plane) {
-        zeta = fin ? __fsub_rn(p2, a.delta) : -inf_f();
-        eta = fin ? __fadd_rn(p2, a.delta) : -inf_f();
-      } else {
-        // the unit-z ray r = ((u - cx) / fx, (v - cy) / fy, 1)
-        const float rx = __fmul_rn(__fsub_rn(static_cast<float>(x), a.cx), a.inv_fx);
-        const float ry = __fmul_rn(__fsub_rn(static_cast<float>(y), a.cy), a.inv_fy);
-        const float rn = __fadd_rn(__fadd_rn(__fmul_rn(rx, n0), __fmul_rn(ry, n1)), n2);
-        const bool toward = fin && rn < 0.f;
-        const float am = clamp_min(-rn, 1e-6f);
-        const float e_minus = __fadd_rn(__fmul_rn(clamp_min(-n0, 0.f), a.inv_fx),
-                                        __fmul_rn(clamp_min(-n1, 0.f), a.inv_fy));
-        const float e_plus = __fadd_rn(__fmul_rn(clamp_min(n0, 0.f), a.inv_fx),
-                                       __fmul_rn(clamp_min(n1, 0.f), a.inv_fy));
-        const float d_eff = a.share_margin != 0.f
-                                ? __fadd_rn(a.delta, __fmul_rn(a.share_margin, norm))
-                                : a.delta;
-        const float za = __fmul_rn(p2, am);
-        zeta = toward ? __fdiv_rn(__fsub_rn(za, d_eff), __fadd_rn(am, e_minus)) : -inf_f();
-        eta = toward && am > e_plus
-                  ? __fdiv_rn(__fadd_rn(za, d_eff), clamp_min(__fsub_rn(am, e_plus), 1e-9f))
-                  : (fin ? inf_f() : -inf_f());
-      }
+  }
+  const int tid = threadIdx.y * kTablesX + threadIdx.x;
+  if (a.mode & kModeTable) {  // uniform over the grid
+    __syncthreads();
+    float4* out = reinterpret_cast<float4*>(pix);
+    for (int q = tid; q < kTablesY * kRegion * cpp; q += kTablesX * kTablesY) {
+      const int r = q / (kRegion * cpp), cc = q % (kRegion * cpp);
+      const int x = blockIdx.x * kRegion + cc / cpp, yr = blockIdx.y * kRegion + r;
+      if (x < a.w && yr < a.h)
+        out[(static_cast<size_t>(yr) * a.w + blockIdx.x * kRegion) * cpp + cc] =
+            rows[r][swizzle(cc)];
     }
   }
   if (!(a.mode & kModeMip)) return;  // uniform over the grid
 
-  // level 0: lanes 8q..8q+7 of a warp hold one row of tile q
+  // level 0: a tile row is 2 threads, a warp 4 of a tile's 8 rows
+  const int lane = (threadIdx.y & 3) * kTablesX + threadIdx.x, warp = threadIdx.y >> 2;
 #pragma unroll
-  for (int s = 1; s < kTile; s <<= 1) {
+  for (int s = 1; s < 32; s <<= 1) {
+    if (s == 2 || s == 4) continue;  // xor 1 (the pair), then 8 and 16 (the rows)
     zeta = min_nan(zeta, __shfl_xor_sync(0xffffffffu, zeta, s));
     eta = max_nan(eta, __shfl_xor_sync(0xffffffffu, eta, s));
   }
-  __shared__ float zs[kTablesY][kTablesX / kTile], es[kTablesY][kTablesX / kTile];
+  constexpr int kTiles = kRegion / kTile;  // a side
+  __shared__ float zs[kTablesY / 4][kTiles], es[kTablesY / 4][kTiles];
   __shared__ bool last;
-  if ((threadIdx.x & (kTile - 1)) == 0) {
-    zs[threadIdx.y][threadIdx.x / kTile] = zeta;
-    es[threadIdx.y][threadIdx.x / kTile] = eta;
+  if (lane < kTablesX && !(lane & 1)) {
+    zs[warp][lane >> 1] = zeta;
+    es[warp][lane >> 1] = eta;
   }
   __syncthreads();
-  const int tid = threadIdx.y * kTablesX + threadIdx.x;
-  if (tid < kTablesX / kTile) {
-    float z = zs[0][tid], e = es[0][tid];
-    for (int r = 1; r < kTablesY; ++r) {
-      z = min_nan(z, zs[r][tid]);
-      e = max_nan(e, es[r][tid]);
-    }
-    const int c = blockIdx.x * (kTablesX / kTile) + tid;
-    if (c < L.dw[0]) put_cell(mip, L.total, 0, blockIdx.y, c, L.dh[0], L.dw[0], z, e);
+  if (tid < 32) {
+    // lane 4 tr + tc holds level-0 cell (tr, tc) of the region, the two
+    // warps of its rows; then levels 1 and 2 from each cell's 2x2 children
+    const int tr = tid >> 2, tc = tid & 3;
+    float z = tid < kTiles * kTiles ? min_nan(zs[2 * tr][tc], zs[2 * tr + 1][tc]) : inf_f();
+    float e = tid < kTiles * kTiles ? max_nan(es[2 * tr][tc], es[2 * tr + 1][tc]) : -inf_f();
+    if (tid < kTiles * kTiles)
+      put_level(mip, L, 0, blockIdx.y * kTiles + tr, blockIdx.x * kTiles + tc, z, e);
+    z = min_nan(z, __shfl_xor_sync(0xffffffffu, z, 1));
+    e = max_nan(e, __shfl_xor_sync(0xffffffffu, e, 1));
+    z = min_nan(z, __shfl_xor_sync(0xffffffffu, z, 4));
+    e = max_nan(e, __shfl_xor_sync(0xffffffffu, e, 4));
+    if (tid < kTiles * kTiles && !(tr & 1) && !(tc & 1))
+      put_level(mip, L, 1, blockIdx.y * 2 + (tr >> 1), blockIdx.x * 2 + (tc >> 1), z, e);
+    z = min_nan(z, __shfl_xor_sync(0xffffffffu, z, 2));
+    e = max_nan(e, __shfl_xor_sync(0xffffffffu, e, 2));
+    z = min_nan(z, __shfl_xor_sync(0xffffffffu, z, 8));
+    e = max_nan(e, __shfl_xor_sync(0xffffffffu, e, 8));
+    if (tid == 0) put_level(mip, L, 2, blockIdx.y, blockIdx.x, z, e);
   }
 
-  // the last block to finish reduces levels 1.. from level 0
-  __threadfence();
+  // the last block to finish reduces levels 3.. from level 2
+  if (tid < 32) __threadfence();  // the cells above, before the ticket
   __syncthreads();
   if (tid == 0)
     last = atomicInc(ticket, static_cast<unsigned int>(a.blocks - 1))
            == static_cast<unsigned int>(a.blocks - 1);
   __syncthreads();
-  if (!last) return;
+  if (!last || L.n <= 3) return;
   __threadfence();
-  for (int l = 1; l < L.n; ++l) {
-    const int pdh = L.dh[l - 1], pdw = L.dw[l - 1], poff = L.off[l - 1];
-    const int dh = L.dh[l], dw = L.dw[l];
+  extern __shared__ float tail[];
+  // even levels' zeta and eta at tail, tail + c2; odd levels' after them
+  const int c2 = L.dh[2] * L.dw[2], c3 = L.dh[3] * L.dw[3];
+  float* even = tail;
+  float* odd = tail + 2 * c2;
+  for (int i = tid; i < c2; i += kTablesX * kTablesY) {
+    even[i] = __ldcg(mip + L.off[2] + i);
+    even[c2 + i] = __ldcg(mip + 2 * L.total + L.off[2] + i);
+  }
+  __syncthreads();
+  for (int l = 3; l < L.n; ++l) {
+    const int pdw = L.dw[l - 1], pdh = L.dh[l - 1], dw = L.dw[l], dh = L.dh[l];
+    const float* pz = l & 1 ? even : odd;
+    const float* pe = l & 1 ? even + c2 : odd + c3;
+    float* oz = l & 1 ? odd : even;
+    float* oe = l & 1 ? odd + c3 : even + c2;
     for (int i = tid; i < dh * dw; i += kTablesX * kTablesY) {
       const int r = i / dw, c = i % dw;
       float z = inf_f(), e = -inf_f();  // cells past an odd edge pad neutral
@@ -235,11 +357,12 @@ frame_tables_kernel(const float* __restrict__ pts, const float* __restrict__ nrm
         for (int dc = 0; dc < 2; ++dc) {
           const int rr = 2 * r + dr, cc = 2 * c + dc;
           if (rr < pdh && cc < pdw) {
-            const int j = poff + rr * pdw + cc;
-            z = min_nan(z, __ldcg(mip + j));
-            e = max_nan(e, __ldcg(mip + 2 * L.total + j));
+            z = min_nan(z, pz[rr * pdw + cc]);
+            e = max_nan(e, pe[rr * pdw + cc]);
           }
         }
+      oz[i] = z;
+      oe[i] = e;
       put_cell(mip, L.total, L.off[l], r, c, dh, dw, z, e);
     }
     __syncthreads();
@@ -400,9 +523,28 @@ classify_bricks_kernel(Mip mip, const float* __restrict__ pose_R, const float* _
 
 // ---- K7 -------------------------------------------------------------------
 
+// Two counts packed in one word: A in bits 0-30, B in bits 31-61 (each at
+// most n < 2^31); a status word adds its state in bits 62-63.
+constexpr unsigned long long kHigh = 1ull << 31;  // the B count's unit
+constexpr unsigned long long kCounts = (1ull << 62) - 1;
+constexpr unsigned long long kAggregate = 1ull << 62;  // the tile's own counts
+constexpr unsigned long long kInclusive = 2ull << 62;  // the counts up to and with the tile
+
+__device__ __forceinline__ unsigned long long count_a(unsigned long long v) {
+  return v & (kHigh - 1);
+}
+__device__ __forceinline__ unsigned long long count_b(unsigned long long v) {
+  return (v & kCounts) >> 31;
+}
+
+__device__ __forceinline__ unsigned long long load_status(const unsigned long long* p) {
+  return *reinterpret_cast<const volatile unsigned long long*>(p);
+}
+
 // Block-wide exclusive scan of v; *total gets the sum over the block.
 __device__ unsigned long long block_scan(unsigned long long v, unsigned long long* total) {
-  __shared__ unsigned long long warp_sums[kCompactThreads / 32];
+  constexpr int kWarps = kCompactThreads / 32;
+  __shared__ unsigned long long warp_sums[kWarps];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   unsigned long long incl = v;
 #pragma unroll
@@ -413,136 +555,261 @@ __device__ unsigned long long block_scan(unsigned long long v, unsigned long lon
   if (lane == 31) warp_sums[warp] = incl;
   __syncthreads();
   if (warp == 0) {
-    unsigned long long w = warp_sums[lane];
+    unsigned long long w = lane < kWarps ? warp_sums[lane] : 0ull;
 #pragma unroll
-    for (int s = 1; s < 32; s <<= 1) {
+    for (int s = 1; s < kWarps; s <<= 1) {
       const unsigned long long o = __shfl_up_sync(0xffffffffu, w, s);
       if (lane >= s) w += o;
     }
-    warp_sums[lane] = w;
+    if (lane < kWarps) warp_sums[lane] = w;
   }
   __syncthreads();
   const unsigned long long before = (warp > 0 ? warp_sums[warp - 1] : 0ull) + incl - v;
-  *total = warp_sums[kCompactThreads / 32 - 1];
-  __syncthreads();  // warp_sums is read before the next scan writes it
+  *total = warp_sums[kWarps - 1];
   return before;
 }
 
-constexpr unsigned long long kHigh = 1ull << 32;  // the second count's unit
-
-// Stable compaction of two disjoint flag sets of one list: set A's values
-// in order to ids[0, cap_a), set B's to ids[cap_a, cap_a + cap_b), the first
-// ones under each cap, the rest of each part `fill`. Thread t takes the
-// contiguous run [lo, hi) of the list. flag(i) is 1 for A, 2 for B, else 0.
-template <typename Flag, typename Value>
-__device__ void compact_two(int n, int cap_a, int cap_b, int fill, int* ids, Flag flag,
-                            Value value, unsigned int* n_a, unsigned int* n_b) {
-  const int chunk = (n + kCompactThreads - 1) / kCompactThreads;
-  const int lo = min(static_cast<int>(threadIdx.x) * chunk, n), hi = min(lo + chunk, n);
-  unsigned long long mine = 0;
-  for (int i = lo; i < hi; ++i) {
-    const int k = flag(i);
-    mine += k == 1 ? 1ull : (k == 2 ? kHigh : 0ull);
-  }
-  unsigned long long total;
-  const unsigned long long before = block_scan(mine, &total);
-  unsigned int pa = static_cast<unsigned int>(before);
-  unsigned int pb = static_cast<unsigned int>(before >> 32);
-  for (int i = lo; i < hi; ++i) {
-    const int k = flag(i);
-    if (k == 1) {
-      if (pa < static_cast<unsigned int>(cap_a)) ids[pa] = value(i);
-      ++pa;
-    } else if (k == 2) {
-      if (pb < static_cast<unsigned int>(cap_b)) ids[cap_a + pb] = value(i);
-      ++pb;
+// Warp 0 of tile t > 0: the counts of tiles 0 .. t-1, from the status words
+// of the 32 nearest predecessors at a time, back to the nearest inclusive
+// one. A predecessor holds a lower ticket, so it is running and publishes
+// its aggregate without waiting on this tile.
+__device__ unsigned long long look_back(const unsigned long long* status, int t) {
+  const int lane = threadIdx.x & 31;
+  unsigned long long prefix = 0;
+  for (int j = t - 1;; j -= 32) {
+    const int idx = j - lane;
+    unsigned long long w = kInclusive;  // before tile 0: an inclusive 0
+    if (idx >= 0) {
+      do {
+        w = load_status(status + idx);
+      } while (w < kAggregate);
     }
-  }
-  *n_a = static_cast<unsigned int>(total);
-  *n_b = static_cast<unsigned int>(total >> 32);
-  for (int p = min(*n_a, static_cast<unsigned int>(cap_a)) + threadIdx.x; p < cap_a;
-       p += kCompactThreads)
-    ids[p] = fill;
-  for (int p = min(*n_b, static_cast<unsigned int>(cap_b)) + threadIdx.x; p < cap_b;
-       p += kCompactThreads)
-    ids[cap_a + p] = fill;
-}
-
-// Flat form: FULL ids under cap_a, then FREE ids not set in `skip` under
-// cap_b; counts [n_full, n_free, max(n_free - cap_b, 0), 0].
-__global__ void __launch_bounds__(kCompactThreads)
-compact_lists_kernel(const uint8_t* __restrict__ cls, const uint8_t* __restrict__ skip, int n,
-                     int cap_a, int cap_b, int fill, int* __restrict__ ids,
-                     long long* __restrict__ counts) {
-  unsigned int n_a, n_b;
-  compact_two(
-      n, cap_a, cap_b, fill, ids,
-      [&](int i) {
-        const uint8_t c = cls[i];
-        return c == kFull ? 1 : (c == kFree && !(skip != nullptr && skip[i]) ? 2 : 0);
-      },
-      [](int i) { return i; }, &n_a, &n_b);
-  if (threadIdx.x == 0) {
-    counts[0] = n_a;
-    counts[1] = n_b;
-    counts[2] = max(static_cast<long long>(n_b) - cap_b, 0ll);
-    counts[3] = 0;
+    const unsigned incl = __ballot_sync(0xffffffffu, w >= kInclusive);
+    const int stop = incl ? __ffs(incl) - 1 : 31;
+    unsigned long long v = lane <= stop ? (w & kCounts) : 0ull;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+    prefix += v;
+    if (incl) return prefix;
   }
 }
 
-struct HierArgs {
-  int n;  // listed children: cap_mixed * f^3
-  int cap, cap_free, cap_sfree, cap_mixed;
-  int f, nsj, nsk, nbj, nbk, nb, ns;
+struct CompactArgs {
+  const uint8_t* cls;
+  const uint8_t* skip;             // flat: FREE entries to leave out; hier: sat (nb) or NULL
+  const int* gid;                  // hier: each child's global id
+  const int* sf_ids;               // hier: the kept FREE supers (cap_sfree)
+  const long long* super_counts;   // hier: [n_mixed, n_sf, ...]
+  int* ids;                        // (cap_a + cap_b)
+  long long* counts;               // (4,)
+  unsigned long long* scratch;     // kScratchHead + tiles words, 0 between launches
+  int n, cap_a, cap_b, fill;
+  int tiles, blocks, vec;          // flag tiles, all blocks; 16-byte loads
+  int cap_sfree, cap_mixed, f, nsj, nsk, nbj, nbk, nb, ns;  // hier
 };
 
-// Hierarchical form, after K6's children form: the FULL children in
-// (mixed-super rank, child) order under cap; the FREE children of mixed
-// supers (not saturated) first, then the children of the kept FREE supers at
-// n_free_mixed + k with saturated children left as `nb` holes, all under
-// cap_free; counts [n_full, n_free, overflow_free, overflow_mixed] from the
-// supers' counts [n_mixed, n_sf] (brick.classify_compact_hier_reference).
-__global__ void __launch_bounds__(kCompactThreads)
-compact_lists_hier_kernel(const uint8_t* __restrict__ fcls, const int* __restrict__ gid,
-                          const uint8_t* __restrict__ sat, const int* __restrict__ sf_ids,
-                          const long long* __restrict__ super_counts, int* __restrict__ ids,
-                          long long* __restrict__ counts, HierArgs a) {
-  unsigned int n_full, n_free_mixed;
-  compact_two(
-      a.n, a.cap, a.cap_free, a.nb, ids,
-      [&](int i) {
-        const uint8_t c = fcls[i];
-        if (c == kFull) return 1;
-        return c == kFree && !(sat != nullptr && sat[min(gid[i], a.nb - 1)]) ? 2 : 0;
-      },
-      [&](int i) { return gid[i]; }, &n_full, &n_free_mixed);
-  __syncthreads();  // the padding above is written before the holes below
-  const int vol = a.f * a.f * a.f;
-  unsigned long long n_sat = 0;
-  for (int k = threadIdx.x; k < a.cap_sfree * vol; k += kCompactThreads) {
-    const int sid = sf_ids[k / vol], c = k % vol;
-    if (sid >= a.ns) continue;  // padding: not kept
-    const int g = (((sid / (a.nsj * a.nsk)) * a.f + c / (a.f * a.f)) * a.nbj
-                   + ((sid / a.nsk) % a.nsj) * a.f + (c / a.f) % a.f) * a.nbk
-                  + (sid % a.nsk) * a.f + c % a.f;
-    if (sat != nullptr && sat[g]) {
-      ++n_sat;
-      continue;
+// The global id of child c of super sid on the fine grid.
+__device__ __forceinline__ int child_id(const CompactArgs& a, int sid, int c) {
+  return (((sid / (a.nsj * a.nsk)) * a.f + c / (a.f * a.f)) * a.nbj
+          + ((sid / a.nsk) % a.nsj) * a.f + (c / a.f) % a.f) * a.nbk
+         + (sid % a.nsk) * a.f + c % a.f;
+}
+
+// Flag tile t: 16 flags a thread, ranked in the block, staged in shared
+// memory in list order (the tile's A values, then its B values), written
+// out after the look-back under the caps. Flag 1 (A): FULL; flag 2 (B):
+// FREE and not skipped (flat: skip[i]; hier: sat of the child's id).
+template <bool kHier>
+__device__ void flag_tile(const CompactArgs& a, int t, unsigned long long* status) {
+  __shared__ int stage[kCompactTile];
+  __shared__ unsigned long long tile_prefix;
+  const long long i0 = static_cast<long long>(t) * kCompactTile
+                       + kFlagsPerThread * static_cast<long long>(threadIdx.x);
+  const bool whole = a.vec && i0 + kFlagsPerThread <= a.n;
+  uint8_t c[kFlagsPerThread], s[kFlagsPerThread];
+  int v[kFlagsPerThread];
+  if (whole) {
+    const uint4 q = __ldg(reinterpret_cast<const uint4*>(a.cls + i0));
+    const uint4 k = !kHier && a.skip != nullptr
+                        ? __ldg(reinterpret_cast<const uint4*>(a.skip + i0)) : make_uint4(0, 0, 0, 0);
+    const unsigned qw[4] = {q.x, q.y, q.z, q.w}, kw[4] = {k.x, k.y, k.z, k.w};
+#pragma unroll
+    for (int j = 0; j < kFlagsPerThread; ++j) {
+      c[j] = static_cast<uint8_t>(qw[j >> 2] >> (8 * (j & 3)));
+      s[j] = static_cast<uint8_t>(kw[j >> 2] >> (8 * (j & 3)));
     }
-    const long long pos = static_cast<long long>(n_free_mixed) + k;
-    if (pos < a.cap_free) ids[a.cap + pos] = g;
+    if (kHier) {
+#pragma unroll
+      for (int k4 = 0; k4 < kFlagsPerThread / 4; ++k4) {
+        const int4 g = __ldg(reinterpret_cast<const int4*>(a.gid + i0) + k4);
+        v[4 * k4] = g.x;
+        v[4 * k4 + 1] = g.y;
+        v[4 * k4 + 2] = g.z;
+        v[4 * k4 + 3] = g.w;
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kFlagsPerThread; ++j) {
+      const bool in = i0 + j < a.n;
+      c[j] = in ? a.cls[i0 + j] : 0;
+      s[j] = in && !kHier && a.skip != nullptr ? a.skip[i0 + j] : 0;
+      if (kHier) v[j] = in ? a.gid[i0 + j] : 0;
+    }
   }
-  unsigned long long n_sat_total;
-  block_scan(n_sat, &n_sat_total);
+  unsigned ma = 0, mb = 0;  // bit j: flag j is A / B
+#pragma unroll
+  for (int j = 0; j < kFlagsPerThread; ++j) {
+    if (!kHier) v[j] = static_cast<int>(i0 + j);
+    if (kHier && c[j] == kFree && a.skip != nullptr) s[j] = a.skip[min(v[j], a.nb - 1)];
+    ma |= static_cast<unsigned>(c[j] == kFull) << j;
+    mb |= static_cast<unsigned>(c[j] == kFree && !s[j]) << j;
+  }
+  unsigned long long total;
+  const unsigned long long before = block_scan(__popc(ma) + __popc(mb) * kHigh, &total);
+  if (threadIdx.x == 0)  // tile 0's counts are its inclusive prefix
+    atomicExch(status + t, (t == 0 ? kInclusive : kAggregate) | total);
+  const int tile_a = static_cast<int>(count_a(total)), tile_b = static_cast<int>(count_b(total));
+  int pa = static_cast<int>(count_a(before)), pb = tile_a + static_cast<int>(count_b(before));
+#pragma unroll
+  for (int j = 0; j < kFlagsPerThread; ++j) {
+    if (ma >> j & 1) stage[pa++] = v[j];
+    if (mb >> j & 1) stage[pb++] = v[j];
+  }
+  if (threadIdx.x < 32) {
+    const unsigned long long prefix = t > 0 ? look_back(status, t) : 0ull;
+    if (threadIdx.x == 0) {
+      if (t > 0) atomicExch(status + t, kInclusive | (prefix + total));
+      tile_prefix = prefix;
+    }
+  }
+  __syncthreads();
+  const long long pre_a = static_cast<long long>(count_a(tile_prefix));
+  const long long pre_b = static_cast<long long>(count_b(tile_prefix));
+  for (int i = threadIdx.x; i < tile_a && pre_a + i < a.cap_a; i += kCompactThreads)
+    a.ids[pre_a + i] = stage[i];
+  for (int i = threadIdx.x; i < tile_b && pre_b + i < a.cap_b; i += kCompactThreads)
+    a.ids[a.cap_a + pre_b + i] = stage[tile_a + i];
+}
+
+// Padding block e, once the last tile has published the totals: list
+// positions [e, e + 1) x kFinishSpan past each count. Hier: a FREE position
+// p >= n_free_mixed holds the kept FREE supers' child p - n_free_mixed (the
+// `fill` hole if it is saturated or its super a padding slot), and the block
+// counts the saturated children of slots [e, e + 1) x kFinishSpan.
+template <bool kHier>
+__device__ void pad_block(const CompactArgs& a, int e, const unsigned long long* status,
+                          unsigned int* n_sat) {
+  __shared__ unsigned long long totals;
   if (threadIdx.x == 0) {
-    const long long n_mixed = super_counts[0], n_sf = super_counts[1];
-    const long long nfm = n_free_mixed;
-    counts[0] = n_full;
-    counts[1] = nfm + vol * n_sf - static_cast<long long>(n_sat_total);
-    counts[2] = max(nfm + vol * min(n_sf, static_cast<long long>(a.cap_sfree)) - a.cap_free, 0ll)
-                + vol * max(n_sf - a.cap_sfree, 0ll);
-    counts[3] = max(n_mixed - a.cap_mixed, 0ll);
+    unsigned long long w;
+    do {
+      w = load_status(status + a.tiles - 1);
+    } while (w < kInclusive);
+    totals = w & kCounts;
   }
+  __syncthreads();
+  const long long na = static_cast<long long>(count_a(totals));
+  const long long nb = static_cast<long long>(count_b(totals));
+  const long long lo = static_cast<long long>(e) * kFinishSpan;
+  const long long hi = min(lo + kFinishSpan, static_cast<long long>(a.cap_a) + a.cap_b);
+  const int vol = a.f * a.f * a.f;
+  const long long slots = kHier ? static_cast<long long>(a.cap_sfree) * vol : 0;
+  for (long long p = lo + threadIdx.x; p < hi; p += kCompactThreads) {
+    const long long q = p - a.cap_a;  // the B position
+    if (q < 0 ? p < na : q < nb) continue;  // a listed value
+    int val = a.fill;
+    if (kHier && q >= 0 && q - nb < slots) {
+      const int k = static_cast<int>(q - nb), sid = a.sf_ids[k / vol];
+      if (sid < a.ns) {
+        const int g = child_id(a, sid, k % vol);
+        if (a.skip == nullptr || !a.skip[g]) val = g;
+      }
+    }
+    a.ids[p] = val;
+  }
+  if (kHier && a.skip != nullptr) {
+    unsigned int sat = 0;
+    for (long long k = lo + threadIdx.x; k < min(lo + kFinishSpan, slots); k += kCompactThreads) {
+      const int sid = a.sf_ids[k / vol];
+      sat += sid < a.ns && a.skip[child_id(a, sid, static_cast<int>(k % vol))];
+    }
+    sat = __reduce_add_sync(0xffffffffu, sat);
+    if ((threadIdx.x & 31) == 0 && sat) atomicAdd(n_sat, sat);
+  }
+}
+
+// Flat form counts [n_a, n_b, max(n_b - cap_b, 0), 0]. Hier: [n_full,
+// n_free, overflow_free, overflow_mixed] from the supers' counts [n_mixed,
+// n_sf] (brick.classify_compact_hier_reference).
+template <bool kHier>
+__device__ void write_counts(const CompactArgs& a, unsigned long long totals,
+                             unsigned int n_sat) {
+  const long long na = static_cast<long long>(count_a(totals));
+  const long long nb = static_cast<long long>(count_b(totals));
+  a.counts[0] = na;
+  if (!kHier) {
+    a.counts[1] = nb;
+    a.counts[2] = max(nb - a.cap_b, 0ll);
+    a.counts[3] = 0;
+    return;
+  }
+  const long long vol = a.f * a.f * a.f;
+  const long long n_mixed = a.super_counts[0], n_sf = a.super_counts[1];
+  a.counts[1] = nb + vol * n_sf - static_cast<long long>(n_sat);
+  a.counts[2] = max(nb + vol * min(n_sf, static_cast<long long>(a.cap_sfree)) - a.cap_b, 0ll)
+                + vol * max(n_sf - a.cap_sfree, 0ll);
+  a.counts[3] = max(n_mixed - a.cap_mixed, 0ll);
+}
+
+// Tickets 0 .. tiles-1 are flag tiles, the rest padding blocks; the last
+// block to finish writes the counts and zeroes the status words and the
+// saturated count (both tickets wrap back to 0), so the scratch is as the
+// launch found it.
+template <bool kHier>
+__device__ __forceinline__ void compact(const CompactArgs& a) {
+  unsigned int* counters = reinterpret_cast<unsigned int*>(a.scratch);  // ticket, done, n_sat
+  unsigned long long* status = a.scratch + kScratchHead;
+  __shared__ int ticket;
+  __shared__ bool last;
+  if (threadIdx.x == 0) ticket = atomicInc(counters, static_cast<unsigned int>(a.blocks - 1));
+  __syncthreads();
+  if (ticket < a.tiles)
+    flag_tile<kHier>(a, ticket, status);
+  else
+    pad_block<kHier>(a, ticket - a.tiles, status, counters + 2);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicInc(counters + 1, static_cast<unsigned int>(a.blocks - 1))
+           == static_cast<unsigned int>(a.blocks - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  if (threadIdx.x == 0) {
+    write_counts<kHier>(a, load_status(status + a.tiles - 1) & kCounts,
+                        *reinterpret_cast<volatile unsigned int*>(counters + 2));
+    counters[2] = 0;
+  }
+  __syncthreads();  // the last tile's word is read before it is zeroed
+  for (int i = threadIdx.x; i < a.tiles; i += kCompactThreads) status[i] = 0;
+}
+
+__global__ void __launch_bounds__(kCompactThreads) compact_lists_kernel(CompactArgs a) {
+  compact<false>(a);
+}
+
+__global__ void __launch_bounds__(kCompactThreads) compact_lists_hier_kernel(CompactArgs a) {
+  compact<true>(a);
+}
+
+// Grid of a K7 launch: the flag tiles, then enough padding blocks for the
+// lists (and the hierarchical form's FREE-super slots).
+void compact_grid(CompactArgs& a, long long slots) {
+  a.tiles = std::max((a.n + kCompactTile - 1) / kCompactTile, 1);
+  const long long span = std::max(static_cast<long long>(a.cap_a) + a.cap_b, slots);
+  a.blocks = a.tiles + static_cast<int>(std::max((span + kFinishSpan - 1) / kFinishSpan, 1ll));
 }
 
 Levels levels_from(const int* table) {
@@ -563,22 +830,35 @@ Levels levels_from(const int* table) {
 // 2 the pixel table (into `pix`, `channels` 4 or 8 floats a pixel; rgb read
 // with 8), 3 both. levels: host ints [n, total, off[n], dh[n], dw[n]].
 // ticket: one device word, 0 between launches (the last block leaves it so).
+// vec: 16-byte loads, for w % 4 == 0 and 16-byte-aligned pts, nrm (and rgb
+// with color); refused otherwise.
 extern "C" int tsdf_frame_tables(const float* pts, const float* nrm, const float* rgb, float* pix,
                                  float* mip, unsigned int* ticket, const int* levels, int h, int w,
-                                 int mode, int point_to_plane, int channels, float cx, float cy,
-                                 float inv_fx, float inv_fy, float delta, float share_margin,
-                                 cudaStream_t stream) {
+                                 int mode, int point_to_plane, int channels, int vec, float cx,
+                                 float cy, float inv_fx, float inv_fy, float delta,
+                                 float share_margin, cudaStream_t stream) {
   const Levels L = levels_from(levels);
+  const bool color = (mode & kModeTable) && channels == 8;
   if (mode < 1 || mode > 3 || ((mode & kModeTable) && channels != 4 && channels != 8)
       || L.n < 1 || L.n > kMaxLevels || L.dh[0] != (h + kTile - 1) / kTile
-      || L.dw[0] != (w + kTile - 1) / kTile)
+      || L.dw[0] != (w + kTile - 1) / kTile
+      || (vec && (w % kPixels || !aligned16(pts) || !aligned16(nrm) || (color && !aligned16(rgb)))))
     return static_cast<int>(cudaErrorInvalidValue);
   if (h <= 0 || w <= 0) return 0;
-  const dim3 grid((w + kTablesX - 1) / kTablesX, (h + kTablesY - 1) / kTablesY);
+  const dim3 grid((w + kRegion - 1) / kRegion, (h + kRegion - 1) / kRegion);
+  // the last block's levels 2 and 3, zeta and eta
+  const size_t tail = (mode & kModeMip) && L.n > 3
+                          ? 2 * sizeof(float) * (L.dh[2] * L.dw[2] + L.dh[3] * L.dw[3]) : 0;
+  if (tail > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        frame_tables_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(tail));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
   const TableArgs a{h,  w,  mode,   point_to_plane, channels, static_cast<int>(grid.x * grid.y),
-                    cx, cy, inv_fx, inv_fy,         delta,    share_margin};
-  frame_tables_kernel<<<grid, dim3(kTablesX, kTablesY), 0, stream>>>(pts, nrm, rgb, pix, mip,
-                                                                    ticket, a, L);
+                    vec, cx, cy,    inv_fx,         inv_fy,   delta,
+                    share_margin};
+  frame_tables_kernel<<<grid, dim3(kTablesX, kTablesY), tail, stream>>>(pts, nrm, rgb, pix, mip,
+                                                                       ticket, a, L);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -613,28 +893,73 @@ extern "C" int tsdf_classify_bricks(int form, const float* zeta, const float* ze
   return static_cast<int>(cudaGetLastError());
 }
 
-// K7, flat form: ids (cap_a + cap_b) int32, counts (4,) int64.
+// K7, flat form: ids (cap_a + cap_b) int32, counts (4,) int64. scratch:
+// kScratchHead + scratch_tiles int64 words, 0 between launches (the last
+// block leaves them so); vec: 16-byte flag loads, for 16-byte-aligned cls
+// (and skip), refused otherwise.
 extern "C" int tsdf_compact_lists(const uint8_t* cls, const uint8_t* skip, int n, int cap_a,
                                   int cap_b, int fill, int* ids, long long* counts,
+                                  unsigned long long* scratch, int scratch_tiles, int vec,
                                   cudaStream_t stream) {
-  if (n < 0 || cap_a < 0 || cap_b < 0) return static_cast<int>(cudaErrorInvalidValue);
-  compact_lists_kernel<<<1, kCompactThreads, 0, stream>>>(cls, skip, n, cap_a, cap_b, fill, ids,
-                                                          counts);
+  if (n < 0 || cap_a < 0 || cap_b < 0 || scratch == nullptr
+      || (vec && (!aligned16(cls) || (skip != nullptr && !aligned16(skip)))))
+    return static_cast<int>(cudaErrorInvalidValue);
+  CompactArgs a{};
+  a.cls = cls;
+  a.skip = skip;
+  a.ids = ids;
+  a.counts = counts;
+  a.scratch = scratch;
+  a.n = n;
+  a.cap_a = cap_a;
+  a.cap_b = cap_b;
+  a.fill = fill;
+  a.vec = vec;
+  a.f = 1;
+  compact_grid(a, 0);
+  if (a.tiles > scratch_tiles) return static_cast<int>(cudaErrorInvalidValue);
+  compact_lists_kernel<<<a.blocks, kCompactThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 // K7, hierarchical form: fcls and gid (n) from K6's children form, sat (nb)
 // or NULL, sf_ids (cap_sfree) and super_counts [n_mixed, n_sf, ...] from the
-// flat form over the supers; ids (cap + cap_free) int32, counts (4,) int64.
+// flat form over the supers; ids (cap + cap_free) int32, counts (4,) int64;
+// scratch and vec (fcls and gid) as in the flat form.
 extern "C" int tsdf_compact_lists_hier(const uint8_t* fcls, const int* gid, const uint8_t* sat,
                                        const int* sf_ids, const long long* super_counts, int* ids,
-                                       long long* counts, int n, int cap, int cap_free,
-                                       int cap_sfree, int cap_mixed, int f, int nsj, int nsk,
-                                       int nbj, int nbk, int nb, int ns, cudaStream_t stream) {
-  if (n < 0 || cap < 0 || cap_free < 0 || cap_sfree < 1 || f < 1 || nb < 1)
+                                       long long* counts, unsigned long long* scratch, int n,
+                                       int cap, int cap_free, int cap_sfree, int cap_mixed, int f,
+                                       int nsj, int nsk, int nbj, int nbk, int nb, int ns,
+                                       int scratch_tiles, int vec, cudaStream_t stream) {
+  if (n < 0 || cap < 0 || cap_free < 0 || cap_sfree < 1 || f < 1 || nb < 1 || scratch == nullptr
+      || (vec && (!aligned16(fcls) || !aligned16(gid))))
     return static_cast<int>(cudaErrorInvalidValue);
-  const HierArgs a{n, cap, cap_free, cap_sfree, cap_mixed, f, nsj, nsk, nbj, nbk, nb, ns};
-  compact_lists_hier_kernel<<<1, kCompactThreads, 0, stream>>>(fcls, gid, sat, sf_ids,
-                                                               super_counts, ids, counts, a);
+  CompactArgs a{};
+  a.cls = fcls;
+  a.skip = sat;
+  a.gid = gid;
+  a.sf_ids = sf_ids;
+  a.super_counts = super_counts;
+  a.ids = ids;
+  a.counts = counts;
+  a.scratch = scratch;
+  a.n = n;
+  a.cap_a = cap;
+  a.cap_b = cap_free;
+  a.fill = nb;
+  a.vec = vec;
+  a.cap_sfree = cap_sfree;
+  a.cap_mixed = cap_mixed;
+  a.f = f;
+  a.nsj = nsj;
+  a.nsk = nsk;
+  a.nbj = nbj;
+  a.nbk = nbk;
+  a.nb = nb;
+  a.ns = ns;
+  compact_grid(a, static_cast<long long>(cap_sfree) * f * f * f);
+  if (a.tiles > scratch_tiles) return static_cast<int>(cudaErrorInvalidValue);
+  compact_lists_hier_kernel<<<a.blocks, kCompactThreads, 0, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }

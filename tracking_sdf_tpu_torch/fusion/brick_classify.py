@@ -22,11 +22,15 @@ plain version, a CUDA tensor these wrappers, any other device raises.
                          after the children form.
 
 Each checks its arguments (dtype, shape, contiguity, one CUDA device) and
-raises on what the kernel does not take; each counts its launches. Nothing
+raises on what the kernel does not take; each counts its launches. K5 and
+K7 read 16 bytes at a time where their inputs are 16-byte aligned (and, for
+K5, the width a multiple of 4), and one value at a time otherwise, with the
+same result; the wrapper looks at the pointers rather than assuming. Nothing
 here reads from the host, so the chunked runner captures them in its CUDA
-graphs: the mip's ticket word is made once per device (the eager warm-up
-before a capture makes it), and the level table goes to the kernels by
-value.
+graphs: the mip's ticket word and K7's scratch (its tickets and a status
+word a tile) are made per device outside a capture (the eager warm-up before
+a capture makes them, at the same shapes), each launch leaves them as it
+found them, and the level table goes to the kernels by value.
 """
 from __future__ import annotations
 
@@ -43,6 +47,8 @@ from tracking_sdf_tpu_torch.kernels import _build
 
 TILE = 8  # zeta mip base tile, pixels
 MAX_LEVELS = 24  # csrc/brick_classify.cu kMaxLevels
+COMPACT_TILE = 2048  # csrc/brick_classify.cu kCompactTile: K7's flags a tile
+SCRATCH_HEAD = 2  # csrc/brick_classify.cu kScratchHead: K7's words before the tiles'
 
 # kernel launches on CUDA tensors
 launches_tables = 0  # K5 frame_tables
@@ -94,6 +100,41 @@ def _ticket(device: torch.device) -> torch.Tensor:
     """K5's ticket word on ``device``, 0 between launches: made once, before
     any capture (a CUDA graph's replay must not allocate it)."""
     return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+_SCRATCH = {}  # device -> K7's scratch buffers, the newest last
+
+
+def _capturing(device: torch.device) -> bool:
+    return device.type == "cuda" and torch.cuda.is_current_stream_capturing()
+
+
+def compact_scratch(device: torch.device, tiles: int) -> torch.Tensor:
+    """K7's scratch on ``device`` for ``tiles`` flag tiles: int64 words, 0
+    between launches, [tickets, saturated count] then a status word a tile.
+    Made or grown to the largest tile count asked for, never inside a CUDA
+    graph capture (the capture's eager warm-up asks for the same shapes
+    first). Older buffers stay alive: a captured graph holds their
+    addresses."""
+    bufs = _SCRATCH.setdefault(torch.device(device), [])
+    if bufs and bufs[-1].numel() >= SCRATCH_HEAD + tiles:
+        return bufs[-1]
+    if _capturing(torch.device(device)):
+        raise RuntimeError(f"compact_lists: K7's scratch must grow to {tiles} tiles inside a "
+                           "CUDA graph capture; run the same shapes eagerly first")
+    bufs.append(torch.zeros(SCRATCH_HEAD + tiles, dtype=torch.int64, device=device))
+    return bufs[-1]
+
+
+def compact_tiles(n: int) -> int:
+    """K7's flag tiles for n flags (at least one)."""
+    return max(-(-n // COMPACT_TILE), 1)
+
+
+def aligned16(*tensors: Optional[torch.Tensor]) -> bool:
+    """Every tensor given starts on a 16-byte boundary (the kernels' vector
+    loads)."""
+    return all(x.data_ptr() % 16 == 0 for x in tensors if x is not None)
 
 
 def _level_table(offsets, dims) -> ctypes.Array:
@@ -168,12 +209,13 @@ def frame_tables(points_cam: torch.Tensor, normals_cam: torch.Tensor,
     # the camera and delta only shape the mip
     ray = ((cam.cx, cam.cy, card_reciprocal(cam.fx), card_reciprocal(cam.fy)) if mip
            else (0.0,) * 4)
+    vec = w % 4 == 0 and aligned16(points_cam, normals_cam, rgb if color else None)
     rc = _build.library().tsdf_frame_tables(
         points_cam.data_ptr(), normals_cam.data_ptr(), rgb.data_ptr() if color else None,
         pix.data_ptr() if table else None, buf.data_ptr() if mip else None,
         _ticket(dev).data_ptr(), ctypes.addressof(levels), h, w,
         (_TABLE_MIP if mip else 0) | (_TABLE_PIX if table else 0), int(not p2p), channels,
-        *ray, delta + share_margin if p2p else delta, 0.0 if p2p else share_margin,
+        int(vec), *ray, delta + share_margin if p2p else delta, 0.0 if p2p else share_margin,
         _build.stream_ptr(dev))
     _build.check(rc, what)
     launches_tables += 1
@@ -281,6 +323,16 @@ def classify_children(zm: ZetaMip, R: torch.Tensor, base: torch.Tensor,
     return cls, gid
 
 
+def _check_sizes(what: str, n: int, cap_a: int, cap_b: int) -> None:
+    """K7 packs two counts of up to n flags in 31 bits each and indexes its
+    lists with C ints."""
+    if cap_a < 0 or cap_b < 0:
+        raise ValueError(f"{what}: caps {cap_a}, {cap_b}")
+    if n >= 2 ** 31 or cap_a + cap_b >= 2 ** 31:
+        raise ValueError(f"{what}: {n} flags and caps {cap_a} + {cap_b} must each be below "
+                         "2^31")
+
+
 def compact_lists(cls: torch.Tensor, skip: Optional[torch.Tensor], cap_a: int, cap_b: int,
                   fill: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """K7, flat form: (ids, counts). ids (cap_a + cap_b,) int32: the indices
@@ -295,15 +347,17 @@ def compact_lists(cls: torch.Tensor, skip: Optional[torch.Tensor], cap_a: int, c
                          f"{tuple(cls.shape)}")
     if skip is not None:
         _check_dtype(what, "skip", skip, torch.bool, cls.shape)
-    if cap_a < 0 or cap_b < 0:
-        raise ValueError(f"{what}: caps {cap_a}, {cap_b}")
+    n = cls.shape[0]
+    _check_sizes(what, n, cap_a, cap_b)
     dev = cls.device
     _check(what, dev, cls=cls, skip=skip)
+    scratch = compact_scratch(dev, compact_tiles(n))
     ids = torch.empty(cap_a + cap_b, dtype=torch.int32, device=dev)
     counts = torch.empty(4, dtype=torch.int64, device=dev)
     rc = _build.library().tsdf_compact_lists(
-        cls.data_ptr(), None if skip is None else skip.data_ptr(), cls.shape[0], cap_a, cap_b,
-        fill, ids.data_ptr(), counts.data_ptr(), _build.stream_ptr(dev))
+        cls.data_ptr(), None if skip is None else skip.data_ptr(), n, cap_a, cap_b, fill,
+        ids.data_ptr(), counts.data_ptr(), scratch.data_ptr(), scratch.numel() - SCRATCH_HEAD,
+        int(aligned16(cls, skip)), _build.stream_ptr(dev))
     _build.check(rc, what)
     launches_compact += 1
     return ids, counts
@@ -334,15 +388,19 @@ def compact_lists_hier(fcls: torch.Tensor, gid: torch.Tensor, sat: Optional[torc
     _check_dtype(what, "super_counts", super_counts, torch.int64, (4,))
     if sat is not None:
         _check_dtype(what, "sat", sat, torch.bool, (NB,))
+    n = cap_mixed * vol
+    _check_sizes(what, n, cap, cap_free)
     dev = fcls.device
     _check(what, dev, fcls=fcls, gid=gid, sat=sat, sf_ids=sf_ids, super_counts=super_counts)
+    scratch = compact_scratch(dev, compact_tiles(n))
     ids = torch.empty(cap + cap_free, dtype=torch.int32, device=dev)
     counts = torch.empty(4, dtype=torch.int64, device=dev)
     rc = _build.library().tsdf_compact_lists_hier(
         fcls.data_ptr(), gid.data_ptr(), None if sat is None else sat.data_ptr(),
         sf_ids.data_ptr(), super_counts.data_ptr(), ids.data_ptr(), counts.data_ptr(),
-        cap_mixed * vol, cap, cap_free, cap_sfree, cap_mixed, f, nbj // f, nbk // f, nbj, nbk,
-        NB, (nbi // f) * (nbj // f) * (nbk // f), _build.stream_ptr(dev))
+        scratch.data_ptr(), n, cap, cap_free, cap_sfree, cap_mixed, f, nbj // f, nbk // f, nbj,
+        nbk, NB, (nbi // f) * (nbj // f) * (nbk // f), scratch.numel() - SCRATCH_HEAD,
+        int(aligned16(fcls, gid)), _build.stream_ptr(dev))
     _build.check(rc, what)
     launches_compact += 1
     return ids, counts

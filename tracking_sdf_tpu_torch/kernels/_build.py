@@ -63,18 +63,20 @@ _SIGNATURES = {
     # radius, stream
     "tsdf_normals": [_P] * 3 + [_I] * 2 + [_F] * 5 + [_I, _P],
     # pts, nrm, rgb, pix, mip, ticket, levels, h, w, mode, point_to_plane,
-    # channels, cx, cy, inv_fx, inv_fy, delta, share_margin, stream
-    "tsdf_frame_tables": [_P] * 7 + [_I] * 5 + [_F] * 6 + [_P],
+    # channels, vec, cx, cy, inv_fx, inv_fy, delta, share_margin, stream
+    "tsdf_frame_tables": [_P] * 7 + [_I] * 6 + [_F] * 6 + [_P],
     # form, zeta, zeta_down, eta, eta_down, levels, R, base, sat, mixed_ids,
     # cls, sat_super, gid, nbi, nbj, nbk, bi, bj, bk, i_offset, f, n_slots,
     # ns, nsj, nsk, nb, img_h, img_w, si, sj, sk, ox, oy, oz, fx, fy, cx, cy,
     # inv_span, stream
     "tsdf_classify_bricks": [_I] + [_P] * 12 + [_I] * 15 + [_F] * 11 + [_P],
-    # cls, skip, n, cap_a, cap_b, fill, ids, counts, stream
-    "tsdf_compact_lists": [_P, _P] + [_I] * 4 + [_P] * 3,
-    # fcls, gid, sat, sf_ids, super_counts, ids, counts, n, cap, cap_free,
-    # cap_sfree, cap_mixed, f, nsj, nsk, nbj, nbk, nb, ns, stream
-    "tsdf_compact_lists_hier": [_P] * 7 + [_I] * 12 + [_P],
+    # cls, skip, n, cap_a, cap_b, fill, ids, counts, scratch, scratch_tiles,
+    # vec, stream
+    "tsdf_compact_lists": [_P, _P] + [_I] * 4 + [_P] * 3 + [_I, _I, _P],
+    # fcls, gid, sat, sf_ids, super_counts, ids, counts, scratch, n, cap,
+    # cap_free, cap_sfree, cap_mixed, f, nsj, nsk, nbj, nbk, nb, ns,
+    # scratch_tiles, vec, stream
+    "tsdf_compact_lists_hier": [_P] * 8 + [_I] * 14 + [_P],
 }
 
 _lib = None
