@@ -251,23 +251,26 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      Its numbers go out as {"phase11": ...}; the kernels' line gains
      gn_step_brick_f32 and brick_fuse_rows_f32 (launches from the packed
      runs).
- 12. depth preprocessing (csrc/preprocess.cu): K3's 1-D bilateral pass (both
-     axes and the two-pass filter), K3's 2-D form and K4 (backprojection and
-     normals from depth, and normals from a point image) against their plain
-     versions at 640x480 on the scene's second frame and on a copy with NaN
-     speckle, zero and negative depth and an all-NaN row: max abs error of
-     depth, points and normals (1e-6 m, 1e-6 m, 1e-5), NaN-mask mismatches
-     (at most 1e-4 of the pixels) and finite values that differ bit for bit;
+ 12. depth preprocessing (csrc/preprocess.cu): K3's separable kernel (the
+     separable filter in one launch, and each one-axis mode), K3's 2-D form
+     and K4 (backprojection and normals from depth, and normals from a point
+     image) against their plain versions at 640x480 on the scene's second
+     frame and on a copy with NaN speckle, zero and negative depth and an
+     all-NaN row: max abs error of depth, points and normals, NaN-mask
+     mismatches and values that differ bit for bit, both of which must be 0;
      each kernel timed four ways (device from the profiler, events over 100
      launches, the wrapper, the plain version with its device ops) beside
      its bound from this run's data (bytes read and written once; the
-     filters' operations over their finite taps); the whole
-     preprocess_frame, separable and full, kernels against plain, in device
-     ms, device ops and host ms a call. Every main path above also checks,
+     filters' operations over their finite taps), K3's separable launch
+     with its one-axis modes' device times and the floor its precise expf
+     sets (one MUFU ex2 a finite tap, 16 a clock an SM at the card's
+     maximum SM clock), and both beside their device times before this
+     design; the whole preprocess_frame, separable and full, kernels against
+     plain, in device ms, device ops and host ms a call. Every main path above also checks,
      from its counters (counted per replay in a chunk, per rank in the
-     two-rank group), that K4 ran once per processed frame and K3 twice
-     (separable), once (full) or never (no filter), and the profiled chunks
-     that their kernels ran as often. Its numbers go out as {"phase12":
+     two-rank group), that K4 ran once per processed frame and K3 once
+     (either filter) or never (no filter), and the profiled chunks that
+     their kernels ran as often. Its numbers go out as {"phase12":
      ...}; the kernels' line gains bilateral_pass, bilateral_2d and normals
      (launches per processed frame of the paths that ran them; library_ms
      null: no single PyTorch call computes either function).
@@ -438,28 +441,30 @@ def all_device_ms(fn, n: int = 20):
             sum(e.count for e in ev) / n)
 
 
-def kernel_device_ms(fn, keys, n: int = TIMED_LAUNCHES):
+def kernel_device_ms(fn, keys, n: int = TIMED_LAUNCHES, tries: int = 2):
     """Device time per call of ``fn`` in the kernels whose names hold one of
     ``keys`` (each launched once a call), from torch.profiler over ``n``
     calls: each kernel's mean over the launches the profiler saw, summed.
-    None when it saw none."""
+    A profile that saw none of them is taken again, up to ``tries`` in all;
+    None when none saw any."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.key_averages()
-          if e.device_type == DeviceType.CUDA and any(k in e.key for k in keys)]
-    seen = sum(e.count for e in ev)
-    if seen < n * len(ev) or not ev:
-        print(f"  the profiler saw {seen} launches of {keys} over {n} calls")
-    if not ev:
-        return None
-    return sum(e.self_device_time_total / e.count for e in ev) / 1e3
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and any(k in e.key for k in keys)]
+        seen = sum(e.count for e in ev)
+        if seen < n * len(ev) or not ev:
+            print(f"  the profiler saw {seen} launches of {keys} over {n} calls")
+        if ev:
+            return sum(e.self_device_time_total / e.count for e in ev) / 1e3
+    return None
 
 
 def bound(nbytes: float, flops: float = 0.0):
@@ -580,8 +585,9 @@ def filter_mode(cfg):
 
 def check_preprocess(label, launches, frames: int, mode) -> None:
     """Every one of ``frames`` processed frames went through K4 once and K3
-    as the filter ``mode`` says: twice (separable), once (full) or never."""
-    want = {"bilateral_pass": 2 * frames if mode == "separable" else 0,
+    as the filter ``mode`` says: its separable kernel once (separable), its
+    2-D form once (full) or neither."""
+    want = {"bilateral_pass": frames if mode == "separable" else 0,
             "bilateral_2d": frames if mode == "full" else 0, "normals": frames}
     got = {k: launches[k] for k in want}
     check(got == want, f"{label}: preprocessing launched {got} over {frames} frames, "
@@ -1351,7 +1357,7 @@ def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
           and seen["brick_fuse_rows_kernel"] == prof["frames"]
           and seen["brick_merge_rows_kernel"] == 0
           and seen["normals_kernel"] == prof["frames"]
-          and seen["bilateral_pass_kernel"] == 2 * prof["frames"]
+          and seen["bilateral_pass_kernel"] == prof["frames"]
           and seen["frame_tables_kernel"] == k5 * prof["frames"]
           and seen["classify_bricks_kernel"] == k6 * prof["frames"]
           and seen["compact_lists_kernel"] + seen["compact_lists_hier_kernel"]
@@ -3585,10 +3591,8 @@ def surface_phase(cam, scene, depths, poses, rgb, dev, work):
 
 # --- phase 12: depth preprocessing (K3, K4) -----------------------------------
 
-# K3 depth and K4 points in m, K4 normals (unit vectors): aim bitwise (the
-# kernels round as the plain ops do), allow float32 rounding
-K3_TOL, POINTS_TOL, NORMALS_TOL = 1e-6, 1e-6, 1e-5
-NAN_MASK_SHARE = 1e-4  # pixels whose NaN mask may differ (a threshold within rounding)
+# K3's and K4's tolerance: every value equals its plain version's bit for bit
+# (the kernels round as the plain ops do); the largest error is printed beside
 # float operations: a K3 tap with a finite neighbour (difference, square,
 # scale, expf counted as one, spatial weight, w*d, two sums); a K4 pixel
 # (backprojection 6, two tangents and their tests 19, the box over 8
@@ -3596,10 +3600,16 @@ NAN_MASK_SHARE = 1e-4  # pixels whose NaN mask may differ (a threshold within ro
 # normalisation 3, orientation 5)
 K3_FLOP_PER_TAP = 8
 K4_FLOP_PER_PIXEL = 198
+MUFU_EX2_PER_CLOCK_SM = 16  # H100: the special-function units' rate, per SM
 PREPROCESS_TPU = {  # the JAX functions each kernel replaces (no Pallas original)
     "bilateral_pass": "tracking_sdf_tpu/tracking/preprocess.py:82",
     "bilateral_2d": "tracking_sdf_tpu/tracking/preprocess.py:37",
     "normals": "tracking_sdf_tpu/tracking/preprocess.py:124"}
+# K3's separable filter (two launches of a one-pixel-a-thread pass) and K4
+# before their redesign: device ms at 640x480 on the scene's second frame
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table), printed beside
+# this run's, never put in a record
+PREPROCESS_DEVICE_MS_FIRST = {"bilateral_pass": 2 * 0.00819, "normals": 0.02145}
 
 
 def speckled(depth, seed):
@@ -3638,68 +3648,82 @@ def finite_taps(img, radius, axes):
     return sum(int((fin & _shifted(fin, dy, dx, False)).sum()) for dy, dx in shifts)
 
 
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi clocks.max.sm), in Hz."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm,clocks.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         check=True).stdout.splitlines()[0]
+    top, now = (float(x) for x in out.split(","))
+    print(f"  SM clock now {now:g} MHz, maximum {top:g} MHz")
+    return top * 1e6
+
+
 def preprocess_phase(cam, depths):
-    """Phase 12: K3 (the 1-D pass, the 2-D form) and K4 against their plain
-    versions at 640x480 on the scene's second frame and on a speckled copy,
-    with errors, NaN-mask mismatches and bitwise differences; each kernel
-    timed four ways (device from the profiler, events over 100 launches,
-    the wrapper, the plain version) beside its bound from this run's data;
-    the whole preprocess_frame, kernels against plain, in device ms and
-    ops. Returns {kernel: record} and the whole frame's record."""
+    """Phase 12: K3 (the separable kernel: the filter in one launch and each
+    one-axis mode; the 2-D form) and K4 (from depth and from points) against
+    their plain versions at 640x480 on the scene's second frame and on a
+    speckled copy, with errors, NaN-mask mismatches and bitwise differences
+    (both must be 0); each kernel timed four ways (device from the profiler,
+    events over 100 launches, the wrapper, the plain version) beside its
+    bound from this run's data, K3's separable launch also beside its one-axis
+    modes and its ex2 floor; the whole preprocess_frame, kernels against
+    plain, in device ms and ops. Returns {kernel: record} and the whole
+    frame's record."""
     from tracking_sdf_tpu_torch.core.camera import backproject
     from tracking_sdf_tpu_torch.tracking import preprocess as pre
 
     print(f"phase 12: depth preprocessing (K3 bilateral, K4 normals) on {gpu_line()}")
     clean = depths[1].contiguous()
     h, w = clean.shape
-    px = h * w
     recs = {}
     for label, d in (("scene", clean), ("speckled", speckled(clean, 12))):
-        p1 = pre.bilateral_pass(d, 0)
         p1_ref = pre.bilateral_pass_reference(d, 0)
         pts, nrm = pre.preprocess_frame(d, cam=cam, bilateral=False)
         pts_ref = backproject(cam, d)
         outs = {
-            "bilateral_pass": [("pass 1", p1, p1_ref, K3_TOL),
-                               ("pass 2", pre.bilateral_pass(p1_ref, 1),
-                                pre.bilateral_pass_reference(p1_ref, 1), K3_TOL),
-                               ("separable", pre.bilateral_filter_separable(d),
-                                pre.bilateral_filter_separable_reference(d), K3_TOL)],
-            "bilateral_2d": [("2-D", pre.bilateral_filter(d), pre.bilateral_filter_reference(d),
-                              K3_TOL)],
-            "normals": [("points", pts, pts_ref, POINTS_TOL),
-                        ("normals", nrm, pre.estimate_normals_reference(pts_ref), NORMALS_TOL),
+            "bilateral_pass": [("separable", pre.bilateral_filter_separable(d),
+                                pre.bilateral_filter_separable_reference(d)),
+                               ("axis 0", pre.bilateral_pass(d, 0), p1_ref),
+                               ("axis 1", pre.bilateral_pass(p1_ref, 1),
+                                pre.bilateral_pass_reference(p1_ref, 1))],
+            "bilateral_2d": [("2-D", pre.bilateral_filter(d), pre.bilateral_filter_reference(d))],
+            "normals": [("points", pts, pts_ref),
+                        ("normals", nrm, pre.estimate_normals_reference(pts_ref)),
                         ("normals from points", pre.estimate_normals(pts_ref),
-                         pre.estimate_normals_reference(pts_ref), NORMALS_TOL)]}
+                         pre.estimate_normals_reference(pts_ref))]}
         torch.cuda.synchronize()
         for name, cases in outs.items():
             rec = recs.setdefault(name, dict(max_abs_err=0.0, nan_mask_mismatch=0,
                                              bits_differ=0))
-            for what, got, want, tol in cases:
+            for what, got, want in cases:
                 err, mism, bits = image_compare(got, want)
-                print(f"  {name} {what} ({label}, {w}x{h}): max abs err {err:.3e} (tol "
-                      f"{tol:g}), NaN-mask mismatches {mism} (at most "
-                      f"{int(NAN_MASK_SHARE * px)}), finite values differing bit for bit "
-                      f"{bits}, finite {int(torch.isfinite(got).sum())}")
-                check(err <= tol and mism <= NAN_MASK_SHARE * px,
-                      f"{name} {what} ({label}) disagrees with its plain version: {err}, "
-                      f"{mism} NaN-mask mismatches")
+                print(f"  {name} {what} ({label}, {w}x{h}): max abs err {err:.3e}, NaN-mask "
+                      f"mismatches {mism}, finite values differing bit for bit {bits} "
+                      f"(tolerance: none), finite {int(torch.isfinite(got).sum())}")
+                check(mism == 0 and bits == 0,
+                      f"{name} {what} ({label}) differs from its plain version: {err}, "
+                      f"{mism} NaN-mask mismatches, {bits} values differing bit for bit")
                 rec.update(max_abs_err=max(rec["max_abs_err"], err),
                            nan_mask_mismatch=rec["nan_mask_mismatch"] + mism,
                            bits_differ=rec["bits_differ"] + bits)
 
     # times at the main path's shapes: the scene's frame
     d = clean
+    p1_ref = pre.bilateral_pass_reference(d, 0)
+    pts_ref = backproject(cam, d)
     calls = {
-        "bilateral_pass": (lambda: pre.bilateral_pass(d, 0),
-                           lambda: pre.bilateral_pass_reference(d, 0), "bilateral_pass_kernel"),
+        "bilateral_pass": (lambda: pre.bilateral_filter_separable(d),
+                           lambda: pre.bilateral_filter_separable_reference(d),
+                           "bilateral_pass_kernel"),
         "bilateral_2d": (lambda: pre.bilateral_filter(d),
                          lambda: pre.bilateral_filter_reference(d), "bilateral_2d_kernel"),
         "normals": (lambda: pre.preprocess_frame(d, cam=cam, bilateral=False),
                     lambda: pre.estimate_normals_reference(backproject(cam, d)),
                     "normals_kernel")}
-    taps = {"bilateral_pass": finite_taps(d, 5, (0,)), "bilateral_2d": finite_taps(d, 5, (0, 1))}
-    work = {"bilateral_pass": (8 * px + 11 * 4, K3_FLOP_PER_TAP * taps["bilateral_pass"]),
+    taps = {"bilateral_pass": finite_taps(d, 5, (0,)) + finite_taps(p1_ref, 5, (1,)),
+            "bilateral_2d": finite_taps(d, 5, (0, 1))}
+    px = h * w
+    work = {"bilateral_pass": (8 * px, K3_FLOP_PER_TAP * taps["bilateral_pass"]),
             "bilateral_2d": (8 * px + 121 * 4, K3_FLOP_PER_TAP * taps["bilateral_2d"]),
             "normals": (px * (4 + 12 + 12), K4_FLOP_PER_PIXEL * px)}
     for name, (kernel, plain, key) in calls.items():
@@ -3711,8 +3735,10 @@ def preprocess_phase(cam, depths):
         nbytes, flops = work[name]
         bms, by = bound(nbytes, flops)
         share = bms / device_ms if device_ms else float("nan")
+        first = PREPROCESS_DEVICE_MS_FIRST.get(name)
         print(f"{name}: kernel {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device "
-              f"{device_ms} ms, wrapper {wrapper_ms:.4f} ms per call, plain {plain_ms:.4f} ms "
+              f"{device_ms} ms" + (f" (before the redesign: {first:.5f})" if first else "")
+              + f", wrapper {wrapper_ms:.4f} ms per call, plain {plain_ms:.4f} ms "
               f"({plain_ops:.0f} device ops, {plain_device_ms:.4f} device ms); bound "
               f"{bms:.6f} ms ({by}: {nbytes / 1e6:.2f} MB, {flops / 1e6:.1f} MFLOP"
               + (f" over {taps[name]} finite taps" if name in taps else "")
@@ -3720,6 +3746,24 @@ def preprocess_phase(cam, depths):
         recs[name].update(ms=ms, device_ms=device_ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                           plain_device_ms=plain_device_ms, plain_device_ops=plain_ops,
                           bound_ms=bms, bound_by=by, bound_share=share)
+    # K3's one-axis modes beside the separable launch, and the floor its
+    # precise expf sets: one MUFU ex2 a finite tap
+    k3 = recs["bilateral_pass"]
+    k3.update(axis0_device_ms=kernel_device_ms(lambda: pre.bilateral_pass(d, 0),
+                                               ("bilateral_pass_kernel",)),
+              axis1_device_ms=kernel_device_ms(lambda: pre.bilateral_pass(p1_ref, 1),
+                                               ("bilateral_pass_kernel",)))
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # printed only: an estimate from an assumed rate, not a measurement
+    ex2_floor_ms = taps["bilateral_pass"] / (MUFU_EX2_PER_CLOCK_SM * sms * clock) * 1e3
+    print(f"bilateral_pass: one-axis modes {k3['axis0_device_ms']} / {k3['axis1_device_ms']} "
+          f"device ms (axis 0 / 1); ex2 floor {ex2_floor_ms:.6f} ms ("
+          f"{taps['bilateral_pass']} finite taps at {MUFU_EX2_PER_CLOCK_SM} a clock on each of "
+          f"{sms} SMs, {clock / 1e9:.3f} GHz) beside the bound {k3['bound_ms']:.6f} ms")
+    recs["normals"]["from_points_device_ms"] = kernel_device_ms(
+        lambda: pre.estimate_normals(pts_ref), ("normals_kernel",))
+    print(f"normals: from points {recs['normals']['from_points_device_ms']} device ms")
 
     # the whole preprocess_frame: the kernels against the plain versions
     frame = {}

@@ -11,10 +11,11 @@ step's slab reduce and finish on one rank's whole grid bitwise against
 gn_step (the same per-query code, partial order and finish), K2's dense
 form, its row form and its fused form (brick_fuse_rows) bitwise on every
 stored non-NaN value with equal NaN masks (the kernels round each step as
-PyTorch's eager ops do), K3's filters and K4's points within 1e-6 m and
-K4's normals within 1e-5 with NaN masks equal but for 1e-4 of the pixels
-(a threshold test within float32 rounding), and preprocess_frame captured
-in a CUDA graph bitwise against the eager call.
+PyTorch's eager ops do), K3's filters (both forms; the separable one in
+one launch and each one-axis mode) and K4 (points and normals, from depth
+and from points) bitwise with equal NaN masks, K3's and K4's compiled radii
+bitwise their runtime-radius code at radii 0-5, and preprocess_frame
+captured in a CUDA graph bitwise against the eager call.
 """
 import pytest
 import torch
@@ -913,14 +914,19 @@ def test_debug_nans_inside_a_captured_chunk_raises_after_the_replay(dev, monkeyp
 
 # --- K3 and K4: depth preprocessing -----------------------------------------------
 
-K3_TOL, POINTS_TOL, NORMALS_TOL = 1e-6, 1e-6, 1e-5  # m, m, unit vectors
-NAN_MASK_SHARE = 1e-4  # pixels whose NaN mask may differ (a threshold within rounding)
+# the cut a case takes from the 480x640 frame: ragged sizes, a width with
+# w % 4 != 0, one pixel, one row, one column
+PREPROCESS_CUTS = {"ragged": (37, 53), "tiny": (5, 7), "one": (1, 1), "row": (1, 72),
+                   "column": (70, 1), "w%4": (45, 66)}
+PREPROCESS_CASES = ["scene", "speckle", "offset", "all_nan", *PREPROCESS_CUTS]
 
 
 def _preprocess_depth(dev, case):
     """The smoke's scene (sphere, box, wall; ros_default_camera, the first
     pose) rendered at 480x640, with NaN speckle, depth jumps, zero and
-    negative depth and an all-NaN row, or cut to a ragged size."""
+    negative depth and an all-NaN row, or cut to a small size from the
+    speckled frame, or a speckled copy 4 bytes off a 16-byte boundary
+    ("offset": the kernels' scalar loads and stores)."""
     import numpy as np
 
     from tracking_sdf_tpu_torch.core.camera import ros_default_camera
@@ -940,54 +946,112 @@ def _preprocess_depth(dev, case):
         depth[200] = np.nan
     if case == "all_nan":
         depth[:] = np.nan
-    shape = {"ragged": (37, 53), "tiny": (5, 7)}.get(case)
+    shape = PREPROCESS_CUTS.get(case)
     if shape is not None:
         depth = depth[220:220 + shape[0], 300:300 + shape[1]]
     depth = torch.from_numpy(np.ascontiguousarray(depth, dtype=np.float32)).to(dev)
-    return cam, depth
+    return cam, _unaligned(depth) if case == "offset" else depth
 
 
-def _same_within(got, want, tol, what):
-    """Equal NaN masks but for NAN_MASK_SHARE of the pixels, values within tol
-    where both are finite; returns (max abs err, pixels whose mask differs)."""
-    ng, nw = torch.isnan(got), torch.isnan(want)
-    if got.dim() == 3:
-        ng, nw = ng.any(-1), nw.any(-1)
-    differ = int((ng != nw).sum())
-    both = ~ng & ~nw
-    err = float((got - want)[both].abs().max()) if bool(both.any()) else 0.0
-    assert differ <= NAN_MASK_SHARE * ng.numel(), (what, differ)
-    assert err <= tol, (what, err)
-    return err, differ
+def _launches():
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+    return pre.launches_pass, pre.launches_2d, pre.launches_normals
 
 
 @pytest.mark.parametrize("case", ["scene", "speckle", "ragged", "tiny", "all_nan"])
 def test_preprocess_kernels_match_plain(dev, case):
-    """K3 in both forms and K4 (from depth, and from a point image) against
-    their plain versions on the same card tensors, each launch counted."""
+    """K3 in both forms and K4 (from depth, and from a point image) bitwise
+    their plain versions on the same card tensors, each launch counted: the
+    separable filter is one launch."""
     from tracking_sdf_tpu_torch.core.camera import backproject
     from tracking_sdf_tpu_torch.tracking import preprocess as pre
 
     cam, depth = _preprocess_depth(dev, case)
-    before = (pre.launches_pass, pre.launches_2d, pre.launches_normals)
+    before = _launches()
     sep = pre.bilateral_filter_separable(depth)
     full = pre.bilateral_filter(depth)
     pts, nrm = pre.preprocess_frame(depth, cam=cam, bilateral=False)
     nrm_pts = pre.estimate_normals(pts)
     torch.cuda.synchronize()
-    assert (pre.launches_pass, pre.launches_2d, pre.launches_normals) == (
-        before[0] + 2, before[1] + 1, before[2] + 2)
-    _same_within(sep, pre.bilateral_filter_separable_reference(depth), K3_TOL, "separable")
-    _same_within(full, pre.bilateral_filter_reference(depth), K3_TOL, "2-D")
+    assert _launches() == (before[0] + 1, before[1] + 1, before[2] + 2)
+    assert _bits_equal(sep, pre.bilateral_filter_separable_reference(depth)), "separable"
+    assert _bits_equal(full, pre.bilateral_filter_reference(depth)), "2-D"
     pts_ref = backproject(cam, depth)
-    _same_within(pts, pts_ref, POINTS_TOL, "points")
+    assert _bits_equal(pts, pts_ref), "points"
     nrm_ref = pre.estimate_normals_reference(pts_ref)
-    _same_within(nrm, nrm_ref, NORMALS_TOL, "normals")
-    _same_within(nrm_pts, nrm_ref, NORMALS_TOL, "normals from points")
+    assert _bits_equal(nrm, nrm_ref), "normals"
+    assert _bits_equal(nrm_pts, nrm_ref), "normals from points"
     if case == "all_nan":
         assert all(bool(torch.isnan(x).all()) for x in (sep, full, pts, nrm))
     elif case in ("scene", "speckle"):
         assert float(torch.isfinite(nrm).all(-1).float().mean()) > 0.5
+
+
+@pytest.mark.parametrize("case", PREPROCESS_CASES)
+def test_separable_filter_forms_match_plain_bitwise(dev, case):
+    """K3's separable kernel, the filter in one launch and each one-axis
+    mode, bitwise its plain version at 480x640, on a copy 4 bytes off 16,
+    all NaN, and at 37x53, 5x7, 1x1, 1x72, 70x1 and 45x66 (w % 4 != 0);
+    each call one launch."""
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+
+    _, depth = _preprocess_depth(dev, case)
+    assert (case == "offset") != pre.aligned16(depth)
+    before = _launches()
+    sep = pre.bilateral_filter_separable(depth)
+    assert _launches() == (before[0] + 1, before[1], before[2])
+    assert _bits_equal(sep, pre.bilateral_filter_separable_reference(depth))
+    for axis in (0, 1):
+        one = pre.bilateral_pass(depth, axis)
+        assert _bits_equal(one, pre.bilateral_pass_reference(depth, axis)), axis
+    assert _launches()[0] == before[0] + 3
+    if case in ("scene", "speckle", "offset", "ragged"):
+        assert bool(torch.isfinite(sep).any())
+
+
+@pytest.mark.parametrize("case", PREPROCESS_CASES)
+def test_normals_forms_match_plain_bitwise(dev, case):
+    """K4 from depth (points and normals) and from a point image bitwise
+    their plain versions on the same inputs as the separable filter's test
+    (the point image 4 bytes off 16 for "offset")."""
+    from tracking_sdf_tpu_torch.core.camera import backproject
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+
+    cam, depth = _preprocess_depth(dev, case)
+    before = _launches()
+    pts, nrm = pre.preprocess_frame(depth, cam=cam, bilateral=False)
+    pts_ref = backproject(cam, depth)
+    nrm_ref = pre.estimate_normals_reference(pts_ref)
+    assert _bits_equal(pts, pts_ref) and _bits_equal(nrm, nrm_ref)
+    given = _unaligned(pts_ref) if case == "offset" else pts_ref
+    assert _bits_equal(pre.estimate_normals(given), nrm_ref)
+    assert _launches() == (before[0], before[1], before[2] + 2)
+
+
+@pytest.mark.parametrize("case", ["speckle", "offset", "w%4"])
+def test_compiled_radii_match_the_runtime_radius_code(dev, case):
+    """Every radius 0-5 of K3 (also its largest, 16) and of K4 bitwise the
+    plain version: the compiled radii (K3's r = 5, K4's R = 4) and the
+    runtime-radius code that serves every other radius give the plain bits."""
+    from tracking_sdf_tpu_torch.core.camera import backproject
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+
+    cam, depth = _preprocess_depth(dev, case)
+    pts_ref = backproject(cam, depth)
+    for r in (*range(6), pre.MAX_RADIUS_PASS):
+        want = {pre._PASS_AXIS0: pre.bilateral_pass_reference(depth, 0, r),
+                pre._PASS_AXIS1: pre.bilateral_pass_reference(depth, 1, r),
+                pre._PASS_SEPARABLE: pre.bilateral_filter_separable_reference(depth, r)}
+        for mode, ref in want.items():
+            got = pre._bilateral_pass(depth, mode, r, 3.0, 0.03, "test")
+            assert _bits_equal(got, ref), (r, mode)
+    for r in range(pre.MAX_BOX_RADIUS + 1):
+        want = pre.estimate_normals_reference(pts_ref, pre.DEPTH_CHANGE_FACTOR, r)
+        pts = torch.empty_like(pts_ref)
+        got = pre._normals(depth, pts, cam, pre.DEPTH_CHANGE_FACTOR, r, "test")
+        assert _bits_equal(pts, pts_ref) and _bits_equal(got, want), r
+        got = pre._normals(None, pts_ref, None, pre.DEPTH_CHANGE_FACTOR, r, "test")
+        assert _bits_equal(got, want), ("points", r)
 
 
 def test_preprocess_kernels_reject_bad_input(dev):
@@ -1004,6 +1068,10 @@ def test_preprocess_kernels_reject_bad_input(dev):
         pre.estimate_normals(torch.zeros(8, 8, 3, device=dev).transpose(0, 1))
     with pytest.raises(ValueError):
         pre.bilateral_filter(depth, radius=pre.MAX_RADIUS_2D + 1)
+    with pytest.raises(ValueError):
+        pre.bilateral_filter_separable(depth, radius=pre.MAX_RADIUS_PASS + 1)
+    with pytest.raises(ValueError):
+        pre.bilateral_pass(depth, 2)
 
 
 @pytest.mark.parametrize("mode", ["separable", "full"])

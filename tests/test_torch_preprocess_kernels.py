@@ -1,6 +1,9 @@
 """Depth preprocessing (K3 bilateral filters, K4 backprojection and normals):
 the plain versions against the JAX package, the CPU dispatch, the wrappers'
-argument checks and the C signatures of every kernel entry point.
+argument checks and the C signatures of every kernel entry point; through a
+stand-in kernel library, the arguments the wrappers pass (the 16-byte flag
+only for w % 4 == 0 and aligned tensors, the weights, one launch a
+separable filter), and the wrappers' copies of the kernels' constants.
 
 Inputs are made with numpy from a seed: a tilted plane with a depth jump,
 noise, NaN speckle, zero and negative depth and an all-NaN row, at 48x64,
@@ -9,6 +12,8 @@ tests/test_torch_core.py: atol 1e-5 with equal NaN masks (the two
 frameworks' exp differ by an ulp). The kernels themselves run only on a
 card: tests/test_torch_kernels_cuda.py and chip_smoke.py phase 12.
 """
+import ctypes
+import math
 import re
 from pathlib import Path
 
@@ -204,3 +209,116 @@ def test_signature_matches_the_c_entry_point(name):
 def test_every_entry_point_has_a_signature():
     assert set(_extern_c_arity()) == set(_build._SIGNATURES)
     assert set(_build.SOURCES) == {p.name for p in Path(_build.CSRC).glob("*.cu")}
+
+
+def test_preprocess_constants_match_the_source():
+    """The wrappers' copies of csrc/preprocess.cu's radii and tiles, and the
+    compiled radii are the defaults the presets run."""
+    import inspect
+
+    src = (Path(_build.CSRC) / "preprocess.cu").read_text()
+    const = {k: int(v) for k, v in re.findall(r"constexpr int (k\w+) = (\d+);", src)}
+    assert const["kMaxRadius2d"] == tpre.MAX_RADIUS_2D
+    assert const["kMaxSepRadius"] == tpre.MAX_RADIUS_PASS
+    assert const["kMaxBoxRadius"] == tpre.MAX_BOX_RADIUS
+    assert const["kSepRadius"] == tpre.SEP_RADIUS
+    assert const["kBoxRadius"] == tpre.SMOOTHING_RADIUS <= tpre.MAX_BOX_RADIUS
+    assert (const["kSepH"], const["kSepW"]) == tpre.SEP_TILE
+    assert (const["kNormH"], const["kNormW"]) == tpre.NORMALS_TILE
+    assert tpre.SEP_TILE[1] % 4 == 0 and tpre.NORMALS_TILE[1] % 4 == 0
+    sep = inspect.signature(tpre.bilateral_filter_separable).parameters["radius"].default
+    assert sep == tpre.SEP_RADIUS
+    modes = re.search(r"mode 0 / 1: one pass along axis 0 / 1; 2: the separable", src)
+    assert modes and (tpre._PASS_AXIS0, tpre._PASS_AXIS1, tpre._PASS_SEPARABLE) == (0, 1, 2)
+
+
+class _FakeLibrary:
+    """Records each entry point's arguments and returns success."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        return lambda *args: self.calls.append((name, args)) or 0
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """A stand-in kernel library, and CPU tensors taken as card tensors."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(tpre, "_on_card", lambda x, what: True)
+    return lib
+
+
+def _offset(x):
+    """A contiguous copy of x that starts 4 bytes past a 16-byte boundary."""
+    buf = torch.zeros(x.numel() + 4, dtype=x.dtype)
+    start = next(k for k in range(4) if (buf.data_ptr() + 4 * k) % 16 == 4)
+    y = buf[start:start + x.numel()].view(x.shape)
+    y.copy_(x)
+    return y
+
+
+@pytest.mark.parametrize("case", ["aligned", "w % 4", "offset"])
+def test_preprocess_wrappers_take_vector_access_only_when_aligned(case, fake_card):
+    """K3's separable kernel and K4 (from depth and from points) are asked for
+    16-byte loads and stores only where the width is a multiple of 4 and
+    every tensor they touch is 16-byte aligned; the arguments follow the C
+    signatures and the spatial weights arrive as host floats."""
+    h, w = (37, 53) if case == "w % 4" else (48, 64)
+    d = torch.from_numpy(_depth(h, w))
+    if case == "offset":
+        d = _offset(d)
+    assert d.is_contiguous() and tpre.aligned16(d) == (case != "offset")
+    vec = int(case == "aligned")
+    lib = fake_card
+
+    def last(name):
+        got, args = lib.calls[-1]
+        assert got == name and len(args) == len(_build._SIGNATURES[name])
+        return args
+
+    for mode in (0, 1, 2):
+        tpre._bilateral_pass(d, mode, 5, 3.0, 0.03, "test")
+        args = last("tsdf_bilateral_pass")
+        assert args[2:6] == (h, w, mode, 5) and args[8] == vec
+        weights = list((ctypes.c_float * 11).from_address(args[6]))
+        assert weights == [float(np.float32(math.exp(-(k * k) * (1.0 / 18.0))))
+                           for k in range(-5, 6)]
+    tpre._bilateral_pass(d, 2, 3, 3.0, 0.03, "test")
+    assert last("tsdf_bilateral_pass")[4:6] == (2, 3)
+    cam = _cam(h, w)
+    pts = torch.empty(h, w, 3)
+    tpre._normals(d, pts, cam, 0.02, 4, "test")
+    args = last("tsdf_normals")
+    assert args[3:5] == (h, w) and args[10:12] == (4, vec)
+    given = _offset(tcam.backproject(cam, d)) if case == "offset" else tcam.backproject(cam, d)
+    tpre._normals(None, given, None, 0.02, 3, "test")
+    args = last("tsdf_normals")
+    assert args[0] is None and args[10:12] == (3, vec)
+
+
+def test_separable_filter_on_the_card_is_one_launch(fake_card):
+    """On a card tensor bilateral_filter_separable makes one K3 launch (both
+    passes), preprocess_frame one K3 and one K4 launch; bilateral_pass one K3
+    launch for its axis."""
+    d = torch.from_numpy(_depth(48, 64))
+    before = _counts()
+    tpre.bilateral_filter_separable(d)
+    assert _counts() == (before[0] + 1, before[1], before[2])
+    assert [c[0] for c in fake_card.calls] == ["tsdf_bilateral_pass"]
+    assert fake_card.calls[0][1][4] == tpre._PASS_SEPARABLE
+    tpre.preprocess_frame(d, cam=_cam(48, 64), bilateral_mode="separable")
+    assert _counts() == (before[0] + 2, before[1], before[2] + 1)
+    tpre.bilateral_pass(d, 1)
+    assert fake_card.calls[-1][1][4] == tpre._PASS_AXIS1 and _counts()[0] == before[0] + 3
+    for bad in ({"radius": tpre.MAX_RADIUS_PASS + 1}, {"radius": -1}):
+        with pytest.raises(ValueError):
+            tpre.bilateral_filter_separable(d, **bad)
+    with pytest.raises(ValueError):
+        tpre.bilateral_pass(d, 2)
+    with pytest.raises(ValueError):
+        tpre.estimate_normals(tcam.backproject(_cam(48, 64), d),
+                              smoothing_radius=tpre.MAX_BOX_RADIUS + 1)

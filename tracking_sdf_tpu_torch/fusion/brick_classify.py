@@ -44,6 +44,7 @@ import torch
 
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.kernels import _build
+from tracking_sdf_tpu_torch.kernels._build import aligned16, card_reciprocal
 
 TILE = 8  # zeta mip base tile, pixels
 MAX_LEVELS = 24  # csrc/brick_classify.cu kMaxLevels
@@ -87,14 +88,6 @@ def mip_layout(h: int, w: int) -> Tuple[Tuple[int, ...], Tuple[Tuple[int, int], 
     return tuple(int(o) for o in offsets[:-1]), tuple(dims)
 
 
-def card_reciprocal(x: float) -> float:
-    """1 / x as PyTorch on the card divides a float32 tensor by the Python
-    scalar x: a product with the reciprocal, taken in double and rounded to
-    float32 (tests/test_torch_kernels_cuda.py pins it where that differs
-    from the float32 reciprocal of float32 x)."""
-    return float(np.float32(1.0 / x))
-
-
 @functools.lru_cache(maxsize=None)
 def _ticket(device: torch.device) -> torch.Tensor:
     """K5's ticket word on ``device``, 0 between launches: made once, before
@@ -129,12 +122,6 @@ def compact_scratch(device: torch.device, tiles: int) -> torch.Tensor:
 def compact_tiles(n: int) -> int:
     """K7's flag tiles for n flags (at least one)."""
     return max(-(-n // COMPACT_TILE), 1)
-
-
-def aligned16(*tensors: Optional[torch.Tensor]) -> bool:
-    """Every tensor given starts on a 16-byte boundary (the kernels' vector
-    loads)."""
-    return all(x.data_ptr() % 16 == 0 for x in tensors if x is not None)
 
 
 def _level_table(offsets, dims) -> ctypes.Array:

@@ -18,7 +18,9 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
+from typing import Optional
 
+import numpy as np
 import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -55,13 +57,13 @@ _SIGNATURES = {
     # eps, w_delta, w_inv, max_weight, stream
     "tsdf_brick_fuse_rows": [_P] * 3 + [_I] * 3 + [_P] + [_I] * 8 + [_P] + [_I] * 3
                             + [_P, _P, _P] + [_I] * 4 + [_F] * 15 + [_P],
-    # in, out, h, w, axis, radius, sw, inv2sr, stream
-    "tsdf_bilateral_pass": [_P, _P] + [_I] * 4 + [_P, _F, _P],
+    # in, out, h, w, mode, radius, sw (host), inv2sr, vec, stream
+    "tsdf_bilateral_pass": [_P, _P] + [_I] * 4 + [_P, _F, _I, _P],
     # in, out, h, w, radius, sw, inv2sr, stream
     "tsdf_bilateral_2d": [_P, _P] + [_I] * 3 + [_P, _F, _P],
     # depth (or NULL), points, normals, h, w, inv_fx, inv_fy, cx, cy, factor,
-    # radius, stream
-    "tsdf_normals": [_P] * 3 + [_I] * 2 + [_F] * 5 + [_I, _P],
+    # radius, vec, stream
+    "tsdf_normals": [_P] * 3 + [_I] * 2 + [_F] * 5 + [_I] * 2 + [_P],
     # pts, nrm, rgb, pix, mip, ticket, levels, h, w, mode, point_to_plane,
     # channels, vec, cx, cy, inv_fx, inv_fy, delta, share_margin, stream
     "tsdf_frame_tables": [_P] * 7 + [_I] * 6 + [_F] * 6 + [_P],
@@ -174,6 +176,20 @@ def check(code: int, what: str) -> None:
     if code != 0:
         msg = library().tsdf_error_string(code).decode()
         raise RuntimeError(f"{what}: CUDA error {code} ({msg})")
+
+
+def card_reciprocal(x: float) -> float:
+    """1 / x as PyTorch on the card divides a float32 tensor by the Python
+    scalar x: a product with the reciprocal, taken in double and rounded to
+    float32 (tests/test_torch_kernels_cuda.py pins it where that differs
+    from the float32 reciprocal of float32 x)."""
+    return float(np.float32(1.0 / x))
+
+
+def aligned16(*tensors: Optional[torch.Tensor]) -> bool:
+    """Every tensor given starts on a 16-byte boundary (the kernels' vector
+    loads)."""
+    return all(x.data_ptr() % 16 == 0 for x in tensors if x is not None)
 
 
 def stream_ptr(device) -> int:

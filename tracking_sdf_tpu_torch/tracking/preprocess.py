@@ -6,34 +6,48 @@ Both bilateral filters are ported: the full 2-D kernel
 separable passes that the tum256 and tum512 presets run. Invalidity is NaN.
 
 On a CUDA tensor each public function launches a hand-written kernel
-(``csrc/preprocess.cu``): K3 ``tsdf_bilateral_pass`` (one launch a 1-D pass,
-two for the separable filter), K3 ``tsdf_bilateral_2d`` (the 2-D filter) and
-K4 ``tsdf_normals`` (backprojection and normals in one launch; from a point
-image in ``estimate_normals``). A CPU tensor takes the plain version, the
-``*_reference`` function of the same name: stencils over shifted copies of
-the image, in the order the kernels follow.
+(``csrc/preprocess.cu``): K3 ``tsdf_bilateral_pass`` (the separable filter's
+two passes in one launch, or one 1-D pass), K3 ``tsdf_bilateral_2d`` (the 2-D
+filter) and K4 ``tsdf_normals`` (backprojection and normals in one launch;
+from a point image in ``estimate_normals``). K3's separable form and K4 read
+and write 16 bytes at a time where the width is a multiple of 4 and their
+tensors are 16-byte aligned, and one value at a time otherwise, with the same
+result; the wrapper looks at the pointers. A CPU tensor takes the plain
+version, the ``*_reference`` function of the same name: stencils over
+shifted copies of the image, in the order the kernels follow.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import Tuple
 
-import numpy as np
 import torch
 
 from tracking_sdf_tpu_torch.core.camera import PinholeCamera, backproject
 from tracking_sdf_tpu_torch.kernels import _build
+from tracking_sdf_tpu_torch.kernels._build import aligned16, card_reciprocal
 
 # kernel launches on CUDA tensors
-launches_pass = 0  # K3, one 1-D bilateral pass
+launches_pass = 0  # K3's separable kernel: the separable filter, or one 1-D pass
 launches_2d = 0  # K3, the 2-D bilateral filter
 launches_normals = 0  # K4, (backprojection and) normals
 
-MAX_RADIUS_2D = 16  # the 2-D kernel's shared tile (csrc/preprocess.cu)
-MAX_BOX_RADIUS = 5  # K4's shared memory stays under 48 KB
-# estimate_normals' defaults, which preprocess_frame uses
+# csrc/preprocess.cu's constants: the radii the kernels take (kMaxRadius2d,
+# kMaxSepRadius, kMaxBoxRadius; K4's shared memory stays under 48 KB), the
+# radius each compiles (kSepRadius, kBoxRadius; others run the same code with
+# a runtime radius) and their tiles, (rows, columns) of output pixels
+MAX_RADIUS_2D = 16
+MAX_RADIUS_PASS = 16
+MAX_BOX_RADIUS = 5
+SEP_RADIUS = 5
+SEP_TILE = (4, 128)
+NORMALS_TILE = (16, 32)
+# estimate_normals' defaults, which preprocess_frame uses (K4 compiles this
+# radius)
 DEPTH_CHANGE_FACTOR, SMOOTHING_RADIUS = 0.02, 4
+_PASS_AXIS0, _PASS_AXIS1, _PASS_SEPARABLE = 0, 1, 2  # tsdf_bilateral_pass's modes
 
 
 def _shifted(img: torch.Tensor, dy: int, dx: int, fill: float) -> torch.Tensor:
@@ -58,13 +72,13 @@ def _spatial_weights(radius: int, sigma_spatial: float, device: torch.device) ->
 
 
 @functools.lru_cache(maxsize=None)
-def _spatial_weights_1d(radius: int, sigma_spatial: float,
-                        device: torch.device) -> torch.Tensor:
-    """The separable passes' (2r+1,) weights exp(-d² / (2 σs²)) as float32: the
-    plain pass's Python scalars as PyTorch rounds them."""
+def _spatial_weights_1d(radius: int, sigma_spatial: float) -> ctypes.Array:
+    """The separable passes' (2r+1,) weights exp(-d² / (2 σs²)) as C floats in
+    host memory (K3 takes them by value): the plain pass's Python scalars as
+    PyTorch rounds them."""
     inv2ss = 1.0 / (2.0 * sigma_spatial ** 2)
-    return torch.tensor([math.exp(-(d * d) * inv2ss) for d in range(-radius, radius + 1)],
-                        dtype=torch.float32, device=device)
+    taps = [math.exp(-(d * d) * inv2ss) for d in range(-radius, radius + 1)]
+    return (ctypes.c_float * len(taps))(*taps)
 
 
 def bilateral_filter_reference(
@@ -208,33 +222,38 @@ def _check_image(x: torch.Tensor, what: str, channels: int = 0) -> None:
                          f"{tuple(x.shape)} {x.dtype}, contiguous {x.is_contiguous()}")
 
 
-def _card_reciprocal(x: float) -> float:
-    """1 / x as PyTorch on the card divides a tensor by the Python scalar x:
-    a product with the reciprocal, taken in double and rounded to float32."""
-    return float(np.float32(1.0 / x))
+def _bilateral_pass(img: torch.Tensor, mode: int, radius: int, sigma_spatial: float,
+                    sigma_range: float, what: str) -> torch.Tensor:
+    """K3's separable kernel on a card tensor: ``mode`` _PASS_AXIS0 or
+    _PASS_AXIS1 (one pass) or _PASS_SEPARABLE (both, one launch)."""
+    global launches_pass
+    _check_image(img, what)
+    if not 0 <= radius <= MAX_RADIUS_PASS:
+        raise ValueError(f"{what}: radius {radius} not in [0, {MAX_RADIUS_PASS}]")
+    h, w = img.shape
+    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
+    if out.numel() == 0:
+        return out
+    vec = w % 4 == 0 and aligned16(img, out)
+    rc = _build.library().tsdf_bilateral_pass(
+        img.data_ptr(), out.data_ptr(), h, w, mode, radius,
+        ctypes.addressof(_spatial_weights_1d(radius, sigma_spatial)),
+        1.0 / (2.0 * sigma_range ** 2), int(vec), _build.stream_ptr(img.device))
+    _build.check(rc, what)
+    launches_pass += 1
+    return out
 
 
 def bilateral_pass(img: torch.Tensor, axis: int, radius: int = 5,
                    sigma_spatial: float = 3.0, sigma_range: float = 0.03) -> torch.Tensor:
     """One 1-D bilateral pass along ``axis``. A CPU tensor takes the plain
-    version; a CUDA tensor (contiguous float32 (H, W)) launches K3's pass."""
-    global launches_pass
+    version; a CUDA tensor (contiguous float32 (H, W)) launches K3's separable
+    kernel for that axis alone."""
     if not _on_card(img, "bilateral_pass"):
         return bilateral_pass_reference(img, axis, radius, sigma_spatial, sigma_range)
-    _check_image(img, "bilateral_pass")
-    if axis not in (0, 1) or radius < 0:
-        raise ValueError(f"bilateral_pass: axis {axis}, radius {radius}")
-    h, w = img.shape
-    out = torch.empty((h, w), dtype=torch.float32, device=img.device)
-    if out.numel() == 0:
-        return out
-    sw = _spatial_weights_1d(radius, sigma_spatial, img.device)
-    rc = _build.library().tsdf_bilateral_pass(
-        img.data_ptr(), out.data_ptr(), h, w, axis, radius, sw.data_ptr(),
-        1.0 / (2.0 * sigma_range ** 2), _build.stream_ptr(img.device))
-    _build.check(rc, "bilateral_pass")
-    launches_pass += 1
-    return out
+    if axis not in (0, 1):
+        raise ValueError(f"bilateral_pass: axis {axis}")
+    return _bilateral_pass(img, axis, radius, sigma_spatial, sigma_range, "bilateral_pass")
 
 
 def bilateral_filter(
@@ -278,14 +297,14 @@ def bilateral_filter_separable(
     neighbours are excluded per pass.
 
     A CPU tensor takes the plain version; a CUDA tensor (contiguous float32
-    (H, W)) launches K3's 1-D pass twice."""
+    (H, W)) launches K3's separable kernel once for both passes."""
     if not _on_card(depth, "bilateral_filter_separable"):
         return bilateral_filter_separable_reference(depth, radius, sigma_spatial,
                                                     sigma_range)
     # pass 1 is NaN wherever the depth is not finite, so the plain version's
     # last mask changes nothing here
-    out = bilateral_pass(depth, 0, radius, sigma_spatial, sigma_range)
-    return bilateral_pass(out, 1, radius, sigma_spatial, sigma_range)
+    return _bilateral_pass(depth, _PASS_SEPARABLE, radius, sigma_spatial, sigma_range,
+                           "bilateral_filter_separable")
 
 
 def _normals(depth, points, cam, factor: float, radius: int, what: str):
@@ -299,10 +318,11 @@ def _normals(depth, points, cam, factor: float, radius: int, what: str):
     if normals.numel() == 0:
         return normals
     scalars = ((0.0, 0.0, 0.0, 0.0) if cam is None else
-               (_card_reciprocal(cam.fx), _card_reciprocal(cam.fy), cam.cx, cam.cy))
+               (card_reciprocal(cam.fx), card_reciprocal(cam.fy), cam.cx, cam.cy))
+    vec = w % 4 == 0 and aligned16(depth, points, normals)
     rc = _build.library().tsdf_normals(
         None if depth is None else depth.data_ptr(), points.data_ptr(), normals.data_ptr(),
-        h, w, *scalars, factor, radius, _build.stream_ptr(points.device))
+        h, w, *scalars, factor, radius, int(vec), _build.stream_ptr(points.device))
     _build.check(rc, what)
     launches_normals += 1
     return normals
@@ -338,8 +358,8 @@ def preprocess_frame(
     ``bilateral_mode``: "full" (the 2-D kernel) or "separable".
 
     A CPU tensor takes the plain versions. A CUDA tensor (contiguous float32)
-    launches K3 once ("full") or twice ("separable"), or not at all without
-    ``bilateral``, then K4 once for the points and the normals."""
+    launches K3 once (either mode), or not at all without ``bilateral``, then
+    K4 once for the points and the normals."""
     if bilateral:
         if bilateral_mode == "full":
             depth = bilateral_filter(depth)
