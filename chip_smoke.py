@@ -266,11 +266,19 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      sets (one MUFU ex2 a finite tap, 16 a clock an SM at the card's
      maximum SM clock), and both beside their device times before this
      design; the whole preprocess_frame, separable and full, kernels against
-     plain, in device ms, device ops and host ms a call. Every main path above also checks,
-     from its counters (counted per replay in a chunk, per rank in the
-     two-rank group), that K4 ran once per processed frame and K3 once
-     (either filter) or never (no filter), and the profiled chunks that
-     their kernels ran as often. Its numbers go out as {"phase12":
+     plain, in device ms, device ops and host ms a call. Then the layouts
+     the card paths take: preprocess_frame and both filters on a cropped, a
+     transposed and a float64 copy of the frame, and both filters at
+     radius 17 (the runtime-radius code), bitwise the plain version on the
+     float32 frame;
+     Reconstruction.process_frame over three frames at tum128 (the 2-D
+     filter) and tum256 (separable) fed cropped, transposed and float64
+     depth, poses and grid bitwise the contiguous run's. Every main path
+     above also checks, from its counters (counted per replay in a chunk,
+     per rank in the two-rank group), that K4 ran once per processed frame
+     and K3 once (either filter) or never (no filter), and the profiled
+     chunks that their kernels ran as often. Its numbers go out as
+     {"phase12":
      ...}; the kernels' line gains bilateral_pass, bilateral_2d and normals
      (launches per processed frame of the paths that ran them; library_ms
      null: no single PyTorch call computes either function).
@@ -280,9 +288,10 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      tum256 (flat) and tum512 (hierarchical): K5 frame_tables (the zeta /
      eta mip and the color pixel table in one launch, and the geometry
      table alone), K6 classify_bricks in its flat form (every brick), its
-     super form with phase 9's sat_skip bitset (and "all children
-     saturated") and its children form (the children of the first
-     cap_mixed mixed supers), each on the plain mip; then
+     super form with and without phase 9's sat_skip bitset (and "all
+     children saturated") and its children form (the children of the first
+     cap_mixed mixed supers, classes and global ids), each on the plain
+     mip; then
      classify_compact_rows (K5, K6, K7) against
      classify_compact_rows_reference at the preset's caps (tum512's FREE cap
      overflows), with the caps cut to a quarter, with the sat bitset and on
@@ -556,7 +565,8 @@ def counters():
             "brick_fuse_rows": k2f.launches, "brick_fuse_rows_sat": k2f.launches_sat,
             "brick_fuse_rows_slab": k2f.launches_slab,
             "bilateral_pass": k34.launches_pass, "bilateral_2d": k34.launches_2d,
-            "normals": k34.launches_normals, "frame_tables": k567.launches_tables,
+            "normals": k34.launches_normals,
+            "frame_tables": k567.launches_tables,
             "classify_bricks": k567.launches_classify, "compact_lists": k567.launches_compact}
 
 
@@ -3724,7 +3734,7 @@ def preprocess_phase(cam, depths):
             "bilateral_2d": finite_taps(d, 5, (0, 1))}
     px = h * w
     work = {"bilateral_pass": (8 * px, K3_FLOP_PER_TAP * taps["bilateral_pass"]),
-            "bilateral_2d": (8 * px + 121 * 4, K3_FLOP_PER_TAP * taps["bilateral_2d"]),
+            "bilateral_2d": (8 * px, K3_FLOP_PER_TAP * taps["bilateral_2d"]),
             "normals": (px * (4 + 12 + 12), K4_FLOP_PER_PIXEL * px)}
     for name, (kernel, plain, key) in calls.items():
         ms = events_ms(kernel)
@@ -3791,6 +3801,100 @@ def preprocess_phase(cam, depths):
                            plain_device_ms=p_ms, plain_device_ops=p_ops, plain_host_ms=p_host)
     torch.cuda.empty_cache()
     return recs, frame
+
+
+# the depth layouts a card path takes as the CPU path does: each view has
+# the values of the contiguous float32 frame
+LAYOUTS = {
+    "cropped": lambda d: torch.nn.functional.pad(d, (3, 2, 1, 4), value=7.0)[1:-4, 3:-2],
+    "transposed": lambda d: d.t().contiguous().t(),
+    "float64": lambda d: d.double(),
+}
+LAYOUT_FRAMES = 3  # process_frame calls a layout run (frame 0 bootstraps)
+
+
+def layout_phase(cam, depths, poses, rgb, dev):
+    """Phase 12, the layouts: the preprocess entry points on a cropped, a
+    transposed and a float64 copy of the scene's second frame bitwise the
+    plain version on the contiguous float32 frame (one launch a call), and
+    both filters at radius 17 (a launch each, the runtime-radius code);
+    then Reconstruction.process_frame over LAYOUT_FRAMES frames at tum128
+    (the 2-D filter, dense) and tum256 (separable, brick-major) fed each
+    layout: poses and grid bitwise the contiguous run's, one K3 and one K4
+    launch a frame. Returns the record."""
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.core.camera import backproject
+    from tracking_sdf_tpu_torch.grid.grid import FIELDS
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+
+    print(f"phase 12: the depth layouts the card paths take, on {gpu_line()}")
+    d = depths[1].contiguous()
+    pts_ref = backproject(cam, d)
+    want = {"bilateral_filter": pre.bilateral_filter_reference(d),
+            "bilateral_filter_separable": pre.bilateral_filter_separable_reference(d),
+            "points": pts_ref, "normals": pre.estimate_normals_reference(pts_ref)}
+    rec = {}
+    for view, make in LAYOUTS.items():
+        x = make(d)
+        check(not (x.is_contiguous() and x.dtype == torch.float32), f"{view}: not a new layout")
+        reset_counters()
+        pts, nrm = pre.preprocess_frame(x, cam=cam, bilateral=False)
+        got = {"bilateral_filter": pre.bilateral_filter(x),
+               "bilateral_filter_separable": pre.bilateral_filter_separable(x),
+               "points": pts, "normals": nrm}
+        launches = counters()
+        for k, g in got.items():
+            _, mism, bits = image_compare(g, want[k])
+            check(mism == 0 and bits == 0, f"{k} ({view}) differs from the plain version on "
+                  f"the float32 frame: {mism} NaN-mask mismatches, {bits} values")
+        check((launches["bilateral_pass"], launches["bilateral_2d"], launches["normals"])
+              == (1, 1, 1), f"{view}: launched {launches}")
+        rec[view] = "bitwise"
+    reset_counters()
+    r17 = {"bilateral_filter": (pre.bilateral_filter(d, radius=17),
+                                pre.bilateral_filter_reference(d, 17)),
+           "bilateral_filter_separable": (pre.bilateral_filter_separable(d, radius=17),
+                                          pre.bilateral_filter_separable_reference(d, 17))}
+    launches = counters()
+    for k, (g, w_) in r17.items():
+        _, mism, bits = image_compare(g, w_)
+        check(mism == 0 and bits == 0, f"{k} at radius 17 differs: {mism}, {bits}")
+    check((launches["bilateral_2d"], launches["bilateral_pass"]) == (1, 1),
+          f"radius 17: {launches}")
+    rec["radius 17"] = "2-D and separable launched, bitwise"
+    print(f"  preprocess_frame, bilateral_filter, bilateral_filter_separable on "
+          f"{', '.join(LAYOUTS)} depth: bitwise the plain version on the float32 frame; "
+          f"radius 17: {rec['radius 17']}")
+    del r17, want
+    for name in ("tum128", "tum256"):
+        cfg = dataclasses.replace(preset(name), trajectory_path=None)
+        runs = {}
+        for view in ("contiguous", *LAYOUTS):
+            recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
+            reset_counters()
+            for k in range(LAYOUT_FRAMES):
+                dk = depths[k] if view == "contiguous" else LAYOUTS[view](depths[k])
+                recon.process_frame(dk, rgb=rgb, timestamp=float(k))
+            check_preprocess(f"{name} {view}", counters(), LAYOUT_FRAMES, filter_mode(cfg))
+            grid = recon.grid
+            runs[view] = ((recon.pose.R.clone(), recon.pose.t.clone()),
+                          [getattr(grid, k).clone() for k in FIELDS])
+            recon.close()
+            del recon, grid
+            torch.cuda.empty_cache()
+        (R0, t0), g0 = runs.pop("contiguous")
+        for view, ((R, t), g) in runs.items():
+            differ = sum(_diff(a, b)[0] for a, b in zip(g, g0))
+            check(torch.equal(R, R0) and torch.equal(t, t0) and differ == 0,
+                  f"{name} process_frame on {view} depth differs from the contiguous run: "
+                  f"{differ} grid values")
+        rec[f"{name} process_frame"] = "bitwise"
+        print(f"  {name}: process_frame over {LAYOUT_FRAMES} frames on {', '.join(runs)} "
+              f"depth: pose and {len(g0)} grid fields bitwise the contiguous run's")
+        del runs
+        torch.cuda.empty_cache()
+    return rec
 
 
 # --- phase 13: brick classification, compaction and the pixel table (K5-K7) ---
@@ -3921,13 +4025,28 @@ def classify_phase(cam, depths, poses, rgb, dev, tracked_pose):
                        .reshape(-1, fac ** 3).all(1))
             agree("classify_bricks", f"({name}, super, {sref.numel()} supers, sat)",
                   [(scls.int(), sref), (sat_super, sat_ref)])
+            scls, none = k567.classify_bricks(mip_ref, R, base, bs=sbs, grid=ns3, factor=fac,
+                                              **geo)
+            check(none is None, "the super form without sat wrote sat_super")
+            agree("classify_bricks", f"({name}, super, {sref.numel()} supers, no sat)",
+                  [(scls.int(), sref)])
             mixed = brick._compact_ids(sref == 2, f.cap_mixed, sref.numel()).int()
             fcls, gid = k567.classify_children(mip_ref, R, base, mixed, bs=bs, grid=nb3,
                                                factor=fac, **geo)
-            ok = gid < NB
-            agree("classify_bricks", f"({name}, children of {int((mixed < sref.numel()).sum())}"
-                  " mixed supers)", [(fcls[ok].int(), flat_ref[gid[ok].long()]),
-                                     (fcls[~ok].int(), torch.zeros_like(fcls[~ok].int()))])
+            # each listed super's children's global ids, NB on a padding slot
+            listed = mixed < sref.numel()
+            sid = mixed.long().clamp(max=sref.numel() - 1)[:, None]
+            c = torch.arange(fac ** 3, device=dev)
+            gid_ref = ((((sid // (ns3[1] * ns3[2])) * fac + c // (fac * fac)) * nb3[1]
+                        + ((sid // ns3[2]) % ns3[1]) * fac + (c // fac) % fac) * nb3[2]
+                       + (sid % ns3[2]) * fac + c % fac)
+            gid_ref = torch.where(listed[:, None], gid_ref, NB).reshape(-1)
+            ok = gid_ref < NB
+            agree("classify_bricks", f"({name}, children of {int(listed.sum())} mixed supers "
+                  f"and {int((~listed).sum())} padding slots: classes, global ids)",
+                  [(fcls[ok].int(), flat_ref[gid_ref[ok]]),
+                   (fcls[~ok].int(), torch.zeros_like(fcls[~ok].int())),
+                   (gid.long(), gid_ref)])
 
         # the whole stage (K7 inside) at the preset's caps, tightened, with
         # sat, and on the slab of the second half of the brick layers
@@ -4174,6 +4293,7 @@ def main() -> int:
         phase11, f32, packed_paths = surface_phase(cam, scene, depths, poses, rgb, dev, work)
         paths.update(packed_paths)
         k34, frame12 = preprocess_phase(cam, depths)
+        layouts12 = layout_phase(cam, depths, poses, rgb, dev)
         k567, stage13 = classify_phase(cam, depths, poses, rgb, dev, tracked_pose)
     finally:
         shutil.rmtree(work, ignore_errors=True)
@@ -4269,7 +4389,8 @@ def main() -> int:
     print(json.dumps({"phase9": phase9}))
     print(json.dumps({"phase10": phase10}))
     print(json.dumps({"phase11": phase11}))
-    print(json.dumps({"phase12": {"kernels": k34, "preprocess_frame": frame12}}))
+    print(json.dumps({"phase12": {"kernels": k34, "preprocess_frame": frame12,
+                                  "layouts": layouts12}}))
     print(json.dumps({"phase13": {"kernels": k567, "stage": stage13}}))
     print(gpu)
     print(json.dumps({"kernels": kernels}))

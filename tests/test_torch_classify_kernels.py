@@ -362,8 +362,13 @@ def test_compact_scratch_grows_outside_a_capture_only(monkeypatch):
         1, 1, 1, 1, 2, 16, 48]
 
 
-def test_kernel_constants_match_the_source():
-    """The wrappers' copies of csrc/brick_classify.cu's constants."""
+def test_kernel_constants_match_the_source(monkeypatch):
+    """The wrappers' copies of csrc/brick_classify.cu's constants, and K6's
+    choice of lanes a brick: whole warps a block; 8 lanes for tum512's 4,096
+    supers and one for tum256's 32,768 bricks and the 98,304 children on the
+    H100's 132 SMs, 8 exactly while a launch's threads stay within
+    CLASSIFY_LANE_THREADS an SM; the wrapper hands that choice to the entry
+    point (checked through a stand-in library)."""
     import re
     from pathlib import Path
 
@@ -372,6 +377,29 @@ def test_kernel_constants_match_the_source():
     assert const["kCompactThreads"] * const["kFlagsPerThread"] == k567.COMPACT_TILE
     assert const["kScratchHead"] == k567.SCRATCH_HEAD
     assert const["kMaxLevels"] == k567.MAX_LEVELS and const["kTile"] == k567.TILE
+    assert const["kClassifyThreads"] == k567.CLASSIFY_THREADS
+    assert k567.CLASSIFY_THREADS % 32 == 0 and k567.CLASSIFY_THREADS <= 1024
+    assert [k567.classify_lanes(n, 132) for n in (4096, 32768, 98304)] == [8, 1, 1]
+    edge = 132 * k567.CLASSIFY_LANE_THREADS // 8
+    assert [k567.classify_lanes(n, 132) for n in (1, edge, edge + 1, 10 ** 6)] == [8, 8, 1, 1]
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_build, "library", lambda: lib)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(k567, "_check", lambda *a, **k: None)
+    monkeypatch.setattr(k567, "_sm_count", lambda index: 132)
+    h, w = 48, 64
+    cam, pose, pts, nrm, _ = _frame(h, w)
+    zm, _ = k567.frame_tables(_t(pts), _t(nrm), None, cam=cam, delta=0.15)
+    R, base = torch.eye(3), torch.zeros(3)
+    geo = dict(params=PARAMS, cam=cam, hw=(h, w))
+    for grid, lanes in (((16, 16, 16), 8), ((32, 32, 32), 1)):
+        k567.classify_bricks(zm, R, base, bs=BS, grid=grid, **geo)
+        name, args = lib.calls[-1]
+        assert name == "tsdf_classify_bricks" and len(args) == len(_build._SIGNATURES[name])
+        assert args[-2] == lanes, grid
+    k567.classify_children(zm, R, base, torch.zeros(600, dtype=torch.int32), bs=BS,
+                           grid=(32, 32, 32), factor=4, **geo)
+    assert lib.calls[-1][1][-2] == 1  # 38,400 children
 
 
 class _FakeLibrary:

@@ -1030,22 +1030,23 @@ def test_normals_forms_match_plain_bitwise(dev, case):
 
 @pytest.mark.parametrize("case", ["speckle", "offset", "w%4"])
 def test_compiled_radii_match_the_runtime_radius_code(dev, case):
-    """Every radius 0-5 of K3 (also its largest, 16) and of K4 bitwise the
-    plain version: the compiled radii (K3's r = 5, K4's R = 4) and the
+    """Radii 0-5 of K3 (also 17 and its largest) and of K4 (also 16, 17,
+    the first whose column strips take two rounds, and its largest) bitwise
+    the plain version: the compiled radii (K3's r = 5, K4's R = 4) and the
     runtime-radius code that serves every other radius give the plain bits."""
     from tracking_sdf_tpu_torch.core.camera import backproject
     from tracking_sdf_tpu_torch.tracking import preprocess as pre
 
     cam, depth = _preprocess_depth(dev, case)
     pts_ref = backproject(cam, depth)
-    for r in (*range(6), pre.MAX_RADIUS_PASS):
+    for r in (*range(6), 17, pre.MAX_RADIUS_PASS):
         want = {pre._PASS_AXIS0: pre.bilateral_pass_reference(depth, 0, r),
                 pre._PASS_AXIS1: pre.bilateral_pass_reference(depth, 1, r),
                 pre._PASS_SEPARABLE: pre.bilateral_filter_separable_reference(depth, r)}
         for mode, ref in want.items():
             got = pre._bilateral_pass(depth, mode, r, 3.0, 0.03, "test")
             assert _bits_equal(got, ref), (r, mode)
-    for r in range(pre.MAX_BOX_RADIUS + 1):
+    for r in (*range(6), 16, 17, pre.MAX_BOX_RADIUS):
         want = pre.estimate_normals_reference(pts_ref, pre.DEPTH_CHANGE_FACTOR, r)
         pts = torch.empty_like(pts_ref)
         got = pre._normals(depth, pts, cam, pre.DEPTH_CHANGE_FACTOR, r, "test")
@@ -1054,24 +1055,137 @@ def test_compiled_radii_match_the_runtime_radius_code(dev, case):
         assert _bits_equal(got, want), ("points", r)
 
 
+# the depth images a card path may be handed, each with the values of one
+# float32 image: a crop of a larger image, a transposed layout, float64
+P4_VIEWS = {
+    "crop": lambda d: torch.nn.functional.pad(d, (3, 2, 1, 4), value=7.0)[1:-4, 3:-2],
+    "transpose": lambda d: d.t().contiguous().t(),
+    "float64": lambda d: d.double(),
+}
+
+
 def test_preprocess_kernels_reject_bad_input(dev):
+    """The wrong rank, a bad axis, a negative radius and a radius past a
+    kernel's largest raise and launch nothing. A float64, a transposed and a
+    cropped depth run on their contiguous float32 copy: each result is
+    bitwise the plain version's on the contiguous float32 image."""
+    from tracking_sdf_tpu_torch.core.camera import backproject
     from tracking_sdf_tpu_torch.tracking import preprocess as pre
 
     cam, depth = _preprocess_depth(dev, "ragged")
-    for bad in (depth.double(), depth[None], depth.t()):
-        for fn in (pre.bilateral_filter, pre.bilateral_filter_separable):
-            with pytest.raises(ValueError):
-                fn(bad)
+    for fn in (pre.bilateral_filter, pre.bilateral_filter_separable):
         with pytest.raises(ValueError):
-            pre.preprocess_frame(bad, cam=cam, bilateral=False)
+            fn(depth[None])
+        with pytest.raises(ValueError):
+            fn(depth, radius=-1)
     with pytest.raises(ValueError):
-        pre.estimate_normals(torch.zeros(8, 8, 3, device=dev).transpose(0, 1))
+        pre.preprocess_frame(depth[None], cam=cam, bilateral=False)
     with pytest.raises(ValueError):
-        pre.bilateral_filter(depth, radius=pre.MAX_RADIUS_2D + 1)
-    with pytest.raises(ValueError):
-        pre.bilateral_filter_separable(depth, radius=pre.MAX_RADIUS_PASS + 1)
+        pre.estimate_normals(depth)
     with pytest.raises(ValueError):
         pre.bilateral_pass(depth, 2)
+    pts_ref = backproject(cam, depth)
+    nrm_ref = pre.estimate_normals_reference(pts_ref)
+    for view, make in P4_VIEWS.items():
+        x = make(depth)
+        before = _launches()
+        assert _bits_equal(pre.bilateral_filter(x), pre.bilateral_filter_reference(depth)), view
+        assert _bits_equal(pre.bilateral_filter_separable(x),
+                           pre.bilateral_filter_separable_reference(depth)), view
+        pts, nrm = pre.preprocess_frame(x, cam=cam, bilateral=False)
+        assert _bits_equal(pts, pts_ref) and _bits_equal(nrm, nrm_ref), view
+        assert _launches() == (before[0] + 1, before[1] + 1, before[2] + 1)
+    given = pts_ref.transpose(0, 1).contiguous().transpose(0, 1)
+    assert _bits_equal(pre.estimate_normals(given), nrm_ref)
+    before = _launches()
+    for call in (lambda: pre.bilateral_filter(depth, radius=pre.MAX_RADIUS_2D + 1),
+                 lambda: pre.bilateral_filter_separable(depth, radius=pre.MAX_RADIUS_PASS + 1),
+                 lambda: pre.bilateral_pass(depth, 1, radius=pre.MAX_RADIUS_PASS + 1),
+                 lambda: pre.estimate_normals(pts_ref, smoothing_radius=pre.MAX_BOX_RADIUS + 1),
+                 lambda: pre.estimate_normals(pts_ref, smoothing_radius=-1)):
+        with pytest.raises(ValueError):
+            call()
+    assert _launches() == before
+    # the entry points take the wrappers' largest radii and refuse one more
+    import ctypes
+
+    from tracking_sdf_tpu_torch.kernels import _build
+
+    lib, stream = _build.library(), _build.stream_ptr(dev)
+    small = depth[:8, :12].contiguous()
+    out, pts = torch.empty_like(small), torch.empty(8, 12, 3, device=dev)
+    nrm, inv2sr = torch.empty_like(pts), 1.0 / (2.0 * 0.03 ** 2)
+    sw2 = ctypes.addressof(pre._spatial_weights_sq(pre.RADIUS_2D, 3.0))
+    for limit, launch in (
+            (pre.MAX_RADIUS_2D, lambda r: lib.tsdf_bilateral_2d(
+                small.data_ptr(), out.data_ptr(), 8, 12, r, sw2,
+                pre._spatial_weights(min(r, pre.MAX_RADIUS_2D), 3.0, dev).data_ptr(), inv2sr,
+                0, stream)),
+            (pre.MAX_RADIUS_PASS, lambda r: lib.tsdf_bilateral_pass(
+                small.data_ptr(), out.data_ptr(), 8, 12, pre._PASS_SEPARABLE, r,
+                ctypes.addressof(pre._spatial_weights_1d(r, 3.0)), inv2sr, 0, stream)),
+            (pre.MAX_BOX_RADIUS, lambda r: lib.tsdf_normals(
+                small.data_ptr(), pts.data_ptr(), nrm.data_ptr(), 8, 12, 1.0, 1.0, 6.0, 4.0,
+                pre.DEPTH_CHANGE_FACTOR, r, 0, stream))):
+        assert launch(limit) == 0 and launch(limit + 1) != 0, limit
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("case", ["speckle", "offset", "w%4"])
+def test_bilateral_2d_radii_match_plain_bitwise(dev, case):
+    """K3's 2-D form bitwise the plain version (0 differing values, equal
+    NaN masks) at radii 0, 1, 5 (compiled), 7 and 17, and with a range
+    weight of 1, at 480x640, on a copy 4 bytes off 16 (scalar loads and
+    stores) and at 45x66 (w % 4 != 0); at its largest radius on the image's
+    top-left 40x52 (the plain version's taps of the whole frame would not
+    fit the card), 4 bytes off 16 for "offset"; one launch a call."""
+    from tracking_sdf_tpu_torch.tracking import preprocess as pre
+
+    _, depth = _preprocess_depth(dev, case)
+    corner = depth[:40, :52].contiguous()
+    corner = _unaligned(corner) if case == "offset" else corner
+    for r, img in ((0, depth), (1, depth), (pre.RADIUS_2D, depth), (7, depth), (17, depth),
+                   (pre.MAX_RADIUS_2D, corner)):
+        before = _launches()
+        got = pre.bilateral_filter(img, radius=r)
+        assert _launches() == (before[0], before[1] + 1, before[2])
+        assert _bits_equal(got, pre.bilateral_filter_reference(img, r)), r
+        torch.cuda.empty_cache()
+    # a range sigma whose 1 / (2 sr^2) rounds to float32 0: every finite tap
+    # keeps its spatial weight (the runtime-radius code at the compiled radius)
+    got = pre.bilateral_filter(depth, sigma_range=1e30)
+    assert _bits_equal(got, pre.bilateral_filter_reference(depth, sigma_range=1e30))
+
+
+def test_process_frame_takes_cropped_and_transposed_depth(dev):
+    """Reconstruction.process_frame on the card with a cropped, a transposed
+    and a float64 depth: poses and grid bitwise the contiguous float32
+    depth's (the separable filter with brick-major rows and the full 2-D
+    filter with dense fusion, at 48^3)."""
+    import dataclasses
+
+    from tracking_sdf_tpu_torch.config import PipelineConfig
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    cam, depths, p0 = _small_frames(dev, n=3)
+    full = dataclasses.replace(PipelineConfig(), grid=_small_config("brickmajor").grid,
+                               trajectory_path=None)
+    for cfg in (_small_config("brickmajor"), full):
+        runs = {}
+        for view in ("contiguous", *P4_VIEWS):
+            r = Reconstruction(cam, cfg, device=dev, initial_pose=p0)
+            for i in range(depths.shape[0]):
+                d = depths[i] if view == "contiguous" else P4_VIEWS[view](depths[i])
+                r.process_frame(d, timestamp=float(i))
+            runs[view] = r
+        want = runs.pop("contiguous")
+        assert want.stats[-1].gn_iterations > 0
+        for view, r in runs.items():
+            assert torch.equal(r.pose.R, want.pose.R) and torch.equal(r.pose.t, want.pose.t)
+            for k in FIELDS:
+                x, y = getattr(r.grid, k), getattr(want.grid, k)
+                assert torch.equal(torch.isnan(x), torch.isnan(y)), (view, k)
+                assert torch.equal(x.nan_to_num(), y.nan_to_num()), (view, k)
 
 
 @pytest.mark.parametrize("mode", ["separable", "full"])
@@ -1256,6 +1370,89 @@ def test_classify_kernel_forms_match_plain(dev, case, inside):
             assert not bool(fcls[ns * f ** 3:].any())
     if case == "all_nan":
         assert not bool((want == 1).any())
+
+
+@pytest.mark.parametrize("case", ["scene", "speckle"])
+@pytest.mark.parametrize("name", ["tum256", "tum512"])
+def test_classify_forms_at_preset_shapes_match_plain(dev, name, case):
+    """K6's three forms at a preset's real shapes (the 640x480 frame, the
+    preset's grid and bricks, its filter), on the smoke scene and a speckled
+    copy: the flat form over every brick and over the half-grid slab, the
+    super form with and without a sat bitset (some supers fully saturated),
+    and the children of the listed mixed supers with a padding slot; class
+    bytes, sat_super and global ids bitwise the plain versions."""
+    _check_classify_forms(dev, name, case)
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+@pytest.mark.parametrize("name", ["tum256", "tum512"])
+def test_classify_lanes_match_plain(dev, name, lanes, monkeypatch):
+    """Each of K6's two instantiations (1 and 8 lanes a brick) on every
+    launch of the preset-shape test above, whichever the card's SM count
+    would pick: the same bits as the plain versions."""
+    k567 = _k567()
+    monkeypatch.setattr(k567, "CLASSIFY_LANE_THREADS", 0 if lanes == 1 else 1 << 40)
+    assert {k567.classify_lanes(n, 132) for n in (1, 4096, 32768, 98304)} == {lanes}
+    _check_classify_forms(dev, name, "speckle")
+
+
+def _check_classify_forms(dev, name, case):
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.core.lie import Pose
+    from tracking_sdf_tpu_torch.fusion import brick
+
+    k567 = _k567()
+    cam, depth = _preprocess_depth(dev, case)
+    cfg = preset(name)
+    f, p = cfg.fusion, cfg.grid
+    pts, nrm = preprocess_frame(depth, cam=cam, bilateral=cfg.bilateral_filter,
+                                bilateral_mode=cfg.bilateral_mode)
+    pose = look_at((0.0, -0.8, 0.8), (0.0, 1.2, 0.7), device=dev)
+    pose = Pose(pose.R.contiguous(), pose.t.contiguous())
+    share = brick.share_classify_margin(p, f)
+    mip = brick._zeta_mip_reference(pts, nrm, cam, p.delta, f.distance, share)
+    R, base = brick._card_pose(pose)
+    geo = dict(params=p, cam=cam, hw=tuple(pts.shape[:2]))
+    bs, fac = f.brick_shape, max(f.hier_classify, 2)
+    nb3 = tuple(p.m // b for b in bs)
+    for nbi, i_offset in ((nb3[0], 0), (nb3[0] // 2, p.m // 2)):
+        grid = (nbi,) + nb3[1:]
+        want = brick.classify_bricks_reference(p, pose, pts, nrm, cam, bs, f.distance, mip=mip,
+                                               nbi=nbi, i_offset=i_offset).reshape(-1)
+        got, _ = k567.classify_bricks(mip, R, base, bs=bs, grid=grid, i_offset=i_offset, **geo)
+        assert torch.equal(got.to(torch.int32), want), (nbi, i_offset)
+        assert i_offset or int((want == 2).sum()) > 0
+        ns3 = tuple(n // fac for n in grid)
+        sbs = tuple(b * fac for b in bs)
+        swant = brick.classify_bricks_reference(p, pose, pts, nrm, cam, sbs, f.distance, mip=mip,
+                                                nbi=ns3[0], i_offset=i_offset).reshape(-1)
+        gen = torch.Generator(device=dev).manual_seed(nbi)
+        sat = torch.rand(want.numel(), generator=gen, device=dev) < 0.9
+        sat.view(ns3[0], fac, ns3[1], fac, ns3[2], fac)[::3, :, ::2, :, :, :] = True
+        sat_want = (sat.view(ns3[0], fac, ns3[1], fac, ns3[2], fac).permute(0, 2, 4, 1, 3, 5)
+                    .reshape(-1, fac ** 3).all(1))
+        kw = dict(bs=sbs, grid=ns3, i_offset=i_offset, factor=fac, **geo)
+        plain, none = k567.classify_bricks(mip, R, base, **kw)
+        sgot, sat_super = k567.classify_bricks(mip, R, base, sat=sat, **kw)
+        assert none is None and torch.equal(plain, sgot)
+        assert torch.equal(sgot.to(torch.int32), swant)
+        assert torch.equal(sat_super, sat_want) and 0 < int(sat_want.sum()) < sat_want.numel()
+        # the listed mixed supers, then a padding slot
+        ns = swant.numel()
+        mixed = torch.cat([torch.nonzero(swant == 2).reshape(-1),
+                           torch.full((1,), ns, device=dev)]).int()
+        fcls, gid = k567.classify_children(mip, R, base, mixed, bs=bs, grid=grid,
+                                           i_offset=i_offset, factor=fac, **geo)
+        s = mixed[:-1].long()[:, None]
+        c = torch.arange(fac ** 3, device=dev)
+        ib = (s // (ns3[1] * ns3[2])) * fac + c // (fac * fac)
+        jb = ((s // ns3[2]) % ns3[1]) * fac + (c // fac) % fac
+        kb = (s % ns3[2]) * fac + c % fac
+        gwant = ((ib * grid[1] + jb) * grid[2] + kb).reshape(-1)
+        n = gwant.numel()
+        assert torch.equal(gid[:n].long(), gwant) and bool((gid[n:] == want.numel()).all())
+        assert torch.equal(fcls[:n].to(torch.int32), want[gwant])
+        assert not bool(fcls[n:].any()) and n > 0
 
 
 @pytest.mark.parametrize("sat_case", ["none", "partly"])

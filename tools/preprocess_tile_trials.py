@@ -1,12 +1,14 @@
-"""Tile trials for K3's separable kernel and K4 (csrc/preprocess.cu) on a CUDA card.
+"""Tile trials for K3 (both forms) and K4 (csrc/preprocess.cu) on a CUDA card.
 
-Builds csrc/preprocess.cu once for each candidate (K3's tile kSepW x kSepH,
-pass-1 strip kSepStrip and pass-2 pixels a thread kSepPx; K4's tile kNormW x kNormH, threads, column
-strip and resident blocks; one nvcc a candidate, all started together),
-then, on chip_smoke.py's phase 12 inputs (the scene's second frame at
-640x480 and its speckled copy), runs K3's separable filter (one launch) and
-K4 from depth in each build: every output bit against the plain versions,
-and each kernel's device time from torch.profiler over 200 launches
+Builds csrc/preprocess.cu once for each candidate (K3's separable tile
+kSepW x kSepH, pass-1 strip kSepStrip and pass-2 pixels a thread kSepPx;
+K3's 2-D tile k2dW x k2dH and pixels a thread k2dPx; K4's tile kNormW x
+kNormH, threads, column strip and resident blocks; one nvcc a candidate,
+all started together), then, on chip_smoke.py's phase 12 inputs (the
+scene's second frame at 640x480 and its speckled copy), runs K3's separable
+filter (one launch), its 2-D filter at the compiled radius and K4 from depth
+in each build: every output bit against the plain versions, and each
+kernel's device time from torch.profiler over 200 launches
 (chip_smoke.kernel_device_ms; the run fails if no profile saw a kernel).
 Prints one line a candidate with the registers nvcc reports, the card's
 name, power limit and SM clock, and writes the records as JSON into --out.
@@ -36,16 +38,20 @@ from tracking_sdf_tpu_torch.kernels import _build  # noqa: E402
 from tracking_sdf_tpu_torch.tracking import preprocess as pre  # noqa: E402
 
 # csrc/preprocess.cu's constants a candidate sets; the first candidate is
-# the committed source's. K3: (kSepW, kSepH, kSepStrip, kSepPx); K4:
-# (kNormW, kNormH, kNormBlocks, kNormThreads, kNormStrip)
+# the committed source's. K3: (kSepW, kSepH, kSepStrip, kSepPx); K3's 2-D
+# form: (k2dW, k2dH, k2dPx); K4: (kNormW, kNormH, kNormBlocks, kNormThreads,
+# kNormStrip)
 K3_CANDIDATES = [(128, 4, 2, 2), (64, 8, 2, 4), (64, 8, 2, 2), (64, 8, 1, 2), (128, 4, 2, 4),
                  (64, 16, 2, 2), (32, 16, 2, 2), (128, 8, 2, 2)]
+K2D_CANDIDATES = [(64, 8, 2), (32, 8, 2), (128, 4, 2), (32, 16, 2), (64, 4, 2), (64, 8, 4),
+                  (32, 8, 4), (128, 8, 2)]
 K4_CANDIDATES = [(32, 16, 5, 128, 8), (32, 16, 4, 128, 8), (32, 16, 6, 128, 8),
                  (32, 8, 10, 64, 8), (64, 8, 5, 128, 8), (16, 16, 10, 64, 8),
                  (32, 16, 4, 192, 4), (64, 16, 3, 256, 8)]
-CANDIDATES = [dict(kSepW=a[0], kSepH=a[1], kSepStrip=a[2], kSepPx=a[3], kNormW=b[0],
-                   kNormH=b[1], kNormBlocks=b[2], kNormThreads=b[3], kNormStrip=b[4])
-              for a, b in zip(K3_CANDIDATES, K4_CANDIDATES)]
+CANDIDATES = [dict(kSepW=a[0], kSepH=a[1], kSepStrip=a[2], kSepPx=a[3], k2dW=c[0], k2dH=c[1],
+                   k2dPx=c[2], kNormW=b[0], kNormH=b[1], kNormBlocks=b[2], kNormThreads=b[3],
+                   kNormStrip=b[4])
+              for a, c, b in zip(K3_CANDIDATES, K2D_CANDIDATES, K4_CANDIDATES)]
 LAUNCHES = 200
 
 
@@ -80,21 +86,21 @@ def build_all(out_dir: Path):
 
 
 def _ptxas_lines(log: str):
-    """'kernel: N registers, M bytes smem' for the separable and normals kernels."""
+    """'kernel: N registers' for the bilateral and normals kernels."""
     out, fn = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
             fn = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
-        if m and fn and ("bilateral_pass" in fn or "normals" in fn):
+        if m and fn and ("bilateral" in fn or "normals" in fn):
             out.append(f"{fn[-40:]}: {m.group(1)} regs")
     return out
 
 
 def load(so: Path):
     lib = ctypes.CDLL(str(so))
-    for name in ("tsdf_bilateral_pass", "tsdf_normals"):
+    for name in ("tsdf_bilateral_pass", "tsdf_bilateral_2d", "tsdf_normals"):
         fn = getattr(lib, name)
         fn.argtypes = _build._SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -139,6 +145,8 @@ def main() -> int:
     cam, imgs = frames(dev)
     stream = _build.stream_ptr(dev)
     sw = pre._spatial_weights_1d(5, 3.0)
+    sw2 = pre._spatial_weights_sq(pre.RADIUS_2D, 3.0)
+    table2 = pre._spatial_weights(pre.RADIUS_2D, 3.0, dev).data_ptr()
     inv2sr = 1.0 / (2.0 * 0.03 ** 2)
     scalars = (_build.card_reciprocal(cam.fx), _build.card_reciprocal(cam.fy), cam.cx, cam.cy,
                pre.DEPTH_CHANGE_FACTOR, pre.SMOOTHING_RADIUS)
@@ -146,7 +154,7 @@ def main() -> int:
     for label, d in imgs.items():
         p = backproject(cam, pre.bilateral_filter_separable_reference(d))
         want[label] = (pre.bilateral_filter_separable_reference(d), p,
-                       pre.estimate_normals_reference(p))
+                       pre.estimate_normals_reference(p), pre.bilateral_filter_reference(d))
     smoke.all_device_ms(lambda: torch.ones(1, device=dev).add_(1))  # the profiler's first cycle
     records = []
     for consts, (so, regs) in zip(CANDIDATES, built):
@@ -155,6 +163,7 @@ def main() -> int:
         rec = dict(consts, ptxas=regs, bits_differ={})
         for label, d in imgs.items():
             out = torch.empty_like(d)
+            full = torch.empty_like(d)
             pts = torch.empty(h, w, 3, device=dev)
             nrm = torch.empty(h, w, 3, device=dev)
 
@@ -163,24 +172,31 @@ def main() -> int:
                                                      ctypes.addressof(sw), inv2sr, 1, stream),
                              "k3")
 
+            def k3_2d(d=d, full=full):
+                _build.check(lib.tsdf_bilateral_2d(d.data_ptr(), full.data_ptr(), h, w,
+                                                   pre.RADIUS_2D, ctypes.addressof(sw2), table2,
+                                                   inv2sr, 1, stream), "k3 2-D")
+
             def k4(out=out, pts=pts, nrm=nrm):
                 _build.check(lib.tsdf_normals(out.data_ptr(), pts.data_ptr(), nrm.data_ptr(),
                                               h, w, *scalars, 1, stream), "k4")
 
             k3()
             k4()
+            k3_2d()
             torch.cuda.synchronize()
             rec["bits_differ"][label] = [bits_differ(a, b) for a, b in
-                                         zip((out, pts, nrm), want[label])]
+                                         zip((out, pts, nrm, full), want[label])]
             if label == "scene":
                 rec["k3_device_ms"] = device_ms(k3, "bilateral_pass_kernel")
+                rec["k3_2d_device_ms"] = device_ms(k3_2d, "bilateral_2d_kernel")
                 rec["k4_device_ms"] = device_ms(k4, "normals_kernel")
         c = consts
         print(f"K3 {c['kSepW']}x{c['kSepH']} strip {c['kSepStrip']} px {c['kSepPx']}: "
-              f"{rec['k3_device_ms']:.5f} "
-              f"ms; K4 {c['kNormW']}x{c['kNormH']} {c['kNormThreads']} threads strip "
-              f"{c['kNormStrip']} blocks {c['kNormBlocks']}: "
-              f"{rec['k4_device_ms']:.5f} ms; bits differing (filtered, points, normals) "
+              f"{rec['k3_device_ms']:.5f} ms; K3 2-D {c['k2dW']}x{c['k2dH']} px {c['k2dPx']}: "
+              f"{rec['k3_2d_device_ms']:.5f} ms; K4 {c['kNormW']}x{c['kNormH']} "
+              f"{c['kNormThreads']} threads strip {c['kNormStrip']} blocks {c['kNormBlocks']}: "
+              f"{rec['k4_device_ms']:.5f} ms; bits differing (filtered, points, normals, 2-D) "
               f"{rec['bits_differ']}; {'; '.join(regs)}")
         records.append(rec)
     ok = all(not any(v) for r in records for v in r["bits_differ"].values())

@@ -6,9 +6,10 @@
 //                           reduces its 4x4 tiles to mip levels 0, 1 and 2,
 //                           and the last block to finish reduces levels 3..
 //                           from level 2 in shared memory;
-//   tsdf_classify_bricks    K6: one thread a brick. OUT 0 / FREE 1 / FULL 2
-//                           from the 8 voxel-centre hull corners and a
-//                           4-cell window query of the mip; three forms:
+//   tsdf_classify_bricks    K6: 1 or 8 lanes a brick, as the caller asks.
+//                           OUT 0 / FREE 1 / FULL 2 from the 8 voxel-centre
+//                           hull corners and a 4-cell window query of the
+//                           mip; three forms:
 //                           flat (every brick of a slab), super (bricks x
 //                           factor, and "all children saturated"), children
 //                           (the factor^3 children of each listed super);
@@ -57,7 +58,20 @@
 // replays) loads into shared memory once to reduce levels 3.. there: no
 // level makes its own L2 round trip, and no second launch.
 // K6 and K7: a few hundred KB (32,768 bricks flat at 256^3; 4,096 supers and
-// at most 98,304 children at 512^3), so latency. K6: one thread a brick. K7:
+// at most 98,304 children at 512^3), so latency. K6: a brick's class is a
+// chain of ~900 instructions (8 corners with 16 divisions, a log2f, the
+// window's 8 mip cells). One thread a brick issues the fewest instructions,
+// but 4,096 supers are 1 warp an SM; a group of lanes a brick shortens the
+// chain (lane c projects corners c, c + lanes, ..., and loads its share of
+// the window's cells; the group reduces the bounds by shuffles, and the
+// super form's sat test spreads the f^3 child bytes over the lanes and
+// votes), at the cost of the brick's other work repeated in every lane. So
+// the caller picks 8 lanes where a launch's threads stay within 256 an SM
+// (tum512's supers), else 1 (tum256's bricks and the children):
+// fusion/brick_classify.py's classify_lanes, which
+// tools/classify_trials.py's candidates chose. Every form loads the window's cells unconditionally (a padding
+// cell from cell 0, then a select), so a thread's mip loads are in flight
+// together. K7:
 // a single-pass stable compaction over many blocks, a decoupled look-back
 // scan: each block takes a ticket; the first tickets are tiles of 2,048
 // flags (16 a thread, one 16-byte load, and the hierarchical form's ids as
@@ -84,7 +98,7 @@ constexpr int kPixels = 4;       // K5: consecutive pixels a thread
 constexpr int kTablesX = kRegion / kPixels;
 constexpr int kTablesY = kRegion;
 constexpr int kMaxLevels = 24;
-constexpr int kClassifyThreads = 256;
+constexpr int kClassifyThreads = 128;
 constexpr int kCompactThreads = 128;
 constexpr int kFlagsPerThread = 16;
 constexpr int kCompactTile = kCompactThreads * kFlagsPerThread;  // flags a tile
@@ -93,6 +107,8 @@ constexpr int kScratchHead = 2;  // K7 scratch: [ticket, done], [n_sat, 0], then
 constexpr uint8_t kFree = 1, kFull = 2;
 constexpr int kModeMip = 1, kModeTable = 2;
 constexpr int kFlat = 0, kSuper = 1, kChildren = 2;
+
+static_assert(kClassifyThreads % 32 == 0, "K6: a brick's lanes lie in one warp");
 
 // The mip's levels, flattened row-major and concatenated: level l holds
 // dh[l] x dw[l] cells from off[l]; total cells over all levels.
@@ -109,6 +125,20 @@ __device__ __forceinline__ float min_nan(float a, float b) {
 }
 __device__ __forceinline__ float max_nan(float a, float b) {
   return isnan(a) ? a : (isnan(b) ? b : fmaxf(a, b));
+}
+
+// K6's min and max, whose results meet only comparisons: a NaN wins (PTX
+// min.NaN / max.NaN, one instruction), as in min_nan / max_nan up to the
+// NaN's payload and a zero's sign, which no comparison sees
+__device__ __forceinline__ float min_cmp(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float max_cmp(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
 }
 
 // torch.clamp: a NaN stays NaN
@@ -390,24 +420,46 @@ struct Mip {
   const float *zeta, *zeta_down, *eta, *eta_down;
 };
 
-// World coordinates of the first and last voxel centre of brick b of extent
-// `ext` along one axis, the first brick starting at voxel `off`:
-// (s * (idx + 0.5)) + o and (s * ((idx + ext) - 0.5)) + o, idx = b * ext + off.
-__device__ __forceinline__ void axis_lohi(int b, int ext, int off, float s, float o, float& lo,
-                                          float& hi) {
+// World coordinate of the first (hi 0) or last (hi 1) voxel centre of brick
+// b of extent `ext` along one axis, the first brick starting at voxel `off`:
+// (s * (idx + 0.5)) + o or (s * ((idx + ext) - 0.5)) + o, idx = b * ext + off.
+__device__ __forceinline__ float axis_end(int b, int ext, int off, float s, float o, int hi) {
   const float fe = static_cast<float>(ext);
   const float idx = __fadd_rn(__fmul_rn(static_cast<float>(b), fe), static_cast<float>(off));
-  lo = __fadd_rn(__fmul_rn(s, __fadd_rn(idx, 0.5f)), o);
-  hi = __fadd_rn(__fmul_rn(s, __fsub_rn(__fadd_rn(idx, fe), 0.5f)), o);
+  return __fadd_rn(__fmul_rn(s, hi ? __fsub_rn(__fadd_rn(idx, fe), 0.5f) : __fadd_rn(idx, 0.5f)),
+                   o);
+}
+
+// The min / max of v over the kLanes lanes of a brick's group (mask: the
+// group's lanes). min_cmp and max_cmp let a NaN win and are otherwise exact,
+// so any order gives the classes the plain version's sequence gives (a
+// NaN's payload and a zero's sign reach only comparisons, the clamps and the
+// level's and the window's integer casts, where neither changes a result).
+template <int kLanes>
+__device__ __forceinline__ float group_min(unsigned mask, float v) {
+#pragma unroll
+  for (int s = 1; s < kLanes; s <<= 1) v = min_cmp(v, __shfl_xor_sync(mask, v, s));
+  return v;
+}
+template <int kLanes>
+__device__ __forceinline__ float group_max(unsigned mask, float v) {
+#pragma unroll
+  for (int s = 1; s < kLanes; s <<= 1) v = max_cmp(v, __shfl_xor_sync(mask, v, s));
+  return v;
 }
 
 // (min zeta, max eta) over the window of 4 cells a row for two row pairs at
 // the level where 3 cells cover the clamped bbox's span (brick._query_zeta);
-// flat indices past the end wrap modulo the total padded to a multiple of 4,
-// whose pad cells are neutral.
+// flat indices past the end wrap modulo the total padded to a multiple of 4
+// (an index is below twice that), whose pad cells are neutral. Every lane of
+// the group computes the level and the window (the same in each) and loads
+// 8 / kLanes of its 8 cells (cell q: row pair q / 4, column q % 4), all at
+// once; the group reduces them.
+template <int kLanes>
 __device__ __forceinline__ void query(const Mip& mip, const Levels& L, float inv_span, float u0,
-                                      float u1, float v0, float v1, float& zmin, float& emax) {
-  const float span = __fmul_rn(max_nan(__fsub_rn(u1, u0), __fsub_rn(v1, v0)), inv_span);
+                                      float u1, float v0, float v1, int lane, unsigned mask,
+                                      float& zmin, float& emax) {
+  const float span = __fmul_rn(max_cmp(__fsub_rn(u1, u0), __fsub_rn(v1, v0)), inv_span);
   const float lf = ceilf(log2f(clamp_min(span, 1.f)));
   // the int64 cast of a NaN is INT64_MIN, which the clamp takes to 0
   const int lvl = isnan(lf) ? 0 : static_cast<int>(fminf(fmaxf(lf, 0.f), L.n - 1.f));
@@ -417,57 +469,72 @@ __device__ __forceinline__ void query(const Mip& mip, const Levels& L, float inv
   const int cu0 = min(isnan(qu) ? 0 : max(static_cast<int>(qu), 0), max(dw - 4, 0));
   const int cv0 = min(isnan(qv) ? 0 : max(static_cast<int>(qv), 0), max(dh - 4, 0));
   const int P = (L.total + 3) & ~3;
+  constexpr int kCells = 8 / kLanes;
+  float z[kCells], zd[kCells], e[kCells], ed[kCells];
+  bool in[kCells];
+#pragma unroll
+  for (int k = 0; k < kCells; ++k) {
+    const int q = lane + k * kLanes;
+    int i = off + min(cv0 + 2 * (q >> 2), dh - 1) * dw + cu0 + (q & 3);
+    i = i >= P ? i - P : i;
+    in[k] = i < L.total;
+    const int c = in[k] ? i : 0;
+    z[k] = __ldg(mip.zeta + c);
+    zd[k] = __ldg(mip.zeta_down + c);
+    e[k] = __ldg(mip.eta + c);
+    ed[k] = __ldg(mip.eta_down + c);
+  }
   zmin = inf_f();
   emax = -inf_f();
 #pragma unroll
-  for (int dv = 0; dv <= 2; dv += 2) {
-    const int f0 = off + min(cv0 + dv, dh - 1) * dw + cu0;
-#pragma unroll
-    for (int lane = 0; lane < 4; ++lane) {
-      const int i = (f0 + lane) % P;
-      if (i < L.total) {
-        zmin = min_nan(zmin, min_nan(__ldg(mip.zeta + i), __ldg(mip.zeta_down + i)));
-        emax = max_nan(emax, max_nan(__ldg(mip.eta + i), __ldg(mip.eta_down + i)));
-      }
-    }
+  for (int k = 0; k < kCells; ++k) {
+    zmin = in[k] ? min_cmp(zmin, min_cmp(z[k], zd[k])) : zmin;
+    emax = in[k] ? max_cmp(emax, max_cmp(e[k], ed[k])) : emax;
   }
+  zmin = group_min<kLanes>(mask, zmin);
+  emax = group_max<kLanes>(mask, emax);
 }
 
-// 0 OUT, 1 FREE, 2 FULL of brick (ib, jb, kb) (brick._class_from_corners)
-__device__ uint8_t classify_brick(const ClassifyArgs& a, const Levels& L, const Mip& mip,
-                                  const float* R, const float* base, int ib, int jb, int kb) {
-  float xs[2], ys[2], zs[2];
-  axis_lohi(ib, a.bi, a.i_offset, a.si, a.ox, xs[0], xs[1]);
-  axis_lohi(jb, a.bj, 0, a.sj, a.oy, ys[0], ys[1]);
-  axis_lohi(kb, a.bk, 0, a.sk, a.oz, zs[0], zs[1]);
-  float ax[2][3], ay[2][3], az[2][3];  // each axis' part of Rᵀ p: R's row per axis
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      ax[s][c] = __fmul_rn(xs[s], R[c]);
-      ay[s][c] = __fmul_rn(ys[s], R[3 + c]);
-      az[s][c] = __fmul_rn(zs[s], R[6 + c]);
-    }
+// 0 OUT, 1 FREE, 2 FULL of brick (ib, jb, kb) (brick._class_from_corners),
+// the same in every lane of its group: lane `lane` projects corners lane,
+// lane + kLanes, ... of the 8 in (i, j, k) loop order (corner c: ci = c >>
+// 2, cj = (c >> 1) & 1, ck = c & 1) with the plain ops' rounding, and the
+// group reduces the depth and image bounds.
+template <int kLanes>
+__device__ __forceinline__ uint8_t classify_brick(const ClassifyArgs& a, const Levels& L,
+                                                  const Mip& mip, const float* R,
+                                                  const float* base, int ib, int jb, int kb,
+                                                  int lane, unsigned mask) {
   float pz_min = inf_f(), pz_max = -inf_f();
   float u0 = inf_f(), u1 = -inf_f(), v0 = inf_f(), v1 = -inf_f();
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {  // corners in (i, j, k) loop order
-    const int ci = k >> 2, cj = (k >> 1) & 1, ck = k & 1;
-    float p[3];
+  for (int k = 0; k < 8 / kLanes; ++k) {
+    const int c = lane + k * kLanes;
+    const float x = axis_end(ib, a.bi, a.i_offset, a.si, a.ox, c >> 2);
+    const float y = axis_end(jb, a.bj, 0, a.sj, a.oy, (c >> 1) & 1);
+    const float z = axis_end(kb, a.bk, 0, a.sk, a.oz, c & 1);
+    float p[3];  // ((x R0 + y R1) + z R2) + base: each axis' part of Rᵀ p is R's row
 #pragma unroll
-    for (int c = 0; c < 3; ++c)
-      p[c] = __fadd_rn(__fadd_rn(__fadd_rn(ax[ci][c], ay[cj][c]), az[ck][c]), base[c]);
-    pz_min = min_nan(pz_min, p[2]);
-    pz_max = max_nan(pz_max, p[2]);
+    for (int e = 0; e < 3; ++e)
+      p[e] = __fadd_rn(__fadd_rn(__fadd_rn(__fmul_rn(x, R[e]), __fmul_rn(y, R[3 + e])),
+                                 __fmul_rn(z, R[6 + e])),
+                       base[e]);
+    pz_min = min_cmp(pz_min, p[2]);
+    pz_max = max_cmp(pz_max, p[2]);
     const float safe = p[2] > 0.f ? p[2] : 1.f;
     const float u = __fdiv_rn(__fadd_rn(__fmul_rn(a.fx, p[0]), __fmul_rn(a.cx, p[2])), safe);
     const float v = __fdiv_rn(__fadd_rn(__fmul_rn(a.fy, p[1]), __fmul_rn(a.cy, p[2])), safe);
-    u0 = min_nan(u0, u);
-    u1 = max_nan(u1, u);
-    v0 = min_nan(v0, v);
-    v1 = max_nan(v1, v);
+    u0 = min_cmp(u0, u);
+    u1 = max_cmp(u1, u);
+    v0 = min_cmp(v0, v);
+    v1 = max_cmp(v1, v);
   }
+  pz_min = group_min<kLanes>(mask, pz_min);
+  pz_max = group_max<kLanes>(mask, pz_max);
+  u0 = group_min<kLanes>(mask, u0);
+  u1 = group_max<kLanes>(mask, u1);
+  v0 = group_min<kLanes>(mask, v0);
+  v1 = group_max<kLanes>(mask, v1);
   const float w = static_cast<float>(a.img_w), h = static_cast<float>(a.img_h);
   const bool all_front = pz_min > 0.f;
   const bool inside = all_front && u0 >= 0.f && u1 < w && v0 >= 0.f && v1 < h;
@@ -475,50 +542,68 @@ __device__ uint8_t classify_brick(const ClassifyArgs& a, const Levels& L, const 
   const bool out =
       pz_max <= 0.f || (all_front && (u1 <= -1.f || u0 >= w || v1 <= -1.f || v0 >= h));
   float zmin, emax;
-  query(mip, L, a.inv_span, clamp(u0, 0.f, w - 1.f), clamp(u1, 0.f, w - 1.f),
-        clamp(v0, 0.f, h - 1.f), clamp(v1, 0.f, h - 1.f), zmin, emax);
+  query<kLanes>(mip, L, a.inv_span, clamp(u0, 0.f, w - 1.f), clamp(u1, 0.f, w - 1.f),
+                clamp(v0, 0.f, h - 1.f), clamp(v1, 0.f, h - 1.f), lane, mask, zmin, emax);
   const bool free = inside && pz_max < zmin;
   const bool occluded = all_front && pz_min > emax;
   return out || occluded ? 0 : (free ? kFree : kFull);
 }
 
+// kLanes consecutive lanes a brick; the group's lane 0 writes.
+template <int kLanes>
 __global__ void __launch_bounds__(kClassifyThreads)
 classify_bricks_kernel(Mip mip, const float* __restrict__ pose_R, const float* __restrict__ base,
                        const uint8_t* __restrict__ sat, const int* __restrict__ mixed_ids,
                        uint8_t* __restrict__ cls, uint8_t* __restrict__ sat_super,
                        int* __restrict__ gid, ClassifyArgs a, Levels L) {
-  const int i = blockIdx.x * kClassifyThreads + threadIdx.x;
-  float R[9], t[3];
+  const int t = blockIdx.x * kClassifyThreads + threadIdx.x;
+  const int i = t / kLanes, lane = t % kLanes;
+  // the group's lanes of the warp (a group lies in one warp; groups of one
+  // warp may part ways)
+  const unsigned mask = ((1u << kLanes) - 1) << ((threadIdx.x & 31) & ~(kLanes - 1));
+  float R[9], b[3];
 #pragma unroll
   for (int c = 0; c < 9; ++c) R[c] = __ldg(pose_R + c);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) t[c] = __ldg(base + c);
+  for (int c = 0; c < 3; ++c) b[c] = __ldg(base + c);
   if (a.form != kChildren) {
-    if (i >= a.nbi * a.nbj * a.nbk) return;
+    if (i >= a.nbi * a.nbj * a.nbk) return;  // the whole group
     const int ib = i / (a.nbj * a.nbk), jb = (i / a.nbk) % a.nbj, kb = i % a.nbk;
-    cls[i] = classify_brick(a, L, mip, R, t, ib, jb, kb);
-    if (a.form == kSuper && sat != nullptr) {  // are all f^3 children saturated?
+    const uint8_t c = classify_brick<kLanes>(a, L, mip, R, b, ib, jb, kb, lane, mask);
+    if (lane == 0) cls[i] = c;
+    if (a.form == kSuper && sat != nullptr) {
+      // are all f^3 children saturated? The group reads the f^2 runs of f
+      // contiguous bytes (a child's k), lane `lane` runs lane, lane + kLanes,
+      // ..., every byte (no early exit), and votes
       const int f = a.f, fj = a.nbj * f, fk = a.nbk * f;
       bool all = true;
-      for (int c = 0; c < f * f * f && all; ++c)
-        all = sat[(ib * f + c / (f * f)) * fj * fk + (jb * f + (c / f) % f) * fk + kb * f + c % f];
-      sat_super[i] = all;
+      for (int run = lane; run < f * f; run += kLanes) {
+        const uint8_t* s = sat + (ib * f + run / f) * fj * fk + (jb * f + run % f) * fk + kb * f;
+        for (int k = 0; k < f; ++k) all &= s[k] != 0;
+      }
+      all = __all_sync(mask, all);
+      if (lane == 0) sat_super[i] = all;
     }
     return;
   }
   const int vol = a.f * a.f * a.f;
-  if (i >= a.n_slots * vol) return;
+  if (i >= a.n_slots * vol) return;  // the whole group
   const int sid = mixed_ids[i / vol], c = i % vol;
-  if (sid >= a.ns) {  // a padding slot
-    cls[i] = 0;
-    gid[i] = a.nb;
+  if (sid >= a.ns) {  // a padding slot: the whole group
+    if (lane == 0) {
+      cls[i] = 0;
+      gid[i] = a.nb;
+    }
     return;
   }
   const int ib = (sid / (a.nsj * a.nsk)) * a.f + c / (a.f * a.f);
   const int jb = ((sid / a.nsk) % a.nsj) * a.f + (c / a.f) % a.f;
   const int kb = (sid % a.nsk) * a.f + c % a.f;
-  cls[i] = classify_brick(a, L, mip, R, t, ib, jb, kb);
-  gid[i] = (ib * a.nbj + jb) * a.nbk + kb;
+  const uint8_t k = classify_brick<kLanes>(a, L, mip, R, b, ib, jb, kb, lane, mask);
+  if (lane == 0) {
+    cls[i] = k;
+    gid[i] = (ib * a.nbj + jb) * a.nbk + kb;
+  }
 }
 
 // ---- K7 -------------------------------------------------------------------
@@ -867,7 +952,7 @@ extern "C" int tsdf_frame_tables(const float* pts, const float* nrm, const float
 // sat_super. form 2 children: the f^3 children of each of the n_slots
 // mixed_ids (an id >= ns is padding) on the fine grid (nbi, nbj, nbk), into
 // cls and gid (n_slots f^3). R: the pose's rotation (row-major), base:
-// -(Rᵀ t), both float32 on the device.
+// -(Rᵀ t), both float32 on the device. lanes: 1 or 8 a brick.
 extern "C" int tsdf_classify_bricks(int form, const float* zeta, const float* zeta_down,
                                     const float* eta, const float* eta_down, const int* levels,
                                     const float* R, const float* base, const uint8_t* sat,
@@ -876,9 +961,10 @@ extern "C" int tsdf_classify_bricks(int form, const float* zeta, const float* ze
                                     int i_offset, int f, int n_slots, int ns, int nsj, int nsk,
                                     int nb, int img_h, int img_w, float si, float sj, float sk,
                                     float ox, float oy, float oz, float fx, float fy, float cx,
-                                    float cy, float inv_span, cudaStream_t stream) {
+                                    float cy, float inv_span, int lanes, cudaStream_t stream) {
   const Levels L = levels_from(levels);
   if (form < kFlat || form > kChildren || L.n < 1 || L.n > kMaxLevels || f < 1
+      || (lanes != 1 && lanes != 8)
       || (form == kChildren && (mixed_ids == nullptr || gid == nullptr))
       || (form == kSuper && sat != nullptr && sat_super == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -887,9 +973,12 @@ extern "C" int tsdf_classify_bricks(int form, const float* zeta, const float* ze
   const ClassifyArgs a{form, nbi,   nbj,   nbk,   bi, bj, bk, i_offset, f,  n_slots,
                        ns,   nsj,   nsk,   nb,    img_h, img_w, si, sj, sk, ox,
                        oy,   oz,    fx,    fy,    cx, cy,       inv_span};
-  classify_bricks_kernel<<<(n + kClassifyThreads - 1) / kClassifyThreads, kClassifyThreads, 0,
-                           stream>>>(Mip{zeta, zeta_down, eta, eta_down}, R, base, sat,
-                                     mixed_ids, cls, sat_super, gid, a, L);
+  const Mip mip{zeta, zeta_down, eta, eta_down};
+  const int blocks = static_cast<int>(
+      (static_cast<long long>(n) * lanes + kClassifyThreads - 1) / kClassifyThreads);
+  const auto kernel = lanes == 8 ? classify_bricks_kernel<8> : classify_bricks_kernel<1>;
+  kernel<<<blocks, kClassifyThreads, 0, stream>>>(mip, R, base, sat, mixed_ids, cls, sat_super,
+                                                  gid, a, L);
   return static_cast<int>(cudaGetLastError());
 }
 

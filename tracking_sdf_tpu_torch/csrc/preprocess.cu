@@ -59,13 +59,29 @@
 // a row a thread from a register window; two neighbouring threads join
 // their pixels for one 16-byte store. A thread's pixels' taps interleave,
 // and a tap that is not finite is skipped by selects, not branches. The
-// presets' r = 5 is compiled (taps unrolled); any other radius runs the same
-// code with a runtime radius. The spatial weights travel by value in the
-// kernel's parameters, not as a load a tap. Tiles, strips and pixels a
-// thread are the fastest of tools/preprocess_tile_trials.py's candidates.
-// The 2-D form: operations, 121 taps of ~8 float ops and one expf a pixel;
-// it stages a (32 + 2r) x (8 + 2r) tile and the tap weights in shared
-// memory so each depth is read from device memory once a block.
+// presets' r = 5 is compiled (taps unrolled); any other radius up to
+// kMaxSepRadius (the two-pass launch's shared memory reaches kMaxSmem)
+// runs the same code with a runtime radius. The spatial weights travel by
+// value in the kernel's parameters, not as a load a tap. Tiles, strips and
+// pixels a thread are the fastest of tools/preprocess_tile_trials.py's
+// candidates.
+// The 2-D form: operations, 121 taps of ~8 float ops and one expf a pixel,
+// ~16 instructions a tap, so instruction issue sets its floor as it does
+// the separable form's. A block stages its k2dW x k2dH tile with r rows above
+// and below and r (rounded up to 4) columns left and right in shared memory
+// (16-byte loads where it can), NaN outside the image; each thread makes
+// k2dPx consecutive pixels of a row from a register window of k2dPx + 2r
+// floats a tap row (vector loads from shared memory), their taps
+// interleaved (tap row, tap column, pixel); a tap that is not finite adds
+// nothing, not by a branch: the compiled radius takes it as +inf (weight
+// exactly 0) and the runtime radius selects its weight. The default r = 5
+// is compiled (the 121 taps unrolled), its spatial weights by value in the
+// kernel's parameters, one a squared distance dy^2 + dx^2 (51 floats), not
+// as a load a tap; any other radius up to kMaxRadius2d (the staged tile
+// reaches kMaxSmem) runs the same loop with a runtime radius, reading each
+// tap's weight from the plain version's (2r+1)^2 table on the device. Stores are 16 bytes where w % 4 == 0 and the tensors are aligned. Tile and
+// pixels a thread: the fastest of tools/preprocess_tile_trials.py's
+// candidates.
 // K4: bytes (1.2 MB of depth in, 3.7 MB of points and 3.7 MB of normals
 // out) against ~450 instructions a pixel. A block makes a kNormW x kNormH
 // tile: it stages the depth (or the three point planes) of the tile plus
@@ -78,7 +94,8 @@
 // 16-byte stores, consecutive threads on consecutive 16 bytes. 600 blocks
 // at 640x480 stay resident in one wave (kNormBlocks); its load, compute and
 // store phases then run one after the other on every SM. The presets'
-// R = 4 is compiled; radii 0-5 run the same code with a runtime radius.
+// R = 4 is compiled; any other radius up to kMaxBoxRadius (the point form's
+// shared memory reaches kMaxSmem) runs the same code with a runtime radius.
 
 #include <cuda_runtime.h>
 
@@ -86,9 +103,12 @@
 
 namespace {
 
-constexpr int kBX = 32;  // K3 2-D form: a block is 32 x 8 output pixels, one a thread
-constexpr int kBY = 8;
-constexpr int kMaxRadius2d = 16;
+// K3 2-D form: a block makes a k2dW x k2dH tile, k2dPx pixels of a row a thread
+constexpr int k2dW = 64;
+constexpr int k2dH = 8;
+constexpr int k2dPx = 2;  // 2 or 4
+constexpr int k2dThreads = k2dW * k2dH / k2dPx;
+constexpr int k2dRadius = 5;  // compiled: bilateral_filter's default
 // K3 separable form: a block makes a kSepW x kSepH tile, kSepStrip rows of one
 // column a thread in pass 1 and kSepPx pixels of a row a thread in pass 2
 constexpr int kSepW = 128;
@@ -97,34 +117,32 @@ constexpr int kSepStrip = 2;
 constexpr int kSepPx = 2;  // 2 or 4
 constexpr int kSepThreads = kSepW * kSepH / kSepPx;
 constexpr int kSepRadius = 5;  // compiled: bilateral_filter_separable's default
-constexpr int kMaxSepRadius = 16;
 // K4: a block makes a kNormW x kNormH tile, 4 pixels of a row a thread at the end
 constexpr int kNormW = 32;
 constexpr int kNormH = 16;
 constexpr int kNormThreads = 128;  // >= kNormW * kNormH / 4: 4 pixels a thread at the end
 constexpr int kNormBlocks = 5;  // resident blocks an SM: 600 fill 132 SMs in one wave
 constexpr int kNormStrip = 8;  // rows of the box's column sums a thread
-constexpr int kNormHalo = 8;   // staged columns left and right of the tile (>= R + 1)
 constexpr int kBoxRadius = 4;  // compiled: estimate_normals' SMOOTHING_RADIUS
-constexpr int kMaxBoxRadius = 5;
+// The dynamic shared memory an sm_90 block may have: each kernel takes any
+// radius up to the last whose launch fits it (kMaxRadius2d, kMaxSepRadius,
+// kMaxBoxRadius below, from the tiles).
+constexpr int kMaxSmem = 227 * 1024;
 
+static_assert(k2dW % 4 == 0 && (k2dPx == 2 || k2dPx == 4) && (k2dW / k2dPx) % 2 == 0
+              && k2dThreads % 32 == 0, "K3 2-D tile");
 static_assert(kSepW % 4 == 0 && kSepH % kSepStrip == 0 && (kSepPx == 2 || kSepPx == 4)
               && kSepThreads % 32 == 0, "K3 tile");
-static_assert(kNormW % 4 == 0 && kNormH % kNormStrip == 0 && kNormHalo % 4 == 0
-              && kNormHalo > kMaxBoxRadius && kNormW * kNormH <= 4 * kNormThreads, "K4 tile");
-static_assert((kNormW + 2 * kMaxBoxRadius) * (kNormH / kNormStrip) <= kNormThreads,
-              "K4: one column strip a thread");
+static_assert(kNormW % 4 == 0 && kNormH % kNormStrip == 0 && kNormW * kNormH <= 4 * kNormThreads,
+              "K4 tile");
 
 __device__ __forceinline__ float nan_f() { return __int_as_float(0x7fc00000); }
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
 // sw * exp(-(dn - d0)^2 * inv2sr), as the plain version's ops round it
 __device__ __forceinline__ float range_weight(float sw, float dn, float d0, float inv2sr) {
   const float diff = __fsub_rn(dn, d0);
   return __fmul_rn(sw, expf(__fmul_rn(-__fmul_rn(diff, diff), inv2sr)));
-}
-
-__device__ __forceinline__ float filtered(float num, float den) {
-  return den > 0.f ? __fdiv_rn(num, fmaxf(den, 1e-12f)) : nan_f();
 }
 
 // A kernel whose dynamic shared memory passes 48 KB must be allowed it first.
@@ -204,12 +222,6 @@ __device__ __forceinline__ void stage_points(const float* __restrict__ src, floa
 
 // --- K3, separable form --------------------------------------------------------
 
-struct SepArgs {
-  int h, w, radius;
-  float inv2sr;
-  float sw[2 * kMaxSepRadius + 1];  // the spatial weights, by value
-};
-
 // Staged rows above and below the tile, columns left and right (a multiple of
 // 4), and the shared floats of a launch (the staged tile, and in mode 2 pass
 // 1's rows).
@@ -221,10 +233,30 @@ __host__ __device__ constexpr int sep_pitch(int r, int mode) {
 __host__ __device__ constexpr int sep_smem_floats(int r, int mode) {
   return (kSepH + 2 * sep_rows(r, mode) + (mode == 2 ? kSepH : 0)) * sep_pitch(r, mode);
 }
+// the largest radius of the two-pass launch (mode 2), which every mode takes
+constexpr int largest_sep_radius() {
+  int r = 0;
+  while (4 * sep_smem_floats(r + 1, 2) <= kMaxSmem) ++r;
+  return r;
+}
+constexpr int kMaxSepRadius = largest_sep_radius();
 
-// kSepPx values from 16-byte (kSepPx 4) or 8-byte (2) aligned shared memory
+// the spatial weights by value: the compiled radius's 2 kR + 1, or room for
+// any radius up to kMaxSepRadius
+__host__ __device__ constexpr int sep_weights(int kR) {
+  return 2 * (kR >= 0 ? kR : kMaxSepRadius) + 1;
+}
+template <int kN>
+struct SepArgs {
+  int h, w, radius;
+  float inv2sr;
+  float sw[kN];
+};
+
+// kN values from 16-byte (kN 4) or 8-byte (2) aligned shared memory
+template <int kN>
 __device__ __forceinline__ void load_px(const float* p, float* b) {
-  if (kSepPx == 4) {
+  if constexpr (kN == 4) {
     const float4 v = *reinterpret_cast<const float4*>(p);
     b[0] = v.x, b[1] = v.y, b[2] = v.z, b[3] = v.w;
   } else {
@@ -233,12 +265,35 @@ __device__ __forceinline__ void load_px(const float* p, float* b) {
   }
 }
 
+// A thread's kN pixels of row y from column x (a multiple of kN) into the
+// (h, w) output, res[0, kN): with vec (w % 4 == 0, out 16-byte aligned) one
+// 16-byte store a group of 4 pixels, which lies wholly inside or outside the
+// image (kN 2: an even thread takes its odd neighbour's pair, so every lane
+// of the warp calls this, and res has room for 4), else one float at a time.
+template <int kN>
+__device__ __forceinline__ void store_px(float* __restrict__ out, float res[4], int y, int x,
+                                         int h, int w, int vec) {
+  if (kN == 2 && vec) {
+    res[2] = __shfl_down_sync(0xffffffffu, res[0], 1);
+    res[3] = __shfl_down_sync(0xffffffffu, res[1], 1);
+  }
+  if (y >= h || x >= w) return;
+  if (vec) {
+    if (x % 4 == 0)
+      *reinterpret_cast<float4*>(out + y * w + x) = make_float4(res[0], res[1], res[2], res[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+      if (x + j < w) out[y * w + x + j] = res[j];
+  }
+}
+
 // One output of a 1-D pass with a runtime radius R from its 2R + 1 taps
 // t[0], t[s], ..., t[2R s] (the centre t[R s]) as the plain pass rounds it;
 // wc is the centre tap's weight, sw[R] * exp(-0 * inv2sr). Selects, not
 // branches, skip the taps that are not finite.
-__device__ __forceinline__ float pass_px(const float* t, int s, int R, const SepArgs& a,
-                                         float wc) {
+template <typename Args>
+__device__ __forceinline__ float pass_px(const float* t, int s, int R, const Args& a, float wc) {
   const float d0 = t[R * s];
   float num = 0.f, den = 0.f;
   for (int k = 0; k <= 2 * R; ++k) {
@@ -248,7 +303,7 @@ __device__ __forceinline__ float pass_px(const float* t, int s, int R, const Sep
     num = ok ? __fadd_rn(num, __fmul_rn(wt, dn)) : num;
     den = ok ? __fadd_rn(den, wt) : den;
   }
-  const float q = __fdiv_rn(num, fmaxf(den, 1e-12f));  // filtered(num, den), unbranched
+  const float q = __fdiv_rn(num, fmaxf(den, 1e-12f));
   return isfinite(d0) && den > 0.f ? q : nan_f();
 }
 
@@ -256,9 +311,8 @@ __device__ __forceinline__ float pass_px(const float* t, int s, int R, const Sep
 // window t[0, kN + 2 kR) in registers: output j's taps are t[j + k], k =
 // 0..2 kR, each output's summed from zero in k's order, as pass_px; the kN
 // outputs' taps interleave (k outer, j inner), so their expf do.
-template <int kR, int kN>
-__device__ __forceinline__ void pass_run(const float* t, float* res, const SepArgs& a,
-                                         float wc) {
+template <int kR, int kN, typename Args>
+__device__ __forceinline__ void pass_run(const float* t, float* res, const Args& a, float wc) {
   float num[kN], den[kN];
 #pragma unroll
   for (int j = 0; j < kN; ++j) num[j] = den[j] = 0.f;
@@ -284,8 +338,8 @@ __device__ __forceinline__ void pass_run(const float* t, float* res, const SepAr
 // axis 0 then axis 1, the separable filter. kR >= 0: the compiled radius.
 template <int kR, int kMode>
 __global__ void __launch_bounds__(kSepThreads)
-bilateral_pass_kernel(const float* __restrict__ in, float* __restrict__ out, SepArgs a,
-                      int vec) {
+bilateral_pass_kernel(const float* __restrict__ in, float* __restrict__ out,
+                      SepArgs<sep_weights(kR)> a, int vec) {
   extern __shared__ float4 smem4[];
   const int R = kR >= 0 ? kR : a.radius;
   const int ry = sep_rows(R, kMode), pad = sep_pad(R, kMode), pitch = sep_pitch(R, kMode);
@@ -337,66 +391,123 @@ bilateral_pass_kernel(const float* __restrict__ in, float* __restrict__ out, Sep
     constexpr int kPad = (kR + 3) & ~3, kBuf = 2 * kPad + kSepPx;
     float buf[kBuf];
 #pragma unroll
-    for (int k = 0; k < kBuf; k += kSepPx) load_px(row + k, buf + k);
+    for (int k = 0; k < kBuf; k += kSepPx) load_px<kSepPx>(row + k, buf + k);
     pass_run<kR, kSepPx>(buf + kPad - kR, res, a, wc);
   } else {
 #pragma unroll
     for (int j = 0; j < kSepPx; ++j) res[j] = pass_px(row + pad - R + j, 1, R, a, wc);
   }
-  const int y = by + r, x = bx + x0;
-  if (kSepPx == 2 && vec) {  // an even thread takes its odd neighbour's pair
-    res[2] = __shfl_down_sync(0xffffffffu, res[0], 1);
-    res[3] = __shfl_down_sync(0xffffffffu, res[1], 1);
-  }
-  if (y >= h || x >= w) return;
-  if (vec) {  // w % 4 == 0: a group of 4 pixels lies wholly inside or outside the image
-    if (x % 4 == 0)
-      *reinterpret_cast<float4*>(out + y * w + x) = make_float4(res[0], res[1], res[2], res[3]);
-  } else {
-#pragma unroll
-    for (int j = 0; j < kSepPx; ++j)
-      if (x + j < w) out[y * w + x + j] = res[j];
-  }
+  store_px<kSepPx>(out, res, by + r, bx + x0, h, w, vec);
 }
 
 // --- K3, 2-D form ---------------------------------------------------------------
 
-__global__ void __launch_bounds__(kBX * kBY)
-bilateral_2d_kernel(const float* __restrict__ in, float* __restrict__ out, int h, int w,
-                    int r, const float* __restrict__ sw, float inv2sr) {
-  extern __shared__ float smem[];
-  const int k = 2 * r + 1;
-  const int tw = kBX + 2 * r, th = kBY + 2 * r;
-  float* tile = smem;
-  float* wts = smem + tw * th;
-  const int x0 = blockIdx.x * kBX - r, y0 = blockIdx.y * kBY - r;
-  const int tid = threadIdx.y * kBX + threadIdx.x;
-  for (int i = tid; i < tw * th; i += kBX * kBY) {
-    const int gy = y0 + i / tw, gx = x0 + i % tw;
-    tile[i] = (gy >= 0 && gy < h && gx >= 0 && gx < w) ? in[gy * w + gx] : nan_f();
-  }
-  for (int i = tid; i < k * k; i += kBX * kBY) wts[i] = sw[i];
+// The compiled radius's spatial weights by value, one a squared tap
+// distance d = dy^2 + dx^2 (the plain version's exp(-d / (2 ss^2)) depends on
+// d alone); the runtime radius reads the plain version's (2r+1)^2 table.
+__host__ __device__ constexpr int b2d_weights(int r) { return 2 * r * r + 1; }
+struct Bil2dArgs {
+  int h, w, radius;
+  float inv2sr;
+  const float* table;  // (2r+1)^2 row-major, on the device
+  float sw[b2d_weights(k2dRadius)];
+};
+__host__ __device__ constexpr int b2d_pad(int r) { return (r + 3) & ~3; }
+__host__ __device__ constexpr int b2d_pitch(int r) { return k2dW + 2 * b2d_pad(r); }
+__host__ __device__ constexpr int b2d_smem_floats(int r) { return (k2dH + 2 * r) * b2d_pitch(r); }
+constexpr int largest_2d_radius() {
+  int r = 0;
+  while (4 * b2d_smem_floats(r + 1) <= kMaxSmem) ++r;
+  return r;
+}
+constexpr int kMaxRadius2d = largest_2d_radius();
+
+// One tap of value dn (dn0: dn, or 0 where it is not finite) and spatial
+// weight sw added to a pixel's sums. A tap that is not finite adds +0 to
+// both, by a select of its weight, not a branch: num and den start at +0 and
+// so are never -0, and adding +0 leaves their bits as the plain version's
+// skip does. (The compiled radius gets the same sums without the select.)
+__device__ __forceinline__ void tap_2d(float sw, float dn, float dn0, float d0, float inv2sr,
+                                       float& num, float& den) {
+  const float wt = isfinite(dn) ? range_weight(sw, dn, d0, inv2sr) : 0.f;
+  num = __fadd_rn(num, __fmul_rn(wt, dn0));
+  den = __fadd_rn(den, wt);
+}
+
+// kR >= 0: the compiled radius (taps unrolled; inv2sr > 0), else a.radius
+// at run time.
+template <int kR>
+__global__ void __launch_bounds__(k2dThreads)
+bilateral_2d_kernel(const float* __restrict__ in, float* __restrict__ out, Bil2dArgs a,
+                    int vec) {
+  extern __shared__ float4 smem4[];
+  const int R = kR >= 0 ? kR : a.radius;
+  const int pad = b2d_pad(R), pitch = b2d_pitch(R);
+  const int h = a.h, w = a.w;
+  const int bx = blockIdx.x * k2dW, by = blockIdx.y * k2dH;
+  float* tile = reinterpret_cast<float*>(smem4);  // (k2dH + 2R) x pitch at (by - R, bx - pad)
+  stage_image<false, k2dThreads>(in, tile, h, w, by - R, bx - pad, k2dH + 2 * R, pitch, vec);
   __syncthreads();
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int y = blockIdx.y * kBY + threadIdx.y;
-  if (x >= w || y >= h) return;
-  const float d0 = tile[(threadIdx.y + r) * tw + threadIdx.x + r];
-  float res = nan_f();
-  if (isfinite(d0)) {
-    float num = 0.f, den = 0.f;
-    for (int dy = 0; dy < k; ++dy) {
-      const float* row = tile + (threadIdx.y + dy) * tw + threadIdx.x;
-      for (int dx = 0; dx < k; ++dx) {
-        const float dn = row[dx];
-        if (!isfinite(dn)) continue;
-        const float wt = range_weight(wts[dy * k + dx], dn, d0, inv2sr);
-        num = __fadd_rn(num, __fmul_rn(wt, dn));
-        den = __fadd_rn(den, wt);
+
+  // pixel x0 + j of tile row r; its tap (dy, dx) is tile row r + dy, column
+  // pad - R + x0 + j + dx
+  const int r = threadIdx.x / (k2dW / k2dPx), x0 = k2dPx * (threadIdx.x % (k2dW / k2dPx));
+  float d0[k2dPx], num[k2dPx], den[k2dPx];
+#pragma unroll
+  for (int j = 0; j < k2dPx; ++j) {
+    d0[j] = tile[(r + R) * pitch + pad + x0 + j];
+    num[j] = den[j] = 0.f;
+  }
+  if constexpr (kR >= 0) {
+    // inv2sr > 0 here: a tap that is not finite enters as +inf, whose weight
+    // is then exactly 0 (sw * expf(-inf)) wherever the centre is finite, and
+    // its value as 0, so a tap needs no test of its own
+    constexpr int kPad = b2d_pad(kR), kBuf = 2 * kPad + k2dPx;
+#pragma unroll
+    for (int dy = 0; dy <= 2 * kR; ++dy) {
+      float buf[kBuf], buf0[kBuf];  // the tap row's window: +inf / 0 where not finite
+      const float* row = tile + (r + dy) * pitch + x0;
+#pragma unroll
+      for (int k = 0; k < kBuf; k += k2dPx) load_px<k2dPx>(row + k, buf + k);
+#pragma unroll
+      for (int k = 0; k < kBuf; ++k) {
+        const bool fin = isfinite(buf[k]);
+        buf0[k] = fin ? buf[k] : 0.f;
+        buf[k] = fin ? buf[k] : inf_f();
+      }
+#pragma unroll
+      for (int dx = 0; dx <= 2 * kR; ++dx) {
+        const float sw = a.sw[(dy - kR) * (dy - kR) + (dx - kR) * (dx - kR)];
+#pragma unroll
+        for (int j = 0; j < k2dPx; ++j) {
+          const int k = kPad - kR + j + dx;
+          const float wt = range_weight(sw, buf[k], d0[j], a.inv2sr);
+          num[j] = __fadd_rn(num[j], __fmul_rn(wt, buf0[k]));
+          den[j] = __fadd_rn(den[j], wt);
+        }
       }
     }
-    res = filtered(num, den);
+  } else {
+    for (int dy = 0; dy <= 2 * R; ++dy) {
+      const float* row = tile + (r + dy) * pitch + pad - R + x0;
+      const float* tw = a.table + dy * (2 * R + 1);
+      for (int dx = 0; dx <= 2 * R; ++dx) {
+        const float sw = __ldg(tw + dx);
+#pragma unroll
+        for (int j = 0; j < k2dPx; ++j) {
+          const float dn = row[j + dx];
+          tap_2d(sw, dn, isfinite(dn) ? dn : 0.f, d0[j], a.inv2sr, num[j], den[j]);
+        }
+      }
+    }
   }
-  out[y * w + x] = res;
+  float res[4];
+#pragma unroll
+  for (int j = 0; j < k2dPx; ++j) {
+    const float q = __fdiv_rn(num[j], fmaxf(den[j], 1e-12f));
+    res[j] = isfinite(d0[j]) && den[j] > 0.f ? q : nan_f();
+  }
+  store_px<k2dPx>(out, res, by + r, bx + x0, h, w, vec);
 }
 
 // --- K4, backprojection and normals ------------------------------------------
@@ -434,27 +545,38 @@ __device__ __forceinline__ bool tangent(const float pp[3], const float pm[3], fl
 }
 
 // Shared memory of K4 in floats: the staged depth (or 3 point planes) of the
-// tile plus R + 1, rows x kNormPitch; the depth form's ray factors of each
-// staged column and row (rounded up to 4); 7 planes of the tile plus R (t_u,
-// t_v and the packed masks), norm_rows(R) x norm_pitch(R), whose place the
-// box's column sums take later.
-constexpr int kNormPitch = kNormW + 2 * kNormHalo;
+// tile plus R + 1, norm_stage_rows(R) x norm_stage_pitch(R) (norm_halo(R)
+// columns left and right, R + 1 rounded up to 4); the depth form's ray
+// factors of each staged column and row (rounded up to 4); 7 planes of the
+// tile plus R (t_u, t_v and the packed masks), (kNormH + 2R) x norm_pitch(R),
+// whose place the box's column sums take later.
+__host__ __device__ constexpr int norm_halo(int r) { return (r + 4) & ~3; }
+__host__ __device__ constexpr int norm_stage_pitch(int r) { return kNormW + 2 * norm_halo(r); }
 __host__ __device__ constexpr int norm_stage_rows(int r) { return kNormH + 2 * r + 2; }
 __host__ __device__ constexpr int norm_pitch(int r) { return kNormW + ((2 * r + 3) & ~3); }
 __host__ __device__ constexpr int norm_rays(int r, bool depth) {
-  return depth ? kNormPitch + ((norm_stage_rows(r) + 3) & ~3) : 0;
+  return depth ? norm_stage_pitch(r) + ((norm_stage_rows(r) + 3) & ~3) : 0;
 }
 __host__ __device__ constexpr int normals_smem_floats(int r, bool depth) {
-  return (depth ? 1 : 3) * norm_stage_rows(r) * kNormPitch + norm_rays(r, depth)
+  return (depth ? 1 : 3) * norm_stage_rows(r) * norm_stage_pitch(r) + norm_rays(r, depth)
          + 7 * (kNormH + 2 * r) * norm_pitch(r);
 }
+// the largest radius of the point form, which needs more than the depth form
+constexpr int largest_box_radius() {
+  int r = 0;
+  while (4 * normals_smem_floats(r + 1, false) <= kMaxSmem) ++r;
+  return r;
+}
+constexpr int kMaxBoxRadius = largest_box_radius();
+static_assert(normals_smem_floats(kMaxBoxRadius, true) <= normals_smem_floats(kMaxBoxRadius, false)
+              && kBoxRadius <= kMaxBoxRadius, "K4: the depth form fits where the point form does");
 
-// The point at staged row sr, column sc: from the depth plane and the ray
-// factors, or from the three point planes.
+// The point at staged row sr, column sc (pitch floats a row): from the depth
+// plane and the ray factors, or from the three point planes.
 template <bool kFromDepth>
 __device__ __forceinline__ void staged_point(const float* pl, const float* ax, const float* ay,
-                                             int plane, int sr, int sc, float p[3]) {
-  const int i = sr * kNormPitch + sc;
+                                             int pitch, int plane, int sr, int sc, float p[3]) {
+  const int i = sr * pitch + sc;
   if (kFromDepth) {
     const float z = pl[i];
     p[0] = __fmul_rn(ax[sc], z);
@@ -564,28 +686,28 @@ normals_kernel(const float* __restrict__ depth, float* __restrict__ points,
   extern __shared__ float4 smem4[];
   const int R = kR >= 0 ? kR : a.radius;
   const int h = a.h, w = a.w;
-  const int PH = norm_stage_rows(R), plane = PH * kNormPitch;
+  const int halo = norm_halo(R), SP = norm_stage_pitch(R);
+  const int PH = norm_stage_rows(R), plane = PH * SP;
   const int QH = kNormH + 2 * R, QW = kNormW + 2 * R, QP = norm_pitch(R), tplane = QH * QP;
   const int bx = blockIdx.x * kNormW, by = blockIdx.y * kNormH;
-  const int y0 = by - R - 1, x0 = bx - kNormHalo;  // the image position of staged (0, 0)
+  const int y0 = by - R - 1, x0 = bx - halo;      // the image position of staged (0, 0)
   float* pl = reinterpret_cast<float*>(smem4);    // depth, or the x, y, z planes
   float* ax = pl + (kFromDepth ? 1 : 3) * plane;  // (u - cx) / fx of each staged column
-  float* ay = ax + kNormPitch;                    // (v - cy) / fy of each staged row
+  float* ay = ax + SP;                            // (v - cy) / fy of each staged row
   float* tan = ax + norm_rays(R, kFromDepth);     // t_u (x, y, z), t_v (x, y, z), masks
   int* mask = reinterpret_cast<int*>(tan + 6 * tplane);
 
   // 1. the points of the tile plus R + 1 (NaN outside the image)
   if (kFromDepth) {
-    stage_image<true, kNormThreads>(depth, pl, h, w, y0, x0, PH, kNormPitch, vec);
-    for (int i = threadIdx.x; i < kNormPitch + PH; i += kNormThreads) {
-      if (i < kNormPitch)
+    stage_image<true, kNormThreads>(depth, pl, h, w, y0, x0, PH, SP, vec);
+    for (int i = threadIdx.x; i < SP + PH; i += kNormThreads) {
+      if (i < SP)
         ax[i] = __fmul_rn(__fsub_rn(static_cast<float>(x0 + i), a.cx), a.inv_fx);
       else
-        ay[i - kNormPitch] = __fmul_rn(__fsub_rn(static_cast<float>(y0 + i - kNormPitch), a.cy),
-                                       a.inv_fy);
+        ay[i - SP] = __fmul_rn(__fsub_rn(static_cast<float>(y0 + i - SP), a.cy), a.inv_fy);
     }
   } else {
-    stage_points<kNormThreads>(points, pl, h, w, y0, x0, PH, kNormPitch, vec);
+    stage_points<kNormThreads>(points, pl, h, w, y0, x0, PH, SP, vec);
   }
   __syncthreads();
 
@@ -597,17 +719,17 @@ normals_kernel(const float* __restrict__ depth, float* __restrict__ points,
     float tu[3] = {0.f, 0.f, 0.f}, tv[3] = {0.f, 0.f, 0.f};
     int m = 0;
     if (gy >= 0 && gy < h && gx >= 0 && gx < w) {
-      const int sr = qy + 1, sc = qx - R + kNormHalo;  // the centre among the staged points
+      const int sr = qy + 1, sc = qx - R + halo;  // the centre among the staged points
       float pc[3], pp[3], pm[3];
-      staged_point<kFromDepth>(pl, ax, ay, plane, sr, sc, pc);
+      staged_point<kFromDepth>(pl, ax, ay, SP, plane, sr, sc, pc);
       const float az = fabsf(pc[2]);
       // torch.clamp keeps a NaN, so a NaN centre fails every test
       const float thr = __fmul_rn(__fmul_rn(a.factor, isnan(az) ? az : fmaxf(az, 1.f)), 2.f);
-      staged_point<kFromDepth>(pl, ax, ay, plane, sr, sc + 1, pp);
-      staged_point<kFromDepth>(pl, ax, ay, plane, sr, sc - 1, pm);
+      staged_point<kFromDepth>(pl, ax, ay, SP, plane, sr, sc + 1, pp);
+      staged_point<kFromDepth>(pl, ax, ay, SP, plane, sr, sc - 1, pm);
       m = tangent(pp, pm, thr, tu) ? 1 : 0;  // along u
-      staged_point<kFromDepth>(pl, ax, ay, plane, sr + 1, sc, pp);
-      staged_point<kFromDepth>(pl, ax, ay, plane, sr - 1, sc, pm);
+      staged_point<kFromDepth>(pl, ax, ay, SP, plane, sr + 1, sc, pp);
+      staged_point<kFromDepth>(pl, ax, ay, SP, plane, sr - 1, sc, pm);
       m |= tangent(pp, pm, thr, tv) ? 1 << 16 : 0;  // along v
     }
     const int it = qy * QP + qx;
@@ -621,29 +743,35 @@ normals_kernel(const float* __restrict__ depth, float* __restrict__ points,
   __syncthreads();
 
   // 3. the box along axis 0: kNormStrip rows of one column of the tile plus R
-  // a thread, one plane at a time; after a barrier a plane's column sums
-  // take the place of its tangents (its first kNormH rows)
-  const bool strip = threadIdx.x < QW * (kNormH / kNormStrip);
-  const int qx = threadIdx.x % QW, r0 = threadIdx.x / QW * kNormStrip;
+  // a strip, one plane at a time, a strip a thread in rounds of kNormThreads
+  // (one round up to R = 16); after a barrier a round's column sums take the
+  // place of their tangents (a plane's first kNormH rows). The strips go in
+  // row-major order, so a strip's rows are never written in an earlier round.
+  const int strips = QW * (kNormH / kNormStrip);
 #pragma unroll 1
   for (int c = 0; c < 7; ++c) {
-    float cs[kNormStrip];
-    int cm[kNormStrip];
-    float* t = tan + c * tplane + r0 * QP + qx;
-    if (strip) {
-      if (c < 6)
-        column_sums<kR>(t, QP, R, cs);
-      else
-        column_sums<kR>(reinterpret_cast<const int*>(t), QP, R, cm);
-    }
-    __syncthreads();
-    if (strip) {
-#pragma unroll
-      for (int j = 0; j < kNormStrip; ++j) {
+#pragma unroll 1
+    for (int s0 = 0; s0 < strips; s0 += kNormThreads) {
+      const int i = s0 + threadIdx.x;
+      const bool strip = i < strips;
+      float cs[kNormStrip];
+      int cm[kNormStrip];
+      float* t = tan + c * tplane + i / QW * kNormStrip * QP + i % QW;
+      if (strip) {
         if (c < 6)
-          t[j * QP] = cs[j];
+          column_sums<kR>(t, QP, R, cs);
         else
-          reinterpret_cast<int*>(t)[j * QP] = cm[j];
+          column_sums<kR>(reinterpret_cast<const int*>(t), QP, R, cm);
+      }
+      __syncthreads();
+      if (strip) {
+#pragma unroll
+        for (int j = 0; j < kNormStrip; ++j) {
+          if (c < 6)
+            t[j * QP] = cs[j];
+          else
+            reinterpret_cast<int*>(t)[j * QP] = cm[j];
+        }
       }
     }
   }
@@ -665,7 +793,7 @@ normals_kernel(const float* __restrict__ depth, float* __restrict__ points,
     row_sums<kR>(vmask + ty * QP + tx, R, sm);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      staged_point<kFromDepth>(pl, ax, ay, plane, ty + R + 1, tx + j + kNormHalo, pt + 3 * j);
+      staged_point<kFromDepth>(pl, ax, ay, SP, plane, ty + R + 1, tx + j + halo, pt + 3 * j);
       const float su[3] = {s[0][j], s[1][j], s[2][j]}, sv[3] = {s[3][j], s[4][j], s[5][j]};
       finish_normal(su, sm[j] & 0xffff, sv, sm[j] >> 16, pt + 3 * j, nr + 3 * j);
     }
@@ -711,13 +839,27 @@ dim3 blocks_for(int h, int w, int bx, int by) {
 }
 
 template <int kR, int kMode>
-cudaError_t launch_pass(const float* in, float* out, const SepArgs& a, int vec,
-                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * sep_smem_floats(kR >= 0 ? kR : a.radius, kMode);
+cudaError_t launch_pass(const float* in, float* out, int h, int w, int radius, const float* sw,
+                        float inv2sr, int vec, cudaStream_t stream) {
+  SepArgs<sep_weights(kR)> a{h, w, radius, inv2sr, {}};
+  for (int k = 0; k <= 2 * radius; ++k) a.sw[k] = sw[k];
+  const size_t smem = sizeof(float) * sep_smem_floats(radius, kMode);
   const auto kernel = bilateral_pass_kernel<kR, kMode>;
   const cudaError_t e = allow_smem(kernel, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<blocks_for(a.h, a.w, kSepW, kSepH), kSepThreads, smem, stream>>>(in, out, a, vec);
+  kernel<<<blocks_for(h, w, kSepW, kSepH), kSepThreads, smem, stream>>>(in, out, a, vec);
+  return cudaGetLastError();
+}
+
+template <int kR>
+cudaError_t launch_2d(const float* in, float* out, const Bil2dArgs& a, int vec,
+                      cudaStream_t stream) {
+  const int h = a.h, w = a.w;
+  const size_t smem = sizeof(float) * b2d_smem_floats(a.radius);
+  const auto kernel = bilateral_2d_kernel<kR>;
+  const cudaError_t e = allow_smem(kernel, smem);
+  if (e != cudaSuccess) return e;
+  kernel<<<blocks_for(h, w, k2dW, k2dH), k2dThreads, smem, stream>>>(in, out, a, vec);
   return cudaGetLastError();
 }
 
@@ -745,29 +887,35 @@ extern "C" int tsdf_bilateral_pass(const float* in, float* out, int h, int w, in
   if (mode < 0 || mode > 2 || radius < 0 || radius > kMaxSepRadius)
     return static_cast<int>(cudaErrorInvalidValue);
   if (h <= 0 || w <= 0) return 0;
-  SepArgs a{h, w, radius, inv2sr, {}};
-  for (int k = 0; k <= 2 * radius; ++k) a.sw[k] = sw[k];
   cudaError_t e;
   if (radius == kSepRadius)
-    e = mode == 0 ? launch_pass<kSepRadius, 0>(in, out, a, vec, stream)
-        : mode == 1 ? launch_pass<kSepRadius, 1>(in, out, a, vec, stream)
-                    : launch_pass<kSepRadius, 2>(in, out, a, vec, stream);
+    e = mode == 0   ? launch_pass<kSepRadius, 0>(in, out, h, w, radius, sw, inv2sr, vec, stream)
+        : mode == 1 ? launch_pass<kSepRadius, 1>(in, out, h, w, radius, sw, inv2sr, vec, stream)
+                    : launch_pass<kSepRadius, 2>(in, out, h, w, radius, sw, inv2sr, vec, stream);
   else
-    e = mode == 0 ? launch_pass<-1, 0>(in, out, a, vec, stream)
-        : mode == 1 ? launch_pass<-1, 1>(in, out, a, vec, stream)
-                    : launch_pass<-1, 2>(in, out, a, vec, stream);
+    e = mode == 0   ? launch_pass<-1, 0>(in, out, h, w, radius, sw, inv2sr, vec, stream)
+        : mode == 1 ? launch_pass<-1, 1>(in, out, h, w, radius, sw, inv2sr, vec, stream)
+                    : launch_pass<-1, 2>(in, out, h, w, radius, sw, inv2sr, vec, stream);
   return static_cast<int>(e);
 }
 
+// sw: the compiled radius's 2 k2dRadius^2 + 1 spatial weights in host
+// memory, one a squared tap distance (passed to the kernel by value); table:
+// the (2 radius + 1)^2 weights, row-major, on the device (read by any other
+// radius). vec: 16-byte loads and stores (w % 4 == 0, in and out 16-byte
+// aligned). k2dRadius runs compiled (with inv2sr > 0, as any finite
+// sigma_range gives), anything else at run time.
 extern "C" int tsdf_bilateral_2d(const float* in, float* out, int h, int w, int radius,
-                                 const float* sw, float inv2sr, cudaStream_t stream) {
+                                 const float* sw, const float* table, float inv2sr, int vec,
+                                 cudaStream_t stream) {
   if (radius < 0 || radius > kMaxRadius2d) return static_cast<int>(cudaErrorInvalidValue);
   if (h <= 0 || w <= 0) return 0;
-  const int k = 2 * radius + 1;
-  const size_t smem = sizeof(float) * ((kBX + 2 * radius) * (kBY + 2 * radius) + k * k);
-  bilateral_2d_kernel<<<blocks_for(h, w, kBX, kBY), dim3(kBX, kBY), smem, stream>>>(
-      in, out, h, w, radius, sw, inv2sr);
-  return static_cast<int>(cudaGetLastError());
+  Bil2dArgs a{h, w, radius, inv2sr, table, {}};
+  for (int d = 0; d < b2d_weights(k2dRadius); ++d) a.sw[d] = sw[d];
+  const cudaError_t e = radius == k2dRadius && inv2sr > 0.f
+                            ? launch_2d<k2dRadius>(in, out, a, vec, stream)
+                            : launch_2d<-1>(in, out, a, vec, stream);
+  return static_cast<int>(e);
 }
 
 // depth NULL: the normals of the point image in `points` (read, not written).

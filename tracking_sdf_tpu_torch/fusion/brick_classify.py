@@ -50,6 +50,8 @@ TILE = 8  # zeta mip base tile, pixels
 MAX_LEVELS = 24  # csrc/brick_classify.cu kMaxLevels
 COMPACT_TILE = 2048  # csrc/brick_classify.cu kCompactTile: K7's flags a tile
 SCRATCH_HEAD = 2  # csrc/brick_classify.cu kScratchHead: K7's words before the tiles'
+CLASSIFY_THREADS = 128  # csrc/brick_classify.cu kClassifyThreads: K6's threads a block
+CLASSIFY_LANE_THREADS = 256  # K6 takes 8 lanes a brick while its threads an SM stay within this
 
 # kernel launches on CUDA tensors
 launches_tables = 0  # K5 frame_tables
@@ -211,6 +213,18 @@ def frame_tables(points_cam: torch.Tensor, normals_cam: torch.Tensor,
     return zm, pix
 
 
+def classify_lanes(n: int, sms: int) -> int:
+    """K6's lanes a brick for a launch over ``n`` bricks on a card of ``sms``
+    SMs: 8 where the launch's threads stay within CLASSIFY_LANE_THREADS an
+    SM (tum512's 4,096 supers on an H100), else 1."""
+    return 8 if n * 8 <= sms * CLASSIFY_LANE_THREADS else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def _mip_pointers(what: str, zm: ZetaMip, dev):
     total = zm.offsets[-1] + zm.dims[-1][0] * zm.dims[-1][1]
     arrays = (zm.zeta, zm.zeta_down, zm.eta, zm.eta_down)
@@ -229,6 +243,7 @@ def _pose_pointers(what: str, R: torch.Tensor, base: torch.Tensor, dev):
 
 def _classify_launch(form, ptrs, *, sat, mixed_ids, cls, sat_super, gid, grid, bs, i_offset,
                      f, n_slots, ns3, nb, hw, params, cam):
+    """One K6 launch over cls's bricks, with classify_lanes' lanes a brick."""
     (zp, levels), (rp, bp) = ptrs
     nbi, nbj, nbk = grid
     m = params.m
@@ -239,7 +254,8 @@ def _classify_launch(form, ptrs, *, sat, mixed_ids, cls, sat_super, gid, grid, b
         ptr(sat_super), ptr(gid), nbi, nbj, nbk, *bs, i_offset, f, n_slots,
         ns3[0] * ns3[1] * ns3[2], ns3[1], ns3[2], nb, h, w, params.width / m,
         params.height / m, params.depth / m, *params.origin, cam.fx, cam.fy, cam.cx, cam.cy,
-        card_reciprocal(3.0 * TILE), _build.stream_ptr(cls.device))
+        card_reciprocal(3.0 * TILE),
+        classify_lanes(cls.numel(), _sm_count(cls.device.index)), _build.stream_ptr(cls.device))
     _build.check(rc, "classify_bricks")
 
 

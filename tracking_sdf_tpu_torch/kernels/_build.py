@@ -59,8 +59,9 @@ _SIGNATURES = {
                             + [_P, _P, _P] + [_I] * 4 + [_F] * 15 + [_P],
     # in, out, h, w, mode, radius, sw (host), inv2sr, vec, stream
     "tsdf_bilateral_pass": [_P, _P] + [_I] * 4 + [_P, _F, _I, _P],
-    # in, out, h, w, radius, sw, inv2sr, stream
-    "tsdf_bilateral_2d": [_P, _P] + [_I] * 3 + [_P, _F, _P],
+    # in, out, h, w, radius, sw (host: the compiled radius's, one a squared
+    # distance), table (device, (2 radius + 1)^2), inv2sr, vec, stream
+    "tsdf_bilateral_2d": [_P, _P] + [_I] * 3 + [_P, _P, _F, _I, _P],
     # depth (or NULL), points, normals, h, w, inv_fx, inv_fy, cx, cy, factor,
     # radius, vec, stream
     "tsdf_normals": [_P] * 3 + [_I] * 2 + [_F] * 5 + [_I] * 2 + [_P],
@@ -70,8 +71,8 @@ _SIGNATURES = {
     # form, zeta, zeta_down, eta, eta_down, levels, R, base, sat, mixed_ids,
     # cls, sat_super, gid, nbi, nbj, nbk, bi, bj, bk, i_offset, f, n_slots,
     # ns, nsj, nsk, nb, img_h, img_w, si, sj, sk, ox, oy, oz, fx, fy, cx, cy,
-    # inv_span, stream
-    "tsdf_classify_bricks": [_I] + [_P] * 12 + [_I] * 15 + [_F] * 11 + [_P],
+    # inv_span, lanes, stream
+    "tsdf_classify_bricks": [_I] + [_P] * 12 + [_I] * 15 + [_F] * 11 + [_I, _P],
     # cls, skip, n, cap_a, cap_b, fill, ids, counts, scratch, scratch_tiles,
     # vec, stream
     "tsdf_compact_lists": [_P, _P] + [_I] * 4 + [_P] * 3 + [_I, _I, _P],

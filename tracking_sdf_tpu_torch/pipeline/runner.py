@@ -413,8 +413,9 @@ class Reconstruction:
             rgb = torch.from_numpy(np.ascontiguousarray(rgb))
         rgb = rgb.to(self.device)
         if rgb.dtype == torch.uint8:
-            return rgb.to(torch.float32) / self._scale_rgb
-        return rgb.to(torch.float32)
+            rgb = rgb.to(torch.float32) / self._scale_rgb
+        # K5 takes contiguous colors: a crop or a transposed view is copied
+        return rgb.to(torch.float32).contiguous()
 
     def process_frame(self, depth, rgb=None, timestamp: Optional[float] = None,
                       gt_pose: Optional[Pose] = None) -> FrameStats:

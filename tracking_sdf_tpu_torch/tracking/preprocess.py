@@ -9,12 +9,19 @@ On a CUDA tensor each public function launches a hand-written kernel
 (``csrc/preprocess.cu``): K3 ``tsdf_bilateral_pass`` (the separable filter's
 two passes in one launch, or one 1-D pass), K3 ``tsdf_bilateral_2d`` (the 2-D
 filter) and K4 ``tsdf_normals`` (backprojection and normals in one launch;
-from a point image in ``estimate_normals``). K3's separable form and K4 read
-and write 16 bytes at a time where the width is a multiple of 4 and their
-tensors are 16-byte aligned, and one value at a time otherwise, with the same
-result; the wrapper looks at the pointers. A CPU tensor takes the plain
-version, the ``*_reference`` function of the same name: stencils over
-shifted copies of the image, in the order the kernels follow.
+from a point image in ``estimate_normals``). The kernels read and write 16
+bytes at a time where the width is a multiple of 4 and their tensors are
+16-byte aligned, and one value at a time otherwise, with the same result;
+the wrapper looks at the pointers. A CPU tensor takes the plain version, the
+``*_reference`` function of the same name: stencils over shifted copies of
+the image, in the order the kernels follow.
+
+A CUDA image of the right rank in any floating dtype and layout is taken as
+the CPU path takes it: the kernels run on a contiguous float32 copy (none is
+made of a contiguous float32 image). Each kernel takes any radius up to the
+last whose launch fits the shared memory of an H100 block
+(``MAX_RADIUS_2D``, ``MAX_RADIUS_PASS``, ``MAX_BOX_RADIUS``); a larger or a
+negative radius raises on the card.
 """
 from __future__ import annotations
 
@@ -35,13 +42,18 @@ launches_2d = 0  # K3, the 2-D bilateral filter
 launches_normals = 0  # K4, (backprojection and) normals
 
 # csrc/preprocess.cu's constants: the radii the kernels take (kMaxRadius2d,
-# kMaxSepRadius, kMaxBoxRadius; K4's shared memory stays under 48 KB), the
-# radius each compiles (kSepRadius, kBoxRadius; others run the same code with
-# a runtime radius) and their tiles, (rows, columns) of output pixels
-MAX_RADIUS_2D = 16
-MAX_RADIUS_PASS = 16
-MAX_BOX_RADIUS = 5
+# kMaxSepRadius, kMaxBoxRadius: the last whose launch fits the 227 KB of
+# shared memory a block may have), the radius each compiles (k2dRadius,
+# kSepRadius, kBoxRadius; others run the same code with a runtime radius),
+# their tiles, (rows, columns) of output pixels, and the 2-D form's pixels a
+# thread
+MAX_RADIUS_2D = 102
+MAX_RADIUS_PASS = 89
+MAX_BOX_RADIUS = 25
+RADIUS_2D = 5
 SEP_RADIUS = 5
+TILE_2D = (8, 64)
+PIXELS_2D = 2
 SEP_TILE = (4, 128)
 NORMALS_TILE = (16, 32)
 # estimate_normals' defaults, which preprocess_frame uses (K4 compiles this
@@ -51,9 +63,12 @@ _PASS_AXIS0, _PASS_AXIS1, _PASS_SEPARABLE = 0, 1, 2  # tsdf_bilateral_pass's mod
 
 
 def _shifted(img: torch.Tensor, dy: int, dx: int, fill: float) -> torch.Tensor:
-    """out[y, x] = img[y + dy, x + dx], ``fill`` outside the image."""
+    """out[y, x] = img[y + dy, x + dx], ``fill`` outside the image (all of
+    it for a shift past the image's edge)."""
     h, w = img.shape[:2]
     out = torch.full_like(img, fill)
+    if abs(dy) >= h or abs(dx) >= w:
+        return out
     ys, yd = slice(max(dy, 0), h + min(dy, 0)), slice(max(-dy, 0), h + min(-dy, 0))
     xs, xd = slice(max(dx, 0), w + min(dx, 0)), slice(max(-dx, 0), w + min(-dx, 0))
     out[yd, xd] = img[ys, xs]
@@ -78,6 +93,17 @@ def _spatial_weights_1d(radius: int, sigma_spatial: float) -> ctypes.Array:
     PyTorch rounds them."""
     inv2ss = 1.0 / (2.0 * sigma_spatial ** 2)
     taps = [math.exp(-(d * d) * inv2ss) for d in range(-radius, radius + 1)]
+    return (ctypes.c_float * len(taps))(*taps)
+
+
+@functools.lru_cache(maxsize=None)
+def _spatial_weights_sq(radius: int, sigma_spatial: float) -> ctypes.Array:
+    """The 2-D filter's spatial weights as C floats in host memory, one a
+    squared tap distance d = dy² + dx² = 0 .. 2r² (K3's 2-D form takes its
+    compiled radius's by value): exp(-d / (2 σs²)) in double, each the value
+    of ``_spatial_weights`` at every tap of that distance."""
+    inv2ss = 1.0 / (2.0 * sigma_spatial ** 2)
+    taps = [math.exp(-d * inv2ss) for d in range(2 * radius * radius + 1)]
     return (ctypes.c_float * len(taps))(*taps)
 
 
@@ -214,12 +240,22 @@ def _on_card(x: torch.Tensor, what: str) -> bool:
     return True
 
 
-def _check_image(x: torch.Tensor, what: str, channels: int = 0) -> None:
+def _card_image(x: torch.Tensor, what: str, channels: int = 0) -> torch.Tensor:
+    """``x`` as the kernels take it: a contiguous float32 (H, W) or (H, W,
+    channels) tensor, ``x`` itself where it is one, else a copy (float64
+    rounds to float32, as the JAX package computes with x64 off). A wrong
+    rank, channel count or a dtype that is not floating raises."""
     want = "(H, W)" if not channels else f"(H, W, {channels})"
-    if (x.dtype != torch.float32 or x.dim() != (3 if channels else 2)
-            or (channels and x.shape[2] != channels) or not x.is_contiguous()):
-        raise ValueError(f"{what}: needs a contiguous float32 {want} tensor, got "
-                         f"{tuple(x.shape)} {x.dtype}, contiguous {x.is_contiguous()}")
+    if (not x.is_floating_point() or x.dim() != (3 if channels else 2)
+            or (channels and x.shape[2] != channels)):
+        raise ValueError(f"{what}: needs a floating {want} tensor, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    return x.to(torch.float32).contiguous()
+
+
+def _check_radius(radius: int, limit: int, what: str) -> None:
+    if not 0 <= radius <= limit:
+        raise ValueError(f"{what}: radius {radius} not in [0, {limit}]")
 
 
 def _bilateral_pass(img: torch.Tensor, mode: int, radius: int, sigma_spatial: float,
@@ -227,9 +263,7 @@ def _bilateral_pass(img: torch.Tensor, mode: int, radius: int, sigma_spatial: fl
     """K3's separable kernel on a card tensor: ``mode`` _PASS_AXIS0 or
     _PASS_AXIS1 (one pass) or _PASS_SEPARABLE (both, one launch)."""
     global launches_pass
-    _check_image(img, what)
-    if not 0 <= radius <= MAX_RADIUS_PASS:
-        raise ValueError(f"{what}: radius {radius} not in [0, {MAX_RADIUS_PASS}]")
+    _check_radius(radius, MAX_RADIUS_PASS, what)
     h, w = img.shape
     out = torch.empty((h, w), dtype=torch.float32, device=img.device)
     if out.numel() == 0:
@@ -247,12 +281,13 @@ def _bilateral_pass(img: torch.Tensor, mode: int, radius: int, sigma_spatial: fl
 def bilateral_pass(img: torch.Tensor, axis: int, radius: int = 5,
                    sigma_spatial: float = 3.0, sigma_range: float = 0.03) -> torch.Tensor:
     """One 1-D bilateral pass along ``axis``. A CPU tensor takes the plain
-    version; a CUDA tensor (contiguous float32 (H, W)) launches K3's separable
-    kernel for that axis alone."""
+    version; a CUDA tensor (H, W) launches K3's separable kernel for that
+    axis alone (radius up to MAX_RADIUS_PASS)."""
     if not _on_card(img, "bilateral_pass"):
         return bilateral_pass_reference(img, axis, radius, sigma_spatial, sigma_range)
     if axis not in (0, 1):
         raise ValueError(f"bilateral_pass: axis {axis}")
+    img = _card_image(img, "bilateral_pass")
     return _bilateral_pass(img, axis, radius, sigma_spatial, sigma_range, "bilateral_pass")
 
 
@@ -265,22 +300,23 @@ def bilateral_filter(
     """The full 2-D (2r+1)^2 bilateral kernel: edge-preserving depth
     smoothing with NaN neighbours excluded; NaN holes stay NaN.
 
-    A CPU tensor takes the plain version; a CUDA tensor (contiguous float32
-    (H, W)) launches K3's 2-D form once."""
+    A CPU tensor takes the plain version; a CUDA tensor (H, W) launches
+    K3's 2-D form once (radius up to MAX_RADIUS_2D)."""
     global launches_2d
     if not _on_card(depth, "bilateral_filter"):
         return bilateral_filter_reference(depth, radius, sigma_spatial, sigma_range)
-    _check_image(depth, "bilateral_filter")
-    if not 0 <= radius <= MAX_RADIUS_2D:
-        raise ValueError(f"bilateral_filter: radius {radius} not in [0, {MAX_RADIUS_2D}]")
+    depth = _card_image(depth, "bilateral_filter")
+    _check_radius(radius, MAX_RADIUS_2D, "bilateral_filter")
     h, w = depth.shape
     out = torch.empty((h, w), dtype=torch.float32, device=depth.device)
     if out.numel() == 0:
         return out
-    sw = _spatial_weights(radius, sigma_spatial, depth.device)
+    vec = w % 4 == 0 and aligned16(depth, out)
     rc = _build.library().tsdf_bilateral_2d(
-        depth.data_ptr(), out.data_ptr(), h, w, radius, sw.data_ptr(),
-        1.0 / (2.0 * sigma_range ** 2), _build.stream_ptr(depth.device))
+        depth.data_ptr(), out.data_ptr(), h, w, radius,
+        ctypes.addressof(_spatial_weights_sq(RADIUS_2D, sigma_spatial)),
+        _spatial_weights(radius, sigma_spatial, depth.device).data_ptr(),
+        1.0 / (2.0 * sigma_range ** 2), int(vec), _build.stream_ptr(depth.device))
     _build.check(rc, "bilateral_filter")
     launches_2d += 1
     return out
@@ -296,23 +332,24 @@ def bilateral_filter_separable(
     pass 2 compares against the pass-1 output. NaN holes stay NaN; NaN
     neighbours are excluded per pass.
 
-    A CPU tensor takes the plain version; a CUDA tensor (contiguous float32
-    (H, W)) launches K3's separable kernel once for both passes."""
-    if not _on_card(depth, "bilateral_filter_separable"):
+    A CPU tensor takes the plain version; a CUDA tensor (H, W) launches
+    K3's separable kernel once for both passes (radius up to
+    MAX_RADIUS_PASS)."""
+    what = "bilateral_filter_separable"
+    if not _on_card(depth, what):
         return bilateral_filter_separable_reference(depth, radius, sigma_spatial,
                                                     sigma_range)
+    depth = _card_image(depth, what)
     # pass 1 is NaN wherever the depth is not finite, so the plain version's
     # last mask changes nothing here
-    return _bilateral_pass(depth, _PASS_SEPARABLE, radius, sigma_spatial, sigma_range,
-                           "bilateral_filter_separable")
+    return _bilateral_pass(depth, _PASS_SEPARABLE, radius, sigma_spatial, sigma_range, what)
 
 
 def _normals(depth, points, cam, factor: float, radius: int, what: str):
     """K4: from ``depth`` (writing ``points``) or, with depth None, from
     ``points``; returns the normals."""
     global launches_normals
-    if not 0 <= radius <= MAX_BOX_RADIUS:
-        raise ValueError(f"{what}: smoothing radius {radius} not in [0, {MAX_BOX_RADIUS}]")
+    _check_radius(radius, MAX_BOX_RADIUS, what)
     h, w = points.shape[:2]
     normals = torch.empty((h, w, 3), dtype=torch.float32, device=points.device)
     if normals.numel() == 0:
@@ -337,12 +374,12 @@ def estimate_normals(
     tangents along u and v, n = normalize(t_u x t_v), oriented toward the
     camera (n . p < 0), NaN where invalid.
 
-    A CPU tensor takes the plain version; a CUDA tensor (contiguous float32
-    (H, W, 3)) launches K4 once."""
+    A CPU tensor takes the plain version; a CUDA tensor (H, W, 3) launches
+    K4 once (smoothing radius up to MAX_BOX_RADIUS)."""
     if not _on_card(points_cam, "estimate_normals"):
         return estimate_normals_reference(points_cam, max_depth_change_factor,
                                           smoothing_radius)
-    _check_image(points_cam, "estimate_normals", channels=3)
+    points_cam = _card_image(points_cam, "estimate_normals", channels=3)
     return _normals(None, points_cam, None, max_depth_change_factor, smoothing_radius,
                     "estimate_normals")
 
@@ -357,9 +394,9 @@ def preprocess_frame(
     """depth (H, W) -> (points_cam, normals_cam), both (H, W, 3).
     ``bilateral_mode``: "full" (the 2-D kernel) or "separable".
 
-    A CPU tensor takes the plain versions. A CUDA tensor (contiguous float32)
-    launches K3 once (either mode), or not at all without ``bilateral``, then
-    K4 once for the points and the normals."""
+    A CPU tensor takes the plain versions. A CUDA tensor (H, W) launches K3
+    once (either mode), or not at all without ``bilateral``, then K4 once for
+    the points and the normals."""
     if bilateral:
         if bilateral_mode == "full":
             depth = bilateral_filter(depth)
@@ -370,7 +407,7 @@ def preprocess_frame(
     if not _on_card(depth, "preprocess_frame"):
         points = backproject(cam, depth)
         return points, estimate_normals_reference(points)
-    _check_image(depth, "preprocess_frame")
+    depth = _card_image(depth, "preprocess_frame")
     points = torch.empty((*depth.shape, 3), dtype=torch.float32, device=depth.device)
     return points, _normals(depth, points, cam, DEPTH_CHANGE_FACTOR, SMOOTHING_RADIUS,
                             "preprocess_frame")
