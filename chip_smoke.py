@@ -149,9 +149,12 @@ Phases, each of which fails the run (non-zero exit) on a fault:
        --preset tum256 --fusion-mode dense over the same 120 frames (the
          reference's own 256^3 dense configuration): ATE beside the JAX
          CLI's, ms a frame, peak memory;
-       jacobian="central" at tum128 on phase 5's scene: |t err| within half
-         a voxel of the JAX package's, track ms; the same run on the CPU over
-         the same depth images, |t err| beside the card's;
+       jacobian="central" at tum128 on phase 5's scene: gn_finish launched
+         once a GN iteration (its normal equations packed on the card) and
+         advance_state never; |t err| within half a voxel of the JAX
+         package's, track ms a frame beside the one-thread finish's; the
+         same run on the CPU over the same depth images, with a float32 and
+         with a float64 solve, |t err| beside the card's;
        the flat slice with brick_merge "xla", "rows" and "pallas", tracked
          (|t err| of each; K2's dense form only on "pallas"), and the three
          tails fusing the same five frames at their true poses: every leaf
@@ -224,7 +227,8 @@ Phases, each of which fails the run (non-zero exit) on a fault:
          frame; then with --realtime 30: identical trajectories and drops.
      Its numbers also go out as one JSON line, {"phase10": ...}, and the
      kernels' line gains the slab forms (gn_reduce_slab_brick, gn_finish,
-     brick_fuse_rows_slab; launches from the one-rank mesh's runs).
+     brick_fuse_rows_slab; launches from the one-rank mesh's runs, and
+     gn_finish's from phase 9's central tracker too).
  11. packed, --debug-nans and the library surface:
        K1 gn_step on float32 brick rows (what fusion.mode="packed" runs) at
          the tum256 preset's queries against its plain step, as in phase 3;
@@ -320,6 +324,7 @@ Without a CUDA device it exits non-zero.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import importlib
@@ -363,6 +368,15 @@ ABS_TOL_MERGE = 1e-5  # K2 dense form: same float32 formula per voxel
 # brick): device ms on kernel_merge's inputs with color (NVIDIA H100 80GB
 # HBM3, 700.00 W; PERF.md's kernel table)
 MERGE_DEVICE_MS_FIRST = 0.45458
+# K1 with its finish on one thread (before the one-warp finish): device ms of
+# a full step and a done launch by form, of gn_finish, and tum128_central's
+# track ms a frame (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table
+# and section 7), printed beside this run's, never put in a record
+K1_ONE_THREAD = {"dense": "full 0.01157, done 0.00119",
+                 "brick-major bf16": "full 0.01185-0.01266, done 0.00121",
+                 "brick-major float32": "full 0.01201-0.01204, done 0.00129",
+                 "synthetic64": "full 0.01025", "tum128": "full 0.01101",
+                 "gn_finish": "0.00687-0.00710", "tum128_central track": "70-131"}
 T_ERR_MAX = 0.0469  # m: the absolute |t err| bound, 2 voxels at 256^3
 # Final |t err| (mm) of the JAX package on the same scene, trajectory and
 # frames (tum256: 11 frames, tum512: 6), unmodified presets at full size, run
@@ -678,11 +692,12 @@ def gn_compare(label, Dm, pose, pts1, p, strides=(3, 6)):
     return rec[strides[0]]
 
 
-def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12)):
+def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12), before=""):
     """K1's step on the card against the plain step, at ``strides`` of the
     point image (read in place): one step from one state, then a whole level
     of ``tcfg.max_iterations`` steps. Times full steps (a cfg that never
-    converges) and launches on a done state. Returns the first stride's
+    converges) and launches on a done state, printed beside ``before``
+    (the one-thread finish's, K1_ONE_THREAD). Returns the first stride's
     record."""
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
@@ -732,7 +747,8 @@ def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12)):
               f"launches: {iters[0]} steps (plain {iters[1]}), max |pose diff| "
               f"{dpose:.3e} (tol {POSE_TOL_LEVEL:g}); full step {ms:.4f} ms, done "
               f"launch {ms_done:.4f} ms ({TIMED_LAUNCHES} back-to-back), device "
-              f"{device_ms} ms (full) and {device_ms_done} ms (done), wrapper "
+              f"{device_ms} ms (full) and {device_ms_done} ms (done) (one-thread finish: "
+              f"{before or 'not measured at this stride'}), wrapper "
               f"{wrapper_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound "
               f"{bms:.6f} ms ({by})")
         check(nv_k == nv_r and nv_k > 100, f"{label} num_valid {nv_k} != {nv_r}")
@@ -791,7 +807,8 @@ def kernel_gn(cam, scene, poses, rgb, dev):
                        cap=flat.fusion.brick_cap)
     Dm = masked_view(grid.D, grid.W)
     dense = gn_compare("K1 gn_reduce (dense)", Dm, poses[0], pts1, p)
-    dense_step = step_compare("K1 gn_step (dense)", Dm, poses[0], pts1, p, flat.tracking)
+    dense_step = step_compare("K1 gn_step (dense)", Dm, poses[0], pts1, p, flat.tracking,
+                              before=K1_ONE_THREAD["dense"])
     del grid, Dm
     f = tum.fusion
     bg = empty_brick_grid(tum.grid, f.brick_shape, device=dev,
@@ -802,7 +819,7 @@ def kernel_gn(cam, scene, poses, rgb, dev):
     check(view.rows.dtype == torch.bfloat16, "the tum256 view is not bf16")
     brick = gn_compare("K1 gn_reduce (brick-major bf16)", view, poses[0], pts1, tum.grid)
     brick_step = step_compare("K1 gn_step (brick-major bf16)", view, poses[0], pts1,
-                              tum.grid, tum.tracking)
+                              tum.grid, tum.tracking, before=K1_ONE_THREAD["brick-major bf16"])
     for levels in (tum.pyramid_levels, (4, 2, 1)):
         tracking_without_host_sync(view, poses[0], pts1, tum.grid, tum.tracking, levels)
     return dense, brick, dense_step, brick_step
@@ -2225,27 +2242,69 @@ def k1_at_path(name, grid, pose, pts, cfg):
     return dict(gn_reduce=gn_compare(f"K1 gn_reduce (dense, {name})", Dm, pose, pts, cfg.grid,
                                      stride),
                 gn_step=step_compare(f"K1 gn_step (dense, {name})", Dm, pose, pts, cfg.grid,
-                                     cfg.tracking, stride))
+                                     cfg.tracking, stride, before=K1_ONE_THREAD[name]))
+
+
+@contextlib.contextmanager
+def counting_advance_state():
+    """Counts calls of gn_reduce.advance_state (the CPU finish every
+    tracker reaches through gn_reduce) while the block runs: [calls]."""
+    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+
+    calls, real = [0], k1.advance_state
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    k1.advance_state = counted
+    try:
+        yield calls
+    finally:
+        k1.advance_state = real
+
+
+@contextlib.contextmanager
+def float64_solve():
+    """torch.linalg.solve_ex in float64 while the block runs (the solution
+    rounded back to its input's dtype): advance_state then solves as the
+    card's finish does, from the same float32 damped system."""
+    real = torch.linalg.solve_ex
+
+    def solve(A, b, **kw):
+        x, info = real(A.double(), b.double(), **kw)
+        return x.to(A.dtype), info
+
+    torch.linalg.solve_ex = solve
+    try:
+        yield
+    finally:
+        torch.linalg.solve_ex = real
 
 
 def central_on_cpu(cfg, cam, depths, poses, rgb, n, pose_card):
     """The central tracker's run on the CPU over the card's own inputs (the
-    same depth images, copied): which side a gap to the JAX figure comes
-    from."""
+    same depth images, copied), with advance_state's float32 solve and
+    again with a float64 one: which side a gap to the JAX figure comes
+    from, and whether the card's float64 solve accounts for it."""
     from tracking_sdf_tpu_torch.core.lie import Pose
     from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
 
-    t0 = time.perf_counter()
-    cpu = Pose(poses[0].R.cpu(), poses[0].t.cpu())
-    recon = Reconstruction(cam, cfg, initial_pose=cpu, device="cpu")
-    for k in range(n + 1):
-        recon.process_frame(depths[k].cpu(), rgb=rgb.cpu(), timestamp=float(k))
-    t_err = (recon.pose.t - poses[n].t.cpu()).norm().item() * 1e3
-    gap = (recon.pose.t - pose_card.t.cpu()).norm().item() * 1e3
-    print(f"  tum128_central on the CPU ({torch.get_num_threads()} threads, "
-          f"{time.perf_counter() - t0:.1f} s): final |t err| {t_err:.4f} mm; |t| card - CPU "
-          f"{gap:.4f} mm")
-    return dict(t_err_cpu_mm=t_err, card_vs_cpu_mm=gap)
+    rec = {}
+    for solve, key in (("float32", ""), ("float64", "_f64")):
+        t0 = time.perf_counter()
+        cpu = Pose(poses[0].R.cpu(), poses[0].t.cpu())
+        recon = Reconstruction(cam, cfg, initial_pose=cpu, device="cpu")
+        with float64_solve() if key else contextlib.nullcontext():
+            for k in range(n + 1):
+                recon.process_frame(depths[k].cpu(), rgb=rgb.cpu(), timestamp=float(k))
+        t_err = (recon.pose.t - poses[n].t.cpu()).norm().item() * 1e3
+        gap = (recon.pose.t - pose_card.t.cpu()).norm().item() * 1e3
+        print(f"  tum128_central on the CPU, {solve} solve ({torch.get_num_threads()} "
+              f"threads, {time.perf_counter() - t0:.1f} s): final |t err| {t_err:.4f} mm; "
+              f"|t| card - CPU {gap:.4f} mm")
+        rec.update({f"t_err_cpu{key}_mm": t_err, f"card_vs_cpu{key}_mm": gap})
+    return rec
 
 
 def dense_paths(cam, depths, poses, rgb, dev, work):
@@ -2283,12 +2342,21 @@ def dense_paths(cam, depths, poses, rgb, dev, work):
         c = preset("tum128")
         c = dataclasses.replace(c, trajectory_path=None,
                                 tracking=c.tracking._replace(jacobian=jacobian))
-        rec, recon = bench_path(f"{label} per frame", c, cam, depths, poses, rgb, dev, n)
+        with counting_advance_state() as advances:
+            rec, recon = bench_path(f"{label} per frame", c, cam, depths, poses, rgb, dev, n)
         within_half_voxel(f"{label} final |t err|", rec["t_err_mm"], JAX_T_ERR_MM[label],
                           c.grid)
-        want = n * c.tracking.max_iterations if jacobian == "analytic" else 0
-        check(rec["launches"]["gn_step"] == want and rec["launches"]["brick_fuse_rows"] == 0,
-              f"{label}: launches {rec['launches']}")
+        iters = n * c.tracking.max_iterations
+        want = (iters, 0) if jacobian == "analytic" else (0, iters)
+        check((rec["launches"]["gn_step"], rec["launches"]["gn_finish"]) == want
+              and rec["launches"]["brick_fuse_rows"] == 0 and advances[0] == 0,
+              f"{label}: launches {rec['launches']}, advance_state calls {advances[0]}")
+        if jacobian == "central":
+            print(f"  {label}: gn_finish {rec['launches']['gn_finish']} launches (one a GN "
+                  f"iteration), advance_state {advances[0]} calls; track {rec['track_ms']:.2f} "
+                  f"ms a frame (median; one-thread finish and advance_state before: "
+                  f"{K1_ONE_THREAD['tum128_central track']} ms; target under 60 ms); final "
+                  f"|t err| {rec['t_err_mm']:.4f} mm (JAX {JAX_T_ERR_MM[label]} mm)")
         recs[label] = rec
         if jacobian == "analytic":
             # K1 at this path's shapes: the final 128^3 grid, the last
@@ -2741,7 +2809,8 @@ def slab_gate_and_finish(label, whole, pose, q, p, tcfg, mesh):
           f"step rel twist err {err:.3e} (tol {REL_TOL_STEP:g}), max abs state err "
           f"{max_abs:.3e}, counts and flags equal {ints_same}; a level {iters[0]} steps "
           f"(plain {iters[1]}), max |pose diff| {dpose:.3e} (tol {POSE_TOL_LEVEL:g}); "
-          f"gn_finish {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device {device_ms} ms, "
+          f"gn_finish {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device {device_ms} ms "
+          f"(one-thread finish: {K1_ONE_THREAD['gn_finish']}), "
           f"wrapper {wrapper_ms:.4f} ms; advance_state host {plain_host_ms:.4f} ms a call, "
           f"events {plain_ms:.4f} ms, device {plain_dev_ms:.4f} ms in {plain_ops:.0f} ops; "
           f"solve_ex {solve_ms:.4f} ms; bound {bms:.8f} ms ({by}; latency in practice)")
@@ -3326,7 +3395,7 @@ def kernel_gn_f32(cam, scene, poses, rgb, dev):
                                        cap_free=f.brick_cap_free)
     check(view.rows.dtype == torch.float32, "the packed view is not float32")
     rec = step_compare("K1 gn_step (brick-major float32, packed)", view, poses[0], pts1,
-                       cfg.grid, cfg.tracking)
+                       cfg.grid, cfg.tracking, before=K1_ONE_THREAD["brick-major float32"])
     del bg, view
     torch.cuda.empty_cache()
     return rec
@@ -4364,7 +4433,8 @@ def main() -> int:
         entry("gn_reduce_slab_brick", "gn_reduce.cu", gn_tpu, ("tum256_mesh",), "tracked",
               dict(slab["k1"]["tum256"], tum128_dense=slab["k1"]["tum128"],
                    max_abs_err=max(r["max_abs_err"] for r in slab["k1"].values()))),
-        entry("gn_finish", "gn_reduce.cu", gn_tpu, ("tum256_mesh",), "tracked",
+        entry("gn_finish", "gn_reduce.cu", gn_tpu, ("tum256_mesh", "tum128_central"),
+              "tracked",
               dict(slab["finish"]["tum256"], tum128_dense=slab["finish"]["tum128"],
                    max_abs_err=max(r["max_abs_err"] for r in slab["finish"].values()))),
         entry("brick_fuse_rows_slab", "brick_fuse.cu", merge_tpu, ("tum256_mesh",), "fused",

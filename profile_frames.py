@@ -17,7 +17,11 @@ For each preset, as it is, over chip_smoke.py's scene and trajectory at
      iteration count, timed unprofiled (median of 5) and profiled once:
      device time, busy share, device kernels and copies, host waits (CUDA
      synchronize calls and device-to-host copies) and the largest device
-     operations;
+     operations; then K1 alone at the finest level (a full gn_step launch
+     and a launch on a done state, chip_smoke.kernel_device_ms), and K1's
+     device ms of that frame as (its GN iterations over all levels x the
+     full step) + (its other launches x the done launch) beside the
+     profile's gn_step_kernel total;
   4. one frame's fusion alone: fuse_frame_brickmajor on the last frame's
      points and pose, at the cap the runner used, from a copy of the brick
      rows saved before that frame (restored before every call, outside the
@@ -31,7 +35,12 @@ For each preset, as it is, over chip_smoke.py's scene and trajectory at
      calibration), the rest as one chunk of CUDA-graph replays, timed on the
      host clock (its wall time over its frames) and, in a second run,
      profiled: device time, ops and host syncs per frame, the busy share,
-     capture and calibration ms, peak device memory above the run's start.
+     capture and calibration ms, peak device memory above the run's start;
+     and K1's split under replay: its launches a frame told apart as full
+     steps and done launches by their traced device time (longer or
+     shorter than the midpoint of 3.'s two times), (full launches x 3.'s
+     full step) + (done launches x 3.'s done launch) beside the profile's
+     gn_step_kernel device ms a frame.
 Peak device memory is also read over the timed run of 1.
 Prints one JSON line per preset and writes them all to OUT/profile_LABEL.json
 (OUT defaults to build/profile/ beside this script). It drives public entry
@@ -77,13 +86,46 @@ def profile(fn):
         torch.cuda.synchronize()
     dev = device_events(prof)
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    from torch.autograd import DeviceType
+
+    k1_us = [e.time_range.elapsed_us() for e in prof.events()
+             if e.device_type == DeviceType.CUDA and "gn_step_kernel" in e.name]
     return dict(
         device_ms=sum(e.self_device_time_total for e in dev) / 1e3,
         device_ops=sum(e.count for e in dev),
         syncs=host_calls(prof, SYNC_CALLS), copies=host_calls(prof, COPY_CALLS),
         launches=host_calls(prof, ("cudaLaunchKernel", "cuLaunchKernel")),
         top=[dict(name=e.key[:80], count=e.count, ms=e.self_device_time_total / 1e3)
-             for e in top])
+             for e in top],
+        k1_us=k1_us)
+
+
+def k1_alone(view, pose, pts, cfg):
+    """(full step, done launch) device ms of K1 at the finest level's
+    stride: a level that never converges, and a state marked done."""
+    import chip_smoke as cs
+    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+
+    t = cfg.tracking
+    img = pts[::t.pixel_stride, ::t.pixel_stride]
+    never = t._replace(max_iterations=1 << 30, min_iterations=0, max_twist_diff=-1.0)
+    full = k1.gn_stepper(view, k1.init_state(pose, t.damping), img, cfg.grid, never)
+    done = k1.init_state(pose, t.damping)
+    done.view(torch.int32)[k1.S_DONE] = 1
+    frozen = k1.gn_stepper(view, done, img, cfg.grid, t)
+    times = (cs.kernel_device_ms(full, ("gn_step_kernel",)),
+             cs.kernel_device_ms(frozen, ("gn_step_kernel",)))
+    if None in times:
+        raise RuntimeError("no profile saw a gn_step_kernel launch")
+    return times
+
+
+def k1_split(iterations, launches, full_ms, done_ms, traced_ms):
+    """K1's device ms as full steps and done launches, beside the trace."""
+    return dict(full_steps=iterations, done_launches=launches - iterations,
+                full_step_ms=full_ms, done_launch_ms=done_ms,
+                split_ms=iterations * full_ms + (launches - iterations) * done_ms,
+                traced_ms=traced_ms)
 
 
 def run_preset(name, label, gpu):
@@ -153,9 +195,12 @@ def run_preset(name, label, gpu):
     pts, nrm = preprocess_frame(depths[n - 1], cam=cam, bilateral=cfg.bilateral_filter,
                               bilateral_mode=cfg.bilateral_mode)
 
+    last = {}
+
     def track():
-        res, _ = track_frame_pyramid(None, pose_before, pts, params=cfg.grid,
-                                     cfg=cfg.tracking, levels=cfg.pyramid_levels, Dm=view)
+        res, last["levels"] = track_frame_pyramid(
+            None, pose_before, pts, params=cfg.grid, cfg=cfg.tracking,
+            levels=cfg.pyramid_levels, Dm=view)
         return int(res.iterations)
 
     times = []
@@ -181,6 +226,15 @@ def run_preset(name, label, gpu):
           f"{tp['syncs']}, copies {tp['copies']}")
     for t in tp["top"]:
         print(f"    {t['ms']:8.3f} ms {t['count']:5d}x {t['name']}")
+    full_ms, done_ms = k1_alone(view, pose_before, pts, cfg)
+    split = k1_split(sum(r.iterations for r in last["levels"]), len(tp["k1_us"]), full_ms,
+                     done_ms, sum(tp["k1_us"]) / 1e3)
+    rec.update(k1_track=split)
+    print(f"{label} {name}: K1 alone at stride {cfg.tracking.pixel_stride}: full step "
+          f"{full_ms:.5f}, done launch {done_ms:.5f} device ms; this frame's tracking: "
+          f"{split['full_steps']} GN iterations x full + {split['done_launches']} other "
+          f"launches x done = {split['split_ms']:.4f} ms, the profile's gn_step_kernel "
+          f"{split['traced_ms']:.4f} ms")
 
     # 4. one frame's fusion alone, into the rows saved before the last frame
     f = cfg.fusion
@@ -228,7 +282,7 @@ def run_preset(name, label, gpu):
     del bg, rows_before
     torch.cuda.empty_cache()
     if hasattr(Reconstruction, "process_chunk"):
-        rec.update(chunked(cfg, cam, depths, poses, rgb, dev, name, label))
+        rec.update(chunked(cfg, cam, depths, poses, rgb, dev, name, label, full_ms, done_ms))
     return rec
 
 
@@ -273,14 +327,16 @@ def fuse_stages(cfg, cam, pose, pts, nrm, rgb, bg, cap, restore, label, name):
     return out
 
 
-def chunked(cfg, cam, depths, poses, rgb, dev, name, label):
+def chunked(cfg, cam, depths, poses, rgb, dev, name, label, full_ms, done_ms):
     """5. The chunked path over the same frames, twice in fresh
     Reconstructions: frame 0 by process_frame, frames 1-2 as a first chunk
     (captures both color variants, with the phase calibration), the rest as
     one chunk of replays. In the first run that chunk runs without the
     calibration: its track_ms is its wall time (the replays and the one
     read) over its frames. In the second it runs under torch.profiler:
-    device time, ops and host syncs per frame over the replayed chunk."""
+    device time, ops and host syncs per frame over the replayed chunk, and
+    K1's launches told apart as full steps and done launches by their
+    traced time against the midpoint of ``full_ms`` and ``done_ms``."""
     from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
 
     n = len(depths)
@@ -328,6 +384,19 @@ def chunked(cfg, cam, depths, poses, rgb, dev, name, label):
           f"{timed['t_err_mm']:.2f} mm")
     for t in prof["top"]:
         print(f"    {t['ms']:8.3f} ms {t['count']:5d}x {t['name']}")
+    cut_us = (full_ms + done_ms) / 2 * 1e3
+    k1_us = prof["k1_us"]
+    full = sum(us > cut_us for us in k1_us)
+    split = k1_split(full / frames, len(k1_us) / frames, full_ms, done_ms,
+                     sum(k1_us) / 1e3 / frames)
+    rec.update(chunk_k1=dict(split, traced_full_ms=sum(us for us in k1_us if us > cut_us)
+                             / 1e3 / frames))
+    print(f"{label} {name}: K1 a replayed frame: {split['full_steps']:.2f} full steps "
+          f"(traced longer than {cut_us / 1e3:.5f} ms) x {full_ms:.5f} + "
+          f"{split['done_launches']:.2f} done launches x {done_ms:.5f} = "
+          f"{split['split_ms']:.4f} ms; the profile's gn_step_kernel "
+          f"{split['traced_ms']:.4f} ms a frame ({rec['chunk_k1']['traced_full_ms']:.4f} of "
+          f"it in the full steps)")
     return rec
 
 

@@ -165,3 +165,30 @@ def test_central_reconstruction_matches_jax(mode):
     if mode == "brickmajor":
         with pytest.raises(ValueError, match="analytic"):
             t.process_chunk(depth[None])
+
+
+@pytest.mark.parametrize("convergence", ["signed", "norm"])
+@pytest.mark.parametrize("eye", [0, 1, 2])
+def test_central_sums_through_pack_advance_the_state_alike(eye, convergence):
+    """A central level whose normal equations travel as K1's 29 sums
+    (``pack``, then the finisher the card launches ``gn_finish`` through,
+    whose plain version is ``advance_state`` on ``unpack``) holds the state
+    of ``advance_state`` on the tracker's own sums, bit for bit, iteration
+    by iteration: on the CPU JᵀJ is symmetric bit for bit, so its upper
+    triangle carries all of it."""
+    _, tg = _grids()
+    pose, pts = _points(EYES[eye])
+    q = torch.from_numpy(pts[::3, ::3].reshape(-1, 3))
+    cfg = config.TrackingConfig(jacobian="central", convergence=convergence)
+    p0 = pose_from_numpy(pose.R, pose.t + np.float32([0.02, -0.015, 0.01]), device="cpu")
+    direct = gn_reduce.init_state(p0, cfg.damping)
+    packed = gn_reduce.init_state(p0, cfg.damping)
+    finish = gn_reduce.finisher(packed, cfg)
+    for _ in range(cfg.max_iterations):
+        A, b, n, s = tgn.central_sums(tg, gn_reduce.state_pose(direct), q, PARAMS, cfg)
+        assert torch.equal(A, A.T) and int(n) > 100
+        gn_reduce.advance_state(direct, A, b, n, s, cfg)
+        finish(gn_reduce.pack(*tgn.central_sums(tg, gn_reduce.state_pose(packed), q,
+                                                PARAMS, cfg)))
+        assert torch.equal(direct.view(torch.int32), packed.view(torch.int32))
+    assert int(direct.view(torch.int32)[gn_reduce.S_COUNT]) > 1

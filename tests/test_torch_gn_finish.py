@@ -176,3 +176,51 @@ def test_slab_stepper_rejects_unknown_modes(field, value):
     with pytest.raises(ValueError):
         k1.slab_stepper(view, k1.init_state(pose, cfg.damping), pts, PARAMS, cfg)
 
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_unpack_of_pack_is_the_inputs(seed):
+    """``unpack(pack(A, b, n, s))`` gives back a symmetric A, b, the count
+    and Σ|r| bit for bit (NaN, ±inf and -0 entries included), and ``pack``
+    lays them out as ``gn_reduce_reference`` does."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(6, 6)).astype(np.float32)
+    A = torch.from_numpy(X + X.T)
+    A[0, 0], A[1, 2], A[2, 1] = -0.0, float("nan"), float("nan")
+    A[3, 5] = A[5, 3] = float("inf") if seed else -float("inf")
+    b = torch.from_numpy(rng.normal(size=6).astype(np.float32))
+    b[4] = -0.0
+    n, s = torch.tensor(float(rng.integers(0, 5000))), torch.tensor(float(rng.random()))
+    sums = k1.pack(A, b, n, s)
+    assert sums.shape == (k1.N_OUT,) and sums.dtype == torch.float32
+    back = k1.unpack(sums)
+    for got, want in zip(back, (A, b, n, s)):
+        assert torch.equal(_bits(got), _bits(want))
+    view, pts, pose = _scene("dense")
+    out = k1.gn_reduce_reference(view, pose, pts, PARAMS)
+    assert torch.equal(_bits(k1.pack(*k1.unpack(out))), _bits(out))
+
+
+def test_finisher_on_the_cpu_is_advance_state_and_builds_nothing(monkeypatch):
+    """On a CPU state the finisher is ``advance_state`` on ``unpack`` (bit
+    for bit) and never reaches the kernel library; an unknown device or mode
+    raises."""
+    from tracking_sdf_tpu_torch.kernels import _build
+
+    def no_build():
+        raise AssertionError("the CPU finisher reached the kernel library")
+
+    monkeypatch.setattr(_build, "library", no_build)
+    view, pts, pose = _scene("brick")
+    cfg = TrackingConfig(max_iterations=5)
+    sums = k1.gn_reduce_reference(view, pose, pts, PARAMS)
+    state, ref = k1.init_state(pose, cfg.damping), k1.init_state(pose, cfg.damping)
+    before = k1.launches_finish
+    k1.finisher(state, cfg)(sums)
+    k1.advance_state(ref, *k1.unpack(sums), cfg)
+    assert torch.equal(_bits(state), _bits(ref)) and k1.launches_finish == before
+    assert int(_bits(state)[k1.S_COUNT]) == 1
+    with pytest.raises(ValueError):
+        k1.finisher(state, cfg._replace(convergence="max"))
+    with pytest.raises(ValueError):
+        k1.finisher(state.to("meta"), cfg)

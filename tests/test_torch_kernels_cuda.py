@@ -6,7 +6,9 @@ every pytest-xdist worker collects the same tests). On a GPU machine run
 Tolerances: K1 relative 1e-4 of max|A| and max|b| (float32 sums in another
 order), K1's step relative 1e-4 of max|twist| with equal valid counts, step
 counts and done flags (the kernel solves in float64, the plain step in
-float32; the same bars hold gn_finish against advance_state), the sharded
+float32; the same bars hold gn_finish against advance_state, and the
+central tracker on the card, whose every iteration is one gn_finish launch,
+against its CPU path), the sharded
 step's slab reduce and finish on one rank's whole grid bitwise against
 gn_step (the same per-query code, partial order and finish), K2's dense
 form, its row form and its fused form (brick_fuse_rows) bitwise on every
@@ -108,9 +110,10 @@ def test_gn_reduce_rejects_bad_input(dev):
         k1.gn_reduce(Dm[:, :, :32], pose, torch.zeros(10, 3, device=dev), PARAMS)
 
 
-def _step_view(dev, form):
-    """The sphere joined by a box: a lone sphere leaves rotations about its
-    centre unobservable, and the twist of such a system is set by rounding."""
+def _sphere_box(dev):
+    """(D, W, pts, pose): the sphere joined by a box. A lone sphere leaves
+    rotations about its centre unobservable, and the twist of such a system
+    is set by rounding."""
     gen = torch.Generator(device=dev).manual_seed(4)
     D, W, pts, pose = _sphere_view(dev, gen)
     m = PARAMS.m
@@ -118,7 +121,35 @@ def _step_view(dev, form):
     q = torch.stack(torch.meshgrid(c - 0.45, c + 0.3, c - 0.1, indexing="ij"), -1).abs()
     q = q - torch.tensor([0.2, 0.35, 0.15], device=dev)
     box = q.clamp(min=0).norm(dim=-1) + q.max(dim=-1).values.clamp(max=0)
-    D = torch.minimum(D, box)
+    return torch.minimum(D, box), W, pts, pose
+
+
+def _surface_points(dev, pose):
+    """Camera-frame points on ``_sphere_box``'s surface seen from ``pose``
+    (the sphere outside the box and the box outside the sphere), from a
+    seed."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    center = torch.tensor([0.45, -0.3, 0.1], device=dev)
+    half = torch.tensor([0.2, 0.35, 0.15], device=dev)
+
+    def box_sdf(p):
+        q = (p - center).abs() - half
+        return q.clamp(min=0).norm(dim=-1) + q.max(dim=-1).values.clamp(max=0)
+
+    dirs = torch.randn(2000, 3, generator=gen, device=dev)
+    sphere = 0.5 * dirs / dirs.norm(dim=1, keepdim=True)
+    u = torch.rand(1000, 3, generator=gen, device=dev) * 2 - 1
+    face = torch.randint(0, 3, (1000,), generator=gen, device=dev)
+    u[torch.arange(1000, device=dev), face] = torch.where(
+        torch.rand(1000, generator=gen, device=dev) < 0.5, -1.0, 1.0)
+    box = center + u * half
+    world = torch.cat([sphere[box_sdf(sphere) >= 0], box[box.norm(dim=-1) >= 0.5]])
+    return (world - pose.t) @ pose.R
+
+
+def _step_view(dev, form):
+    """``_sphere_box``'s masked view as ``form``, its points and pose."""
+    D, W, pts, pose = _sphere_box(dev)
     if form == "dense":
         return torch.where(W > 0, D, torch.full_like(D, float("nan"))).contiguous(), pts, pose
     dtype = torch.bfloat16 if form == "brick_bf16" else torch.float32
@@ -392,6 +423,102 @@ def test_track_slab_on_the_card_is_reduce_allreduce_finish(dev, monkeypatch):
     for _ in range(cfg.max_iterations):
         step()
     assert torch.equal(res.state.view(torch.int32), ref.view(torch.int32))
+
+
+def test_central_tracker_on_the_card_is_pack_and_gn_finish(dev, monkeypatch):
+    """jacobian="central" on CUDA tensors: each of max_iterations iterations
+    packs central_sums' normal equations on the device and launches
+    gn_finish once; advance_state never runs. The level is held against
+    two others: advance_state (a float32 solve) stepped on the card's own
+    central sums, and the CPU path (track_frame on CPU copies of the same
+    grid, points and pose): the first step's twist within REL_TOL_STEP
+    relative, equal step counts and done flags, the level's pose within
+    POSE_TOL_LEVEL. The valid count equals the card's own sums' and is
+    within two of the CPU path's: the central probes on the card and on the
+    CPU round apart, and a pixel at the edge of the observed volume may
+    change sides. The points lie on the scene's surfaces, seen from a pose
+    27 mm off the start (random points in the volume have no pose to settle
+    on, and a level's float32 and float64 solves wander apart)."""
+    from tracking_sdf_tpu_torch.core.lie import Pose
+    from tracking_sdf_tpu_torch.tracking import gauss_newton as tgn
+
+    D, W, _, true_pose = _sphere_box(dev)
+    grid = TSDFGrid(D=D, W=W, R=D, G=D, B=D, Wc=W)
+    cpu_grid = TSDFGrid(D=D.cpu(), W=W.cpu(), R=D.cpu(), G=D.cpu(), B=D.cpu(), Wc=W.cpu())
+    pts = _surface_points(dev, true_pose)
+    pose = Pose(true_pose.R, true_pose.t + torch.tensor([0.02, -0.015, 0.01], device=dev))
+    cfg = TrackingConfig(jacobian="central", max_iterations=10)
+    runs = {}
+    for n in (1, cfg.max_iterations):
+        ref = k1.init_state(pose, cfg.damping)
+        for _ in range(n):
+            k1.advance_state(ref, *tgn.central_sums(grid, k1.state_pose(ref), pts, PARAMS,
+                                                    cfg), cfg)
+        cpu = tgn.track_frame(cpu_grid, Pose(pose.R.cpu(), pose.t.cpu()), pts.cpu(),
+                              params=PARAMS, cfg=cfg._replace(max_iterations=n)).state
+        runs[n] = (ref.cpu(), cpu)
+
+    def no_advance(*a, **kw):
+        raise AssertionError("advance_state ran on the card")
+
+    monkeypatch.setattr(k1, "advance_state", no_advance)
+    for n, (ref, cpu) in runs.items():
+        before = k1.launches_finish
+        got = tgn.track_frame(grid, pose, pts, params=PARAMS,
+                              cfg=cfg._replace(max_iterations=n)).state.cpu()
+        assert k1.launches_finish - before == n
+        assert got[k1.S_NVALID].item() == ref[k1.S_NVALID].item() > 100
+        assert abs(got[k1.S_NVALID].item() - cpu[k1.S_NVALID].item()) <= 2
+        for want in (ref, cpu):
+            assert torch.equal(got.view(torch.int32)[k1.S_COUNT:],
+                               want.view(torch.int32)[k1.S_COUNT:])
+            if n == 1:
+                tk, tr = got[k1.S_TWIST:k1.S_TWIST + 6], want[k1.S_TWIST:k1.S_TWIST + 6]
+                assert ((tk - tr).abs().max() / tr.abs().max()).item() <= 1e-4
+            else:
+                assert int(got.view(torch.int32)[k1.S_COUNT]) > 1
+                assert (got[:k1.S_LAM] - want[:k1.S_LAM]).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["zeros", "nan", "inf", "rank3"])
+def test_gn_finish_on_degenerate_sums(dev, case):
+    """gn_finish on sums of no queries, with a NaN in A or an infinite b, and
+    on a rank-3 A (J's last three columns equal its first three): the count,
+    done flag and ticket of advance_state on the same sums on the CPU (on
+    the card torch's float32 solve of the system with a NaN came back
+    finite), a zero twist where the solve is not finite (and for no
+    queries, whose solve is 0)."""
+    gen = torch.Generator(device=dev).manual_seed(7)
+    J = torch.randn(200, 6, generator=gen, device=dev)
+    if case == "rank3":
+        J[:, 3:] = J[:, :3]
+    r = torch.randn(200, generator=gen, device=dev) * 0.1
+    A, b = J.T @ J, J.T @ r
+    A = (A + A.T) / 2
+    n, s = torch.tensor(200.0, device=dev), r.abs().sum()
+    if case == "zeros":
+        A, b, n, s = A * 0, b * 0, n * 0, s * 0
+    elif case == "nan":
+        A[1, 4] = A[4, 1] = float("nan")
+    elif case == "inf":
+        b[2] = float("inf")
+    sums = k1.pack(A, b, n, s)
+    pose = se3_exp(torch.tensor([0.01, -0.02, 0.03, 0.05, -0.02, 0.01], device=dev))
+    for cfg in (TrackingConfig(), TrackingConfig(convergence="signed", min_iterations=0)):
+        sk = k1.init_state(pose, cfg.damping)
+        sr = sk.cpu()
+        k1.finisher(sk, cfg)(sums)
+        k1.advance_state(sr, *k1.unpack(sums.cpu()), cfg)
+        sk = sk.cpu()
+        ik, ir = sk.view(torch.int32), sr.view(torch.int32)
+        assert torch.equal(ik[k1.S_COUNT:], ir[k1.S_COUNT:]), case
+        assert torch.equal(sk[k1.S_NVALID:k1.S_COUNT], sr[k1.S_NVALID:k1.S_COUNT])
+        twist = sk[k1.S_TWIST:k1.S_TWIST + 6]
+        if case in ("zeros", "nan", "inf"):
+            assert torch.equal(twist, torch.zeros_like(twist)), case
+            assert torch.equal(sk[:k1.S_LAM], sr[:k1.S_LAM])
+        else:
+            assert torch.isfinite(twist).all()
 
 
 def test_slab_stepper_rejects_bad_input(dev):

@@ -10,8 +10,10 @@ Two Jacobian schemes (``TrackingConfig.jacobian``):
     damped 6x6 system, tests convergence and updates the pose.
   * "central": the reference's 13 Shepard-L1 probes per pixel; the normal
     equations are PyTorch ops (the JAX package has no kernel for them
-    either), and ``gn_reduce.advance_state`` applies the same solve and
-    update to the same state buffer.
+    either). On the card they are packed into K1's 29 sums on the device
+    and ``gn_finish`` (the one-warp finish of every ``gn_step``) solves,
+    tests and updates the state in one launch an iteration; on the CPU
+    ``gn_reduce.advance_state``, its plain version, does.
 A done flag freezes the state once converged, as the JAX package's
 ``lax.while_loop`` stops. A level issues ``cfg.max_iterations`` steps and
 reads nothing back; on the CPU the loop stops at the done flag.
@@ -29,8 +31,8 @@ from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, world_to_voxel
 from tracking_sdf_tpu_torch.grid.interp import (
     MaskedView, masked_view, shepard_l1, trilinear_with_grad_nan)
 from tracking_sdf_tpu_torch.tracking.gn_reduce import (
-    S_COUNT, S_DONE, S_NVALID, S_SUMABS, S_TWIST, advance_state, gn_stepper,
-    init_state, state_pose)
+    S_COUNT, S_DONE, S_NVALID, S_SUMABS, S_TWIST, finisher, gn_stepper,
+    init_state, pack, state_pose)
 
 
 class TrackStats(NamedTuple):
@@ -215,11 +217,14 @@ def track_frame(
         if grid is None:
             raise ValueError("jacobian='central' reads the dense grid; grid is None")
         flat = points_cam.reshape(-1, 3)
+        device = grid.D.device
+        # the normal equations packed on their device, then the finish: one
+        # gn_finish launch on the card, advance_state on the CPU; only A's
+        # upper triangle travels (see gn_reduce.pack)
+        finish = finisher(state, cfg)
 
         def step():
-            advance_state(state, *central_sums(grid, state_pose(state), flat, params, cfg),
-                          cfg)
-        device = grid.D.device
+            finish(pack(*central_sums(grid, state_pose(state), flat, params, cfg)))
     else:
         raise ValueError(f"unknown jacobian mode: {cfg.jacobian}")
     ints = state.view(torch.int32)

@@ -29,10 +29,13 @@ and the host never waits inside a frame's tracking.
 tracker (parallel.sharded): ``reduce`` sums one rank's slab of the queries
 at the state's pose (one launch of K1's slab form), the caller all-reduces
 the sums, and ``finish`` runs the solve, test and update on them (one
-launch of ``gn_finish``, the code ``gn_step``'s kernel finishes with).
+launch of ``gn_finish``, the one-warp code ``gn_step``'s kernel finishes
+with). ``finisher`` is that finish alone: the central tracker's card path
+packs its normal equations (``pack``) and finishes them there too.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -64,8 +67,18 @@ launches_step_brick = 0  # gn_step, brick-major rows
 launches_finish = 0  # slab_stepper's finish (gn_finish)
 
 
+@functools.lru_cache(maxsize=None)
 def _triu(device):
+    """Rows and columns of a 6x6 upper triangle, row-major (one constant
+    tensor per device)."""
     return torch.triu_indices(6, 6, device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _triu_flat(device):
+    """The same entries as indices into a flattened 6x6 matrix."""
+    iu = _triu(device)
+    return iu[0] * 6 + iu[1]
 
 
 def unpack(out: torch.Tensor):
@@ -75,6 +88,18 @@ def unpack(out: torch.Tensor):
     A[iu[0], iu[1]] = out[:21]
     A[iu[1], iu[0]] = out[:21]
     return A, out[21:27], out[27], out[28]
+
+
+def pack(A: torch.Tensor, b: torch.Tensor, num_valid: torch.Tensor,
+         sum_abs: torch.Tensor) -> torch.Tensor:
+    """(A (6, 6), b (6,), num_valid, sum_abs_residual) -> the 29 values
+    ``unpack`` reads and ``gn_finish`` takes: A's upper triangle row-major,
+    b, the count, Σ|r|. Device ops only (nothing is read by the host). Only
+    the upper triangle travels, so an A that is not symmetric bit for bit
+    (JᵀJ from a matmul may differ from its transpose in the last bit) comes
+    back from ``unpack`` as its upper triangle mirrored."""
+    return torch.cat([A.reshape(36).index_select(0, _triu_flat(A.device)), b.reshape(6),
+                      num_valid.reshape(1), sum_abs.reshape(1)])
 
 
 def _pose_of(pose) -> Pose:
@@ -99,10 +124,8 @@ def gn_reduce_reference(Dm: MaskedView, pose, points: torch.Tensor,
     phi, J, mask = pixel_residuals_analytic(Dm, _pose_of(pose), points, params=params,
                                             i0=i0, slab=slab)
     A, b = normal_equations(phi, J, mask)
-    iu = _triu(A.device)
-    nvalid = mask.sum().to(torch.float32)
-    sum_abs = torch.where(mask, phi.abs(), torch.zeros_like(phi)).sum()
-    return torch.cat([A[iu[0], iu[1]], b, nvalid[None], sum_abs[None]])
+    return pack(A, b, mask.sum().to(torch.float32),
+                torch.where(mask, phi.abs(), torch.zeros_like(phi)).sum())
 
 
 def _view_args(Dm: MaskedView, params: GridParams, what: str):
@@ -424,16 +447,38 @@ def slab_stepper(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
             return gn_reduce_slab_reference(Dm, state, flat, params, cfg, i0=i0,
                                             slab=slab)
 
-        def finish_plain(sums: torch.Tensor) -> None:
-            advance_state(state, *unpack(sums), cfg)
-
-        return reduce_plain, finish_plain
+        return reduce_plain, finisher(state, cfg)
     if Dm.device.type != "cuda":
         raise ValueError(f"slab_stepper: unsupported device {Dm.device}")
     reduce = _slab_reducer(Dm, state, points, params, cfg.max_iterations, i0, slab,
                            "launches_slab_brick" if isinstance(Dm, BrickMaskedView)
                            else "launches_slab", "slab_stepper")
-    dev = Dm.device
+    return reduce, finisher(state, cfg)
+
+
+def finisher(state: torch.Tensor, cfg: TrackingConfig) -> Callable[[torch.Tensor], None]:
+    """The rest of a Gauss-Newton step on ``state`` from its 29 summed
+    normal equations (``pack``'s layout), validated once: returns
+    ``finish(sums)``, which runs the damped solve, the convergence test and
+    the pose update in place, frozen once the level is done.
+
+    On a CPU state it is the plain version, ``advance_state`` on
+    ``unpack(sums)``. On a CUDA state each call is one launch of
+    ``gn_finish`` (``launches_finish``) on the current stream, nothing read
+    by the host; the sums must be contiguous float32 on the state's device.
+    With no kernel library the card raises (there is no CPU fallback)."""
+    _check_modes(cfg)
+    dev = state.device
+    if dev.type == "cpu":
+        def finish_plain(sums: torch.Tensor) -> None:
+            advance_state(state, *unpack(sums), cfg)
+
+        return finish_plain
+    if dev.type != "cuda":
+        raise ValueError(f"gn_finish: unsupported device {dev}")
+    if (state.dtype != torch.float32 or tuple(state.shape) != (N_STATE,)
+            or not state.is_contiguous()):
+        raise ValueError(f"gn_finish: state must be contiguous float32 ({N_STATE},)")
     lib = _build.library()
     step_cfg = _step_cfg(cfg)
 
@@ -447,4 +492,4 @@ def slab_stepper(Dm: MaskedView, state: torch.Tensor, points: torch.Tensor,
                                         _build.stream_ptr(dev)), "gn_finish")
         launches_finish += 1
 
-    return reduce, finish
+    return finish
