@@ -15,16 +15,20 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      wrapper's time, the median CUDA-event time per call, validation and
      allocation included:
        K1 gn_reduce (the slab form's kernel over the whole grid), dense
-         form, at 34,240 and 8,560 queries on a 256^3 grid fused from the
-         first frame (flat layout);
+         form, at 34,240, 8,560 and 2,160 queries (strides 3, 6, 12) on a
+         256^3 grid fused from the first frame (flat layout);
        K1 gn_reduce, brick-major form, at the same queries on the bf16 D rows
-         of a 256^3 brick grid fused from the first frame (tum256);
-       K1 gn_step, dense and brick-major bf16 forms, at 34,240, 8,560 and
-         2,160 queries (strides 3, 6, 12 read in place from the point
-         image): one step from the same state against the plain step
-         (relative twist error, equal done flags and valid counts), then a
-         whole level of max_iterations steps (equal step counts, pose within
-         1e-5 m); timed as full steps and as launches on a done state;
+         of a 256^3 and a 512^3 brick grid fused from the first frame (tum256,
+         tum512); its 29 sums bitwise the plain per-query terms summed in
+         launch order (gn_reduce.sums_in_launch_order);
+       K1 gn_step, dense and brick-major bf16 forms (tum256, tum512), at
+         34,240, 8,560 and 2,160 queries (strides 3, 6, 12 read in place
+         from the point image): one step from the same state against the
+         plain step (relative twist error, equal done flags and valid
+         counts) and bitwise against gn_finish of the plain terms summed in
+         launch order, then a whole level of max_iterations steps (equal step
+         counts, pose within 1e-5 m); timed as full steps, beside the reduce
+         half alone (gn_reduce), and as launches on a done state;
        tracking with no host sync: one frame's track_frame_pyramid on the
          tum256 view under torch.cuda.set_sync_debug_mode("error"), with the
          preset's levels (2, 1) and with (4, 2, 1), read after;
@@ -152,7 +156,7 @@ Phases, each of which fails the run (non-zero exit) on a fault:
        jacobian="central" at tum128 on phase 5's scene: gn_finish launched
          once a GN iteration (its normal equations packed on the card) and
          advance_state never; |t err| within half a voxel of the JAX
-         package's, track ms a frame beside the one-thread finish's; the
+         package's, track ms a frame; the
          same run on the CPU over the same depth images, with a float32 and
          with a float64 solve, |t err| beside the card's;
        the flat slice with brick_merge "xla", "rows" and "pallas", tracked
@@ -368,15 +372,6 @@ ABS_TOL_MERGE = 1e-5  # K2 dense form: same float32 formula per voxel
 # brick): device ms on kernel_merge's inputs with color (NVIDIA H100 80GB
 # HBM3, 700.00 W; PERF.md's kernel table)
 MERGE_DEVICE_MS_FIRST = 0.45458
-# K1 with its finish on one thread (before the one-warp finish): device ms of
-# a full step and a done launch by form, of gn_finish, and tum128_central's
-# track ms a frame (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md's kernel table
-# and section 7), printed beside this run's, never put in a record
-K1_ONE_THREAD = {"dense": "full 0.01157, done 0.00119",
-                 "brick-major bf16": "full 0.01185-0.01266, done 0.00121",
-                 "brick-major float32": "full 0.01201-0.01204, done 0.00129",
-                 "synthetic64": "full 0.01025", "tum128": "full 0.01101",
-                 "gn_finish": "0.00687-0.00710", "tum128_central track": "70-131"}
 T_ERR_MAX = 0.0469  # m: the absolute |t err| bound, 2 voxels at 256^3
 # Final |t err| (mm) of the JAX package on the same scene, trajectory and
 # frames (tum256: 11 frames, tum512: 6), unmodified presets at full size, run
@@ -654,9 +649,22 @@ def check_classify(label, launches, cfg, fused=None) -> None:
           f"expected {want}")
 
 
-def gn_compare(label, Dm, pose, pts1, p, strides=(3, 6)):
+def bits_differ(a: torch.Tensor, b: torch.Tensor) -> int:
+    """The float32 elements of ``a`` and ``b`` whose bits differ."""
+    return int((a.view(torch.int32) != b.view(torch.int32)).sum())
+
+
+def launch_order_sums(Dm, pose, q, p):
+    """The plain version's per-query terms summed in K1's launch order."""
+    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+
+    return k1.sums_in_launch_order(k1.query_terms_reference(Dm, pose, q.reshape(-1, 3), p))
+
+
+def gn_compare(label, Dm, pose, pts1, p, strides=(3, 6, 12)):
     """K1 on the card against its plain version at ``strides`` of the point
-    image. Returns the first stride's record."""
+    image, and its 29 sums bitwise against the plain per-query terms summed
+    in launch order. Returns the first stride's record."""
     from tracking_sdf_tpu_torch.tracking.gn_reduce import (
         gn_reduce, gn_reduce_reference, gn_reducer)
 
@@ -672,6 +680,7 @@ def gn_compare(label, Dm, pose, pts1, p, strides=(3, 6)):
             errs[part] = diff / max(out_r[sl].abs().max().item(), 1e-30)
         nv_k, nv_r = int(out_k[27].item()), int(out_r[27].item())
         max_abs = (out_k[:27] - out_r[:27]).abs().max().item()
+        order_differ = bits_differ(out_k, launch_order_sums(Dm, pose, q, p))
         ms = events_ms(gn_reducer(Dm, pose, q, p))
         device_ms = kernel_device_ms(gn_reducer(Dm, pose, q, p),
                                      ("gn_reduce_slab_kernel",))
@@ -680,25 +689,29 @@ def gn_compare(label, Dm, pose, pts1, p, strides=(3, 6)):
         bms, by = k1_bound(q.shape[0], nv_k, Dm.dtype.itemsize, 29 * 4)
         print(f"{label} N={q.shape[0]}: rel err A {errs['A']:.3e} b {errs['b']:.3e}, "
               f"max abs err {max_abs:.3e}, num_valid {nv_k} (plain {nv_r}), tol rel "
-              f"{REL_TOL_GN:g}; kernel {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), "
+              f"{REL_TOL_GN:g}; sums differing in bits from the plain terms in launch "
+              f"order {order_differ}; kernel {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), "
               f"device {device_ms} ms, wrapper {wrapper_ms:.4f} ms per call, plain "
               f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by})")
         check(nv_k == nv_r and nv_k > 1000, f"{label} num_valid {nv_k} != {nv_r}")
         check(errs["A"] <= REL_TOL_GN and errs["b"] <= REL_TOL_GN,
               f"{label} disagrees with its plain version at N={q.shape[0]}: {errs}")
+        check(order_differ == 0, f"{label}: {order_differ} of the 29 sums differ from the "
+              f"plain terms in launch order at N={q.shape[0]}")
         rec[stride] = dict(max_abs_err=max_abs, ms=ms, device_ms=device_ms,
                            wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
                            bound_by=by)
     return rec[strides[0]]
 
 
-def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12), before=""):
+def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12)):
     """K1's step on the card against the plain step, at ``strides`` of the
-    point image (read in place): one step from one state, then a whole level
-    of ``tcfg.max_iterations`` steps. Times full steps (a cfg that never
-    converges) and launches on a done state, printed beside ``before``
-    (the one-thread finish's, K1_ONE_THREAD). Returns the first stride's
-    record."""
+    point image (read in place): one step from one state, which must also be
+    gn_finish of the plain per-query terms summed in launch order bit for
+    bit, then a whole level of ``tcfg.max_iterations`` steps. Times full
+    steps (a cfg that never converges) beside the reduce half alone (the
+    slab form over the whole grid, ``gn_reduce``), and launches on a done
+    state. Returns the first stride's record."""
     from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 
     rec = {}
@@ -716,6 +729,10 @@ def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12), before=""):
         ik, ir = sk.view(torch.int32), sr.view(torch.int32)
         nv_k, nv_r = int(sk[k1.S_NVALID].item()), int(sr[k1.S_NVALID].item())
         done = (int(ik[k1.S_DONE]), int(ir[k1.S_DONE]))
+        # the step is the finish of the launch-order sums of the plain terms
+        so = k1.init_state(pose, tcfg.damping)
+        k1.finisher(so, tcfg)(launch_order_sums(Dm, pose, img, p))
+        order_differ = bits_differ(sk, so)
         # a whole level
         lk = k1.init_state(pose, tcfg.damping)
         lr = lk.clone()
@@ -732,6 +749,7 @@ def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12), before=""):
         full = k1.gn_stepper(Dm, k1.init_state(pose, tcfg.damping), img, p, never)
         ms = events_ms(full)
         device_ms = kernel_device_ms(full, ("gn_step_kernel",))
+        reduce_ms = kernel_device_ms(k1.gn_reducer(Dm, pose, img, p), ("gn_reduce_slab_kernel",))
         done_state = lk.clone()
         done_state.view(torch.int32)[k1.S_DONE] = 1
         frozen = k1.gn_stepper(Dm, done_state, img, p, tcfg)
@@ -745,10 +763,11 @@ def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12), before=""):
               f"max abs state err {max_abs:.3e}, done {done[0]} (plain {done[1]}), "
               f"num_valid {nv_k} (plain {nv_r}); level of {tcfg.max_iterations} "
               f"launches: {iters[0]} steps (plain {iters[1]}), max |pose diff| "
-              f"{dpose:.3e} (tol {POSE_TOL_LEVEL:g}); full step {ms:.4f} ms, done "
-              f"launch {ms_done:.4f} ms ({TIMED_LAUNCHES} back-to-back), device "
-              f"{device_ms} ms (full) and {device_ms_done} ms (done) (one-thread finish: "
-              f"{before or 'not measured at this stride'}), wrapper "
+              f"{dpose:.3e} (tol {POSE_TOL_LEVEL:g}); state bits differing from gn_finish "
+              f"of the plain terms in launch order {order_differ}; full step {ms:.4f} ms, "
+              f"done launch {ms_done:.4f} ms ({TIMED_LAUNCHES} back-to-back), device "
+              f"{device_ms} ms (full; its reduce half alone, gn_reduce, {reduce_ms} ms) and "
+              f"{device_ms_done} ms (done), wrapper "
               f"{wrapper_ms:.4f} ms per call, plain {plain_ms:.4f} ms, bound "
               f"{bms:.6f} ms ({by})")
         check(nv_k == nv_r and nv_k > 100, f"{label} num_valid {nv_k} != {nv_r}")
@@ -756,8 +775,11 @@ def step_compare(label, Dm, pose, pts1, p, tcfg, strides=(3, 6, 12), before=""):
               f"{label} step disagrees with the plain step at N={n}: {err}, {done}")
         check(iters[0] == iters[1] and dpose <= POSE_TOL_LEVEL,
               f"{label} level disagrees with plain steps at N={n}: {iters}, {dpose}")
+        check(order_differ == 0, f"{label}: the step's state differs in {order_differ} "
+              f"slots from gn_finish of the plain terms in launch order at N={n}")
         rec[stride] = dict(max_abs_err=max_abs, ms=ms, ms_done=ms_done,
-                           device_ms=device_ms, device_ms_done=device_ms_done,
+                           device_ms=device_ms, reduce_device_ms=reduce_ms,
+                           device_ms_done=device_ms_done,
                            wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms,
                            bound_by=by)
     return rec[strides[0]]
@@ -807,8 +829,7 @@ def kernel_gn(cam, scene, poses, rgb, dev):
                        cap=flat.fusion.brick_cap)
     Dm = masked_view(grid.D, grid.W)
     dense = gn_compare("K1 gn_reduce (dense)", Dm, poses[0], pts1, p)
-    dense_step = step_compare("K1 gn_step (dense)", Dm, poses[0], pts1, p, flat.tracking,
-                              before=K1_ONE_THREAD["dense"])
+    dense_step = step_compare("K1 gn_step (dense)", Dm, poses[0], pts1, p, flat.tracking)
     del grid, Dm
     f = tum.fusion
     bg = empty_brick_grid(tum.grid, f.brick_shape, device=dev,
@@ -819,9 +840,25 @@ def kernel_gn(cam, scene, poses, rgb, dev):
     check(view.rows.dtype == torch.bfloat16, "the tum256 view is not bf16")
     brick = gn_compare("K1 gn_reduce (brick-major bf16)", view, poses[0], pts1, tum.grid)
     brick_step = step_compare("K1 gn_step (brick-major bf16)", view, poses[0], pts1,
-                              tum.grid, tum.tracking, before=K1_ONE_THREAD["brick-major bf16"])
+                              tum.grid, tum.tracking)
     for levels in (tum.pyramid_levels, (4, 2, 1)):
         tracking_without_host_sync(view, poses[0], pts1, tum.grid, tum.tracking, levels)
+    del bg, view
+    # tum512's bf16 rows: the same checks at the other preset
+    big = path_config("tum512", None)
+    f = big.fusion
+    bg = empty_brick_grid(big.grid, f.brick_shape, device=dev, value_dtype=torch.bfloat16,
+                          weight_dtype=torch.bfloat16)
+    _, view, _ = fuse_frame_brickmajor(bg, poses[0], pts0, nrm0, rgb, params=big.grid,
+                                       cam=cam, cfg=f, bs=f.brick_shape, cap=f.brick_cap,
+                                       cap_free=f.brick_cap_free)
+    check(view.rows.dtype == torch.bfloat16, "the tum512 view is not bf16")
+    brick["tum512"] = gn_compare("K1 gn_reduce (brick-major bf16, tum512)", view, poses[0],
+                                 pts1, big.grid)
+    brick_step["tum512"] = step_compare("K1 gn_step (brick-major bf16, tum512)", view,
+                                        poses[0], pts1, big.grid, big.tracking)
+    del bg, view
+    torch.cuda.empty_cache()
     return dense, brick, dense_step, brick_step
 
 
@@ -2242,7 +2279,7 @@ def k1_at_path(name, grid, pose, pts, cfg):
     return dict(gn_reduce=gn_compare(f"K1 gn_reduce (dense, {name})", Dm, pose, pts, cfg.grid,
                                      stride),
                 gn_step=step_compare(f"K1 gn_step (dense, {name})", Dm, pose, pts, cfg.grid,
-                                     cfg.tracking, stride, before=K1_ONE_THREAD[name]))
+                                     cfg.tracking, stride))
 
 
 @contextlib.contextmanager
@@ -2354,8 +2391,7 @@ def dense_paths(cam, depths, poses, rgb, dev, work):
         if jacobian == "central":
             print(f"  {label}: gn_finish {rec['launches']['gn_finish']} launches (one a GN "
                   f"iteration), advance_state {advances[0]} calls; track {rec['track_ms']:.2f} "
-                  f"ms a frame (median; one-thread finish and advance_state before: "
-                  f"{K1_ONE_THREAD['tum128_central track']} ms; target under 60 ms); final "
+                  f"ms a frame (median; target under 60 ms); final "
                   f"|t err| {rec['t_err_mm']:.4f} mm (JAX {JAX_T_ERR_MM[label]} mm)")
         recs[label] = rec
         if jacobian == "analytic":
@@ -2809,8 +2845,7 @@ def slab_gate_and_finish(label, whole, pose, q, p, tcfg, mesh):
           f"step rel twist err {err:.3e} (tol {REL_TOL_STEP:g}), max abs state err "
           f"{max_abs:.3e}, counts and flags equal {ints_same}; a level {iters[0]} steps "
           f"(plain {iters[1]}), max |pose diff| {dpose:.3e} (tol {POSE_TOL_LEVEL:g}); "
-          f"gn_finish {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device {device_ms} ms "
-          f"(one-thread finish: {K1_ONE_THREAD['gn_finish']}), "
+          f"gn_finish {ms:.4f} ms ({TIMED_LAUNCHES} back-to-back), device {device_ms} ms, "
           f"wrapper {wrapper_ms:.4f} ms; advance_state host {plain_host_ms:.4f} ms a call, "
           f"events {plain_ms:.4f} ms, device {plain_dev_ms:.4f} ms in {plain_ops:.0f} ops; "
           f"solve_ex {solve_ms:.4f} ms; bound {bms:.8f} ms ({by}; latency in practice)")
@@ -3395,7 +3430,7 @@ def kernel_gn_f32(cam, scene, poses, rgb, dev):
                                        cap_free=f.brick_cap_free)
     check(view.rows.dtype == torch.float32, "the packed view is not float32")
     rec = step_compare("K1 gn_step (brick-major float32, packed)", view, poses[0], pts1,
-                       cfg.grid, cfg.tracking, before=K1_ONE_THREAD["brick-major float32"])
+                       cfg.grid, cfg.tracking)
     del bg, view
     torch.cuda.empty_cache()
     return rec

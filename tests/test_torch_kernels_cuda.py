@@ -3,8 +3,11 @@
 Marked ``cuda``: each test skips without a card (decided inside the test, so
 every pytest-xdist worker collects the same tests). On a GPU machine run
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
-Tolerances: K1 relative 1e-4 of max|A| and max|b| (float32 sums in another
-order), K1's step relative 1e-4 of max|twist| with equal valid counts, step
+Tolerances: K1 relative 1e-4 of max|A| and max|b| against the plain
+reduction (float32 sums in another order), and bitwise against the plain
+per-query terms summed in K1's launch order (gn_reduce.sums_in_launch_order:
+gn_reduce, the slab form and gn_step through gn_finish), K1's step
+relative 1e-4 of max|twist| with equal valid counts, step
 counts and done flags (the kernel solves in float64, the plain step in
 float32; the same bars hold gn_finish against advance_state, and the
 central tracker on the card, whose every iteration is one gn_finish launch,
@@ -165,15 +168,11 @@ def test_gn_query_terms_are_the_plain_terms_bitwise(dev, form):
     plain version's per-query J_i J_j, J_i r and |r| bit for bit (the kernel
     rounds each step as the eager ops do), so K1 and its plain version
     differ only in the order of the sums over queries."""
-    from tracking_sdf_tpu_torch.tracking.gauss_newton import pixel_residuals_analytic
-
     view, pts, pose = _step_view(dev, form)
-    phi, J, mask = pixel_residuals_analytic(view, pose, pts, params=PARAMS)
-    idx = mask.nonzero().flatten()[:300]
+    terms = k1.query_terms_reference(view, pose, pts, PARAMS)
+    idx = (terms[:, 27] == 1).nonzero().flatten()[:300]
     assert idx.numel() == 300
-    iu = k1._triu(dev)
-    want = torch.cat([J[idx][:, iu[0]] * J[idx][:, iu[1]], J[idx] * phi[idx, None],
-                      torch.ones(300, 1, device=dev), phi[idx, None].abs()], 1)
+    want = terms[idx]
     got = torch.stack([k1.gn_reduce(view, pose, pts[i:i + 1], PARAMS) for i in idx.tolist()])
     # equal values (the launch sums the query's terms with the other lanes'
     # zeros, which turns a -0 term into +0)
@@ -211,6 +210,79 @@ def test_gn_step_kernel_matches_plain(dev, form):
     step()  # the count has reached max_iterations: the launch changes nothing
     torch.cuda.synchronize()
     assert torch.equal(sk, frozen)
+
+
+LAUNCH_SIZES = [1, 255, 257, 34240, 307200]
+
+
+def _many_points(dev, pose, n):
+    """n camera points on ``_sphere_box``'s surface seen from ``pose``:
+    ``_surface_points`` tiled with jitter from a seed, a NaN every 17th."""
+    base = _surface_points(dev, pose)
+    gen = torch.Generator(device=dev).manual_seed(n)
+    pts = base.repeat(-(-n // base.shape[0]), 1)[:n]
+    pts = pts + 0.005 * torch.randn(n, 3, generator=gen, device=dev)
+    pts[::17] = float("nan")
+    return pts.contiguous()
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("n", LAUNCH_SIZES)
+@pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
+def test_gn_reduce_sums_are_the_plain_terms_in_launch_order(dev, form, n):
+    """K1's 29 sums (the slab kernel over the whole grid) equal the plain
+    per-query terms summed in launch order bit for bit, at ragged, whole and
+    many-chunk block counts; a second launch gives the same bits."""
+    view, _, pose = _step_view(dev, form)
+    pts = _many_points(dev, pose, n)
+    out = k1.gn_reduce(view, pose, pts, PARAMS).clone()
+    again = k1.gn_reduce(view, pose, pts, PARAMS).clone()
+    want = k1.sums_in_launch_order(k1.query_terms_reference(view, pose, pts, PARAMS))
+    torch.cuda.synchronize()
+    assert _same_bits(out, want), (out - want).abs().max().item()
+    assert _same_bits(again, out)
+    assert n < 300 or out[27].item() > n // 4
+
+
+@pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
+def test_gn_reduce_slab_sums_are_the_plain_terms_in_launch_order(dev, form):
+    """The slab form (slab_stepper's reduce) on both ranks of a two-way
+    split, the second at i0 > 0: each rank's sums are its plain slab terms
+    summed in launch order bit for bit."""
+    view, _, pose = _step_view(dev, form)
+    pts = _many_points(dev, pose, 34240)
+    s = PARAMS.m // 2
+    state = k1.init_state(pose, 1e-3)
+    for r, v in enumerate(_slab_views(view, 2)):
+        out = k1.slab_stepper(v, state, pts, PARAMS, TrackingConfig(), i0=r * s,
+                              slab=s)[0]().clone()
+        want = k1.sums_in_launch_order(k1.query_terms_reference(v, state, pts, PARAMS,
+                                                                i0=r * s, slab=s))
+        torch.cuda.synchronize()
+        assert out[27].item() > 1000
+        assert _same_bits(out, want), (r, (out - want).abs().max().item())
+
+
+@pytest.mark.parametrize("form", ["dense", "brick_f32", "brick_bf16"])
+def test_gn_step_is_gn_finish_of_the_plain_terms_in_launch_order(dev, form):
+    """Over a level, each gn_step launch leaves the state that gn_finish
+    leaves from the same state on the plain terms summed in launch order,
+    bit for bit."""
+    view, _, pose = _step_view(dev, form)
+    pts = _many_points(dev, pose, 34240)
+    cfg = TrackingConfig(max_iterations=4, min_iterations=4)
+    sk = k1.init_state(pose, cfg.damping)
+    sf = sk.clone()
+    step, finish = k1.gn_stepper(view, sk, pts, PARAMS, cfg), k1.finisher(sf, cfg)
+    for _ in range(cfg.max_iterations):
+        finish(k1.sums_in_launch_order(k1.query_terms_reference(view, sf, pts, PARAMS)))
+        step()
+        torch.cuda.synchronize()
+        assert _same_bits(sk, sf)
+    assert int(sk.view(torch.int32)[k1.S_COUNT]) == cfg.max_iterations
 
 
 def test_gn_step_rejects_bad_input(dev):

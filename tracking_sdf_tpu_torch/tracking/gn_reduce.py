@@ -15,7 +15,11 @@ bounds the kernels on the card and what the design does about it.
 ``gn_reduce`` / ``gn_reduce_reference`` return 29 float32 values (``unpack``
 turns them back into A (6, 6), b (6,), the valid count and Σ|r| over valid
 queries); on the card ``gn_reduce`` is one launch of K1's slab form over the
-whole grid.
+whole grid. ``query_terms_reference`` gives the plain version's 29 terms of
+each query, which the kernels compute bit for bit, and
+``sums_in_launch_order`` adds such terms in the kernels' fixed order, so
+that on the card every K1 launch's sums are that function of the plain
+terms, bit for bit.
 
 ``gn_step`` / ``gn_step_reference`` run one damped Gauss-Newton iteration on
 a state buffer that lives on the view's device (layout below): the normal
@@ -126,6 +130,56 @@ def gn_reduce_reference(Dm: MaskedView, pose, points: torch.Tensor,
     A, b = normal_equations(phi, J, mask)
     return pack(A, b, mask.sum().to(torch.float32),
                 torch.where(mask, phi.abs(), torch.zeros_like(phi)).sum())
+
+
+def query_terms_reference(Dm: MaskedView, pose, points: torch.Tensor, params: GridParams,
+                          i0: int = 0, slab: Optional[int] = None) -> torch.Tensor:
+    """The plain version's (N, 29) terms of each query, in ``pack``'s
+    layout: J_i J_j over A's upper triangle, J_i r, 1 and |r| for a valid
+    query, zeros for any other. Their sum over queries is
+    ``gn_reduce_reference``'s up to the order of the sums; on the card the
+    kernel's per-query terms are these bit for bit. ``i0`` and ``slab`` as
+    for ``gn_reduce_reference``."""
+    from tracking_sdf_tpu_torch.tracking.gauss_newton import pixel_residuals_analytic
+
+    phi, J, mask = pixel_residuals_analytic(Dm, _pose_of(pose), points, params=params,
+                                            i0=i0, slab=slab)
+    iu = _triu(J.device)
+    terms = torch.cat([J[:, iu[0]] * J[:, iu[1]], J * phi[:, None], torch.ones_like(phi)[:, None],
+                       phi.abs()[:, None]], 1)
+    return torch.where(mask[:, None], terms, torch.zeros_like(terms))
+
+
+def sums_in_launch_order(terms: torch.Tensor) -> torch.Tensor:
+    """The (29,) sums of (N, 29) float32 per-query terms added in the order
+    of one launch of K1 (``gn_reduce``, ``gn_step``, the slab form): the
+    queries zero-padded to whole blocks of THREADS; in each warp of 32 the
+    shuffle-down tree (lanes l and l + o added at o = 16, 8, 4, 2, 1); the
+    block's warps in order from 0; lane j of 8 summing blocks j, j + 8, ...
+    in order from 0; the 8 lanes in order from 0. Elementwise float32 adds
+    only, so it gives the kernel's bits on any device (and zero-padding
+    whole blocks to the lanes changes nothing: no partial sum is -0)."""
+    n = terms.shape[0]
+    blocks = max(-(-n // THREADS), 1)
+    lanes = 8
+    x = torch.zeros(-(-blocks // lanes) * lanes * THREADS, N_OUT, dtype=torch.float32,
+                    device=terms.device)
+    x[:n] = terms
+    x = x.view(-1, THREADS // 32, 32, N_OUT)
+    for o in (16, 8, 4, 2, 1):
+        x = x[:, :, :o] + x[:, :, o:2 * o]
+    warps = x[:, :, 0]  # (blocks, warps, 29)
+    part = torch.zeros_like(warps[:, 0])
+    for w in range(warps.shape[1]):
+        part = part + warps[:, w]
+    rounds = part.view(-1, lanes, N_OUT)
+    lane = torch.zeros_like(rounds[0])
+    for r in range(rounds.shape[0]):
+        lane = lane + rounds[r]
+    total = torch.zeros_like(lane[0])
+    for j in range(lanes):
+        total = total + lane[j]
+    return total
 
 
 def _view_args(Dm: MaskedView, params: GridParams, what: str):
