@@ -135,7 +135,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--json", action="store_true", help="print summary as JSON")
     p.add_argument("--profile",
                    help="capture a torch.profiler trace of the run into this "
-                        "directory (trace.json, Chrome trace format)")
+                        "directory (trace.json, Chrome trace format) and trace "
+                        "the port for the run (utils/profiling.py): the chunked "
+                        "runner's tsdf.* spans, and each chunked frame's device "
+                        "stamps and GN steps a pyramid level in --metrics-log")
     p.add_argument("--checkpoint",
                    help="checkpoint directory; resumes from it when present")
     p.add_argument("--checkpoint-every", type=int, default=0,
@@ -313,9 +316,10 @@ def _run(args, device, group) -> int:
 
     profile_cm = contextlib.nullcontext()
     if args.profile:
-        from tracking_sdf_tpu_torch.utils.profiling import trace
+        from tracking_sdf_tpu_torch.utils import profiling
 
-        profile_cm = trace(args.profile)
+        profiling.enable_tracing(True)
+        profile_cm = profiling.trace(args.profile)
     t0 = time.perf_counter()
     try:
         with profile_cm:
@@ -343,6 +347,8 @@ def _run(args, device, group) -> int:
                 print(f"render -> {args.render}", file=sys.stderr)
     finally:
         recon.close()
+        if args.profile:
+            profiling.enable_tracing(False)
 
     summary = recon.summary()
     # wall clock around run(): loading, decoding and staging included

@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 SOURCES = ("gn_reduce.cu", "brick_merge.cu", "brick_fuse.cu", "preprocess.cu",
-           "brick_classify.cu")
+           "brick_classify.cu", "stamp.cu")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -80,6 +80,8 @@ _SIGNATURES = {
     # cap_free, cap_sfree, cap_mixed, f, nsj, nsk, nbj, nbk, nb, ns,
     # scratch_tiles, vec, stream
     "tsdf_compact_lists_hier": [_P] * 8 + [_I] * 14 + [_P],
+    # out (one int64), stream
+    "tsdf_device_stamp": [_P, _P],
 }
 
 _lib = None

@@ -33,6 +33,15 @@ capture records the launches of one step and each replay adds them to the
 wrappers' counters. The warm-up, the capture itself and the calibration
 loops are not frames and add nothing.
 
+Tracing (utils.profiling.tracing_enabled, read once a chunk like the
+--debug-nans switch) selects the traced variant of each step, captured on
+its own: it stamps the device's clock at the step's first and last
+operation and widens the frame's record with each pyramid level's full GN
+steps (``traced_layout``), read in the same per-frame copy and host read
+(``chunk_trace``). The first REC slots, the carry and the rows are the
+untraced step's bit for bit; the stamp kernel is counted by no launch
+counter.
+
 Under a mesh (parallel.sharded) the step is the same with the sharded
 tracker and fusion: its collectives (the halo's all_gather, an all_reduce a
 GN iteration, the counts' all_reduce) run inside it. Under NCCL they are
@@ -44,6 +53,7 @@ records once per chunk.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import gc
 import threading
 import time
@@ -55,8 +65,9 @@ from tracking_sdf_tpu_torch.core.lie import Pose, pose_compose, pose_inverse
 from tracking_sdf_tpu_torch.fusion import brick_classify, brick_fuse, brick_merge
 from tracking_sdf_tpu_torch.fusion.brickmajor import BrickGrid
 from tracking_sdf_tpu_torch.tracking import gn_reduce, preprocess
+from tracking_sdf_tpu_torch.tracking.gn_reduce import S_COUNT
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
-from tracking_sdf_tpu_torch.utils import debug_nans
+from tracking_sdf_tpu_torch.utils import debug_nans, profiling
 
 # A frame's record (float32; the counts are exact): R (9), t (3), GN
 # iterations, num_valid, mean |residual|, rejected, fusion's six counts
@@ -65,6 +76,36 @@ from tracking_sdf_tpu_torch.utils import debug_nans
 REC_R, REC_T, REC_ITERS, REC_NVALID, REC_MRES, REC_REJ, REC_COUNTS = 0, 9, 12, 13, 14, 15, 16
 REC_FAULT = 22
 REC = 23
+
+
+def traced_layout(levels: int) -> Tuple[int, int]:
+    """(the first stamp's slot, the record's width) of the traced record
+    of a step that tracks ``levels`` levels: the REC slots, each level's GN
+    state slot S_COUNT (int32 bits: its full steps), coarse to fine, then
+    on an 8-byte boundary two int64 stamps."""
+    end = REC + levels
+    stamps = end + end % 2
+    return stamps, stamps + 4
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkTrace:
+    """What a traced chunk's records hold besides the frames' own slots
+    (CPU tensors, one row a frame)."""
+    # (n, 2) int64: the device's clock in ns at each frame step's first and
+    # last operation (%globaltimer; on the CPU the host's perf_counter_ns)
+    stamps: torch.Tensor
+    # (n, levels) int64, coarse to fine: each level's full GN steps
+    full_steps: torch.Tensor
+
+
+def chunk_trace(out: torch.Tensor, levels: int) -> ChunkTrace:
+    """The ChunkTrace of a traced chunk's records ``out`` (n, width)."""
+    s0, width = traced_layout(levels)
+    return ChunkTrace(
+        stamps=out[:, s0:width].contiguous().view(torch.int64),
+        full_steps=out[:, REC:REC + levels].contiguous().view(torch.int32).to(torch.int64))
+
 
 # held by a capture and by a chunk's replays; see the module docstring
 DEVICE_LOCK = threading.RLock()
@@ -124,12 +165,20 @@ class ChunkSteps:
         self.prev_R, self.prev_t = torch.zeros(3, 3, **f32), torch.zeros(3, **f32)
         self.have_prev = torch.zeros((), dtype=torch.bool, device=dev)
         self.rec = torch.zeros(REC, **f32)
+        # the traced record: its tracking levels as Reconstruction._track_levels
+        # runs them, and an int64 view of its two stamps
+        cfg = recon.config
+        self.levels = len(cfg.pyramid_levels) if cfg.pyramid_levels and mesh is None else 1
+        s0, width = traced_layout(self.levels)
+        self.rec_traced = torch.zeros(width, **f32)
+        self._stamps = self.rec_traced[s0:].view(torch.int64)
         self._scale_depth, self._scale_rgb = recon._scale_depth, recon._scale_rgb
         self._inputs: Dict[tuple, Tuple[torch.Tensor, Optional[torch.Tensor]]] = {}
         self._steps: Dict[tuple, Callable[[], None]] = {}
         self._pool = torch.cuda.graph_pool_handle() if self.graphs else None
         self.capture_ms: Dict[tuple, float] = {}  # per captured variant
         self.debug = False  # the --debug-nans switch of the prepared steps
+        self.traced = False  # tracing, for the prepared steps
         self.calibration_ms: List[float] = []  # per calibration
 
     # --- one frame --------------------------------------------------------
@@ -147,13 +196,15 @@ class ChunkSteps:
                                 bilateral_mode=cfg.bilateral_mode)
 
     def _frame(self, depth: torch.Tensor, rgb: Optional[torch.Tensor], cap: int,
-               debug: bool) -> None:
+               debug: bool, traced: bool) -> None:
         """One frame from the input buffers: tracks from the carry, gates,
         fuses, writes the record and advances the carry. ``rgb`` None fuses
         no color; ``debug`` checks the invariants of the rows written and
-        the pose into the record."""
+        the pose into the record; ``traced`` writes the traced record."""
         r = self.recon
         cfg = r.config
+        if traced:
+            profiling.device_stamp(self._stamps[:1])
         pts, nrm = self._preprocess(depth)
         pose = Pose(self.R, self.t)
         pose0 = pose
@@ -161,7 +212,8 @@ class ChunkSteps:
             pred = velocity_guess(pose, Pose(self.prev_R, self.prev_t))
             pose0 = Pose(torch.where(self.have_prev, pred.R, pose.R),
                          torch.where(self.have_prev, pred.t, pose.t))
-        st = r._track(pose0, pts).device_stats()
+        levels = r._track_levels(pose0, pts)
+        st = levels[-1].device_stats()
         finite = torch.isfinite(st.pose.R).all() & torch.isfinite(st.pose.t).all()
         rejected = (st.num_valid < cfg.min_valid_pixels) | ~finite
         if cfg.max_mean_residual > 0:
@@ -177,13 +229,19 @@ class ChunkSteps:
         n = REC_FAULT - REC_COUNTS
         fault = (counts[n:].to(torch.int32).view(torch.float32) if debug
                  else scalars[:1] * 0)
-        self.rec.copy_(torch.cat([new.R.reshape(9), new.t, scalars,
-                                  counts[:n].to(torch.float32), fault]))
+        parts = [new.R.reshape(9), new.t, scalars, counts[:n].to(torch.float32), fault]
+        if traced:
+            parts += [lv.state[S_COUNT:S_COUNT + 1] for lv in levels]
+            self.rec_traced[:REC + len(levels)].copy_(torch.cat(parts))
+        else:
+            self.rec.copy_(torch.cat(parts))
         self.prev_R.copy_(self.R)
         self.prev_t.copy_(self.t)
         self.R.copy_(new.R)
         self.t.copy_(new.t)
         self.have_prev.copy_(~rejected)
+        if traced:
+            profiling.device_stamp(self._stamps[1:])
 
     # --- capture ----------------------------------------------------------
 
@@ -233,13 +291,13 @@ class ChunkSteps:
         # the sat_skip bitset, when on, is a buffer of the Reconstruction at
         # a fixed address that the graph reads and writes
         key = (tuple(depth.shape), depth.dtype, None if rgb is None else rgb.dtype,
-               color_on, cap, self.recon._sat is not None, self.debug)
+               color_on, cap, self.recon._sat is not None, self.debug, self.traced)
         if key in self._steps:
             return self._steps[key]
-        debug = self.debug
+        debug, traced = self.debug, self.traced
 
         def frame():
-            self._frame(depth, rgb if color_on else None, cap, debug)
+            self._frame(depth, rgb if color_on else None, cap, debug, traced)
 
         if not self.graphs:
             self._steps[key] = frame
@@ -247,8 +305,9 @@ class ChunkSteps:
         # the warm-up fuses an all-NaN frame, which leaves the rows as they are
         depth.fill_(0 if depth.dtype == torch.int16 else float("nan"))
         t0 = time.perf_counter()
-        graph, per_replay = self.capture(frame, self._pool)
-        torch.cuda.synchronize(self.device)
+        with profiling.span("tsdf.chunk.capture"):
+            graph, per_replay = self.capture(frame, self._pool)
+            torch.cuda.synchronize(self.device)
         self.capture_ms[key] = (time.perf_counter() - t0) * 1e3
 
         def replay():
@@ -264,8 +323,9 @@ class ChunkSteps:
                 colors: Sequence[bool], cap: int):
         """The input buffers and the steps (captured now on the card) that
         ``replay`` needs for frames shaped like ``depths`` / ``rgbs``, with
-        the --debug-nans switch as it is now."""
+        the --debug-nans switch and tracing as they are now."""
         self.debug = debug_nans.enabled()
+        self.traced = profiling.tracing_enabled()
         inp = self._input(tuple(depths.shape[1:3]), depths.dtype,
                           None if rgbs is None else rgbs.dtype)
         return inp, {c: self.step(inp, c, cap) for c in sorted(set(colors))}
@@ -273,26 +333,32 @@ class ChunkSteps:
     def replay(self, prepared, depths: torch.Tensor, rgbs: Optional[torch.Tensor],
                colors: Sequence[bool], pose: Pose, prev: Optional[Pose]) -> torch.Tensor:
         """Run the frames from the carry (``pose``, ``prev`` or None) and
-        read their records once: (n, REC) float32 on the CPU. ``depths`` and
-        ``rgbs`` are on the device or in pinned host memory; on the card no
-        host sync happens between the first replay and the read."""
+        read their records once: (n, REC) float32 on the CPU, traced (n,
+        ``traced_layout(levels)[1]``). ``depths`` and ``rgbs`` are on the
+        device or in pinned host memory; on the card no host sync happens
+        between the first replay and the read."""
         (depth, rgb), steps = prepared
-        self.R.copy_(pose.R)
-        self.t.copy_(pose.t)
-        p = prev if prev is not None else pose
-        self.prev_R.copy_(p.R)
-        self.prev_t.copy_(p.t)
-        self.have_prev.fill_(prev is not None)
-        out = torch.empty((len(colors), REC), dtype=torch.float32, device=self.device)
-        # eager steps (the CPU, Gloo) neither capture nor guard: no lock
-        with (DEVICE_LOCK if self.graphs else contextlib.nullcontext()), self._no_host_sync():
-            for k, color in enumerate(colors):
-                depth.copy_(depths[k], non_blocking=True)
-                if rgb is not None:
-                    rgb.copy_(rgbs[k], non_blocking=True)
-                steps[color]()
-                out[k].copy_(self.rec)
-        return out.cpu()
+        rec = self.rec_traced if self.traced else self.rec
+        with profiling.span("tsdf.chunk.issue"):
+            self.R.copy_(pose.R)
+            self.t.copy_(pose.t)
+            p = prev if prev is not None else pose
+            self.prev_R.copy_(p.R)
+            self.prev_t.copy_(p.t)
+            self.have_prev.fill_(prev is not None)
+            out = torch.empty((len(colors), rec.shape[0]), dtype=torch.float32,
+                              device=self.device)
+            # eager steps (the CPU, Gloo) neither capture nor guard: no lock
+            with (DEVICE_LOCK if self.graphs else contextlib.nullcontext()), \
+                    self._no_host_sync():
+                for k, color in enumerate(colors):
+                    depth.copy_(depths[k], non_blocking=True)
+                    if rgb is not None:
+                        rgb.copy_(rgbs[k], non_blocking=True)
+                    steps[color]()
+                    out[k].copy_(rec)
+        with profiling.span("tsdf.chunk.read"):
+            return out.cpu()
 
     @contextlib.contextmanager
     def _no_host_sync(self):

@@ -41,7 +41,7 @@ import dataclasses
 import json
 import time
 import warnings
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +60,7 @@ from tracking_sdf_tpu_torch.pipeline.trajectory import TrajectoryWriter
 from tracking_sdf_tpu_torch.tracking.gauss_newton import TrackResult, track_frame
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 from tracking_sdf_tpu_torch.tracking.pyramid import track_frame_pyramid
-from tracking_sdf_tpu_torch.utils import debug_nans
+from tracking_sdf_tpu_torch.utils import debug_nans, profiling
 
 # The reference's initial pose (camera z along world -y, 1 m up) with its
 # third row's sign flipped: the reference's literal matrix has det = -1.
@@ -206,6 +206,8 @@ class Reconstruction:
         self._chunk_calib = {}
         self.chunk_phase_metrics = True
         self.chunk_fuse_stats: List[Optional[FuseStats]] = []
+        # the last chunk's ChunkTrace when it ran traced (utils.profiling)
+        self.chunk_trace: Optional[chunked.ChunkTrace] = None
         # TUM wire formats are decoded on the device by true division
         self._scale_depth = torch.full((), 5000.0, device=self.device)
         self._scale_rgb = torch.full((), 255.0, device=self.device)
@@ -369,26 +371,27 @@ class Reconstruction:
             return chunked.velocity_guess(self.pose, self._pose_prev)
         return self.pose
 
-    def _track(self, pose0: Pose, points: torch.Tensor) -> TrackResult:
-        """Tracking of one frame's (H, W, 3) points from ``pose0``, issued
-        with no host read (brick-major: against the view of the D rows; the
-        central Jacobian against the dense grid, brick-major's made here;
-        under a mesh the sharded tracker, one level at pixel_stride)."""
+    def _track_levels(self, pose0: Pose, points: torch.Tensor) -> Tuple[TrackResult, ...]:
+        """Tracking of one frame's (H, W, 3) points from ``pose0``: each
+        level's result, coarse to fine, issued with no host read
+        (brick-major: against the view of the D rows; the central Jacobian
+        against the dense grid, brick-major's made here; under a mesh the
+        sharded tracker, one level at pixel_stride)."""
         cfg = self.config
         if self.mesh is not None:
             rows = self._bgrid.D if self._bgrid is not None else self._grid
-            return self._track_sh(rows, pose0, points)
+            return (self._track_sh(rows, pose0, points),)
         grid, dm = self._grid, self._dm
         if cfg.tracking.jacobian == "central":
             grid, dm = self.grid, None
         if cfg.pyramid_levels:
-            res, _ = track_frame_pyramid(
+            _, levels = track_frame_pyramid(
                 grid, pose0, points, params=cfg.grid, cfg=cfg.tracking,
                 levels=cfg.pyramid_levels, Dm=dm)
-            return res
+            return levels
         s = cfg.tracking.pixel_stride
-        return track_frame(grid, pose0, points[::s, ::s], params=cfg.grid,
-                           cfg=cfg.tracking, Dm=dm)
+        return (track_frame(grid, pose0, points[::s, ::s], params=cfg.grid,
+                            cfg=cfg.tracking, Dm=dm),)
 
     def _as_depth(self, depth) -> torch.Tensor:
         """A depth image on the device as float32 meters with NaN holes. TUM
@@ -444,7 +447,7 @@ class Reconstruction:
                 rejected = True
                 self._pose_prev = None
         elif self.frame_num > 1:
-            res = self._track(self._predict_pose(), points)
+            res = self._track_levels(self._predict_pose(), points)[-1]
             # the frame's one read of the tracking state: its stats and the
             # failure gate's inputs
             st = res.read()
@@ -543,93 +546,116 @@ class Reconstruction:
         fuse_ms on every fused frame (0 on a rejected one) and the rest of
         the chunk's wall time as track_ms, split by GN iterations; without
         it track_ms is the chunk's wall time over N. A calibration that
-        fails warns (RuntimeWarning) and leaves that fallback."""
+        fails warns (RuntimeWarning) and leaves that fallback.
+
+        While tracing (utils.profiling.tracing_enabled) the call is the span
+        ``tsdf.process_chunk`` (its id the chunk's first frame index), with
+        these nested in it: ``tsdf.chunk.setup`` (staging, the color
+        cadence, the steps' creation and preparation, a first use's
+        ``tsdf.chunk.capture``), ``tsdf.chunk.issue`` and ``tsdf.chunk.read``
+        (pipeline.chunk), then ``tsdf.chunk.post`` until the return, with
+        ``tsdf.chunk.calibrate``, each frame's ``tsdf.trajectory.write`` and
+        ``tsdf.publish`` inside. The frames run the steps' traced variant:
+        ``chunk_trace`` holds their device stamps and per-level full GN
+        steps, None when not tracing. The records, poses, rows and
+        trajectory file are the same either way."""
+        with profiling.span("tsdf.process_chunk", self.frame_num + 1):
+            return self._process_chunk(depths, rgbs, timestamps)
+
+    def _process_chunk(self, depths, rgbs, timestamps) -> List[FrameStats]:
         cfg = self.config
         if (not self._chunk_supported() or self.frame_num < 1):
             raise ValueError(
                 "process_chunk needs mode='brickmajor' (not 'packed'), "
                 "jacobian='analytic', tracked (not groundtruth) poses and one "
                 "process_frame call first (frame 0 bootstraps the grid)")
-        depths = self._stage(depths, rgb=False)
-        n = depths.shape[0]
-        has_color = cfg.fusion.fuse_color and rgbs is not None
-        rgbs = self._stage(rgbs, rgb=True) if has_color else None
-        if timestamps is None:
-            timestamps = [float(self.frame_num + 1 + i) for i in range(n)]
-        cap = self._cap_levels[-1]
-        ce = cfg.fusion.color_every
-        colors = chunked.color_cadence(self.frame_num + 1, n, has_color, ce)
-        if self._chunk_steps is None:
-            self._chunk_steps = chunked.ChunkSteps(self)
-        steps = self._chunk_steps
-        prepared = steps.prepare(depths, rgbs, colors, cap)
+        with profiling.span("tsdf.chunk.setup"):
+            depths = self._stage(depths, rgb=False)
+            n = depths.shape[0]
+            has_color = cfg.fusion.fuse_color and rgbs is not None
+            rgbs = self._stage(rgbs, rgb=True) if has_color else None
+            if timestamps is None:
+                timestamps = [float(self.frame_num + 1 + i) for i in range(n)]
+            cap = self._cap_levels[-1]
+            ce = cfg.fusion.color_every
+            colors = chunked.color_cadence(self.frame_num + 1, n, has_color, ce)
+            if self._chunk_steps is None:
+                self._chunk_steps = chunked.ChunkSteps(self)
+            steps = self._chunk_steps
+            prepared = steps.prepare(depths, rgbs, colors, cap)
 
         t0 = time.perf_counter()
         out = steps.replay(prepared, depths, rgbs, colors, self.pose, self._pose_prev)
         wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
-        if steps.debug:  # the first frame of the chunk that broke an invariant
-            codes = out[:, chunked.REC_FAULT].contiguous().view(torch.int32).tolist()
-            for i, code in enumerate(codes):
-                debug_nans.check(code, f"frame {self.frame_num + 1 + i} (chunk of {n})")
-        rej = out[:, chunked.REC_REJ] > 0
-        iters = out[:, chunked.REC_ITERS].to(torch.int64)
-        counts = out[:, chunked.REC_COUNTS:chunked.REC_FAULT].to(torch.int64).tolist()
-        self.pose = Pose(steps.R.clone(), steps.t.clone())
-        self._pose_prev = (None if bool(rej[-1])
-                           else Pose(steps.prev_R.clone(), steps.prev_t.clone()))
-        self.chunk_fuse_stats = [None if rj else fuse_stats(c)
-                                 for rj, c in zip(rej.tolist(), counts)]
-        fused = [s for s in self.chunk_fuse_stats if s is not None]
-        if fused:
-            self.last_fuse_stats = fused[-1]
+        with profiling.span("tsdf.chunk.post"):
+            if steps.debug:  # the first frame of the chunk that broke an invariant
+                codes = out[:, chunked.REC_FAULT].contiguous().view(torch.int32).tolist()
+                for i, code in enumerate(codes):
+                    debug_nans.check(code, f"frame {self.frame_num + 1 + i} (chunk of {n})")
+            self.chunk_trace = chunked.chunk_trace(out, steps.levels) if steps.traced else None
+            rej = out[:, chunked.REC_REJ] > 0
+            iters = out[:, chunked.REC_ITERS].to(torch.int64)
+            counts = out[:, chunked.REC_COUNTS:chunked.REC_FAULT].to(torch.int64).tolist()
+            self.pose = Pose(steps.R.clone(), steps.t.clone())
+            self._pose_prev = (None if bool(rej[-1])
+                               else Pose(steps.prev_R.clone(), steps.prev_t.clone()))
+            self.chunk_fuse_stats = [None if rj else fuse_stats(c)
+                                     for rj, c in zip(rej.tolist(), counts)]
+            fused = [s for s in self.chunk_fuse_stats if s is not None]
+            if fused:
+                self.last_fuse_stats = fused[-1]
 
-        prep_i, fuse_i = np.zeros(n), np.zeros(n)
-        track_i = np.full(n, wall_ms)
-        if self.chunk_phase_metrics:
-            key = (n, has_color, depths.dtype == torch.int16, cap,
-                   (self.frame_num + 1) % ce if has_color and ce > 1 else 0)
-            try:
-                if key not in self._chunk_calib:
-                    self._chunk_calib[key] = steps.calibrate(depths, rgbs, colors, cap)
-                prep_ms, fuse_cal = self._chunk_calib[key]
-            except Exception as e:  # the frames are done; only their split is lost
-                warnings.warn(f"chunk phase calibration failed ({type(e).__name__}: {e});"
-                              " the FrameStats carry wall/n in track_ms", RuntimeWarning,
-                              stacklevel=2)
-            else:
-                prep_i[:] = prep_ms
-                fuse_i = np.where(rej.numpy(), 0.0, fuse_cal)
-                pool = max(wall_ms * n - prep_ms * n - float(fuse_i.sum()), 0.0)
-                w_it = np.maximum(iters.numpy().astype(np.float64), 1.0)
-                track_i = pool * w_it / w_it.sum()
+            prep_i, fuse_i = np.zeros(n), np.zeros(n)
+            track_i = np.full(n, wall_ms)
+            if self.chunk_phase_metrics:
+                key = (n, has_color, depths.dtype == torch.int16, cap,
+                       (self.frame_num + 1) % ce if has_color and ce > 1 else 0)
+                try:
+                    if key not in self._chunk_calib:
+                        with profiling.span("tsdf.chunk.calibrate"):
+                            self._chunk_calib[key] = steps.calibrate(depths, rgbs, colors, cap)
+                    prep_ms, fuse_cal = self._chunk_calib[key]
+                except Exception as e:  # the frames are done; only their split is lost
+                    warnings.warn(f"chunk phase calibration failed ({type(e).__name__}: {e});"
+                                  " the FrameStats carry wall/n in track_ms", RuntimeWarning,
+                                  stacklevel=3)
+                else:
+                    prep_i[:] = prep_ms
+                    fuse_i = np.where(rej.numpy(), 0.0, fuse_cal)
+                    pool = max(wall_ms * n - prep_ms * n - float(fuse_i.sum()), 0.0)
+                    w_it = np.maximum(iters.numpy().astype(np.float64), 1.0)
+                    track_i = pool * w_it / w_it.sum()
 
-        stats_out: List[FrameStats] = []
-        for i in range(n):
-            self.frame_num += 1
-            ts = float(timestamps[i])
-            rec = out[i]
-            if self._writer is not None and not rej[i]:
-                self._writer.write(ts, Pose(rec[chunked.REC_R:chunked.REC_T].reshape(3, 3),
-                                            rec[chunked.REC_T:chunked.REC_ITERS]))
-            stat = FrameStats(index=self.frame_num, timestamp=ts,
-                              track_ms=float(track_i[i]), fuse_ms=float(fuse_i[i]),
-                              gn_iterations=int(iters[i]),
-                              num_valid=int(rec[chunked.REC_NVALID]),
-                              mean_abs_residual=float(rec[chunked.REC_MRES]),
-                              rejected=bool(rej[i]), preprocess_ms=float(prep_i[i]))
-            self.stats.append(stat)
-            stats_out.append(stat)
-        ovf = [COUNTS.index(k) for k in ("overflow", "overflow_active", "overflow_mixed")]
-        overflow = sum(c[i] for c in counts for i in ovf)
-        self.overflow_drops += overflow
-        if overflow:
-            warnings.warn(
-                f"process_chunk: {overflow} brick-cap overflow drops across the chunk "
-                f"(cap {cap} = the preset max; peak n_full {max(c[0] for c in counts)}: "
-                f"raise FusionConfig.brick_cap to cover it)", RuntimeWarning, stacklevel=2)
-        self._maybe_publish()
-        return stats_out
+            stats_out: List[FrameStats] = []
+            for i in range(n):
+                self.frame_num += 1
+                ts = float(timestamps[i])
+                rec = out[i]
+                if self._writer is not None and not rej[i]:
+                    pose = Pose(rec[chunked.REC_R:chunked.REC_T].reshape(3, 3),
+                                rec[chunked.REC_T:chunked.REC_ITERS])
+                    with profiling.span("tsdf.trajectory.write"):
+                        self._writer.write(ts, pose)
+                stat = FrameStats(index=self.frame_num, timestamp=ts,
+                                  track_ms=float(track_i[i]), fuse_ms=float(fuse_i[i]),
+                                  gn_iterations=int(iters[i]),
+                                  num_valid=int(rec[chunked.REC_NVALID]),
+                                  mean_abs_residual=float(rec[chunked.REC_MRES]),
+                                  rejected=bool(rej[i]), preprocess_ms=float(prep_i[i]))
+                self.stats.append(stat)
+                stats_out.append(stat)
+            ovf = [COUNTS.index(k) for k in ("overflow", "overflow_active", "overflow_mixed")]
+            overflow = sum(c[i] for c in counts for i in ovf)
+            self.overflow_drops += overflow
+            if overflow:
+                warnings.warn(
+                    f"process_chunk: {overflow} brick-cap overflow drops across the chunk "
+                    f"(cap {cap} = the preset max; peak n_full {max(c[0] for c in counts)}: "
+                    f"raise FusionConfig.brick_cap to cover it)", RuntimeWarning, stacklevel=3)
+            with profiling.span("tsdf.publish"):
+                self._maybe_publish()
+            return stats_out
 
     # --- meshing and rendering ----------------------------------------------
 
@@ -789,7 +815,10 @@ class Reconstruction:
         ``timestamp``, optionally ``gt_pose``; data.tum.TUMFrame).
         ``skip_frames`` skips that many frames first (pass ``frame_num``
         after restore_checkpoint), ``max_frames`` stops at that frame index;
-        ``metrics_log`` appends one JSON line of FrameStats per frame.
+        ``metrics_log`` appends one JSON line of FrameStats per frame (a
+        chunk's traced frame adds ``device_ns``, its step's first and last
+        device stamps, and ``gn_steps``, each level's full GN steps, coarse
+        to fine: ``chunk_trace``).
         ``chunk`` > 1 hands that many frames at a time to process_chunk
         (frame 0 and an odd tail run per frame; the flat layouts, the
         central Jacobian and the groundtruth oracle mode, which have no
@@ -809,14 +838,14 @@ class Reconstruction:
         log = open(metrics_log, "a") if metrics_log else None
         pend = []  # frames held for the next chunk
 
-        def emit(stat: FrameStats) -> None:
+        def emit(stat: FrameStats, traced: Optional[dict] = None) -> None:
             self.emit_times.append(time.perf_counter())
             if progress:
                 print(f"frame {stat.index}: track {stat.track_ms:.1f} ms "
                       f"({stat.gn_iterations} GN iters, {stat.num_valid} px), "
                       f"fuse {stat.fuse_ms:.1f} ms", flush=True)
             if log is not None:
-                log.write(json.dumps(dataclasses.asdict(stat)) + "\n")
+                log.write(json.dumps(dict(dataclasses.asdict(stat), **(traced or {}))) + "\n")
                 log.flush()
             if mesh_every and mesh_path and stat.index % mesh_every == 0:
                 self.export_mesh(mesh_path)
@@ -834,9 +863,12 @@ class Reconstruction:
                 rgbs = None
                 if cfg.fusion.fuse_color and all(f.rgb is not None for f in pend):
                     rgbs = _stack([f.rgb for f in pend])
-                for stat in self.process_chunk(_stack([f.depth for f in pend]), rgbs,
-                                               timestamps=[f.timestamp for f in pend]):
-                    emit(stat)
+                stats = self.process_chunk(_stack([f.depth for f in pend]), rgbs,
+                                           timestamps=[f.timestamp for f in pend])
+                tr = self.chunk_trace
+                for k, stat in enumerate(stats):
+                    emit(stat, None if tr is None else dict(
+                        device_ns=tr.stamps[k].tolist(), gn_steps=tr.full_steps[k].tolist()))
             pend.clear()
 
         try:
