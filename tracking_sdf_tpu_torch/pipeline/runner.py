@@ -548,13 +548,20 @@ class Reconstruction:
         it track_ms is the chunk's wall time over N. A calibration that
         fails warns (RuntimeWarning) and leaves that fallback.
 
+        The host reads the chunk's records once (one CPU array of N rows).
+        The trajectory lines of the frames not rejected are written in one
+        pass (TrajectoryWriter.write_chunk: one quaternion_from_matrix over
+        the N rotations, one write, one flush) before the call returns,
+        while tracing under one ``tsdf.trajectory.write`` span whose id is
+        the number of lines; the file's bytes are the per-frame loop's.
+
         While tracing (utils.profiling.tracing_enabled) the call is the span
         ``tsdf.process_chunk`` (its id the chunk's first frame index), with
         these nested in it: ``tsdf.chunk.setup`` (staging, the color
         cadence, the steps' creation and preparation, a first use's
         ``tsdf.chunk.capture``), ``tsdf.chunk.issue`` and ``tsdf.chunk.read``
         (pipeline.chunk), then ``tsdf.chunk.post`` until the return, with
-        ``tsdf.chunk.calibrate``, each frame's ``tsdf.trajectory.write`` and
+        ``tsdf.chunk.calibrate``, ``tsdf.trajectory.write`` and
         ``tsdf.publish`` inside. The frames run the steps' traced variant:
         ``chunk_trace`` holds their device stamps and per-level full GN
         steps, None when not tracing. The records, poses, rows and
@@ -594,11 +601,12 @@ class Reconstruction:
                 for i, code in enumerate(codes):
                     debug_nans.check(code, f"frame {self.frame_num + 1 + i} (chunk of {n})")
             self.chunk_trace = chunked.chunk_trace(out, steps.levels) if steps.traced else None
-            rej = out[:, chunked.REC_REJ] > 0
-            iters = out[:, chunked.REC_ITERS].to(torch.int64)
-            counts = out[:, chunked.REC_COUNTS:chunked.REC_FAULT].to(torch.int64).tolist()
+            rec = out.numpy()
+            rej = rec[:, chunked.REC_REJ] > 0
+            iters = rec[:, chunked.REC_ITERS].astype(np.int64)
+            counts = rec[:, chunked.REC_COUNTS:chunked.REC_FAULT].astype(np.int64).tolist()
             self.pose = Pose(steps.R.clone(), steps.t.clone())
-            self._pose_prev = (None if bool(rej[-1])
+            self._pose_prev = (None if rej[-1]
                                else Pose(steps.prev_R.clone(), steps.prev_t.clone()))
             self.chunk_fuse_stats = [None if rj else fuse_stats(c)
                                      for rj, c in zip(rej.tolist(), counts)]
@@ -622,27 +630,28 @@ class Reconstruction:
                                   stacklevel=3)
                 else:
                     prep_i[:] = prep_ms
-                    fuse_i = np.where(rej.numpy(), 0.0, fuse_cal)
+                    fuse_i = np.where(rej, 0.0, fuse_cal)
                     pool = max(wall_ms * n - prep_ms * n - float(fuse_i.sum()), 0.0)
-                    w_it = np.maximum(iters.numpy().astype(np.float64), 1.0)
+                    w_it = np.maximum(iters.astype(np.float64), 1.0)
                     track_i = pool * w_it / w_it.sum()
 
+            if self._writer is not None:
+                keep = ~rej
+                with profiling.span("tsdf.trajectory.write", int(keep.sum())):
+                    self._writer.write_chunk(
+                        timestamps, out[:, chunked.REC_R:chunked.REC_T].reshape(n, 3, 3),
+                        out[:, chunked.REC_T:chunked.REC_ITERS], keep)
+
             stats_out: List[FrameStats] = []
-            for i in range(n):
+            for i, (it, nvalid, mres, rj) in enumerate(zip(
+                    iters.tolist(), rec[:, chunked.REC_NVALID].tolist(),
+                    rec[:, chunked.REC_MRES].tolist(), rej.tolist())):
                 self.frame_num += 1
-                ts = float(timestamps[i])
-                rec = out[i]
-                if self._writer is not None and not rej[i]:
-                    pose = Pose(rec[chunked.REC_R:chunked.REC_T].reshape(3, 3),
-                                rec[chunked.REC_T:chunked.REC_ITERS])
-                    with profiling.span("tsdf.trajectory.write"):
-                        self._writer.write(ts, pose)
-                stat = FrameStats(index=self.frame_num, timestamp=ts,
+                stat = FrameStats(index=self.frame_num, timestamp=float(timestamps[i]),
                                   track_ms=float(track_i[i]), fuse_ms=float(fuse_i[i]),
-                                  gn_iterations=int(iters[i]),
-                                  num_valid=int(rec[chunked.REC_NVALID]),
-                                  mean_abs_residual=float(rec[chunked.REC_MRES]),
-                                  rejected=bool(rej[i]), preprocess_ms=float(prep_i[i]))
+                                  gn_iterations=it, num_valid=int(nvalid),
+                                  mean_abs_residual=mres, rejected=rj,
+                                  preprocess_ms=float(prep_i[i]))
                 self.stats.append(stat)
                 stats_out.append(stat)
             ovf = [COUNTS.index(k) for k in ("overflow", "overflow_active", "overflow_mixed")]

@@ -6,9 +6,10 @@ Lines are ``timestamp tx ty tz qx qy qz qw``. Metrics run in float64 numpy.
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from tracking_sdf_tpu_torch.core.lie import Pose, quaternion_from_matrix
 
@@ -41,6 +42,12 @@ class Trajectory:
         ], axis=-2)
 
 
+def _line(timestamp: float, t: np.ndarray, q: np.ndarray) -> str:
+    """A pose's TUM line from its float64 translation and quaternion."""
+    return (f"{timestamp:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
+            f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}\n")
+
+
 class TrajectoryWriter:
     """Streaming TUM-format writer; the file opens on the first write."""
 
@@ -60,15 +67,36 @@ class TrajectoryWriter:
             raise RuntimeError("set_append after the first write")
         self._append = append
 
-    def write(self, timestamp: float, pose: Pose) -> None:
+    def _open(self):
         if self._f is None:
             self._f = open(self._path, "a" if self._append else "w")
+        return self._f
+
+    def write(self, timestamp: float, pose: Pose) -> None:
+        """One pose's line, flushed."""
+        f = self._open()
         t = pose.t.detach().cpu().numpy().astype(np.float64)
         q = quaternion_from_matrix(pose.R).detach().cpu().numpy().astype(np.float64)
-        self._f.write(
-            f"{timestamp:.6f} {t[0]:.6f} {t[1]:.6f} {t[2]:.6f} "
-            f"{q[0]:.6f} {q[1]:.6f} {q[2]:.6f} {q[3]:.6f}\n")
-        self._f.flush()
+        f.write(_line(timestamp, t, q))
+        f.flush()
+
+    def write_chunk(self, timestamps: Sequence[float], R: torch.Tensor, t: torch.Tensor,
+                    keep) -> int:
+        """The lines of the poses ``R`` (n, 3, 3) and ``t`` (n, 3) whose
+        ``keep`` (n booleans) is set, written and flushed at once; returns
+        how many. One quaternion_from_matrix over the n rotations gives each
+        the bits that ``write`` gives it alone, so the bytes are those of
+        ``write`` on each kept pose in turn. With none kept, no file opens."""
+        keep = np.asarray(keep, dtype=bool)
+        rows = np.flatnonzero(keep)
+        if rows.size == 0:
+            return 0
+        tt = t.detach().cpu().numpy().astype(np.float64)
+        q = quaternion_from_matrix(R).detach().cpu().numpy().astype(np.float64)
+        f = self._open()
+        f.write("".join(_line(float(timestamps[i]), tt[i], q[i]) for i in rows))
+        f.flush()
+        return int(rows.size)
 
     def close(self) -> None:
         if self._f is not None:
