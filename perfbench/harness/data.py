@@ -38,6 +38,15 @@ def cell(bench: dict, name: str) -> Tuple[dict, dict, dict, dict]:
             load_json(PERFBENCH / "limits" / f"{name}.json"))
 
 
+def cell_metrics(bench: dict, name: str) -> Tuple[List[str], List[dict]]:
+    """(names of the end-to-end metrics, per-layer entries) that the cell
+    ``name`` reports: a metric with a ``workloads`` key in the cells it
+    lists, one without it in every cell."""
+    every = [w["name"] for w in bench["workloads"]]
+    e2e = [m["name"] for m in bench["end_to_end"] if name in m.get("workloads", every)]
+    return e2e, [m for m in bench["per_layer"] if name in m.get("workloads", every)]
+
+
 def layer_patterns(base: Path = PERFBENCH / "layers") -> Dict[str, List[re.Pattern]]:
     """Each layer directory's kernel-name patterns: every non-empty line of
     every .txt file in it that is not a # comment, as a regular expression

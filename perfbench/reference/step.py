@@ -1,11 +1,13 @@
 """The plain frame step that decides ``correct``, and the state it carries.
 
 A frame, as the configuration states it: decode the TUM wire formats,
-preprocess, track from the previous pose (frame 1 on), reject the frame
-when the track ends with fewer than ``min_valid_pixels`` valid queries, a
-mean |residual| above ``max_mean_residual`` or a non-finite pose (the pose
-is kept and nothing is fused), else fuse it at the tracked pose, with color
-on the frames whose 1-based number is a multiple of ``color_every``.
+preprocess, track from the previous pose (frame 1 on) by the configured
+Jacobian (``analytic``: reference.track; ``central``: the 13-probe scheme
+of reference.track_central), reject the frame when the track ends with
+fewer than ``min_valid_pixels`` valid queries, a mean |residual| above
+``max_mean_residual`` or a non-finite pose (the pose is kept and nothing
+is fused), else fuse it at the tracked pose, with color on the frames
+whose 1-based number is a multiple of ``color_every``.
 
 ``store`` is the storage precision of D, W and the colors: the
 configuration's (``bfloat16``) for the reference, the next one below
@@ -18,10 +20,11 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from reference import fuse, preprocess, track
+from reference import fuse, preprocess, track, track_central
 from reference.lie import Pose
 
 STORES = {"bfloat16": torch.bfloat16, "float8_e4m3fn": torch.float8_e4m3fn}
+JACOBIANS = ("analytic", "central")
 
 
 class FrameResult(NamedTuple):
@@ -38,13 +41,15 @@ def rounding(name: str):
 
 
 def check_supported(cfg: dict) -> None:
-    """The reference runs the configuration's modes as stated and no other."""
+    """The reference runs the configuration's modes as stated and no other:
+    raises NotImplementedError naming every mode it does not run."""
     f, t, p = cfg["fusion"], cfg["tracking"], cfg["pipeline"]
     want = dict(mode="brickmajor", distance="point_to_point", weighting="exponential",
                 fuse_color=True, free_fold=True, sat_skip=False)
     bad = [k for k, v in want.items() if f[k] != v]
-    bad += [k for k, v in dict(jacobian="analytic", convergence="norm", pose_update="se3").items()
-            if t[k] != v]
+    bad += [k for k, v in dict(convergence="norm", pose_update="se3").items() if t[k] != v]
+    if t["jacobian"] not in JACOBIANS:
+        bad.append("jacobian")
     bad += [k for k, v in dict(bilateral_filter=True, bilateral_mode="separable",
                                pose_init="previous", use_groundtruth=False).items() if p[k] != v]
     if bad:
@@ -101,8 +106,12 @@ class Reference:
                                          self.cam)
         pose, iters, rejected = self.pose, 0, False
         if self.frame_num > 1:
-            res = track.track(self.leaves["D"], grid, tuple(f["brick_shape"]), self.pose, pts,
-                              cfg["tracking"], p["pyramid_levels"] or (1,))
+            bs, tcfg, levels = tuple(f["brick_shape"]), cfg["tracking"], p["pyramid_levels"] or (1,)
+            if tcfg["jacobian"] == "central":
+                res = track_central.track(self.leaves["D"], self.leaves["W"], grid, bs, self.pose,
+                                          pts, tcfg, levels)
+            else:
+                res = track.track(self.leaves["D"], grid, bs, self.pose, pts, tcfg, levels)
             iters = res.iterations
             mean_res = np.float32(res.sum_abs) / np.float32(max(res.num_valid, 1.0))
             finite = bool(torch.isfinite(res.pose.R).all() and torch.isfinite(res.pose.t).all())

@@ -2,8 +2,9 @@
 
 Each level decimates the point image by pixel_stride * mult and starts
 from the previous level's pose. An iteration forms A = J^T J and b = J^T r
-over the valid queries (masked trilinear value and its analytic gradient
-against D, NaN where unobserved), adding the queries' terms in the
+over the valid queries (by default the masked trilinear value and its
+analytic gradient against D, NaN where unobserved; the central scheme's
+terms come from reference.track_central), adding the queries' terms in the
 tracker's fixed order (``sums``), solves (A + lam diag(A) + 1e-12 I) x = b
 by Gaussian elimination with partial pivoting in float64, takes no step on
 a non-finite solution, tests max |x| < max_twist_diff and updates the pose
@@ -20,7 +21,7 @@ import torch
 from reference.lie import Pose
 
 COARSE_ITERATIONS = 10
-_OFFSETS = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
+OFFSETS = ((0, 0, 0), (0, 0, 1), (0, 1, 0), (0, 1, 1),
             (1, 0, 0), (1, 0, 1), (1, 1, 0), (1, 1, 1))
 _SMALL = np.float32(1e-8)
 # the fixed order in which a Gauss-Newton step adds its queries' terms:
@@ -35,12 +36,12 @@ class Level(NamedTuple):
     sum_abs: float
 
 
-def _corners(rows: torch.Tensor, m: int, bs, coords: torch.Tensor):
-    """(corner values (N, 8) float32, in-bounds (N, 8), fraction (N, 3)) of
-    continuous voxel coordinates against (NB, BV) brick-major rows."""
-    off = torch.tensor(_OFFSETS, dtype=torch.int64, device=coords.device)
-    base_f = torch.floor(coords)
-    base = base_f.to(torch.int64)
+def corner_index(m: int, bs, base: torch.Tensor):
+    """(flat index (..., 8) into (NB, BV) brick-major rows, in-bounds
+    (..., 8)) of the 8 corners (in ``OFFSETS`` order) of the integer voxel
+    ``base`` (..., 3); an out-of-bounds corner is clipped to the grid, axis
+    by axis, and flagged."""
+    off = torch.tensor(OFFSETS, dtype=torch.int64, device=base.device)
     ci, cj, ck = (base[..., None, a] + off[:, a] for a in range(3))
     inb = (ci >= 0) & (ci < m) & (cj >= 0) & (cj < m) & (ck >= 0) & (ck < m)
     bi, bj, bk = bs
@@ -48,6 +49,14 @@ def _corners(rows: torch.Tensor, m: int, bs, coords: torch.Tensor):
     ci, cj, ck = ci.clamp(0, m - 1), cj.clamp(0, m - 1), ck.clamp(0, m - 1)
     F = (((ci // bi) * nbj + cj // bj) * nbk + ck // bk) * (bi * bj * bk) \
         + ((ci % bi) * bj + cj % bj) * bk + ck % bk
+    return F, inb
+
+
+def _corners(rows: torch.Tensor, m: int, bs, coords: torch.Tensor):
+    """(corner values (N, 8) float32, in-bounds (N, 8), fraction (N, 3)) of
+    continuous voxel coordinates against (NB, BV) brick-major rows."""
+    base_f = torch.floor(coords)
+    F, inb = corner_index(m, bs, base_f.to(torch.int64))
     return rows.reshape(-1)[F].to(torch.float32), inb, coords - base_f
 
 
@@ -56,7 +65,7 @@ def trilinear_with_grad(rows, m, bs, coords):
     d_raw, inb, f = _corners(rows, m, bs, coords)
     mask = (inb & torch.isfinite(d_raw)).to(f.dtype)
     d = torch.where(mask > 0, d_raw, torch.zeros_like(d_raw))
-    off = torch.tensor(_OFFSETS, dtype=f.dtype, device=f.device)
+    off = torch.tensor(OFFSETS, dtype=f.dtype, device=f.device)
     fax = off * f[..., None, :] + (1.0 - off) * (1.0 - f[..., None, :])
     wm = fax[..., 0] * fax[..., 1] * fax[..., 2] * mask
     Z = torch.sum(wm, dim=-1)
@@ -93,8 +102,14 @@ def query_terms(rows, grid: dict, bs, pose: Pose, points: torch.Tensor) -> torch
     phi, g_uvw, ok = trilinear_with_grad(rows, m, bs, uvw)
     g = g_uvw * scale
     J = torch.cat([g, torch.linalg.cross(x - pose.t, g, dim=-1)], dim=-1)
-    mask = valid_in & in_bounds & ok
-    iu = torch.triu_indices(6, 6, device=dev)
+    return terms_of(phi, J, valid_in & in_bounds & ok)
+
+
+def terms_of(phi: torch.Tensor, J: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(N, 29) terms of residuals phi (N,) and Jacobians J (N, 6): J_i J_j
+    over A's upper triangle (row-major), J_i r, 1 and |r| where ``mask``,
+    zeros elsewhere."""
+    iu = torch.triu_indices(6, 6, device=J.device)
     terms = torch.cat([J[:, iu[0]] * J[:, iu[1]], J * phi[:, None], torch.ones_like(phi)[:, None],
                        phi.abs()[:, None]], 1)
     return torch.where(mask[:, None], terms, torch.zeros_like(terms))
@@ -194,8 +209,10 @@ def update(R: np.ndarray, t: np.ndarray, tw: np.ndarray):
 
 
 def track_level(rows, grid, bs, pose: Pose, points, tcfg: dict, max_iterations: int,
-                min_iterations: int) -> Level:
-    """One level: iterate until converged or ``max_iterations`` steps."""
+                min_iterations: int, terms=query_terms) -> Level:
+    """One level: iterate until converged or ``max_iterations`` steps.
+    ``terms(rows, grid, bs, pose, points)`` gives each query's 29 terms
+    (``query_terms``, the analytic scheme, by default)."""
     R = pose.R.detach().cpu().numpy().astype(np.float32)
     t = pose.t.detach().cpu().numpy().astype(np.float32)
     lam = np.float32(tcfg["damping"])
@@ -204,8 +221,8 @@ def track_level(rows, grid, bs, pose: Pose, points, tcfg: dict, max_iterations: 
     count, nvalid, sum_abs = 0, 0.0, 0.0
     iu = np.triu_indices(6)
     for _ in range(max_iterations):
-        S = sums(query_terms(rows, grid, bs, Pose(torch.from_numpy(R).to(dev),
-                                                  torch.from_numpy(t).to(dev)), flat)).cpu().numpy()
+        S = sums(terms(rows, grid, bs, Pose(torch.from_numpy(R).to(dev),
+                                            torch.from_numpy(t).to(dev)), flat)).cpu().numpy()
         A = np.zeros((6, 6), np.float32)
         A[iu] = S[:21]
         A[iu[1], iu[0]] = S[:21]
@@ -227,8 +244,9 @@ def track_level(rows, grid, bs, pose: Pose, points, tcfg: dict, max_iterations: 
 
 
 def track(rows, grid: dict, bs, pose0: Pose, points_img: torch.Tensor, tcfg: dict,
-          levels) -> Level:
-    """The finest level's result of the pyramid ``levels`` (ending at 1)."""
+          levels, terms=query_terms) -> Level:
+    """The finest level's result of the pyramid ``levels`` (ending at 1),
+    each level's queries' terms from ``terms`` (as for ``track_level``)."""
     pose = pose0
     res = None
     for mult in levels:
@@ -236,6 +254,6 @@ def track(rows, grid: dict, bs, pose0: Pose, points_img: torch.Tensor, tcfg: dic
         coarse = mult != 1
         res = track_level(rows, grid, bs, pose, points_img[::s, ::s], tcfg,
                           COARSE_ITERATIONS if coarse else tcfg["max_iterations"],
-                          0 if coarse else tcfg["min_iterations"])
+                          0 if coarse else tcfg["min_iterations"], terms)
         pose = res.pose
     return res

@@ -9,8 +9,9 @@ for. The last line of standard output is the result (JSON): ``correct``,
 metrics with ``--trace 0``, its per-layer metrics with ``--trace 1``), the
 device, with ``--trace 1`` a ``breakdown``, and last the numbers that
 decided ``correct`` beside their limits, which are also the last lines of
-standard error. The run exits non-zero and prints no result without the
-cards, or when the JAX package or JAX was loaded.
+standard error. A metric whose BENCHMARK.json entry lists ``workloads``
+belongs to those cells alone. The run exits non-zero and prints no result
+without the cards, or when the JAX package or JAX was loaded.
 """
 from __future__ import annotations
 
@@ -69,14 +70,15 @@ def main(argv=None) -> int:
               file=sys.stderr)
         return 2
     _, cfg, traffic, limits = data.cell(bench, args.workload)
-    names = [m for m in bench["per_layer"]
-             if args.workload in m.get("workloads", [w["name"] for w in bench["workloads"]])]
+    e2e, names = data.cell_metrics(bench, args.workload)
     readers = data.metric_readers([m["name"] for m in names])
     metrics = {m["name"]: (readers[m["name"]], m["unit"]) for m in names} if args.trace else {}
     print(f"set-up marks: torch imported {t_torch - T_START:.3f} s, the card and the program "
           f"found {time.perf_counter() - T_START:.3f} s", file=sys.stderr)
     res = cell.run(cfg, traffic, limits, args.seed, args.seconds, bool(args.trace), metrics,
                    t_start=T_START)
+    if not args.trace:  # the end-to-end metrics of this cell alone
+        res["metrics"] = {k: v for k, v in res["metrics"].items() if k in e2e}
     bad = loaded_forbidden()
     if bad:
         print(f"error: loaded {bad} in the process that measures", file=sys.stderr)

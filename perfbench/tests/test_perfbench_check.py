@@ -107,12 +107,20 @@ def test_a_fault_underneath_makes_correct_false(small, monkeypatch, fault):
         monkeypatch.setattr(runner.Reconstruction, "process_chunk", _half(orig))
     elif fault.startswith("pose"):  # poses altered by 1 mm where they are written
         write = trajectory.TrajectoryWriter.write
+        write_chunk = trajectory.TrajectoryWriter.write_chunk
         every = 8 if fault == "pose_one_in_eight" else 1
 
         def moved(self, ts, pose):
             shift = 1e-3 if int(ts) % every == 0 else 0.0
             write(self, ts, type(pose)(pose.R, pose.t + shift))
+
+        def moved_chunk(self, timestamps, R, t, keep):
+            # the chunk path writes its kept rows at once: the same shift on each
+            shift = torch.tensor([1e-3 if int(ts) % every == 0 else 0.0 for ts in timestamps],
+                                 dtype=t.dtype, device=t.device)
+            return write_chunk(self, timestamps, R, t + shift[:, None], keep)
         monkeypatch.setattr(trajectory.TrajectoryWriter, "write", moved)
+        monkeypatch.setattr(trajectory.TrajectoryWriter, "write_chunk", moved_chunk)
     else:  # each fused D value altered by 1 mm where K2 writes it
         fuse = brickmajor.brick_fuse_rows
 

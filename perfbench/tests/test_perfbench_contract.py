@@ -68,6 +68,16 @@ def test_configs_cells_and_metrics():
     for m in metrics:
         assert NAME.match(m["name"]) and UNIT.match(m["unit"])
         assert m["better"] in ("lower", "higher")
+    for m in BENCH["end_to_end"]:
+        assert set(m.get("workloads", cells)) <= set(cells) and m.get("workloads", cells)
+
+
+@pytest.mark.parametrize("workload", [w["name"] for w in BENCH["workloads"]])
+def test_a_cell_reports_setup_another_end_to_end_metric_and_what_its_layers_move(workload):
+    e2e, per_layer = data.cell_metrics(BENCH, workload)
+    assert "setup_s" in e2e and len(e2e) >= 2 and per_layer
+    for m in per_layer:
+        assert m["moves"] in e2e, (m["name"], m["moves"])
 
 
 @pytest.mark.parametrize("name", [c["name"] for c in BENCH["configs"]])

@@ -42,6 +42,30 @@ def test_rejected_frames_are_left_out_of_the_rate():
     assert m["frames_per_s"]["value"] == pytest.approx(80 / w.seconds)
 
 
+def test_the_per_layer_rate_is_the_end_to_end_rate_of_its_window():
+    w = _window([0.01] * 10, gap=0.002)
+    w.add(w.t_last, w.t_last + 0.01,
+          [type("S", (), dict(rejected=True, gn_iterations=1))()] * 8)
+    read = data.metric_readers(["window_frames_per_s"])["window_frames_per_s"]
+    assert read(dict(window=w)) == cell.end_to_end(w, 1.0)["frames_per_s"]["value"]
+    assert read(dict(window=cell.Window())) is None
+
+
+@pytest.mark.parametrize("workload, e2e", [
+    ("tum256.handheld", ["chunk_ms_p95", "setup_s"]),
+    ("tum256.slow", ["chunk_ms_p95", "setup_s"]),
+    ("tum512.handheld", ["frames_per_s", "chunk_ms_p95", "setup_s"]),
+])
+def test_a_cell_reports_the_metrics_listed_for_it(workload, e2e):
+    """frames_per_s is end to end in the cell that lists it alone; the
+    host-paced cells carry it per layer as window_frames_per_s."""
+    got, per_layer = data.cell_metrics(data.benchmark(), workload)
+    assert got == e2e
+    names = {m["name"] for m in per_layer}
+    assert ("window_frames_per_s" in names) == ("frames_per_s" not in e2e)
+    assert {"host_ms_per_chunk", "device_idle_pct", "gn_step_roofline"} <= names
+
+
 def _ev(name, dev, a, b, parents=()):
     return dict(name=name, dev=dev, start=float(a), end=float(b), parents=list(parents))
 
