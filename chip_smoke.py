@@ -84,7 +84,24 @@ Phases, each of which fails the run (non-zero exit) on a fault:
      profiled chunk. Printed: wall ms/frame over the timed chunk (its
      replays and its one read) beside the per-frame run's, device ms, ops
      and busy share per frame under replay (the profiled chunk), capture ms
-     per variant, calibration ms and peak device memory.
+     per variant, calibration ms and peak device memory. Then tum256central,
+     the reference node's tracker (one level of 20 launches of K1's central
+     form at pixel stride 3, no pyramid): K1's central form on its bf16 D
+     and W rows (256^3) fused from the first frame, queried with the second
+     at 34,240 queries from the first frame's pose, the second's and the
+     second's lowered 1.2 m (queries below the grid's low face dropped, and
+     some inside it): over a level from each, every launch's state bitwise
+     central_step_reference's, timed four ways as K1 gn_step beside its
+     bound (the points, 13 x 8 corners of D and W a valid query counted as
+     reads, the state; or K1C_FLOP_PER_QUERY operations a valid query); then
+     the preset per frame over phase 5's tum256 frames and through
+     process_chunk in tum256's chunks, checked as above, with gn_step_central
+     20 launches a tracked frame (per replay, and the profiled chunk's
+     gn_central_step_kernel as often), gn_step_brick and gn_finish never,
+     and no dense grid built from the rows; its final |t err| (~70 mm on
+     this scene, over T_ERR_MAX, the tracker's own) within half a voxel of
+     the same frames' run on the CPU (the plain versions). The kernels'
+     line gains gn_central_step.
   7. dataset path, all through tracking_sdf_tpu_torch.cli.main on files under
      a temporary directory in build/: one probe for zlib.h (without it the
      phase prints "native loader: zlib.h absent on this machine" and feeds
@@ -354,6 +371,10 @@ POSE_TOL_LEVEL = 1e-5  # m and rad entries: a whole level, kernel vs plain steps
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_FLOP_PER_S = 67e12  # H100 SXM float32 outside the tensor cores
 K1_FLOP_PER_QUERY = 280  # a valid query: pose, 8 corners, gradient, J, JᵀJ
+# a valid query of K1's central form: the world point and its voxel
+# coordinates, the 12 probes' coordinates, 13 Shepard-L1 blends of 8 corners,
+# J, JᵀJ and J r (derived in perfbench/metrics/gn_central_step_roofline.py)
+K1C_FLOP_PER_QUERY = 1033
 TIMED_LAUNCHES = 100
 # The chunked presets: the per-frame run's tracked frames in chunks (size,
 # role). tum256 (color every 2nd frame): absolute frames 2-3, 4-7, 8 and
@@ -363,8 +384,11 @@ TIMED_LAUNCHES = 100
 CHUNKS = {"tum256": ((2, "calibrated"), (4, "timed"), (1, "calibrated"), (3, "profiled")),
           "tum512": ((3, "calibrated"), (1, "timed"), (1, "profiled"))}
 COARSE_ITERATIONS = 10  # GN launches of a coarse pyramid level (track_frame_pyramid)
-KERNEL_NAMES = ("gn_step_kernel", "brick_fuse_rows_kernel", "brick_merge_rows_kernel",
-                "bilateral_pass_kernel", "bilateral_2d_kernel", "normals_kernel",
+# the reference node's tracker (K1's central form), per frame and in
+# tum256's chunks over the same tracked frames as tum256
+CENTRAL = "tum256central"
+KERNEL_NAMES = ("gn_step_kernel", "gn_central_step_kernel", "brick_fuse_rows_kernel",
+                "brick_merge_rows_kernel", "bilateral_pass_kernel", "bilateral_2d_kernel", "normals_kernel",
                 "frame_tables_kernel", "classify_bricks_kernel", "compact_lists_kernel",
                 "compact_lists_hier_kernel")
 ABS_TOL_MERGE = 1e-5  # K2 dense form: same float32 formula per voxel
@@ -569,7 +593,7 @@ def counters():
             "gn_reduce_slab": k1.launches_slab,
             "gn_reduce_slab_brick": k1.launches_slab_brick,
             "gn_step": k1.launches_step, "gn_step_brick": k1.launches_step_brick,
-            "gn_finish": k1.launches_finish,
+            "gn_finish": k1.launches_finish, "gn_step_central": k1.launches_step_central,
             "brick_merge": k2.launches, "brick_merge_rows": k2.launches_rows,
             "brick_fuse_rows": k2f.launches, "brick_fuse_rows_sat": k2f.launches_sat,
             "brick_fuse_rows_slab": k2f.launches_slab,
@@ -588,6 +612,7 @@ def reset_counters():
 
     k1.launches = k1.launches_brick = k1.launches_step = k1.launches_step_brick = 0
     k1.launches_slab = k1.launches_slab_brick = k1.launches_finish = 0
+    k1.launches_step_central = 0
     k2.launches = k2.launches_rows = k2f.launches = k2f.launches_sat = 0
     k2f.launches_slab = 0
     k34.launches_pass = k34.launches_2d = k34.launches_normals = 0
@@ -860,6 +885,165 @@ def kernel_gn(cam, scene, poses, rgb, dev):
     del bg, view
     torch.cuda.empty_cache()
     return dense, brick, dense_step, brick_step
+
+
+def k1c_bound(n: int, nvalid: int, d_bytes: int, w_bytes: int):
+    """K1's central form at n queries: the points (12 B each), the 8
+    corners of D and of W of each of a valid query's 13 probes, and the
+    state read and written; K1C_FLOP_PER_QUERY for each valid query. The
+    corners are counted as reads: the probes of one query and of its
+    neighbours share voxels, so the distinct bytes are fewer."""
+    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+
+    return bound(n * 12 + nvalid * 13 * 8 * (d_bytes + w_bytes) + 2 * k1.N_STATE * 4,
+                 nvalid * K1C_FLOP_PER_QUERY)
+
+
+def kernel_gn_central(cam, scene, poses, rgb, dev):
+    """K1's central form on tum256central's bf16 D and W rows (256^3) fused
+    from the first frame, queried with the second at pixel_stride: from
+    three poses (the first frame's, the second's, and the second's lowered
+    1.2 m, so that queries drop below the grid's low face and some of those
+    inside lose a probe there) a level of max_iterations launches, each
+    launch's state bitwise central_step_reference's on the same rows, points
+    and state. Timed as full steps, as launches on a done state, the wrapper
+    (a stepper built and launched a call) and the plain step, beside its
+    bound. Returns the record."""
+    from tracking_sdf_tpu_torch.core.lie import Pose
+    from tracking_sdf_tpu_torch.data.synthetic import render_scene_depth
+    from tracking_sdf_tpu_torch.fusion.brickmajor import (
+        brick_rows_view, empty_brick_grid, fuse_frame_brickmajor)
+    from tracking_sdf_tpu_torch.grid.grid import world_to_voxel
+    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
+    from tracking_sdf_tpu_torch.tracking.gauss_newton import pixel_residuals_central
+    from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+
+    cfg = path_config(CENTRAL, None)
+    f, p, tc = cfg.fusion, cfg.grid, cfg.tracking
+    pts0, nrm0 = preprocess_frame(render_scene_depth(scene, cam, poses[0]), cam=cam,
+                                  bilateral_mode=cfg.bilateral_mode)
+    pts1, _ = preprocess_frame(render_scene_depth(scene, cam, poses[1]), cam=cam,
+                               bilateral_mode=cfg.bilateral_mode)
+    bg = empty_brick_grid(p, f.brick_shape, device=dev, value_dtype=torch.bfloat16,
+                          weight_dtype=torch.bfloat16)
+    fuse_frame_brickmajor(bg, poses[0], pts0, nrm0, rgb, params=p, cam=cam, cfg=f,
+                          bs=f.brick_shape, cap=f.brick_cap, cap_free=f.brick_cap_free)
+    rows = brick_rows_view(bg, p, f.brick_shape)
+    img = pts1[::tc.pixel_stride, ::tc.pixel_stride]
+    n = img.shape[0] * img.shape[1]
+    flat = img.reshape(-1, 3)
+    lowered = Pose(poses[1].R, poses[1].t + torch.tensor([0.0, 0.0, -1.2], device=dev))
+    rec, last = {}, None
+    for label, pose in (("first", poses[0]), ("second", poses[1]), ("lowered", lowered)):
+        _, _, mask = pixel_residuals_central(rows, pose, flat, params=p, v_h=tc.v_h,
+                                             w_h=tc.w_h)
+        uvw = world_to_voxel(p, flat @ pose.R.T + pose.t)
+        inside = ((uvw >= 0) & (uvw < p.m)).all(-1)
+        finite = torch.isfinite(flat).all(-1)
+        outside, lost = int((finite & ~inside).sum()), int((finite & inside & ~mask).sum())
+        sk = k1.init_state(pose, tc.damping)
+        sr = sk.clone()
+        step = k1.central_stepper(rows, sk, img, p, tc)
+        before = k1.launches_step_central
+        differ, max_abs, nv0 = [], 0.0, None
+        for _ in range(tc.max_iterations):
+            k1.central_step_reference(rows, sr, img, p, tc)
+            step()
+            torch.cuda.synchronize()
+            differ.append(bits_differ(sk, sr))
+            max_abs = max(max_abs, (sk[:k1.S_COUNT] - sr[:k1.S_COUNT]).abs().max().item())
+            nv0 = int(sk[k1.S_NVALID].item()) if nv0 is None else nv0
+        steps = int(sk.view(torch.int32)[k1.S_COUNT])
+        launched = k1.launches_step_central - before
+        print(f"K1 gn_central_step (brick-major bf16 D and W, {CENTRAL}) N={n}, start "
+              f"{label}: valid {nv0} at the first step, {outside} finite queries outside the "
+              f"grid, {lost} inside it dropped (a probe or all corners lost); "
+              f"{launched} launches, {steps} steps; state bits differing from "
+              f"central_step_reference per launch {differ}, max |state diff| {max_abs:.3e}")
+        check(launched == tc.max_iterations, f"{CENTRAL}: {launched} central launches "
+              f"counted over a level of {tc.max_iterations}")
+        check(sum(differ) == 0, f"{CENTRAL} start {label}: K1's central form differs from "
+              f"central_step_reference in bits {differ}")
+        check(nv0 > 100 and steps >= 1, f"{CENTRAL} start {label}: valid {nv0}, steps {steps}")
+        if label == "lowered":
+            check(outside > 1000 and lost > 0, f"{CENTRAL}: the lowered pose dropped "
+                  f"{outside} queries outside the grid and {lost} inside it")
+        rec[label] = dict(num_valid=nv0, steps=steps, outside=outside, lost=lost,
+                          bits_differ=sum(differ), max_abs_err=max_abs)
+        if label == "first":
+            last = sk
+    # times: full steps, done launches, the wrapper, the plain step
+    never = tc._replace(max_iterations=1 << 30, min_iterations=0, max_twist_diff=-1.0)
+    full = k1.central_stepper(rows, k1.init_state(poses[0], tc.damping), img, p, never)
+    ms = events_ms(full)
+    device_ms = kernel_device_ms(full, ("gn_central_step_kernel",))
+    done_state = last.clone()
+    done_state.view(torch.int32)[k1.S_DONE] = 1
+    frozen = k1.central_stepper(rows, done_state, img, p, tc)
+    ms_done = events_ms(frozen)
+    device_ms_done = kernel_device_ms(frozen, ("gn_central_step_kernel",))
+    sw, sp = k1.init_state(poses[0], tc.damping), k1.init_state(poses[0], tc.damping)
+    wrapper_ms = cuda_time_ms(lambda: k1.central_stepper(rows, sw, img, p, never)())
+    plain_ms = cuda_time_ms(lambda: k1.central_step_reference(rows, sp, img, p, never))
+    nv = rec["first"]["num_valid"]
+    bms, by = k1c_bound(n, nv, bg.D.element_size(), bg.W.element_size())
+    print(f"K1 gn_central_step N={n}, {nv} valid: full step {ms:.4f} ms, done launch "
+          f"{ms_done:.4f} ms ({TIMED_LAUNCHES} back-to-back), device {device_ms} ms (full) "
+          f"and {device_ms_done} ms (done), wrapper {wrapper_ms:.4f} ms per call, plain "
+          f"{plain_ms:.4f} ms, bound {bms:.6f} ms ({by}; corners counted as reads)")
+    out = dict(rec["first"], queries=n, starts=rec,
+               max_abs_err=max(r["max_abs_err"] for r in rec.values()), ms=ms,
+               ms_done=ms_done, device_ms=device_ms, device_ms_done=device_ms_done,
+               wrapper_ms=wrapper_ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by)
+    del bg, rows, full, frozen
+    torch.cuda.empty_cache()
+    return out
+
+
+def central_phase(cam, scene, depths, poses, rgb, dev, repo):
+    """The reference node's tracker (tum256central): K1's central form
+    against its plain version (kernel_gn_central), then the preset per frame
+    over tum256's tracked frames and through process_chunk in tum256's
+    chunks, held to the per-frame run as the other presets are, with no
+    dense grid built from the rows, and the per-frame run's final |t err|
+    to the same frames' run on the CPU within half a voxel. Returns (the
+    kernel's record, the two paths' records)."""
+    from tracking_sdf_tpu_torch.core.lie import Pose
+    from tracking_sdf_tpu_torch.pipeline import runner
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    k1c = kernel_gn_central(cam, scene, poses, rgb, dev)
+    traj = os.path.join(repo, "build", f"chip_smoke_{CENTRAL}.txt")
+    # dense_from_brick_grid: a dense float32 grid built from the brick-major rows
+    with counting(runner, "dense_from_brick_grid") as dense:
+        rec, ref = run_path(CENTRAL, cam, depths, poses, rgb, dev, traj,
+                            n_tracked=TRACKED["tum256"])
+        chunk = run_chunk_path(CENTRAL, cam, depths, poses, rgb, dev,
+                               os.path.join(repo, "build", f"chip_smoke_{CENTRAL}_chunk.txt"),
+                               ref, chunks=CHUNKS["tum256"])
+    print(f"{CENTRAL}: dense grids built from the rows over both runs {dense[0]} (must be 0)")
+    check(dense[0] == 0, f"{CENTRAL}: the tracked path built {dense[0]} dense grids")
+    # the same frames through the plain versions on the CPU (central_step_reference,
+    # advance_state's float32 solve): the card's final |t err| within half a voxel
+    n = TRACKED["tum256"]
+    t0 = time.perf_counter()
+    cpu = Reconstruction(cam, path_config(CENTRAL, None),
+                         initial_pose=Pose(poses[0].R.cpu(), poses[0].t.cpu()), device="cpu")
+    for k in range(n + 1):
+        cpu.process_frame(depths[k].cpu(), rgb=rgb.cpu(), timestamp=float(k))
+    cpu_mm = (cpu.pose.t - poses[n].t.cpu()).norm().item() * 1e3
+    print(f"  {CENTRAL} on the CPU ({torch.get_num_threads()} threads, "
+          f"{time.perf_counter() - t0:.1f} s): final |t err| {cpu_mm:.4f} mm, GN iterations "
+          f"{[st.gn_iterations for st in cpu.stats]}; the card's {rec['t_err_mm']:.4f} mm, "
+          f"{[st.gn_iterations for st in ref['stats']]}")
+    bar = 0.5 * cpu.config.grid.width / cpu.config.grid.m * 1e3
+    check(abs(rec["t_err_mm"] - cpu_mm) <= bar and not any(st.rejected for st in cpu.stats),
+          f"{CENTRAL}: the card's final |t err| {rec['t_err_mm']:.4f} mm is not within half a "
+          f"voxel ({bar:.2f} mm) of the CPU run's {cpu_mm:.4f} mm")
+    rec["t_err_cpu_mm"] = cpu_mm
+    del ref, cpu
+    torch.cuda.empty_cache()
+    return k1c, {CENTRAL: rec, f"{CENTRAL}_chunk": chunk}
 
 
 def kernel_merge(dev):
@@ -1155,13 +1339,23 @@ def small_parity(dev):
               f"the port on the card disagrees with the port on the CPU ({name})")
 
 
-def run_path(name, cam, depths, poses, rgb, dev, traj_path):
-    """Drive one main path through Reconstruction.process_frame with the
-    launch counts set to 0 just before; returns its record."""
+def k1_form(cfg):
+    """(K1's counter, K1's kernel) on a brick-major configuration's tracked
+    path: the central form with the central Jacobian, else gn_step's
+    brick-major form."""
+    if cfg.tracking.jacobian == "central":
+        return "gn_step_central", "gn_central_step_kernel"
+    return "gn_step_brick", "gn_step_kernel"
+
+
+def run_path(name, cam, depths, poses, rgb, dev, traj_path, n_tracked=None):
+    """Drive one main path through Reconstruction.process_frame over
+    ``n_tracked`` tracked frames (default TRACKED[name]) with the launch
+    counts set to 0 just before; returns its record."""
     from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
 
     cfg = path_config(name, traj_path)
-    n = TRACKED[name] + 1
+    n = (n_tracked or TRACKED[name]) + 1
     recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1208,8 +1402,14 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
           f"{rec['t_err_mm']:.2f} mm; peak device memory of the path {peak_gb:.2f} GiB; "
           f"launches {launches}")
     kernels = (("gn_step", "brick_merge") if name == "slice"
-               else ("gn_step_brick", "brick_fuse_rows"))
+               else (k1_form(cfg)[0], "brick_fuse_rows"))
     check(all(launches[k] > 0 for k in kernels), f"{name}: a kernel never ran: {launches}")
+    if cfg.tracking.jacobian == "central":
+        want = cfg.tracking.max_iterations * len(tracked)
+        check(launches["gn_step_central"] == want and launches["gn_step_brick"] == 0
+              and launches["gn_finish"] == 0,
+              f"{name}: expected gn_step_central {want} ({cfg.tracking.max_iterations} a "
+              f"tracked frame), gn_step_brick and gn_finish never: {launches}")
     check_preprocess(name, launches, n, filter_mode(cfg))
     check_classify(name, launches, cfg, rec["fused"])
     check(not any(s.rejected for s in recon.stats), f"{name}: a frame was rejected")
@@ -1218,7 +1418,10 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
               and launches["brick_merge_rows"] == 0,
               f"{name}: brick_fuse_rows must launch once per fused frame and "
               f"brick_merge_rows never: {launches}")
-    check(t_err < T_ERR_MAX, f"{name}: |t err| {t_err:.4f} m >= {T_ERR_MAX} m")
+    # the reference node's tracker lands ~70 mm off on this scene (one level at
+    # stride 3, no pyramid); central_phase holds it to its plain run on the CPU
+    check(t_err < T_ERR_MAX or cfg.tracking.jacobian == "central",
+          f"{name}: |t err| {t_err:.4f} m >= {T_ERR_MAX} m")
     if name in JAX_T_ERR_MM:
         ref = JAX_T_ERR_MM[name]
         print(f"  |t err| {rec['t_err_mm']:.2f} mm vs the JAX package's {ref} mm: "
@@ -1226,6 +1429,7 @@ def run_path(name, cam, depths, poses, rgb, dev, traj_path):
         check(abs(rec["t_err_mm"] - ref) <= 0.5 * voxel * 1e3,
               f"{name}: |t err| {rec['t_err_mm']:.2f} mm is not within half a voxel of "
               f"the JAX package's {ref} mm")
+    if name != "slice":
         bg = recon.brick_grid
         from tracking_sdf_tpu_torch.fusion.brickmajor import unpack_color_grid
 
@@ -1322,10 +1526,10 @@ def tum_decode_on_card(depth, dev):
     check(differ == 0, "the card's uint16 depth decode differs from the host's")
 
 
-def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
+def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref, chunks=None):
     """Drive one preset through Reconstruction.process_chunk over the
     per-frame run's frames (frame 0 by process_frame, then the chunks of
-    CHUNKS[name]), with the launch counts set to 0 just before and read just
+    ``chunks``, default CHUNKS[name]), with the launch counts set to 0 just before and read just
     after, and hold it to the per-frame run ``ref``. Chunk roles: a
     "calibrated" chunk measures the phase calibration, the "timed" one runs
     without it (its track_ms is then the wall time of its replays and its
@@ -1337,11 +1541,13 @@ def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
     from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
 
     cfg = path_config(name, traj_path)
-    sizes = [size for size, _ in CHUNKS[name]]
-    n = TRACKED[name] + 1
+    chunks = chunks or CHUNKS[name]
+    sizes = [size for size, _ in chunks]
+    n = len(ref["stats"])
     check(sum(sizes) == n - 1, f"{name}: chunks {sizes} do not cover {n - 1} frames")
-    per_step = ((len(cfg.pyramid_levels) - 1) * COARSE_ITERATIONS
+    per_step = ((len(cfg.pyramid_levels or (1,)) - 1) * COARSE_ITERATIONS
                 + cfg.tracking.max_iterations)
+    k1_counter, k1_kernel = k1_form(cfg)
     recon = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1352,7 +1558,7 @@ def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
     with warnings.catch_warnings():
         warnings.filterwarnings("error", message="chunk phase calibration failed",
                                 category=RuntimeWarning)
-        for ci, (size, role) in enumerate(CHUNKS[name]):
+        for ci, (size, role) in enumerate(chunks):
             recon.chunk_phase_metrics = role == "calibrated"
             args = (torch.stack(depths[k:k + size]), rgb[None].expand(size, -1, -1, -1))
             kw = dict(timestamps=[float(j) for j in range(k, k + size)])
@@ -1409,15 +1615,19 @@ def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
     # launches: counted per replay, and by the profiler over one chunk
     tracked = n - 1
     fused = 1 + sum(not s.rejected for s in stats)
-    check(launches["gn_step_brick"] == per_step * tracked
+    k1_other = sum(launches[k] for k in ("gn_step_brick", "gn_step_central", "gn_finish")
+                   if k != k1_counter)
+    check(launches[k1_counter] == per_step * tracked and k1_other == 0
           and launches["brick_fuse_rows"] == fused and launches["brick_merge_rows"] == 0,
-          f"{name} chunked: expected gn_step_brick {per_step} per tracked frame, "
-          f"brick_fuse_rows once per fused frame and brick_merge_rows never: {launches}")
+          f"{name} chunked: expected {k1_counter} {per_step} per tracked frame and no other "
+          f"K1 step, brick_fuse_rows once per fused frame and brick_merge_rows never: "
+          f"{launches}")
     check_preprocess(f"{name} chunked", launches, n, filter_mode(cfg))
     check_classify(f"{name} chunked", launches, cfg, fused)
     seen = prof["kernels"]
     k5, k6, k7 = CLASSIFY_PER_FRAME[classify_form(cfg)]
-    check(seen["gn_step_kernel"] == per_step * prof["frames"]
+    check(seen[k1_kernel] == per_step * prof["frames"]
+          and seen["gn_step_kernel"] + seen["gn_central_step_kernel"] - seen[k1_kernel] == 0
           and seen["brick_fuse_rows_kernel"] == prof["frames"]
           and seen["brick_merge_rows_kernel"] == 0
           and seen["normals_kernel"] == prof["frames"]
@@ -1428,7 +1638,8 @@ def run_chunk_path(name, cam, depths, poses, rgb, dev, traj_path, ref):
           == k7 * prof["frames"],
           f"{name}: the profiler counted {seen} over a chunk of {prof['frames']} frames")
     t_err = (recon.pose.t - poses[n - 1].t).norm().item()
-    check(t_err < T_ERR_MAX, f"{name} chunked: |t err| {t_err:.4f} m >= {T_ERR_MAX} m")
+    check(t_err < T_ERR_MAX or cfg.tracking.jacobian == "central",
+          f"{name} chunked: |t err| {t_err:.4f} m >= {T_ERR_MAX} m")
     busy = prof["device_ms"] / timed["ms_per_frame"]
     rec = dict(ms_per_frame=timed["ms_per_frame"], timed_frames=timed["frames"],
                per_frame_ms=ref["ms_per_frame"], device_ms=prof["device_ms"],
@@ -2283,22 +2494,19 @@ def k1_at_path(name, grid, pose, pts, cfg):
 
 
 @contextlib.contextmanager
-def counting_advance_state():
-    """Counts calls of gn_reduce.advance_state (the CPU finish every
-    tracker reaches through gn_reduce) while the block runs: [calls]."""
-    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
-
-    calls, real = [0], k1.advance_state
+def counting(module, name):
+    """Counts calls of ``module.name`` while the block runs: [calls]."""
+    calls, real = [0], getattr(module, name)
 
     def counted(*a, **kw):
         calls[0] += 1
         return real(*a, **kw)
 
-    k1.advance_state = counted
+    setattr(module, name, counted)
     try:
         yield calls
     finally:
-        k1.advance_state = real
+        setattr(module, name, real)
 
 
 @contextlib.contextmanager
@@ -2349,6 +2557,7 @@ def dense_paths(cam, depths, poses, rgb, dev, work):
     tum256 --fusion-mode dense over them. Returns their records."""
     from tracking_sdf_tpu_torch import cli
     from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
     from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
 
     recs = {}
@@ -2379,7 +2588,8 @@ def dense_paths(cam, depths, poses, rgb, dev, work):
         c = preset("tum128")
         c = dataclasses.replace(c, trajectory_path=None,
                                 tracking=c.tracking._replace(jacobian=jacobian))
-        with counting_advance_state() as advances:
+        # advance_state: the CPU finish every tracker reaches through gn_reduce
+        with counting(k1, "advance_state") as advances:
             rec, recon = bench_path(f"{label} per frame", c, cam, depths, poses, rgb, dev, n)
         within_half_voxel(f"{label} final |t err|", rec["t_err_mm"], JAX_T_ERR_MM[label],
                           c.grid)
@@ -4363,6 +4573,8 @@ def main() -> int:
         R, t = runs[name][1]["poses"][-1]
         finals[name] = (runs[name][1]["rows"], Pose(R, t))
         del runs[name]
+    k1_central, central_paths = central_phase(cam, scene, depths, poses, rgb, dev, repo)
+    paths.update(central_paths)
     work = tempfile.mkdtemp(prefix="chip_smoke_dataset_", dir=os.path.join(repo, "build"))
     try:
         paths.update(dataset_phase(dev, work, {name: paths[f"{name}_chunk"]["ms_per_frame"]
@@ -4415,6 +4627,7 @@ def main() -> int:
                        launches=n, launches_per_frame=n / frames, library_ms=None), **rec}
 
     gn_tpu = "tracking_sdf_tpu/tracking/pallas_gn.py:82"
+    central_tpu = "tracking_sdf_tpu/tracking/gauss_newton.py:106"
     merge_tpu = "tracking_sdf_tpu/fusion/pallas_merge.py:94"
     presets = ("tum256", "tum512", "tum256_chunk", "tum512_chunk", "tum256_dataset",
                "tum512_dataset", "tum256_render", "tum256_sat", "tum512_sat")
@@ -4456,6 +4669,9 @@ def main() -> int:
         entry("gn_step", "gn_reduce.cu", gn_tpu, dense_paths_, "tracked",
               at_paths("gn_step", k1_step_dense)),
         entry("gn_step_brick", "gn_reduce.cu", gn_tpu, presets, "tracked", k1_step_brick),
+        # the JAX package computes the 13 probes and the normal equations in XLA ops
+        entry("gn_central_step", "gn_reduce.cu", central_tpu, tuple(central_paths), "tracked",
+              k1_central, counter="gn_step_central"),
         entry("brick_merge", "brick_merge.cu", merge_tpu, ("slice", "slice_pallas"), "fused",
               k2_dense),
         entry("brick_merge_rows", "brick_merge.cu", merge_tpu, presets, "fused", k2_rows),

@@ -10,8 +10,12 @@ gn_reduce, the slab form and gn_step through gn_finish), K1's step
 relative 1e-4 of max|twist| with equal valid counts, step
 counts and done flags (the kernel solves in float64, the plain step in
 float32; the same bars hold gn_finish against advance_state, and the
-central tracker on the card, whose every iteration is one gn_finish launch,
-against its CPU path), the sharded
+central tracker on a dense grid on the card, whose every iteration is one
+gn_finish launch, against its CPU path), K1's central form (the 13-probe central
+Jacobian on tum256central's 256^3 bf16 D and W rows) bitwise against its
+plain version over a level at three poses, one that drops queries at the
+grid's face, and tum256central's chunk replays bitwise its per-frame loop,
+the sharded
 step's slab reduce and finish on one rank's whole grid bitwise against
 gn_step (the same per-query code, partial order and finish), K2's dense
 form, its row form and its fused form (brick_fuse_rows) bitwise on every
@@ -2056,3 +2060,176 @@ def test_frame_tables_vector_and_scalar_loads_match_plain(dev, hw):
                 for name in ("zeta", "zeta_down", "eta", "eta_down"):
                     assert _bits_equal(getattr(mip, name), getattr(want_mip, name)), (
                         name, distance, share, p.data_ptr() % 16)
+
+
+# --- K1's central form on tum256central's rows ---------------------------------
+
+_CENTRAL = {}
+
+
+def _central_handheld(dev):
+    """tum256central's bf16 rows (256^3) on the card after three 640x480
+    frames of a sphere, a box and a wall seen moving 14 mm a frame (the
+    handheld traffic's pace), the fourth frame's points at pixel_stride,
+    and poses to track them from: the tracked pose, one moved 2 cm and
+    1 degree, and one lowered 1.2 m, so that the points below the grid's
+    low z face drop out and those astride it lose some probes."""
+    if "case" not in _CENTRAL:
+        import dataclasses
+
+        from tracking_sdf_tpu_torch.config import preset
+        from tracking_sdf_tpu_torch.core.camera import ros_default_camera
+        from tracking_sdf_tpu_torch.core.lie import Pose
+        from tracking_sdf_tpu_torch.fusion.brickmajor import brick_rows_view
+        from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+        cfg = dataclasses.replace(preset("tum256central"), trajectory_path=None)
+        cam = ros_default_camera()
+        scene = _Union(SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
+                       CuboidScene(min_corner=(-0.75, -0.4, -0.55),
+                                   max_corner=(-0.35, 0.4, 0.15)),
+                       CuboidScene(min_corner=(-4.0, 0.8, -4.0), max_corner=(4.0, 1.2, 4.0)))
+        poses = [look_at((0.3 + 0.014 * i, -2.4, 0.15), (0.0, 0.0, 0.0), device=dev)
+                 for i in range(4)]
+        depths = [render_scene_depth(scene, cam, p) for p in poses]
+        r = Reconstruction(cam, cfg, initial_pose=poses[0], device=dev)
+        for k in range(3):
+            r.process_frame(depths[k], timestamp=float(k))
+        assert not any(s.rejected for s in r.stats)
+        pts = preprocess_frame(depths[3], cam=cam, bilateral=cfg.bilateral_filter,
+                               bilateral_mode=cfg.bilateral_mode)[0]
+        s = cfg.tracking.pixel_stride
+        turn = se3_exp(torch.tensor([0.012, -0.01, 0.008, 0.01, -0.012, 0.008], device=dev))
+        tracked = Pose(r.pose.R.clone(), r.pose.t.clone())
+        bg = r.brick_grid
+        _CENTRAL["case"] = (cfg, bg, brick_rows_view(bg, cfg.grid, cfg.fusion.brick_shape),
+                            pts[::s, ::s], {
+                                "tracked": tracked,
+                                "moved": Pose(turn.R @ tracked.R, turn.R @ tracked.t + turn.t),
+                                "edge": Pose(tracked.R, tracked.t + torch.tensor(
+                                    [0.0, 0.0, -1.2], device=dev))})
+        r.close()
+    return _CENTRAL["case"]
+
+
+@pytest.mark.parametrize("case", ["tracked", "moved", "edge"])
+def test_gn_central_step_is_central_step_reference_bitwise(dev, case):
+    """Over a level of tum256central (20 launches, the done flag freezing the
+    state), each launch of K1's central form leaves the state that its
+    plain version (the 13-probe terms of pixel_residuals_central on the
+    card, sums_in_launch_order, gn_finish) leaves, bit for bit; the strided
+    (h, w, 3) view of the points is read in place."""
+    from tracking_sdf_tpu_torch.grid.grid import world_to_voxel
+    from tracking_sdf_tpu_torch.tracking.gauss_newton import pixel_residuals_central
+
+    cfg, _, rows, pts, poses = _central_handheld(dev)
+    tc, params = cfg.tracking, cfg.grid
+    pose = poses[case]
+    flat = pts.reshape(-1, 3)
+    _, _, mask = pixel_residuals_central(rows, pose, flat, params=params)
+    uvw = world_to_voxel(params, flat @ pose.R.T + pose.t)
+    inside = ((uvw >= 0) & (uvw < params.m)).all(-1)
+    finite = torch.isfinite(flat).all(-1)
+    assert int(mask.sum()) > (1000 if case == "edge" else 5000)
+    if case == "edge":
+        assert int((finite & ~inside).sum()) > 1000  # below the grid's low face
+        assert int((finite & inside & ~mask).sum()) > 0  # a probe out of the grid
+    sk = k1.init_state(pose, tc.damping)
+    sr = sk.clone()
+    step = k1.central_stepper(rows, sk, pts, params, tc)
+    before = k1.launches_step_central
+    for i in range(tc.max_iterations):
+        k1.central_step_reference(rows, sr, pts, params, tc)
+        step()
+        torch.cuda.synchronize()
+        assert _same_bits(sk, sr), (case, i, (sk - sr).abs().max().item())
+    assert k1.launches_step_central == before + tc.max_iterations
+    assert int(sk.view(torch.int32)[k1.S_COUNT]) >= 2
+
+
+def test_gn_step_on_the_central_rows_is_still_gn_finish_of_the_plain_terms(dev):
+    """The analytic gn_step on the same 256^3 bf16 rows and points: each
+    launch leaves gn_finish's state on the plain terms summed in launch
+    order, bit for bit, as before K1's central form shared its reduce
+    half."""
+    cfg, bg, _, pts, poses = _central_handheld(dev)
+    params, bs = cfg.grid, cfg.fusion.brick_shape
+    view = brick_masked_view(bg, params, bs)
+    tc = cfg.tracking._replace(jacobian="analytic", max_iterations=6)
+    sk = k1.init_state(poses["moved"], tc.damping)
+    sf = sk.clone()
+    step, finish = k1.gn_stepper(view, sk, pts, params, tc), k1.finisher(sf, tc)
+    for _ in range(tc.max_iterations):
+        finish(k1.sums_in_launch_order(k1.query_terms_reference(view, sf, pts.reshape(-1, 3),
+                                                                params)))
+        step()
+        torch.cuda.synchronize()
+        assert _same_bits(sk, sf)
+    assert int(sk.view(torch.int32)[k1.S_COUNT]) >= 2
+
+
+def test_central_stepper_rejects_bad_input(dev):
+    from tracking_sdf_tpu_torch.grid.interp import BrickRows
+
+    cfg, bg, rows, pts, poses = _central_handheld(dev)
+    tc, params = cfg.tracking, cfg.grid
+    state = k1.init_state(poses["tracked"], tc.damping)
+    with pytest.raises(ValueError):
+        k1.central_stepper(rows, state, pts.double(), params, tc)
+    with pytest.raises(ValueError):  # W in another brick shape
+        k1.central_stepper(BrickRows(rows.D, brick_masked_view(bg, params, (16, 8, 4))),
+                           state, pts, params, tc)
+    dense = torch.zeros(params.m, params.m, params.m, device=dev)
+    for bad in (BrickRows(dense, rows.W), BrickRows(rows.D, dense)):  # a dense leaf
+        with pytest.raises(ValueError):
+            k1.central_stepper(bad, state, pts, params, tc)
+
+
+@pytest.mark.parametrize("pose_init", ["previous", "velocity"])
+def test_central_chunk_replays_match_per_frame_loop(dev, pose_init):
+    """tum256central's process_chunk on the card (CUDA-graph replays of the
+    central level, 20 launches of K1's central form a frame) equals its
+    per-frame loop on the same frames bit for bit, with frame 3 all NaN
+    (rejected)."""
+    import dataclasses
+
+    import numpy as np
+
+    from tracking_sdf_tpu_torch.config import preset
+    from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
+
+    cam = PinholeCamera(fx=60.0, fy=60.0, cx=47.5, cy=35.5, width=96, height=72)
+    nb = (PARAMS.m // 8) ** 3
+    cfg = preset("tum256central")
+    cfg = dataclasses.replace(cfg, grid=PARAMS, trajectory_path=None, pose_init=pose_init,
+                              fusion=cfg.fusion._replace(brick_cap=4 * nb, brick_cap_free=nb))
+    scene = _Union(SphereScene(center=(0.15, 0.1, 0.0), radius=0.4),
+                   CuboidScene(min_corner=(-0.75, -0.4, -0.55), max_corner=(-0.35, 0.4, 0.15)))
+    eyes = [(0.02 * i, -1.5, 0.2 + 0.01 * i) for i in range(6)]
+    depths, rgbs = [], []
+    for i, e in enumerate(eyes):
+        d = render_scene_depth(scene, cam, look_at(e, (0, 0, 0), device="cpu")).numpy()
+        if i == 3:
+            d[:] = np.nan
+        depths.append(np.where(np.isfinite(d), np.round(d * 5000.0), 0).astype(np.uint16))
+        rgbs.append(np.full((72, 96, 3), 40 * i, np.uint8))
+    p0 = look_at(eyes[0], (0, 0, 0), device=dev)
+    seq = Reconstruction(cam, cfg, initial_pose=p0, device=dev)
+    for i in range(6):
+        seq.process_frame(depths[i], rgbs[i], timestamp=float(i))
+    chk = Reconstruction(cam, cfg, initial_pose=p0, device=dev)
+    chk.chunk_phase_metrics = False
+    chk.process_frame(depths[0], rgbs[0], timestamp=0.0)
+    before = (k1.launches_step_central, k1.launches_step_brick, brick_fuse.launches)
+    stats = chk.process_chunk(np.stack(depths[1:]), np.stack(rgbs[1:]))
+    assert (k1.launches_step_central - before[0], k1.launches_step_brick - before[1],
+            brick_fuse.launches - before[2]) == (5 * cfg.tracking.max_iterations, 0, 5)
+    assert [(s.rejected, s.gn_iterations, s.num_valid, s.mean_abs_residual) for s in stats] == [
+        (s.rejected, s.gn_iterations, s.num_valid, s.mean_abs_residual)
+        for s in seq.stats[1:]]
+    assert stats[2].rejected and sum(s.rejected for s in stats) == 1
+    assert sum(s.gn_iterations for s in stats) > 4
+    assert torch.equal(chk.pose.R, seq.pose.R) and torch.equal(chk.pose.t, seq.pose.t)
+    for k in ("D", "W", "C"):
+        a, b = getattr(chk.brick_grid, k), getattr(seq.brick_grid, k)
+        assert torch.equal(a.view(torch.int16), b.view(torch.int16)), k

@@ -19,6 +19,7 @@ from tracking_sdf_tpu_torch import cli
 from tracking_sdf_tpu_torch.pipeline import chunk as chunked
 from tracking_sdf_tpu_torch.pipeline.runner import Reconstruction
 from tracking_sdf_tpu_torch.tracking.preprocess import preprocess_frame
+from tracking_sdf_tpu_torch.tracking import gn_reduce as k1
 from tracking_sdf_tpu_torch.tracking.pyramid import track_frame_pyramid
 from tracking_sdf_tpu_torch.utils import profiling
 
@@ -228,16 +229,86 @@ def test_cli_profile_traces_the_chunks_into_the_metrics_log(sequence, tmp_path, 
     assert names.count("tsdf.process_chunk") == 1 and "tsdf.chunk.post" in names
 
 
+def test_central_span_marks_each_level_issue_when_on(tmp_path, monkeypatch):
+    """tum256central: with the switch off a frame's central level calls
+    nothing of the profiler; on, ``tsdf.track.central`` marks the issue of
+    each tracked frame's level, per frame and in each eager chunk step,
+    inside ``tsdf.chunk.issue``; the records' GN counts are its one level."""
+    cfg = chunk_config("tum256central", 48, str(tmp_path / "t.txt"))
+    depths, rgbs = make_frames(6)
+    r = new_recon(cfg)
+
+    def boom(*args):
+        raise AssertionError("called into the profiler")
+    with monkeypatch.context() as mp:
+        mp.setattr(torch._C._profiler, "_RecordFunctionFast", boom)
+        r.process_frame(depths[0], rgbs[0], timestamp=0.0)
+        r.process_frame(depths[1], rgbs[1], timestamp=1.0)
+    profiling.enable_tracing(True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            r.process_frame(depths[2], rgbs[2], timestamp=2.0)
+            stats = r.process_chunk(np.stack(depths[3:]), np.stack(rgbs[3:]))
+    finally:
+        profiling.enable_tracing(False)
+    r.close()
+    spans = [e for e in prof.events() if e.name == "tsdf.track.central"]
+    assert len(spans) == 4
+    parents = []
+    for e in spans:
+        p = e.cpu_parent
+        parents.append(p.name if p is not None else None)
+    assert parents.count("tsdf.chunk.issue") == 3
+    assert r.chunk_trace.full_steps.shape == (3, 1)
+    assert r.chunk_trace.full_steps[:, 0].tolist() == [s.gn_iterations for s in stats]
+
+
+def test_the_counter_names_follow_launch_counts():
+    """LAUNCH_COUNTERS names each of launch_counts()'s counters, in its
+    order, as "<module>.<counter>", K1's central form's among them, so that
+    a reader finds a counter by name; the benchmark's reader of
+    central_full_step_pct reads its slot by that name."""
+    import importlib.util
+    import os
+
+    from tracking_sdf_tpu_torch.tracking import gn_reduce
+
+    names = chunked.LAUNCH_COUNTERS
+    saved = chunked.launch_counts()
+    assert len(names) == len(saved) == len(set(names))
+    try:
+        chunked._set_launch_counts(range(100, 100 + len(names)))
+        for (mod, attr), name, v in zip(chunked._COUNTERS, names, chunked.launch_counts()):
+            assert name == f"{mod.__name__.rsplit('.', 1)[-1]}.{attr}" and getattr(mod, attr) == v
+        k = names.index("gn_reduce.launches_step_central")
+        assert chunked.launch_counts()[k] == gn_reduce.launches_step_central == 100 + k
+    finally:
+        chunked._set_launch_counts(saved)
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "perfbench", "metrics", "central_full_step_pct.py")
+    spec = importlib.util.spec_from_file_location("central_full_step_pct", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    launches = [0] * len(names)
+    launches[k] = 400
+    window = type("W", (), dict(iterations=[5, 6, 4, 5] * 5))()
+    assert mod.read(dict(launches=launches, window=window)) == pytest.approx(25.0)
+    launches[k] = 0
+    assert mod.read(dict(launches=launches, window=window)) is None
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("name,fusion,per_frame", [("tum256", {}, 36),
-                                                   ("tum512", {"cap_mixed": 8}, 48)])
+                                                   ("tum512", {"cap_mixed": 8}, 48),
+                                                   ("tum256central", {}, 26)])
 def test_traced_replays_on_the_card(name, fusion, per_frame):
     """On the card: replays of the untraced graphs add the presets' launches
     a frame to the counters (K1's 10 a coarse level and 20 at the finest,
-    K3-K7 and K2), and so do the traced graphs (the stamp kernel is no
-    counted launch). The traced chunk's stamps rise frame by frame, the
-    span from the first to the last fits in the chunk's wall time, and the
-    finest level's full steps are the FrameStats' GN iterations."""
+    or tum256central's 20 of K1's central form at its one level, K3-K7 and
+    K2), and so do the traced graphs (the stamp kernel is no counted
+    launch). The traced chunk's stamps rise frame by frame, the span from
+    the first to the last fits in the chunk's wall time, and the finest
+    level's full steps are the FrameStats' GN iterations."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU")
     cfg = chunk_config(name, 64, **fusion)
@@ -253,8 +324,11 @@ def test_traced_replays_on_the_card(name, fusion, per_frame):
                                 np.stack(rgbs[1 + 4 * k:5 + 4 * k]))
         return stats, sum(chunked.launch_counts()) - before, time.perf_counter() - t0
 
+    central = k1.launches_step_central
     _, launches, _ = chunk(0)
     assert launches == 4 * per_frame and r.chunk_trace is None
+    assert k1.launches_step_central - central == (
+        4 * cfg.tracking.max_iterations if cfg.tracking.jacobian == "central" else 0)
     profiling.enable_tracing(True)
     try:
         stats, launches, wall = chunk(1)

@@ -44,7 +44,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="TSDF camera tracking and reconstruction in PyTorch and CUDA",
     )
     p.add_argument("--preset", default="tum256",
-                   help="config preset: synthetic64|tum128|tum256|tum512")
+                   help="config preset: synthetic64|tum128|tum256|tum256central|tum512")
     p.add_argument("--dataset", help="TUM sequence directory (depth.txt, ...)")
     p.add_argument("--camera", default=None,
                    help="dataset intrinsics: 'fr1' (default) | 'kinect' | "

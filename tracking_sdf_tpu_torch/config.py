@@ -2,7 +2,9 @@
 
 The same classes, field names, field order, defaults and presets as the JAX
 package's ``config.py``, so that the two configurations compare field for
-field (``tests/test_torch_config.py``). The port keeps its own copy and
+field (``tests/test_torch_config.py``), and one preset of the port's own,
+``tum256central``, which tracks by the central Jacobian on the chunked
+brick-major path that the JAX package does not run. The port keeps its own copy and
 imports nothing of the JAX package. Fields that select TPU-only layouts
 stay as fields; the port ignores those that change no output
 (``factored_share``, ``march_unroll``) and raises ``NotImplementedError``
@@ -160,7 +162,21 @@ class PipelineConfig:
 
 
 def preset(name: str) -> PipelineConfig:
-    """Named presets, equal to the JAX package's of the same name."""
+    """Named presets, equal to the JAX package's of the same name, and the
+    port's own ``tum256central``, which the JAX package has not."""
+    # the reference's own 256^3 volume on the brick-major main path
+    tum256 = PipelineConfig(
+        grid=GridParams(m=256),
+        bilateral_mode="separable",
+        fusion=FusionConfig(mode="brickmajor", brick_shape=(8, 8, 8),
+                            pixel_share=4, pixel_share_j=4,
+                            brick_cap_free=2048,
+                            distance="point_to_point",
+                            color_every=2, free_fold=True,
+                            weight_dtype="bfloat16", max_weight=128.0,
+                            storage_dtype="bfloat16"),
+        pyramid_levels=(2, 1),
+    )
     presets = {
         # single-frame fusion + render, 64^3, synthetic depth
         "synthetic64": PipelineConfig(
@@ -169,18 +185,17 @@ def preset(name: str) -> PipelineConfig:
         ),
         # 10-frame TUM clip, 128^3
         "tum128": PipelineConfig(grid=GridParams(m=128)),
-        # the reference's own 256^3 volume on the brick-major main path
-        "tum256": PipelineConfig(
-            grid=GridParams(m=256),
-            bilateral_mode="separable",
-            fusion=FusionConfig(mode="brickmajor", brick_shape=(8, 8, 8),
-                                pixel_share=4, pixel_share_j=4,
-                                brick_cap_free=2048,
-                                distance="point_to_point",
-                                color_every=2, free_fold=True,
-                                weight_dtype="bfloat16", max_weight=128.0,
-                                storage_dtype="bfloat16"),
-            pyramid_levels=(2, 1),
+        "tum256": tum256,
+        # tum256 tracked as the reference node tracks (CameraTracking(gn_max=20,
+        # max_twist_diff=0.001, v_h=1.0, w_h=0.01), pixel stride 3, no
+        # pyramid, A x = b solved undamped): the 13-probe central Jacobian on
+        # the brick-major rows
+        "tum256central": dataclasses.replace(
+            tum256,
+            tracking=TrackingConfig(max_iterations=20, max_twist_diff=0.001, v_h=1.0,
+                                    w_h=0.01, pixel_stride=3, jacobian="central",
+                                    convergence="norm", pose_update="se3", damping=0.0),
+            pyramid_levels=None,
         ),
         # 512^3 brick-major with hierarchical classification
         "tum512": PipelineConfig(

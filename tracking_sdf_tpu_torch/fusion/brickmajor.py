@@ -47,7 +47,7 @@ from tracking_sdf_tpu_torch.fusion.brick import (
     share_classify_margin)
 from tracking_sdf_tpu_torch.fusion.brick_fuse import brick_fuse_rows
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid
-from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView
+from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView, BrickRows
 from tracking_sdf_tpu_torch.utils import debug_nans
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -179,6 +179,14 @@ def brick_masked_view(bgrid: BrickGrid, params: GridParams,
                       bs: Tuple[int, int, int]) -> BrickMaskedView:
     """The masked view that tracking reads straight from the D rows (no copy)."""
     return BrickMaskedView(bgrid.D, params.m, bs)
+
+
+def brick_rows_view(bgrid: BrickGrid, params: GridParams,
+                    bs: Tuple[int, int, int]) -> BrickRows:
+    """The D and W rows as the central Jacobian's Shepard probes read them
+    in place (no copy)."""
+    return BrickRows(BrickMaskedView(bgrid.D, params.m, bs),
+                     BrickMaskedView(bgrid.W, params.m, bs))
 
 
 def brick_grid_from_numpy(arrays: Mapping[str, object], *, device,

@@ -12,7 +12,8 @@ Two families:
     and to D.
   * ``shepard_l1`` and its color form: the reference's inverse-L1 (Shepard)
     weights over the 8 corners around trunc(coords), with an exact-hit
-    return.
+    return, against the dense D and W or (``BrickRows``) straight against
+    the brick-major D and W rows.
 Coordinates are continuous voxel units (grid.world_to_voxel); all the math
 runs in float32 or wider whatever the storage dtype.
 """
@@ -20,7 +21,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Tuple, Union
+from typing import NamedTuple, Tuple, Union
 
 import torch
 
@@ -104,6 +105,15 @@ class BrickMaskedView:
 MaskedView = Union[torch.Tensor, BrickMaskedView]
 
 
+class BrickRows(NamedTuple):
+    """The brick-major D and W rows of a whole grid as two views of one
+    layout (D holds NaN wherever W <= 0): what the central Jacobian's
+    Shepard probes read in place of the dense D and W."""
+
+    D: BrickMaskedView
+    W: BrickMaskedView
+
+
 def _corner_fetch_brick(view: BrickMaskedView, ci, cj, ck) -> torch.Tensor:
     """Corner values from a BrickMaskedView, each corner clipped to the grid
     on its own: flat index F = brick·pitch + (di·bj + dj)·bk + dk."""
@@ -170,6 +180,14 @@ def trilinear_from_corners(
     return value, _quotient_grad(fax, mask, d, N, safe_Z, valid), valid
 
 
+def _fetch(vol: Union[torch.Tensor, BrickMaskedView], ci, cj, ck) -> torch.Tensor:
+    """Corner values of a dense volume or of brick-major rows, each corner
+    clipped to the grid on its own."""
+    if isinstance(vol, BrickMaskedView):
+        return _corner_fetch_brick(vol, ci, cj, ck)
+    return _gather_corners(vol, ci, cj, ck)
+
+
 def _view_corners(Dm: MaskedView, coords: torch.Tensor):
     """(corner values (..., 8) as float32, in-bounds mask, fractional
     position) of a masked view, dense or brick-major."""
@@ -177,11 +195,7 @@ def _view_corners(Dm: MaskedView, coords: torch.Tensor):
     base = base_f.to(torch.int64)
     ci, cj, ck = _corner_indices(base)
     inb = _in_bounds(ci, cj, ck, Dm.shape)
-    if isinstance(Dm, BrickMaskedView):
-        d_raw = _corner_fetch_brick(Dm, ci, cj, ck)
-    else:
-        d_raw = _gather_corners(Dm, ci, cj, ck)
-    return d_raw.to(torch.float32), inb, coords - base_f
+    return _fetch(Dm, ci, cj, ck).to(torch.float32), inb, coords - base_f
 
 
 def trilinear_with_grad_nan(
@@ -244,19 +258,21 @@ def trilinear(D: torch.Tensor, W: torch.Tensor,
     return value, valid
 
 
-def _shepard_weights(W: torch.Tensor, coords: torch.Tensor, dtype: torch.dtype):
+def _shepard_weights(W: Union[torch.Tensor, BrickMaskedView], coords: torch.Tensor,
+                     dtype: torch.dtype):
     """Inverse-L1 corner weights around trunc(coords): (corner indices,
-    weights (0 on invalid and exact corners), exact-hit mask, valid)."""
+    weights (0 on invalid and exact corners), exact-hit mask, valid corners
+    (..., 8), valid)."""
     base = torch.trunc(coords).to(torch.int64)
     ci, cj, ck = _corner_indices(base)
     inb = _in_bounds(ci, cj, ck, W.shape)
-    valid_corner = inb & (_gather_corners(W, ci, cj, ck) > 0)
+    valid_corner = inb & (_fetch(W, ci, cj, ck) > 0)
     corner_pos = base[..., None, :] + _offsets(base.device)
     vol = torch.sum(torch.abs(corner_pos.to(dtype) - coords[..., None, :]), dim=-1)
     exact = valid_corner & (vol < 1e-5)
     safe_vol = torch.where(vol < 1e-5, torch.ones_like(vol), vol)
     w = torch.where(valid_corner & (vol >= 1e-5), 1.0 / safe_vol, torch.zeros_like(vol))
-    return (ci, cj, ck), w, exact, torch.any(valid_corner, dim=-1)
+    return (ci, cj, ck), w, exact, valid_corner, torch.any(valid_corner, dim=-1)
 
 
 def _shepard_value(d: torch.Tensor, w: torch.Tensor, exact: torch.Tensor,
@@ -270,16 +286,23 @@ def _shepard_value(d: torch.Tensor, w: torch.Tensor, exact: torch.Tensor,
     return torch.where(valid, value, torch.zeros_like(value))
 
 
-def shepard_l1(D: torch.Tensor, W: torch.Tensor,
+def shepard_l1(D: Union[torch.Tensor, BrickMaskedView], W: Union[torch.Tensor, BrickMaskedView],
                coords: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's inverse-L1 (Shepard) interpolation: corners around
     trunc(coords) (truncation toward zero, as a C cast), weight 1/L1
     distance, out-of-bounds and W <= 0 corners skipped, and a valid corner
     closer than 1e-5 returned exactly. valid is False where no corner is
-    valid (value 0 there). Returns (value, valid)."""
+    valid (value 0 there). Returns (value, valid).
+
+    ``D`` and ``W`` are the dense volumes, or ``BrickRows``' two views of
+    the brick-major rows; there a skipped corner's D (NaN where W <= 0)
+    enters the blend as 0, by a select."""
     dtype = _math_dtype(D.dtype)
-    idx, w, exact, valid = _shepard_weights(W, coords, dtype)
-    return _shepard_value(_gather_corners(D, *idx).to(dtype), w, exact, valid), valid
+    idx, w, exact, kept, valid = _shepard_weights(W, coords, dtype)
+    d = _fetch(D, *idx).to(dtype)
+    if isinstance(D, BrickMaskedView):
+        d = torch.where(kept, d, torch.zeros_like(d))
+    return _shepard_value(d, w, exact, valid), valid
 
 
 def shepard_color(R: torch.Tensor, G: torch.Tensor, B: torch.Tensor,
@@ -289,7 +312,7 @@ def shepard_color(R: torch.Tensor, G: torch.Tensor, B: torch.Tensor,
     the color weight Wc (the weights are computed once for the three).
     Returns (rgb (..., 3), valid)."""
     dtype = _math_dtype(R.dtype)
-    idx, w, exact, valid = _shepard_weights(Wc, coords, dtype)
+    idx, w, exact, _, valid = _shepard_weights(Wc, coords, dtype)
     rgb = [_shepard_value(_gather_corners(c, *idx).to(dtype), w, exact, valid)
            for c in (R, G, B)]
     return torch.stack(rgb, dim=-1), valid

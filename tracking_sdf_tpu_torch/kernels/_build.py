@@ -41,6 +41,12 @@ _SIGNATURES = {
     # oz, sx, sy, sz, partials, blocks, state, max_iterations, out, stream
     "tsdf_gn_reduce_slab": [_P] + [_I] * 9 + [_P] + [_I] * 4 + [_F] * 6
                            + [_P, _I, _P, _I, _P, _P],
+    # D, W, d_bf16, w_bf16, m, bi, bj, bk, pitch, pts, n, w, sh, sw, ox, oy,
+    # oz, sx, sy, sz, vh, wh, ih0-ih5, partials, blocks, state,
+    # max_iterations, min_iterations, signed_conv, reference_update,
+    # max_twist_diff, damping_decay, stream
+    "tsdf_gn_central_step": [_P, _P] + [_I] * 7 + [_P] + [_I] * 4 + [_F] * 14
+                            + [_P, _I, _P] + [_I] * 4 + [_F, _F, _P],
     # sums, state, max_iterations, min_iterations, signed_conv,
     # reference_update, max_twist_diff, damping_decay, stream
     "tsdf_gn_finish": [_P, _P] + [_I] * 4 + [_F, _F, _P],

@@ -6,8 +6,9 @@ The JAX package runs a chunk as one jitted ``lax.fori_loop``. Here one frame
 is a step on device buffers that persist from frame to frame, in the order
 of the JAX package's ``frame_step``: the optional TUM uint16 decode,
 preprocess, the constant-velocity guess chosen on the device by
-``have_prev``, tracking (``cfg.max_iterations`` K1 launches per level, no
-read), the failure gate on the device, NaN points and normals on a rejected
+``have_prev``, tracking (``cfg.max_iterations`` K1 launches per level,
+``gn_step`` or with the central Jacobian K1's central form on the D and W
+rows; no read), the failure gate on the device, NaN points and normals on a rejected
 frame (fusion of an all-NaN frame leaves the rows bitwise unchanged), fusion
 at the chunk's cap (one K2 launch) and the frame's record. On the card each
 variant of the step (color on or off) is captured once as a CUDA graph and
@@ -114,13 +115,18 @@ DEVICE_LOCK = threading.RLock()
 _COUNTERS = ((gn_reduce, "launches"), (gn_reduce, "launches_brick"),
              (gn_reduce, "launches_slab"), (gn_reduce, "launches_slab_brick"),
              (gn_reduce, "launches_step"), (gn_reduce, "launches_step_brick"),
-             (gn_reduce, "launches_finish"),
+             (gn_reduce, "launches_finish"), (gn_reduce, "launches_step_central"),
              (brick_merge, "launches"), (brick_merge, "launches_rows"),
              (brick_fuse, "launches"), (brick_fuse, "launches_sat"),
              (brick_fuse, "launches_slab"), (preprocess, "launches_pass"),
              (preprocess, "launches_2d"), (preprocess, "launches_normals"),
              (brick_classify, "launches_tables"), (brick_classify, "launches_classify"),
              (brick_classify, "launches_compact"))
+
+
+# the counters' names, "<module>.<counter>", in launch_counts()'s order: a
+# reader finds a counter here by name, not by its position
+LAUNCH_COUNTERS = tuple(f"{mod.__name__.rsplit('.', 1)[-1]}.{name}" for mod, name in _COUNTERS)
 
 
 def launch_counts() -> Tuple[int, ...]:

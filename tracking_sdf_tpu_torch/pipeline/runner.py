@@ -17,10 +17,12 @@ fuse. Every fusion mode of the JAX package runs:
   * ``mode="packed"``: what the JAX package's packed layout computes, run
     as float32 brick-major rows with flat classification
     (``packed_fusion_config``); per frame only, as there.
-The central Jacobian reads the dense grid in every layout (brick-major: the
-dense view of the rows, made each tracked frame). ``process_chunk`` and
-``run(chunk=N)`` process many brick-major frames per host round trip
-(pipeline.chunk: CUDA-graph replays of one captured frame step on the card).
+The central Jacobian reads D and W: the flat layouts' dense grid, and in
+brick-major mode the D and W rows in place (``BrickRows``; K1's central form
+on the card), so no dense grid is built on the tracked path in any layout.
+``process_chunk`` and ``run(chunk=N)`` process many brick-major frames per
+host round trip, with either Jacobian (pipeline.chunk: CUDA-graph replays of
+one captured frame step on the card).
 ``use_groundtruth`` is the fusion-only oracle mode (poses from the dataset's
 groundtruth). Checkpoints (pipeline.checkpoint) save and restore the grid,
 the pose and the frame counter.
@@ -51,8 +53,9 @@ from tracking_sdf_tpu_torch.core.camera import PinholeCamera
 from tracking_sdf_tpu_torch.core.lie import Pose, matrix_from_quaternion
 from tracking_sdf_tpu_torch.fusion.brick import FuseStats, fuse_frame_bricked
 from tracking_sdf_tpu_torch.fusion.brickmajor import (
-    COUNTS, BrickGrid, brick_grid_from_dense, brick_masked_view, dense_from_brick_grid,
-    empty_brick_grid, fuse_frame_brickmajor_core, fuse_stats, storage_dtype)
+    COUNTS, BrickGrid, brick_grid_from_dense, brick_masked_view, brick_rows_view,
+    dense_from_brick_grid, empty_brick_grid, fuse_frame_brickmajor_core, fuse_stats,
+    storage_dtype)
 from tracking_sdf_tpu_torch.fusion.fuse import fuse_frame
 from tracking_sdf_tpu_torch.grid.grid import FIELDS, TSDFGrid, empty_grid
 from tracking_sdf_tpu_torch.pipeline import chunk as chunked
@@ -375,15 +378,24 @@ class Reconstruction:
         """Tracking of one frame's (H, W, 3) points from ``pose0``: each
         level's result, coarse to fine, issued with no host read
         (brick-major: against the view of the D rows; the central Jacobian
-        against the dense grid, brick-major's made here; under a mesh the
-        sharded tracker, one level at pixel_stride)."""
+        against D and W, brick-major's rows in place, inside the span
+        ``tsdf.track.central``; under a mesh the sharded tracker, one level
+        at pixel_stride)."""
         cfg = self.config
         if self.mesh is not None:
             rows = self._bgrid.D if self._bgrid is not None else self._grid
             return (self._track_sh(rows, pose0, points),)
-        grid, dm = self._grid, self._dm
         if cfg.tracking.jacobian == "central":
-            grid, dm = self.grid, None
+            grid = (self._grid if self._bgrid is None
+                    else brick_rows_view(self._bgrid, cfg.grid, self._bs))
+            with profiling.span("tsdf.track.central"):
+                return self._track(grid, None, pose0, points)
+        return self._track(self._grid, self._dm, pose0, points)
+
+    def _track(self, grid, dm, pose0: Pose, points: torch.Tensor) -> Tuple[TrackResult, ...]:
+        """The pyramid's levels, or the one level at pixel_stride, against
+        ``grid`` or the masked view ``dm``."""
+        cfg = self.config
         if cfg.pyramid_levels:
             _, levels = track_frame_pyramid(
                 grid, pose0, points, params=cfg.grid, cfg=cfg.tracking,
@@ -493,8 +505,7 @@ class Reconstruction:
 
     def _chunk_supported(self) -> bool:
         cfg = self.config
-        return (self._bgrid is not None and not self.packed
-                and cfg.tracking.jacobian == "analytic" and not cfg.use_groundtruth)
+        return self._bgrid is not None and not self.packed and not cfg.use_groundtruth
 
     def _stage(self, frames, rgb: bool) -> torch.Tensor:
         """A chunk's (N, ...) frames as the tensor its steps copy from: left
@@ -523,9 +534,9 @@ class Reconstruction:
         """Process N frames with one host read: ``depths`` (N, H, W) float32
         meters with NaN holes, or TUM uint16 (1/5000 m, 0 = hole); ``rgbs``
         (N, H, W, 3) in [0, 1] or uint8; ``timestamps`` N floats (default the
-        frame indices). Needs the brick-major mode with the analytic
-        Jacobian and one process_frame call first (frame 0 bootstraps the
-        grid), and tracked poses: the groundtruth oracle mode runs per frame
+        frame indices). Needs the brick-major mode (either Jacobian) and
+        one process_frame call first (frame 0 bootstraps the grid), and
+        tracked poses: the groundtruth oracle mode runs per frame
         only (the JAX package's contract).
 
         Each frame preprocesses, tracks from the carried pose (the
@@ -574,8 +585,8 @@ class Reconstruction:
         if (not self._chunk_supported() or self.frame_num < 1):
             raise ValueError(
                 "process_chunk needs mode='brickmajor' (not 'packed'), "
-                "jacobian='analytic', tracked (not groundtruth) poses and one "
-                "process_frame call first (frame 0 bootstraps the grid)")
+                "tracked (not groundtruth) poses and one process_frame call "
+                "first (frame 0 bootstraps the grid)")
         with profiling.span("tsdf.chunk.setup"):
             depths = self._stage(depths, rgb=False)
             n = depths.shape[0]
@@ -829,9 +840,9 @@ class Reconstruction:
         device stamps, and ``gn_steps``, each level's full GN steps, coarse
         to fine: ``chunk_trace``).
         ``chunk`` > 1 hands that many frames at a time to process_chunk
-        (frame 0 and an odd tail run per frame; the flat layouts, the
-        central Jacobian and the groundtruth oracle mode, which have no
-        chunked path, warn and run per frame). ``checkpoint_every`` saves to
+        (frame 0 and an odd tail run per frame; the flat layouts, packed
+        and the groundtruth oracle mode, which have no chunked path, warn
+        and run per frame). ``checkpoint_every`` saves to
         ``checkpoint_path`` when the newest processed frame's index is a
         multiple of it (a chunk
         saves once, at its last frame, if that index is). ``mesh_every``
@@ -840,9 +851,9 @@ class Reconstruction:
         so each such frame of it exports the chunk's final grid)."""
         cfg = self.config
         if chunk > 1 and not self._chunk_supported():
-            warnings.warn("chunked processing needs mode='brickmajor' (not 'packed'), "
-                          "jacobian='analytic' and tracked (not groundtruth) poses; "
-                          "running per frame", RuntimeWarning, stacklevel=2)
+            warnings.warn("chunked processing needs mode='brickmajor' (not 'packed') "
+                          "and tracked (not groundtruth) poses; running per frame",
+                          RuntimeWarning, stacklevel=2)
             chunk = 0
         log = open(metrics_log, "a") if metrics_log else None
         pend = []  # frames held for the next chunk

@@ -8,12 +8,19 @@ Two Jacobian schemes (``TrackingConfig.jacobian``):
     ``gn_step`` on a state buffer on the view's device (tracking.gn_reduce):
     on the card one kernel launch forms the normal equations, solves the
     damped 6x6 system, tests convergence and updates the pose.
-  * "central": the reference's 13 Shepard-L1 probes per pixel; the normal
-    equations are PyTorch ops (the JAX package has no kernel for them
-    either). On the card they are packed into K1's 29 sums on the device
-    and ``gn_finish`` (the one-warp finish of every ``gn_step``) solves,
-    tests and updates the state in one launch an iteration; on the CPU
-    ``gn_reduce.advance_state``, its plain version, does.
+  * "central": the reference's 13 Shepard-L1 probes per pixel. Against
+    the brick-major rows (``BrickRows``, the tum256central preset's path)
+    each iteration is one ``gn_reduce.central_stepper`` step: on the card
+    one launch of K1's central form, which probes the bf16 D and W rows,
+    sums its queries' terms in K1's launch order and finishes the step as
+    ``gn_step`` does; on the CPU its plain version
+    (``gn_reduce.central_step_reference``). Against a dense grid (the dense
+    and flat bricked layouts) the normal equations are PyTorch ops (the JAX
+    package has no kernel for them either): on the card they are packed
+    into K1's 29 sums on the device and ``gn_finish`` solves, tests and
+    updates the state in one launch an iteration; on the CPU
+    ``gn_reduce.advance_state``, its plain version, does. Neither builds a
+    dense grid from brick rows.
 A done flag freezes the state once converged, as the JAX package's
 ``lax.while_loop`` stops. A level issues ``cfg.max_iterations`` steps and
 reads nothing back; on the CPU the loop stops at the done flag.
@@ -21,7 +28,7 @@ reads nothing back; on the CPU the loop stops at the done flag.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
@@ -29,10 +36,10 @@ from tracking_sdf_tpu_torch.config import GridParams, TrackingConfig
 from tracking_sdf_tpu_torch.core.lie import Pose
 from tracking_sdf_tpu_torch.grid.grid import TSDFGrid, world_to_voxel
 from tracking_sdf_tpu_torch.grid.interp import (
-    MaskedView, masked_view, shepard_l1, trilinear_with_grad_nan)
+    BrickRows, MaskedView, masked_view, shepard_l1, trilinear_with_grad_nan)
 from tracking_sdf_tpu_torch.tracking.gn_reduce import (
-    S_COUNT, S_DONE, S_NVALID, S_SUMABS, S_TWIST, finisher, gn_stepper,
-    init_state, pack, state_pose)
+    S_COUNT, S_DONE, S_NVALID, S_SUMABS, S_TWIST, central_stepper, finisher,
+    gn_stepper, init_state, pack, state_pose)
 
 
 class TrackStats(NamedTuple):
@@ -142,8 +149,15 @@ def pixel_residuals_analytic(
     return phi, J, valid_in & in_bounds & ok
 
 
+def central_spans(params: GridParams, v_h: float, w_h: float) -> Tuple[float, ...]:
+    """The six probe spans h_c of the central Jacobian's columns, Python
+    floats: translation over 2·v_h voxel sizes (meters), rotation over
+    2·w_h (radians)."""
+    return tuple(2.0 * v_h * e / params.m for e in params.extent) + (2.0 * w_h,) * 3
+
+
 def pixel_residuals_central(
-    grid: TSDFGrid,
+    grid: Union[TSDFGrid, BrickRows],
     pose: Pose,
     points_cam: torch.Tensor,  # (N, 3), NaN holes allowed
     *,
@@ -170,8 +184,7 @@ def pixel_residuals_central(
                                        .flatten(0, 1))])
     vals, ok = shepard_l1(grid.D, grid.W, probes)
     vp, vm = vals[1::2], vals[2::2]  # (6, N): the + and - probe of each column
-    # translation over 2·v_h voxel sizes (meters), rotation over 2·w_h
-    denom = [2.0 * v_h * e / params.m for e in params.extent] + [2.0 * w_h] * 3
+    denom = central_spans(params, v_h, w_h)
     J = torch.stack([(vp[c] - vm[c]) / denom[c] for c in range(6)], dim=-1)
     return vals[0], J, valid_in & in_bounds & ok.all(dim=0)
 
@@ -183,8 +196,8 @@ def normal_equations(phi: torch.Tensor, J: torch.Tensor, mask: torch.Tensor):
     return Jm.T @ Jm, Jm.T @ rm
 
 
-def central_sums(grid: TSDFGrid, pose: Pose, points: torch.Tensor, params: GridParams,
-                 cfg: TrackingConfig):
+def central_sums(grid: Union[TSDFGrid, BrickRows], pose: Pose, points: torch.Tensor,
+                 params: GridParams, cfg: TrackingConfig):
     """(A, b, valid count, Σ|r| over valid pixels) of the central scheme."""
     phi, J, mask = pixel_residuals_central(grid, pose, points, params=params,
                                            v_h=cfg.v_h, w_h=cfg.w_h)
@@ -205,8 +218,9 @@ def track_frame(
     """Estimate the camera pose for one frame by damped GN on sum phi^2.
     With the analytic Jacobian ``grid`` may be None when ``Dm`` is given (the
     brick-major loop never builds the dense grid); the central scheme reads
-    ``grid`` (D and W). On the card this issues ``cfg.max_iterations`` steps
-    and waits on nothing."""
+    ``grid``'s D and W: a dense grid, or the brick-major rows as
+    ``BrickRows`` (K1's central form). On the card this issues
+    ``cfg.max_iterations`` steps and waits on nothing."""
     state = init_state(pose0, cfg.damping)
     if cfg.jacobian == "analytic":
         if Dm is None:
@@ -215,16 +229,19 @@ def track_frame(
         device = Dm.device
     elif cfg.jacobian == "central":
         if grid is None:
-            raise ValueError("jacobian='central' reads the dense grid; grid is None")
-        flat = points_cam.reshape(-1, 3)
+            raise ValueError("jacobian='central' reads D and W; grid is None")
         device = grid.D.device
-        # the normal equations packed on their device, then the finish: one
-        # gn_finish launch on the card, advance_state on the CPU; only A's
-        # upper triangle travels (see gn_reduce.pack)
-        finish = finisher(state, cfg)
+        if isinstance(grid, BrickRows):
+            step = central_stepper(grid, state, points_cam, params, cfg)
+        else:
+            flat = points_cam.reshape(-1, 3)
+            # the normal equations packed on their device, then the finish: one
+            # gn_finish launch on the card, advance_state on the CPU; only A's
+            # upper triangle travels (see gn_reduce.pack)
+            finish = finisher(state, cfg)
 
-        def step():
-            finish(pack(*central_sums(grid, state_pose(state), flat, params, cfg)))
+            def step():
+                finish(pack(*central_sums(grid, state_pose(state), flat, params, cfg)))
     else:
         raise ValueError(f"unknown jacobian mode: {cfg.jacobian}")
     ints = state.view(torch.int32)

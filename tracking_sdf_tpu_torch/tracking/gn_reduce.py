@@ -35,7 +35,15 @@ at the state's pose (one launch of K1's slab form), the caller all-reduces
 the sums, and ``finish`` runs the solve, test and update on them (one
 launch of ``gn_finish``, the one-warp code ``gn_step``'s kernel finishes
 with). ``finisher`` is that finish alone: the central tracker's card path
-packs its normal equations (``pack``) and finishes them there too.
+against a dense grid packs its normal equations (``pack``) and finishes
+them there too.
+
+``central_stepper`` is K1's central form: the reference's 13-probe
+Shepard-L1 Jacobian against the brick-major D and W rows, one launch a
+step on the same state buffer, through the same reduce half and finish as
+``gn_step`` (so its sums are ``sums_in_launch_order`` of
+``central_terms_reference``'s terms bit for bit); its plain version is
+``central_step_reference``.
 """
 from __future__ import annotations
 
@@ -46,7 +54,7 @@ import torch
 
 from tracking_sdf_tpu_torch.config import GridParams, TrackingConfig
 from tracking_sdf_tpu_torch.core.lie import Pose, se3_exp
-from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView, MaskedView
+from tracking_sdf_tpu_torch.grid.interp import BrickMaskedView, BrickRows, MaskedView
 from tracking_sdf_tpu_torch.kernels import _build
 
 THREADS = 256  # queries per block; must match kThreads in gn_reduce.cu
@@ -69,6 +77,7 @@ launches_slab_brick = 0  # ... brick-major rows
 launches_step = 0  # gn_step, dense
 launches_step_brick = 0  # gn_step, brick-major rows
 launches_finish = 0  # slab_stepper's finish (gn_finish)
+launches_step_central = 0  # central_stepper (K1's central form), brick-major rows
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,12 +151,29 @@ def query_terms_reference(Dm: MaskedView, pose, points: torch.Tensor, params: Gr
     for ``gn_reduce_reference``."""
     from tracking_sdf_tpu_torch.tracking.gauss_newton import pixel_residuals_analytic
 
-    phi, J, mask = pixel_residuals_analytic(Dm, _pose_of(pose), points, params=params,
-                                            i0=i0, slab=slab)
+    return terms_of(*pixel_residuals_analytic(Dm, _pose_of(pose), points, params=params,
+                                              i0=i0, slab=slab))
+
+
+def terms_of(phi: torch.Tensor, J: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """(N, 29) terms of residuals phi (N,) and Jacobians J (N, 6) in
+    ``pack``'s layout, zeros where not ``mask``."""
     iu = _triu(J.device)
     terms = torch.cat([J[:, iu[0]] * J[:, iu[1]], J * phi[:, None], torch.ones_like(phi)[:, None],
                        phi.abs()[:, None]], 1)
     return torch.where(mask[:, None], terms, torch.zeros_like(terms))
+
+
+def central_terms_reference(rows: BrickRows, pose, points: torch.Tensor, params: GridParams,
+                            cfg: TrackingConfig) -> torch.Tensor:
+    """The plain (N, 29) terms of each query by the central scheme against
+    the brick-major D and W rows (``pixel_residuals_central``'s 13 probes
+    with ``cfg.v_h`` and ``cfg.w_h``), in ``pack``'s layout; on the card
+    K1's central form computes them bit for bit."""
+    from tracking_sdf_tpu_torch.tracking.gauss_newton import pixel_residuals_central
+
+    return terms_of(*pixel_residuals_central(rows, _pose_of(pose), points, params=params,
+                                             v_h=cfg.v_h, w_h=cfg.w_h))
 
 
 def sums_in_launch_order(terms: torch.Tensor) -> torch.Tensor:
@@ -356,6 +382,72 @@ def gn_reduce_slab_reference(Dm: MaskedView, state: torch.Tensor, points: torch.
     out = gn_reduce_reference(Dm, state_pose(state), points.reshape(-1, 3), params,
                               i0=i0, slab=slab)
     return torch.where(level_active(state, cfg), out, torch.zeros_like(out))
+
+
+def central_step_reference(rows: BrickRows, state: torch.Tensor, points: torch.Tensor,
+                           params: GridParams, cfg: TrackingConfig) -> None:
+    """Plain version of ``central_stepper``'s step; updates ``state`` in
+    place: the central terms of the queries at the state's pose
+    (``central_terms_reference``), added in K1's launch order
+    (``sums_in_launch_order``), then the finish (``finisher``: on a CPU
+    state ``advance_state``, on the card the one ``gn_finish`` launch that
+    K1's kernels end in, so that there it leaves the kernel's state bit for
+    bit). ``points``: (N, 3) or an (h, w, 3) view."""
+    finisher(state, cfg)(sums_in_launch_order(central_terms_reference(
+        rows, state, points.reshape(-1, 3), params, cfg)))
+
+
+def _central_inverse_spans(params: GridParams, cfg: TrackingConfig):
+    """float32(1 / h_c) of the central Jacobian's six probe spans
+    (``gauss_newton.central_spans``), as the card divides by the Python
+    floats h_c in pixel_residuals_central."""
+    from tracking_sdf_tpu_torch.tracking.gauss_newton import central_spans
+
+    return tuple(_build.card_reciprocal(h) for h in central_spans(params, cfg.v_h, cfg.w_h))
+
+
+def central_stepper(rows: BrickRows, state: torch.Tensor, points: torch.Tensor,
+                    params: GridParams, cfg: TrackingConfig) -> Callable[[], None]:
+    """One level of central-difference Gauss-Newton against the brick-major
+    D and W rows of the whole grid, validated and allocated once: returns a
+    function that runs one step on ``state`` per call (frozen once it is
+    done or has run ``cfg.max_iterations`` steps). ``points`` as for
+    ``gn_stepper``.
+
+    CPU tensors take ``central_step_reference``. On CUDA tensors each call
+    is one launch of K1's central form (``gn_central_step_kernel``,
+    ``launches_step_central``) on the current stream, nothing read by the
+    host: each query's 13 Shepard-L1 probes read the D and W rows in place,
+    its terms are ``central_terms_reference``'s bit for bit, and they are
+    summed and finished as ``gn_step`` sums and finishes its own."""
+    _check_modes(cfg)
+    D, W = rows
+    if D.device.type == "cpu":
+        return lambda: central_step_reference(rows, state, points, params, cfg)
+    if D.device.type != "cuda":
+        raise ValueError(f"central_step: unsupported device {D.device}")
+    if not (isinstance(D, BrickMaskedView) and isinstance(W, BrickMaskedView)
+            and W.bs == D.bs and W.pitch == D.pitch and D.mi == W.mi == params.m):
+        raise ValueError("central_step: D and W must be brick-major rows of the whole grid "
+                         "in one layout")
+    view, pts, dev = _step_args(D, state, points, params, "central_step")
+    wview = _view_args(W, params, "central_step")
+    if W.device != dev:
+        raise ValueError(f"central_step: W on {W.device}, D on {dev}")
+    blocks, partials = _partials(pts[1], dev)
+    lib = _build.library()
+    args = (view[0].data_ptr(), wview[0].data_ptr(), view[1], wview[1], view[2], *view[4:],
+            *pts, *_grid_scale(params), cfg.v_h, cfg.w_h, *_central_inverse_spans(params, cfg),
+            partials.data_ptr(), blocks, state.data_ptr(), *_step_cfg(cfg))
+
+    def step() -> None:
+        global launches_step_central
+        _build.check(lib.tsdf_gn_central_step(*args, _build.stream_ptr(dev)), "central_step")
+        launches_step_central += 1
+
+    # the kernel reads and writes these through the pointers in ``args``
+    step.buffers = (partials, points, state, view[0], wview[0])
+    return step
 
 
 def _check_modes(cfg: TrackingConfig) -> None:
